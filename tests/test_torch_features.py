@@ -1,0 +1,159 @@
+"""Port point building and cell extraction against the JAX reference.
+
+`compute_cells_batched` (B=2) gets identical numpy points on both sides:
+the valid mask, the cell count and the (Morton) order are compared exactly,
+floats within 1e-5 relative to the largest value (f32 sums in another
+order: `index_add_` against `segment_sum`)."""
+
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import both_cfgs, jax, jnp, ref, slice_cfg
+
+from cfear_radarodometry_code_public_tpu.ops import features as jf
+from cfear_radarodometry_code_public_tpu.ops import filtering as jfl
+from cfear_radarodometry_code_public_tpu_torch._shared import native_io
+from cfear_radarodometry_code_public_tpu_torch.ops import features as tf
+from cfear_radarodometry_code_public_tpu_torch.ops import filtering as tfl
+
+
+def _points(cfg, seed=0, b=2, n=2500):
+    """Wall-like clouds with speckle, as numpy PointCloud leaves."""
+    rng = np.random.default_rng(seed)
+    xy = []
+    for _ in range(b):
+        walls = []
+        for _ in range(14):
+            p0 = rng.uniform(-60, 60, 2)
+            ang = rng.uniform(0, 2 * np.pi)
+            t = rng.uniform(0, 40, n // 16)
+            walls.append(p0 + np.stack([np.cos(ang) * t, np.sin(ang) * t], -1)
+                         + rng.normal(0, 0.15, (len(t), 2)))
+        cloud = np.concatenate(walls)
+        cloud = np.concatenate([cloud, rng.uniform(-90, 90, (n - len(cloud), 2))])
+        xy.append(cloud)
+    xy = np.stack(xy).astype(np.float32)
+    intensity = rng.uniform(40, 220, (b, n)).astype(np.float32)
+    valid = rng.random((b, n)) < 0.92
+    peak = valid & (rng.random((b, n)) < 0.5)
+    return xy, intensity, valid, peak
+
+
+def _cells_both(cfg_j, cfg_t, leaves):
+    jc = jf.compute_cells_batched(
+        jfl.PointCloud(*(jnp.asarray(a) for a in leaves)), cfg_j)
+    tc = tf.compute_cells_batched(
+        tfl.PointCloud(*(torch.as_tensor(a) for a in leaves)), cfg_t)
+    return jc, tc
+
+
+@pytest.mark.parametrize("spatial_sort,budget", [(False, 0), (True, 0),
+                                                 (True, 1800)])
+def test_compute_cells_batched_matches(spatial_sort, budget):
+    cfg_j, cfg_t = slice_cfg(spatial_sort=spatial_sort)
+    cfg_j = cfg_j.replace(feature=dataclasses.replace(
+        cfg_j.feature, point_budget=budget, max_cells=256))
+    cfg_t = both_cfgs(cfg_j)[1]
+    jc, tc = _cells_both(cfg_j, cfg_t, _points(cfg_j))
+    valid = np.asarray(jc.valid)
+    assert valid.sum(1).min() > 50
+    np.testing.assert_array_equal(tc.valid.numpy(), valid)
+    np.testing.assert_array_equal(tc.n.numpy(), valid.sum(1))
+    np.testing.assert_array_equal(tc.nsamples.numpy(), np.asarray(jc.nsamples))
+    for name in ("mean", "normal", "cov", "planarity"):
+        want = np.asarray(getattr(jc, name))
+        np.testing.assert_allclose(getattr(tc, name).numpy(), want,
+                                   atol=1e-5 * np.abs(want).max(), err_msg=name)
+
+
+def test_compute_cells_overflow_keeps_most_supported():
+    """More valid cells than max_cells: the stable nsamples ranking picks
+    the same cells in the same order."""
+    cfg_j, _ = slice_cfg()
+    cfg_j = cfg_j.replace(feature=dataclasses.replace(cfg_j.feature,
+                                                      max_cells=64))
+    cfg_t = both_cfgs(cfg_j)[1]
+    jc, tc = _cells_both(cfg_j, cfg_t, _points(cfg_j, seed=4))
+    assert np.asarray(jc.valid).all()
+    np.testing.assert_array_equal(tc.nsamples.numpy(), np.asarray(jc.nsamples))
+    np.testing.assert_allclose(tc.mean.numpy(), np.asarray(jc.mean), atol=1e-4)
+
+
+def test_compute_cells_single_scan_and_helpers():
+    cfg_j, cfg_t = slice_cfg()
+    leaves = [a[0] for a in _points(cfg_j, seed=2)]
+    jc = jf.compute_cells(jfl.PointCloud(*(jnp.asarray(a) for a in leaves)),
+                          cfg_j)
+    tc = tf.compute_cells(tfl.PointCloud(*(torch.as_tensor(a) for a in leaves)),
+                          cfg_t)
+    np.testing.assert_array_equal(tc.valid.numpy(), np.asarray(jc.valid))
+    assert tf._grid_geometry(cfg_t) == jf._grid_geometry(cfg_j)
+    ix = np.random.default_rng(0).integers(0, 1 << 15, (2, 50)).astype(np.int32)
+    np.testing.assert_array_equal(
+        tf._morton2(torch.as_tensor(ix[0]), torch.as_tensor(ix[1])).numpy(),
+        np.asarray(jf._morton2(jnp.asarray(ix[0]), jnp.asarray(ix[1]))))
+
+
+def test_budget_points_matches():
+    cfg_j, _ = slice_cfg()
+    xy, inten, valid, peak = _points(cfg_j, seed=3)
+    inten = np.round(inten / 8) * 8          # many equal intensities: ties
+    leaves = (xy, inten, valid, peak)
+    jb = jf.budget_points(jfl.PointCloud(*(jnp.asarray(a) for a in leaves)), 700)
+    tb = tf.budget_points(tfl.PointCloud(*(torch.as_tensor(a) for a in leaves)),
+                          700)
+    for j, t in zip(jb, tb):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize("kind", ["compact", "candidates"])
+def test_points_from_host_rows_match(kind):
+    cfg_j, cfg_t = slice_cfg()
+    from cfear_radarodometry_code_public_tpu.datasets import synthetic
+    images, _ = synthetic.make_sequence(seed=3, n_frames=2, cfg=cfg_j)
+    f = cfg_j.filter
+    if kind == "compact":
+        min_bin = int(math.ceil(cfg_j.radar.min_distance
+                                / cfg_j.radar.range_res))
+        rows = native_io.filter_frames_host_compact(
+            images, f.k_strongest, f.z_min, f.nms_window,
+            cfg_j.feature.point_budget, min_bin)
+        jp = jax.vmap(lambda c: jfl.points_from_compact(c, cfg_j))(
+            jfl.CompactCandidates(*map(jnp.asarray, rows)))
+        tp = tfl.points_from_compact(
+            tfl.CompactCandidates(*map(torch.as_tensor, rows)), cfg_t)
+    else:
+        rows = native_io.filter_frames_host(images, f.k_strongest, f.z_min,
+                                            f.nms_window)
+        jp = jax.vmap(lambda c: jfl.points_from_candidates(c, cfg_j))(
+            jfl.Candidates(*map(jnp.asarray, rows)))
+        tp = tfl.points_from_candidates(
+            tfl.Candidates(*map(torch.as_tensor, rows)), cfg_t)
+    assert np.asarray(jp.valid).sum() > 1000
+    for name in ("intensity", "valid", "peak"):
+        np.testing.assert_array_equal(getattr(tp, name).numpy(),
+                                      np.asarray(getattr(jp, name)))
+    # cos/sin of the azimuth differ by an ulp between XLA and torch
+    np.testing.assert_allclose(tp.xy.numpy(), np.asarray(jp.xy), atol=4e-5)
+
+
+@pytest.mark.parametrize("field,value", [("use_raw_pointcloud", True),
+                                         ("backend", "pallas")])
+def test_unported_feature_options_raise(field, value):
+    cfg_j, _ = slice_cfg()
+    cfg_t = both_cfgs(cfg_j.replace(feature=dataclasses.replace(
+        cfg_j.feature, **{field: value})))[1]
+    leaves = _points(cfg_j)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tf.compute_cells_batched(
+            tfl.PointCloud(*(torch.as_tensor(a) for a in leaves)), cfg_t)
+
+
+def test_preset_is_the_reference_config():
+    """The port re-exports the reference's config module (loaded by path)."""
+    import cfear_radarodometry_code_public_tpu_torch as port
+    assert port.preset("CFEAR-3").to_dict() == ref.preset("CFEAR-3").to_dict()
