@@ -10,13 +10,15 @@ Three dense passes over a static per-lane voxel grid, batched over lanes:
 3. closed-form 2x2 eigendecomposition, the validity gates of
    `pointnormal.cpp:53-56`, and compaction to `max_cells`.
 
-`jax.ops.segment_sum` becomes `index_add_` (float atomics on CUDA, so the
-summation order, and the last bits of the moments, can change from run to
-run). Both ranking sorts are stable, as `jnp.argsort` is.
+`jax.ops.segment_sum` becomes `segment_sum`: `index_add_` with torch's
+deterministic mode switched on around it, so that on CUDA it sums each
+segment in a fixed order instead of with float atomics, and a run repeats
+bit for bit. Both ranking sorts are stable, as `jnp.argsort` is.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
@@ -38,6 +40,28 @@ class CellMap(NamedTuple):
     @property
     def n(self) -> torch.Tensor:
         return self.valid.sum(-1, dtype=torch.int32)
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """torch's deterministic mode for the enclosed ops only; the caller's
+    setting (and its warn-only flag) is restored afterwards."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+
+
+def segment_sum(data, ids, n: int):
+    """Rows of `data` (K, ...) summed by segment id `ids` (K,) int64 into
+    (n, ...), in a fixed order on every device (`jax.ops.segment_sum`)."""
+    out = data.new_zeros((n,) + tuple(data.shape[1:]))
+    with _deterministic():
+        out.index_add_(0, ids, data)
+    return out
 
 
 def _grid_geometry(cfg):
@@ -140,10 +164,9 @@ def compute_cells_batched(points: PointCloud, cfg) -> CellMap:
     vid_flat = torch.where(in_grid, lane * ncells + vid,
                            torch.full_like(vid, b * ncells)).reshape(-1)
     ones = in_grid.to(f32)
-    s1 = torch.zeros((b * ncells + 1, 3), dtype=f32, device=dev)
-    s1.index_add_(0, vid_flat, torch.cat(
-        [ones[..., None], xy * ones[..., None]], -1).reshape(b * n_pts, 3))
-    s1 = s1[:b * ncells].reshape(b, ncells, 3)
+    s1 = segment_sum(torch.cat([ones[..., None], xy * ones[..., None]], -1
+                               ).reshape(b * n_pts, 3), vid_flat,
+                     b * ncells + 1)[:b * ncells].reshape(b, ncells, 3)
     cnt_vox, sum_vox = s1[..., 0], s1[..., 1:3]
     centroid = sum_vox / torch.clamp(cnt_vox, min=1.0)[..., None]
     occupied = cnt_vox >= 1.0
@@ -189,9 +212,8 @@ def compute_cells_batched(points: PointCloud, cfg) -> CellMap:
     mem = torch.stack(mem_cols, -1).to(f32)                   # (B, N, n_off)
 
     data = (mem[..., :, None] * base[..., None, :]).reshape(b * n_pts, n_off * 7)
-    acc_own = torch.zeros((b * ncells + 1, n_off * 7), dtype=f32, device=dev)
-    acc_own.index_add_(0, vid_flat, data)
-    acc_own = acc_own[:b * ncells].reshape(b, dim, dim, n_off, 7)
+    acc_own = segment_sum(data, vid_flat, b * ncells + 1)[:b * ncells].reshape(
+        b, dim, dim, n_off, 7)
 
     acc = torch.zeros((b, dim, dim, 7), dtype=f32, device=dev)
     for oi, (dx, dy) in enumerate(offsets):
