@@ -100,10 +100,6 @@ def check_supported(cfg, ingest: str) -> None:
         raise NotImplementedError(
             "feature.use_raw_pointcloud is not ported yet (ROADMAP queue 1, "
             "item 5)")
-    if cfg.feature.backend == "pallas":
-        raise NotImplementedError(
-            "feature.backend='pallas' is not ported yet (ROADMAP queue 2, "
-            "kernel G)")
     registration.check_supported(cfg)
 
 

@@ -24,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from cfear_radarodometry_code_public_tpu_torch.ops import cuda_features
 from cfear_radarodometry_code_public_tpu_torch.ops.filtering import PointCloud
 
 
@@ -132,68 +133,41 @@ def compute_cells(points: PointCloud, cfg) -> CellMap:
 def compute_cells_batched(points: PointCloud, cfg) -> CellMap:
     """Batched oriented-surface-point extraction: leaves carry (B, N, ...).
     All lanes share one scatter per stage (segment ids offset by
-    lane * ncells)."""
+    lane * ncells). `feature.backend="pallas"` takes kernel G
+    (`_compute_cells_batched_pallas`); "auto" is the scatter form here, as
+    in the reference (`features.py:155-165`)."""
     feat = cfg.feature
     if feat.use_raw_pointcloud:
         raise NotImplementedError(
             "feature.use_raw_pointcloud is not ported yet (ROADMAP queue 1, "
             "item 5: compute_raw_cells)")
-    if feat.backend == "pallas":
-        raise NotImplementedError(
-            "feature.backend='pallas' is not ported yet (ROADMAP queue 2, "
-            "kernel G: moment_accumulate)")
-    leaf, dim, noff = _grid_geometry(cfg)
-    ncells = dim * dim
     p = feat.point_budget
     if p and p < points.xy.shape[1]:
         points = budget_points(points, p)
+    if feat.backend == "pallas":
+        return _compute_cells_batched_pallas(points, cfg)
 
+    leaf, dim, noff = _grid_geometry(cfg)
+    ncells = dim * dim
     xy = points.xy                                            # (B, N, 2)
     b, n_pts = xy.shape[0], xy.shape[1]
     dev, f32 = xy.device, xy.dtype
-    valid = points.valid
-    lane = torch.arange(b, dtype=torch.int64, device=dev)[:, None]
 
     # --- stage 1: voxel centroids (unweighted, like pcl::VoxelGrid) ---
-    # divide by a device tensor: a Python divisor makes CUDA multiply by its
-    # f32 reciprocal, which moves boundary points to the neighbour voxel
-    vidx = torch.floor(xy / torch.full((), leaf, dtype=f32, device=dev)
-                       ).to(torch.int64) + dim // 2
-    in_grid = valid & ((vidx >= 0) & (vidx < dim)).all(-1)
-    vid = vidx[..., 0] * dim + vidx[..., 1]                   # (B, N)
-    vid_flat = torch.where(in_grid, lane * ncells + vid,
-                           torch.full_like(vid, b * ncells)).reshape(-1)
-    ones = in_grid.to(f32)
-    s1 = segment_sum(torch.cat([ones[..., None], xy * ones[..., None]], -1
-                               ).reshape(b * n_pts, 3), vid_flat,
-                     b * ncells + 1)[:b * ncells].reshape(b, ncells, 3)
-    cnt_vox, sum_vox = s1[..., 0], s1[..., 1:3]
-    centroid = sum_vox / torch.clamp(cnt_vox, min=1.0)[..., None]
-    occupied = cnt_vox >= 1.0
+    vidx, in_grid, vid, vid_flat, centroid, occupied = _voxel_centroids(
+        xy, points.valid, leaf, dim)
 
     # --- stage 2: weighted moments per candidate cell ---
-    if feat.weight_intensity:
-        w_pt = torch.clamp(points.intensity - feat.intensity_floor, min=0.0)
-    else:
-        w_pt = torch.ones_like(points.intensity)
-
-    offsets = [(dx, dy) for dx in range(-noff, noff + 1)
-               for dy in range(-noff, noff + 1)]
+    w_pt = _point_weights(points, feat)
+    offsets = _offsets(noff)
     n_off = len(offsets)
-    # each voxel's neighbourhood (centroid x/y + occupancy per offset),
-    # gathered once per point; wrapped-around entries fail the bounds test
-    cgrid = torch.cat([centroid.reshape(b, dim, dim, 2),
-                       occupied.reshape(b, dim, dim, 1).to(f32)], -1)
-    nb = torch.cat([torch.roll(cgrid, (-dx, -dy), (1, 2))
-                    for dx, dy in offsets], -1)
-    vid_c = torch.clamp(torch.where(in_grid, vid, torch.full_like(vid, ncells)),
-                        0, ncells - 1)
-    nb_pt = nb.reshape(b * ncells, 3 * n_off)[
-        (lane * ncells + vid_c).reshape(-1)].reshape(b, n_pts, 3 * n_off)
+    nb_pt = _neighbourhood(
+        torch.cat([centroid.reshape(b, dim, dim, 2),
+                   occupied.reshape(b, dim, dim, 1).to(f32)], -1),
+        vid, in_grid, offsets)                                # (B, N, 3 n_off)
 
     # moments about the OWN voxel centre, shifted to the target centre later
-    own_cx = (vidx[..., 0].to(f32) - dim // 2 + 0.5) * leaf
-    own_cy = (vidx[..., 1].to(f32) - dim // 2 + 0.5) * leaf
+    own_cx, own_cy = _own_centres(vidx, leaf, dim)
     rx = xy[..., 0] - own_cx
     ry = xy[..., 1] - own_cy
     base = torch.stack(
@@ -202,13 +176,8 @@ def compute_cells_batched(points: PointCloud, cfg) -> CellMap:
 
     mem_cols = []
     for oi, (dx, dy) in enumerate(offsets):
-        tx = vidx[..., 0] + dx
-        ty = vidx[..., 1] + dy
-        ok = in_grid & (tx >= 0) & (tx < dim) & (ty >= 0) & (ty < dim)
-        c = nb_pt[..., 3 * oi:3 * oi + 2]
-        occ = nb_pt[..., 3 * oi + 2] > 0.5
-        d2 = ((xy - c) ** 2).sum(-1)
-        mem_cols.append(ok & occ & (d2 <= feat.res * feat.res))
+        mem_cols.append(_member(xy, vidx, in_grid, nb_pt[..., 3 * oi:3 * oi + 3],
+                                dx, dy, dim, feat.res))
     mem = torch.stack(mem_cols, -1).to(f32)                   # (B, N, n_off)
 
     data = (mem[..., :, None] * base[..., None, :]).reshape(b * n_pts, n_off * 7)
@@ -227,36 +196,226 @@ def compute_cells_batched(points: PointCloud, cfg) -> CellMap:
              sxx - 2.0 * dxl * s1x + dxl * dxl * s0_,
              sxy - dxl * s1y - dyl * s1x + dxl * dyl * s0_,
              syy - 2.0 * dyl * s1y + dyl * dyl * s0_], -1)
-    acc = acc.reshape(b, ncells, 7)
-    nsamp, s0 = acc[..., 0], acc[..., 1]
-
-    safe_s0 = torch.clamp(s0, min=1e-12)
-    mx, my = acc[..., 2] / safe_s0, acc[..., 3] / safe_s0
-    cxx = acc[..., 4] / safe_s0 - mx * mx
-    cxy = acc[..., 5] / safe_s0 - mx * my
-    cyy = acc[..., 6] / safe_s0 - my * my
+    acc = acc.reshape(b, ncells, 7).unbind(-1)
 
     ii = torch.arange(dim, dtype=f32, device=dev) - dim // 2 + 0.5
     vc_x = ii.repeat_interleave(dim) * leaf                   # (ncells,)
     vc_y = ii.repeat(dim) * leaf
 
-    # --- stage 3: normals + validity gates (`pointnormal.cpp:37-62`) ---
+    # --- stage 3: normals + validity gates ---
+    mean, nvec, cxx, cxy, cyy, planarity, gate = _normals_and_gates(
+        *acc, vc_x, vc_y, feat)
+    ib = torch.arange(ncells, dtype=torch.int64, device=dev)[None].expand(b, -1)
+    return _finalize_cells(mean, nvec, cxx, cxy, cyy, acc[0], planarity,
+                           occupied & gate, ib // dim, ib % dim, cfg)
+
+
+def _voxel_centroids(xy, valid, leaf, dim):
+    """Stage 1 of both backends: per point its voxel index (B, N, 2), the
+    in-grid mask and flat voxel id (B, N), its lane-offset segment id
+    (B*N,) with one overflow slot at B*ncells; per voxel the unweighted
+    centroid (B, ncells, 2) and occupancy (B, ncells)."""
+    b, n_pts = xy.shape[0], xy.shape[1]
+    ncells = dim * dim
+    dev, f32 = xy.device, xy.dtype
+    lane = torch.arange(b, dtype=torch.int64, device=dev)[:, None]
+    # divide by a device tensor: a Python divisor makes CUDA multiply by its
+    # f32 reciprocal, which moves boundary points to the neighbour voxel
+    vidx = torch.floor(xy / torch.full((), leaf, dtype=f32, device=dev)
+                       ).to(torch.int64) + dim // 2
+    in_grid = valid & ((vidx >= 0) & (vidx < dim)).all(-1)
+    vid = vidx[..., 0] * dim + vidx[..., 1]                   # (B, N)
+    vid_flat = torch.where(in_grid, lane * ncells + vid,
+                           torch.full_like(vid, b * ncells)).reshape(-1)
+    ones = in_grid.to(f32)
+    s1 = segment_sum(torch.cat([ones[..., None], xy * ones[..., None]], -1
+                               ).reshape(b * n_pts, 3), vid_flat,
+                     b * ncells + 1)[:b * ncells].reshape(b, ncells, 3)
+    cnt_vox, sum_vox = s1[..., 0], s1[..., 1:3]
+    centroid = sum_vox / torch.clamp(cnt_vox, min=1.0)[..., None]
+    return vidx, in_grid, vid, vid_flat, centroid, cnt_vox >= 1.0
+
+
+def _point_weights(points: PointCloud, feat):
+    if feat.weight_intensity:
+        return torch.clamp(points.intensity - feat.intensity_floor, min=0.0)
+    return torch.ones_like(points.intensity)
+
+
+def _offsets(noff: int):
+    return [(dx, dy) for dx in range(-noff, noff + 1)
+            for dy in range(-noff, noff + 1)]
+
+
+def _neighbourhood(cgrid, vid, in_grid, offsets):
+    """Each voxel's neighbourhood: the per-voxel columns cgrid
+    (B, dim, dim, C) rolled by each offset, gathered once per point at its
+    own voxel -> (B, N, C * n_off), offset-major. Wrapped-around entries
+    fail the bounds test in `_member`."""
+    b, dim, _, c = cgrid.shape
+    ncells = dim * dim
+    lane = torch.arange(b, dtype=torch.int64, device=vid.device)[:, None]
+    nb = torch.cat([torch.roll(cgrid, (-dx, -dy), (1, 2))
+                    for dx, dy in offsets], -1)
+    vid_c = torch.clamp(torch.where(in_grid, vid, torch.full_like(vid, ncells)),
+                        0, ncells - 1)
+    return nb.reshape(b * ncells, c * len(offsets))[
+        (lane * ncells + vid_c).reshape(-1)].reshape(b, vid.shape[1], -1)
+
+
+def _own_centres(vidx, leaf, dim):
+    f32 = torch.float32
+    return ((vidx[..., 0].to(f32) - dim // 2 + 0.5) * leaf,
+            (vidx[..., 1].to(f32) - dim // 2 + 0.5) * leaf)
+
+
+def _member(xy, vidx, in_grid, nb, dx, dy, dim, res):
+    """A point's membership in the cell of its (dx, dy) neighbour voxel:
+    that voxel is in the grid and occupied, and its centroid (nb columns
+    [cx, cy, occ]) lies within the radius `res` (the kd radius search)."""
+    tx = vidx[..., 0] + dx
+    ty = vidx[..., 1] + dy
+    ok = in_grid & (tx >= 0) & (tx < dim) & (ty >= 0) & (ty < dim)
+    d2 = ((xy - nb[..., 0:2]) ** 2).sum(-1)
+    return ok & (nb[..., 2] > 0.5) & (d2 <= res * res)
+
+
+def _normals_and_gates(cnt, s0, s1x, s1y, sxx, sxy, syy, vc_x, vc_y, feat):
+    """Stage 3 (`pointnormal.cpp:37-62`): moments about each cell's voxel
+    centre (vc_x, vc_y) -> weighted mean, normal flipped toward the sensor,
+    covariance, planarity and the validity gate (occupancy left to the
+    caller)."""
+    safe_s0 = torch.clamp(s0, min=1e-12)
+    mx, my = s1x / safe_s0, s1y / safe_s0
+    cxx = sxx / safe_s0 - mx * mx
+    cxy = sxy / safe_s0 - mx * my
+    cyy = syy / safe_s0 - my * my
     lmin, lmax, nvec = _eig2x2_min(cxx, cxy, cyy)
     cond = torch.abs(lmax / torch.where(lmin == 0.0, lmin.new_full((), 1e-30),
                                         lmin))
     det = lmax * lmin
-    cell_ok = (occupied & (nsamp >= feat.min_samples) & (s0 > 0.0)
-               & (cond <= feat.cond_max) & (det > feat.det_min)
-               & (lmin > 0.0) & (lmax > 0.0))
+    gate = ((cnt >= feat.min_samples) & (s0 > 0.0) & (cond <= feat.cond_max)
+            & (det > feat.det_min) & (lmin > 0.0) & (lmax > 0.0))
     mean = torch.stack([mx + vc_x, my + vc_y], -1)
-    # flip the normal toward the sensor origin (`pointnormal.cpp:59-61`)
     flip = (nvec * (0.0 - mean)).sum(-1) < 0.0
     nvec = torch.where(flip[..., None], -nvec, nvec)
-    planarity = torch.log1p(cond / 2.0)
+    return mean, nvec, cxx, cxy, cyy, torch.log1p(cond / 2.0), gate
 
-    ib = torch.arange(ncells, dtype=torch.int64, device=dev)[None].expand(b, -1)
+
+def _pre_cells(cfg) -> int:
+    """Compact-cell budget of the pallas backend: it must cover the
+    occupied-voxel count (~4.5k for an Oxford-scale frame's 8192 budgeted
+    points); kernel G's cost is linear in it."""
+    if cfg.feature.pre_cells:
+        return cfg.feature.pre_cells
+    return max(4608, -(-2 * cfg.feature.max_cells // 128) * 128)
+
+
+def _moment_inputs(points: PointCloud, cfg):
+    """Stage 1 of the pallas backend and the inputs of kernel G
+    (`cuda_features.moment_accumulate`): (pack, ct_lo, ct_hi, pt_lo, pt_hi,
+    offsets_m, n_off, c_pre).
+
+    Occupied voxels get compact ranks by a cumsum in vid order (no sort);
+    voxels beyond c_pre are dropped, as the reference does. Every point
+    carries its own-centre offset, weight and own centre, and per
+    neighbour offset its membership and the target voxel's rank (c_pre for
+    none). Cell tiles are x-major slabs of the grid, so each gets the
+    dilated x-range of the grid rows its ranks cover; each point tile gets
+    the x-range of its in-grid points."""
+    feat = cfg.feature
+    leaf, dim, noff = _grid_geometry(cfg)
+    c_pre = _pre_cells(cfg)
+    xy = points.xy
+    b, n_pts = xy.shape[0], xy.shape[1]
+    dev, f32 = xy.device, xy.dtype
+    if not cuda_features.supported(n_pts, c_pre):
+        raise ValueError(
+            f"feature.backend='pallas' needs the point count ({n_pts}) to be "
+            f"a multiple of {cuda_features.PT} and pre_cells ({c_pre}) of "
+            f"{cuda_features.CT}")
+    vidx, in_grid, vid, _, centroid, occupied = _voxel_centroids(
+        xy, points.valid, leaf, dim)
+
+    # --- compact ranks: cumsum over the occupancy grid (vid order) ---
+    ranks = torch.cumsum(occupied.to(torch.int32), -1) - 1
+    rank_ok = occupied & (ranks < c_pre)
+    rank_f = torch.where(rank_ok, ranks, torch.full_like(ranks, c_pre)).to(f32)
+
+    # --- neighbourhood pack: (cx, cy, occ, rank) per offset per point ---
+    w_pt = _point_weights(points, feat)
+    offsets = _offsets(noff)
+    n_off = len(offsets)
+    nb_pt = _neighbourhood(
+        torch.cat([centroid.reshape(b, dim, dim, 2),
+                   occupied.reshape(b, dim, dim, 1).to(f32),
+                   rank_f.reshape(b, dim, dim, 1)], -1),
+        vid, in_grid, offsets)                                # (B, N, 4 n_off)
+    own_cx, own_cy = _own_centres(vidx, leaf, dim)
+    mem_rows, trank_rows = [], []
+    for oi, (dx, dy) in enumerate(offsets):
+        trk = nb_pt[..., 4 * oi + 3]
+        mem = _member(xy, vidx, in_grid, nb_pt[..., 4 * oi:4 * oi + 3], dx, dy,
+                      dim, feat.res) & (trk < c_pre)
+        mem_rows.append(mem.to(f32))
+        trank_rows.append(torch.where(mem, trk, trk.new_full((), float(c_pre))))
+    n_rows = 5 + 2 * n_off
+    zero = torch.zeros_like(own_cx)
+    pack = torch.stack(
+        [xy[..., 0] - own_cx, xy[..., 1] - own_cy, w_pt * in_grid, own_cx,
+         own_cy] + mem_rows + trank_rows
+        + [zero] * (-(-n_rows // 8) * 8 - n_rows), 1).contiguous()  # (B, R, N)
+
+    # --- tile bounds for the kernel's x-slab skip ---
+    ct = cuda_features.CT
+    n_ct = c_pre // ct
+    row_counts = rank_ok.reshape(b, dim, dim).sum(-1)          # (B, dim)
+    cum_end = torch.cumsum(row_counts, -1)
+    cum_lo = cum_end - row_counts
+    starts = (torch.arange(n_ct, dtype=torch.int64, device=dev) * ct
+              )[None, None, :]
+    has = (cum_end[..., None] > starts) & (cum_lo[..., None] < starts + ct)
+    rlo = (torch.arange(dim, dtype=f32, device=dev) - dim // 2) * leaf
+    rhi = rlo + leaf
+    dil = feat.res + 1e-3
+    inf = xy.new_full((), float("inf"))
+    ct_lo = torch.where(has, rlo[None, :, None], inf).amin(1) - dil
+    ct_hi = torch.where(has, rhi[None, :, None], -inf).amax(1) + dil
+    pt = cuda_features.PT
+    x = xy[..., 0]
+    pt_lo = torch.where(in_grid, x, inf).reshape(b, n_pts // pt, pt).amin(-1)
+    pt_hi = torch.where(in_grid, x, -inf).reshape(b, n_pts // pt, pt).amax(-1)
+    offsets_m = tuple((dx * leaf, dy * leaf) for dx, dy in offsets)
+    return (pack, ct_lo.contiguous(), ct_hi.contiguous(), pt_lo.contiguous(),
+            pt_hi.contiguous(), offsets_m, n_off, c_pre)
+
+
+def _compute_cells_batched_pallas(points: PointCloud, cfg) -> CellMap:
+    """The pallas backend (port of the reference's
+    `_compute_cells_batched_pallas`): stage 1 as the scatter form, then
+    kernel G's moments over compact cells replace the (B*N, 63) scatter,
+    the 9-offset roll/shift combine and the dense-grid ranking. Each cell's
+    voxel centre comes back from the cnt*cx / cnt columns (no inverse rank
+    map). Equal to the scatter backend up to f32 summation order, with
+    integer nsamples bit-equal, while no more than c_pre voxels are
+    occupied."""
+    feat = cfg.feature
+    leaf, dim, _ = _grid_geometry(cfg)
+    acc = cuda_features.moment_accumulate(*_moment_inputs(points, cfg))
+    nsamp = acc[:, 0]
+    safe_cnt = torch.clamp(nsamp, min=1.0)
+    vc_x = acc[:, 7] / safe_cnt
+    vc_y = acc[:, 8] / safe_cnt
+    mean, nvec, cxx, cxy, cyy, planarity, cell_ok = _normals_and_gates(
+        *acc[:, :7].unbind(1), vc_x, vc_y, feat)
+    # integer voxel indices from the exact-multiple voxel centres
+    leaf_t = acc.new_full((), leaf)
+    ix = torch.clamp(torch.round(vc_x / leaf_t + dim // 2 - 0.5).to(torch.int64),
+                     0, dim - 1)
+    iy = torch.clamp(torch.round(vc_y / leaf_t + dim // 2 - 0.5).to(torch.int64),
+                     0, dim - 1)
     return _finalize_cells(mean, nvec, cxx, cxy, cyy, nsamp, planarity,
-                           cell_ok, ib // dim, ib % dim, cfg)
+                           cell_ok, ix, iy, cfg)
 
 
 def _finalize_cells(mean, nvec, cxx, cxy, cyy, nsamp, planarity, cell_ok,

@@ -2,11 +2,13 @@
 (port of the non-kernel half of `ops/pallas_lm.py`: `pack_associations`,
 `_lm_funcs`, `_lm_core`, `lm_solve_packed_xla`).
 
-Batched over a leading lane axis. The reference's data-dependent
-`while_loop` becomes a fixed-trip loop of `max_itr_solver` iterations in
-which a lane that is done keeps its state (the reference's `bounded` form,
-identical results); the loop stops early once every lane is done, at the
-cost of one host sync per iteration.
+`lm_solve_packed` is the one entry point: on a CUDA card it launches kernel
+F (`ops/cuda_lm.py`, one launch per solve for all lanes, no host sync); on
+the CPU it runs `_lm_core`, the plain loop. That loop is batched over a
+leading lane axis: the reference's data-dependent `while_loop` becomes a
+fixed-trip loop of `max_itr_solver` iterations in which a lane that is done
+keeps its state (the reference's `bounded` form, identical results), and it
+stops early once every lane is done.
 
 Row layout of the packed (B, 8, N) block, N = S*M:
   P2P / P2D: [sx, sy, mx, my, w, l11, l21, l22]   (l* = sqrt-info; 1/0 for P2P)
@@ -19,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from cfear_radarodometry_code_public_tpu_torch.ops import losses
+from cfear_radarodometry_code_public_tpu_torch.ops import cuda_lm, losses
 
 
 def pack_associations(src_mean, tgt, assoc_weight, cfg):
@@ -193,9 +195,9 @@ def _lm_core(rows, px0, py0, pt0, cfg):
 
 def lm_solve_packed(packed, pose0, cfg):
     """packed (B, 8, N), pose0 (B, 3) -> (pose (B, 3), cost (B,),
-    steps (B,) int32, last_rel (B,))."""
-    p = pose0.to(torch.float32)
-    rows = tuple(packed[:, i] for i in range(8))
-    px, py, pt, cost, steps, lastrel = _lm_core(rows, p[:, 0], p[:, 1],
-                                                p[:, 2], cfg)
-    return torch.stack([px, py, pt], -1).to(pose0.dtype), cost, steps, lastrel
+    steps (B,) int32, last_rel (B,)): kernel F (early exit) for CUDA
+    tensors, the plain loop for CPU tensors."""
+    pose, cost, steps, lastrel = cuda_lm.lm_solve_fused(
+        packed.to(torch.float32).contiguous(),
+        pose0.to(torch.float32).contiguous(), cfg, early_exit=True)
+    return pose.to(pose0.dtype), cost, steps, lastrel

@@ -6,9 +6,10 @@ scan of each lane is registered against that lane's S keyframes; only its
 pose is free. Outer association loop (at most `max_itr_association`
 iterations): world-frame attributes packed once, exact 1-NN association
 (CUDA kernels A/C or the dense matmul form), gates and weights, then the
-packed LM solve (`ops/lm.py`). The reference's `while_loop` becomes a
-fixed-trip loop in which a finished lane keeps its state, with an early stop
-once every lane is done. Afterwards the Censi-scaled covariance.
+packed LM solve (`lm.lm_solve_packed`: CUDA kernel F on a card, one launch
+per solve; the plain loop on the CPU). The reference's `while_loop` becomes
+a fixed-trip loop in which a finished lane keeps its state, with an early
+stop once every lane is done. Afterwards the Censi-scaled covariance.
 
 Not ported yet (raise NotImplementedError): `soft_constraint`,
 `time_continuous`, `assoc_method="grid"`.

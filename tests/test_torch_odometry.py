@@ -85,6 +85,26 @@ def test_slice_matches_jax(seq, jax_run):
         assert getattr(out, name).shape == getattr(out_j, name).shape, name
 
 
+def test_slice_pallas_features_matches_jax(seq):
+    """The slice with `feature.backend="pallas"`: kernel G's twin against
+    the reference's moment kernel in interpret mode, end to end."""
+    cfg_j, _, images, gt = seq
+    cfg_j = cfg_j.replace(feature=dataclasses.replace(cfg_j.feature,
+                                                      backend="pallas"))
+    cfg_t = both_cfgs(cfg_j)[1]
+    jr = jodo.OdometryRunner(cfg_j, chunk=12, ingest="host")
+    jr.process(images)
+    tr = todo.OdometryRunner(cfg_t, ingest="host", device="cpu", chunk=8)
+    tr.process(images)
+    out, out_j = tr.frame_outputs(), jr.frame_outputs()
+    assert out.success.all() and out_j.success.all()
+    np.testing.assert_array_equal(out.fused, out_j.fused)
+    traj = tr.trajectory()
+    _assert_traj_close(traj, jr.trajectory())
+    assert ate_rmse(traj[:, :2], gt[:, :2]) < 0.5
+    assert np.abs(out.num_cells - out_j.num_cells).max() <= 3
+
+
 def test_candidates_ingest_p2l_matches_jax(seq):
     """The other host-ingest kind (no point budget: (A, K) candidate sets)
     with the P2L cost, over the first 10 frames."""
@@ -229,6 +249,30 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX-OK" in proc.stdout
+
+
+def _chip_smoke():
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    return chip_smoke
+
+
+def test_pallas_golden_config_matches_chip_smoke():
+    """The second golden: chip_smoke's configuration with the pallas
+    feature backend, made by `make_torch_port_golden.py --feature-backend
+    pallas`."""
+    import json
+    chip_smoke = _chip_smoke()
+    with np.load(chip_smoke.GOLDEN_PALLAS) as z:
+        cfg = json.loads(str(z["config"]))
+        assert json.loads(str(z["sequence"])) == chip_smoke.SEQUENCE
+        assert z["poses"].shape == (chip_smoke.SEQUENCE["n_frames"], 3)
+        assert z["success"].all()
+    assert cfg == chip_smoke.slice_config(feature_backend="pallas").to_dict()
+    assert cfg["feature"]["backend"] == "pallas"
 
 
 def test_golden_config_matches_chip_smoke():

@@ -1,4 +1,4 @@
-"""Write the JAX golden trajectory that `chip_smoke.py` holds the PyTorch
+"""Write the JAX golden trajectories that `chip_smoke.py` holds the PyTorch
 port against.
 
 Runs the JAX reference on the CPU over chip_smoke's exact sequence
@@ -9,14 +9,19 @@ runs in interpret mode with the arithmetic of the port's kernel C), and
 writes poses, keyframe and success flags, association counts, the ATE
 against ground truth, and the configuration and sequence as JSON to
 `cfear_radarodometry_code_public_tpu_torch/golden/cfear3_oxford_seed1_64.npz`.
+With `--feature-backend pallas` the configuration also sets
+`feature.backend="pallas"` (the moment kernel runs in interpret mode) and
+the file is `golden/cfear3_oxford_seed1_64_pallasfeat.npz`.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --feature-backend pallas
 
-Takes seconds on one CPU process.
+The first takes seconds on one CPU process, the second about a minute.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -37,8 +42,17 @@ from cfear_radarodometry_code_public_tpu.models.odometry import OdometryRunner  
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--feature-backend", choices=("auto", "pallas"),
+                    default="auto")
+    args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
-    cfg_dict = chip_smoke.slice_config().to_dict()
+    if args.feature_backend == "pallas":
+        cfg_dict = chip_smoke.slice_config(feature_backend="pallas").to_dict()
+        path = chip_smoke.GOLDEN_PALLAS
+    else:
+        cfg_dict = chip_smoke.slice_config().to_dict()
+        path = chip_smoke.GOLDEN
     cfg = CFEARConfig.from_dict(cfg_dict)
     images, gt = synthetic.make_sequence(cfg=cfg, **chip_smoke.SEQUENCE)
     t0 = time.perf_counter()
@@ -50,13 +64,13 @@ def main() -> None:
     traj = runner.trajectory()
     out = runner.frame_outputs()
     ate = ate_rmse(traj[:, :2], gt[:, :2])
-    os.makedirs(os.path.dirname(chip_smoke.GOLDEN), exist_ok=True)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(
-        chip_smoke.GOLDEN, poses=traj, gt=gt, fused=out.fused,
+        path, poses=traj, gt=gt, fused=out.fused,
         success=out.success, num_assoc=out.num_assoc,
         num_cells=out.num_cells, ate=np.float64(ate),
         config=json.dumps(cfg_dict), sequence=json.dumps(chip_smoke.SEQUENCE))
-    print(f"{chip_smoke.GOLDEN}: {images.shape[0]} frames, ATE {ate:.4f} m, "
+    print(f"{path}: {images.shape[0]} frames, ATE {ate:.4f} m, "
           f"keyframes {int(out.fused.sum())}, all successful "
           f"{bool(out.success.all())}, {time.perf_counter() - t0:.1f} s "
           f"on the CPU")

@@ -1,9 +1,11 @@
 """Where the time goes in the PyTorch port's CFEAR-3 slice on a CUDA card.
 
     python tools/profile_torch_port.py [--frames 24] [--batch 8]
+                                       [--feature-backends auto,pallas]
 
 Runs `chip_smoke.py`'s configuration (CFEAR-3, Oxford scale, bench
-settings) on synthetic frames, warms up, then traces a window of frames
+settings) on synthetic frames, once per feature backend ("auto": the
+scatter form; "pallas": kernel G), warms up, then traces a window of frames
 with `torch.profiler` for the single-sequence step and the batched step.
 Prints per window: wall ms per step (second of two unprofiled passes; the
 first beside it), device busy ms per step (sum of kernel
@@ -84,19 +86,7 @@ def _window(name, step, state, frames, card):
               f"x{c / steps:7.1f}  {kname[:90]}")
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=24)
-    ap.add_argument("--batch", type=int, default=8)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 2
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    dev = torch.device("cuda", 0)
-    cfg = chip_smoke.slice_config()
+def _profile(cfg, tag, args, dev, card):
     n = args.frames
     images, _ = synthetic.make_sequence(cfg=cfg, **chip_smoke.SEQUENCE)
     rows = odometry.host_filter(images[:n], cfg, "compact")
@@ -110,7 +100,7 @@ def main() -> int:
     state, _ = odometry.make_bootstrap(cfg)(state, frames[0])
     for f in frames[1:half]:
         state, _ = step(state, f)
-    _window("single", step, state, frames[half:], card)
+    _window(f"{tag} single", step, state, frames[half:], card)
 
     # batched: the same frames in every lane
     b = args.batch
@@ -123,7 +113,25 @@ def main() -> int:
     states, _ = odometry.make_bootstrap(cfg, batched=True)(states, frames[0])
     for f in frames[1:half]:
         states, _ = step(states, f)
-    _window(f"batched_x{b}", step, states, frames[half:], card)
+    _window(f"{tag} batched_x{b}", step, states, frames[half:], card)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=24)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--feature-backends", default="auto,pallas")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    dev = torch.device("cuda", 0)
+    for backend in args.feature_backends.split(","):
+        _profile(chip_smoke.slice_config(feature_backend=backend), backend,
+                 args, dev, card)
     return 0
 
 
