@@ -40,8 +40,6 @@
 // the few points that hit its tile; a chunk of 128 points is a dependent
 // chain of rank loads, a prefix sum and two barriers, so the kernel is
 // latency-bound, with ~0.8 MB of pack per lane read 36 times over from L2.
-// (A first version compared every rank against every cell, 73,728 compares
-// per thread: 2.64 ms at B=8 on an H100.)
 
 #include <cuda_runtime.h>
 

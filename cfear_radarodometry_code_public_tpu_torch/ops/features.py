@@ -10,6 +10,11 @@ Three dense passes over a static per-lane voxel grid, batched over lanes:
 3. closed-form 2x2 eigendecomposition, the validity gates of
    `pointnormal.cpp:53-56`, and compaction to `max_cells`.
 
+With `feature.backend="pallas"`, stage 2 instead ranks the occupied voxels
+(compact cells) and hands each point's neighbour ranks to kernel G
+(`cuda_features.moment_accumulate`), which sums the moments per compact
+cell; "auto" stays the scatter form, as in the reference.
+
 `jax.ops.segment_sum` becomes `segment_sum`: `index_add_` with torch's
 deterministic mode switched on around it, so that on CUDA it sums each
 segment in a fixed order instead of with float atomics, and a run repeats
@@ -159,7 +164,7 @@ def compute_cells_batched(points: PointCloud, cfg) -> CellMap:
 
     # --- stage 2: weighted moments per candidate cell ---
     w_pt = _point_weights(points, feat)
-    offsets = _offsets(noff)
+    offsets = _neighbour_offsets(noff)
     n_off = len(offsets)
     nb_pt = _neighbourhood(
         torch.cat([centroid.reshape(b, dim, dim, 2),
@@ -242,7 +247,7 @@ def _point_weights(points: PointCloud, feat):
     return torch.ones_like(points.intensity)
 
 
-def _offsets(noff: int):
+def _neighbour_offsets(noff: int):
     return [(dx, dy) for dx in range(-noff, noff + 1)
             for dy in range(-noff, noff + 1)]
 
@@ -344,7 +349,7 @@ def _moment_inputs(points: PointCloud, cfg):
 
     # --- neighbourhood pack: (cx, cy, occ, rank) per offset per point ---
     w_pt = _point_weights(points, feat)
-    offsets = _offsets(noff)
+    offsets = _neighbour_offsets(noff)
     n_off = len(offsets)
     nb_pt = _neighbourhood(
         torch.cat([centroid.reshape(b, dim, dim, 2),

@@ -117,6 +117,17 @@ def _cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def _wall_world(rng):
+    """4,800 points on 24 random 60 m walls within +-110 m."""
+    walls = []
+    for _ in range(24):
+        p0 = rng.uniform(-110, 110, 2)
+        ang = rng.uniform(0, 2 * np.pi)
+        t = rng.uniform(0, 60, 200)
+        walls.append(p0 + np.stack([np.cos(ang) * t, np.sin(ang) * t], -1))
+    return np.concatenate(walls)
+
+
 def _morton_cells(rng, b, s, m, dev):
     """Slice-shaped association inputs: per lane a wall world seen by S+1
     scans of m cells (~900 valid, Morton-ordered by 3 m voxel, padding
@@ -128,13 +139,7 @@ def _morton_cells(rng, b, s, m, dev):
     tar = np.zeros((b, s, m, 2), np.float32)
     valid = np.zeros((b, s + 1, m), bool)
     for i in range(b):
-        walls = []
-        for _ in range(24):
-            p0 = rng.uniform(-110, 110, 2)
-            ang = rng.uniform(0, 2 * np.pi)
-            t = rng.uniform(0, 60, 200)
-            walls.append(p0 + np.stack([np.cos(ang) * t, np.sin(ang) * t], -1))
-        world = np.concatenate(walls)
+        world = _wall_world(rng)
         for k in range(s + 1):
             n = int(rng.integers(850, 1000))
             pts = world[rng.choice(len(world), n, replace=False)]
@@ -241,13 +246,7 @@ def lm_problem(rng, b, s, m, cost, loss):
     n_ok = int(0.88 * m)
     src = np.zeros((b, m, 2))
     for i in range(b):
-        walls = []
-        for _ in range(24):
-            p0 = rng.uniform(-110, 110, 2)
-            ang = rng.uniform(0, 2 * np.pi)
-            t = rng.uniform(0, 60, 200)
-            walls.append(p0 + np.stack([np.cos(ang) * t, np.sin(ang) * t], -1))
-        world = np.concatenate(walls)
+        world = _wall_world(rng)
         src[i, :n_ok] = (world[rng.choice(len(world), n_ok, replace=False)]
                          + rng.normal(0, 0.3, (n_ok, 2)))
     true = rng.uniform(-1, 1, (b, 3)) * np.array([1.5, 0.5, 0.05])

@@ -242,6 +242,9 @@ def test_port_runs_without_jax():
         bad = [m for m in sys.modules if m.split(".")[0] in
                ("jax", "jaxlib", "cfear_radarodometry_code_public_tpu")]
         assert not bad, bad
+        for kernel_module in ("cuda_assoc", "cuda_lm", "cuda_features"):
+            assert ("cfear_radarodometry_code_public_tpu_torch.ops."
+                    + kernel_module) in sys.modules, kernel_module
         print("NOJAX-OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
