@@ -6,11 +6,18 @@
 //   C  cfear_radarodometry_code_public_tpu/ops/pallas_assoc.py:nn_min_sparse
 //      (_nn_sparse_kernel): the same, skipping (256-row source tile, 512-row
 //      target tile) pairs whose bounding boxes are farther apart than the
-//      association radius.
+//      association radius;
+//   D1 pallas_assoc.py:nn_min_sparse_multi (_nn_sparse_multi_kernel): C's
+//      function with the keyframe loop inside the kernel, at runtime;
+//   D2 pallas_assoc.py:nn_min_sparse_unrolled (_nn_sparse_unrolled_kernel):
+//      C's function with the loops unrolled at compile time;
+//   E  pallas_assoc.py:nn_min_sparse_attrs (_nn_sparse_attrs_kernel): C
+//      plus the winning target's attribute column, looked up in the kernel.
 //
-// Both take a leading lane axis, so one launch serves a whole batched step:
+// All take a leading lane axis, so one launch serves a whole batched step:
 //   src (B, Msrc, 2) f32, tar (B, S, M, 2) f32, valid (B, S, M) u8
-//   -> nn (B, S, Msrc) i32, d2 (B, S, Msrc) f32.
+//   -> nn (B, S, Msrc) i32, d2 (B, S, Msrc) f32
+// (E also attrs_t (B, S, D_pad, M) f32 -> g (B, S, D_pad, Msrc) f32).
 //
 // Contract (identical to the plain PyTorch twins in ops/cuda_assoc.py, bit
 // for bit): d2 = (sx-tx)^2 + (sy-ty)^2 in the difference form, each
@@ -18,7 +25,8 @@
 // contracting into an FMA, which would move d2 by an ulp and flip near-tie
 // argmins); +inf for invalid targets; targets scanned in index order with a
 // strict '<' so the lowest index wins ties, as argmin does; rows with no
-// valid (or no unskipped) target report (+inf, 0).
+// valid (or no unskipped) target report (+inf, 0). C, D1, D2 and E share
+// one per-tile scan (`scan_tile`), so they give the same bits.
 //
 // What bounds them on an H100: at the CFEAR-3 bench shape (B=8, S=4,
 // M=Msrc=1024) one call is ~34 M distance evaluations, microseconds of ALU
@@ -27,8 +35,27 @@
 // latency and by the short grid, not by bytes (~0.2 MB read) or FLOPs. The
 // design is the simple one: one source row per thread, the keyframe's
 // targets staged through shared memory in chunks so every thread reads the
-// same target (a broadcast, no bank conflicts). Fusing the attribute gather
-// (TPU kernel E) and batching several outer iterations are later work.
+// same target (a broadcast, no bank conflicts).
+//
+// D1 and D2 exist on the TPU because every grid step there has a fixed
+// cost (3,200 thin steps at B=8, S=50); a loop inside the kernel replaced
+// the keyframe grid axis. Hopper runs blocks in parallel and has no such
+// cost, so moving the keyframe loop into the block only shrinks the grid:
+// one block per (lane, 256-row source tile) is 32 blocks at B=8, M=1024
+// against 132 SMs, each walking all S keyframes in turn. They are bound by
+// that serial walk (latency of the staging loads and the dependent scan)
+// and are expected to be slower than C; the design keeps them as the
+// reference wrote them and measures that. D2 differs from D1 only in what
+// the compiler knows: the number of target tiles is a template argument
+// (M = 512, 1024, 2048, 3072) and the keyframe loop is unrolled by 2.
+//
+// E exists on the TPU to fold the attribute gather into the kernel, where
+// it cost a one-hot MXU product per executed tile pair. On Hopper the
+// winner's attributes are D_pad loads per thread after the scan (the
+// row's argmin is known by then), written with neighbouring threads on
+// neighbouring addresses; it adds D_pad x 4 bytes of reads and writes per
+// row to C and saves the separate gather's launch and its (B, S, Msrc, D)
+// round trip through device memory.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -37,8 +64,8 @@ namespace {
 
 constexpr int kThreadsA = 128;   // source rows per block, kernel A
 constexpr int kChunkA = 1024;    // targets staged per shared-memory pass (12 KB)
-constexpr int kTileS = 256;      // source rows per block, kernel C
-constexpr int kTileT = 512;      // target rows per skip-test granule, kernel C
+constexpr int kTileS = 256;      // source rows per block, kernels C/D1/D2/E
+constexpr int kTileT = 512;      // target rows per skip-test granule
 
 __device__ __forceinline__ float dist2(float sx, float sy, float tx, float ty) {
   const float dx = __fsub_rn(sx, tx);
@@ -94,11 +121,87 @@ __global__ void nn_min_kernel(const float* __restrict__ src,
   }
 }
 
-// Kernel C. grid (B*S, Msrc / kTileS), block kTileS.
-// src_bounds (B, Msrc/kTileS, 4), tar_bounds (B, S, M/kTileT, 4) as
+// The block's source row and its tile's skip-test inputs (kernels C/D1/D2/E,
+// block kTileS, one source row per thread; Msrc % kTileS == 0).
+struct SrcTile {
+  float sx, sy;                       // this thread's source point
+  float xmin, xmax, ymin, ymax, r2;   // the tile's bbox and the radius^2
+};
+
+__device__ __forceinline__ SrcTile load_src_tile(
+    const float* __restrict__ src, const float* __restrict__ src_bounds,
+    const float* __restrict__ radius, int lane, int tile, int Msrc) {
+  const int row = tile * kTileS + threadIdx.x;
+  const float* sb = src_bounds + (static_cast<size_t>(lane) * (Msrc / kTileS) + tile) * 4;
+  const float r = radius[lane];
+  SrcTile st;
+  st.sx = src[(static_cast<size_t>(lane) * Msrc + row) * 2];
+  st.sy = src[(static_cast<size_t>(lane) * Msrc + row) * 2 + 1];
+  st.xmin = sb[0];
+  st.xmax = sb[1];
+  st.ymin = sb[2];
+  st.ymax = sb[3];
+  st.r2 = __fmul_rn(r, r);
+  return st;
+}
+
+struct TileBuf {
+  float x[kTileT];
+  float y[kTileT];
+  unsigned char v[kTileT];
+};
+
+// One (source tile, target tile jt) pair of keyframe (t, v, tb): the bbox
+// gap test, uniform across the block so a skip is a branch no thread
+// diverges on; then the target tile staged through shared memory and
+// scanned in index order into (best, barg). Every thread of the block must
+// call it with the same jt.
+__device__ __forceinline__ void scan_tile(const SrcTile& st,
+                                          const float* __restrict__ t,
+                                          const unsigned char* __restrict__ v,
+                                          const float* __restrict__ tb, int jt,
+                                          TileBuf& sh, float& best, int& barg) {
+  const float* b = tb + jt * 4;
+  const float gapx = fmaxf(fmaxf(__fsub_rn(b[0], st.xmax), __fsub_rn(st.xmin, b[1])), 0.f);
+  const float gapy = fmaxf(fmaxf(__fsub_rn(b[2], st.ymax), __fsub_rn(st.ymin, b[3])), 0.f);
+  if (!(__fadd_rn(__fmul_rn(gapx, gapx), __fmul_rn(gapy, gapy)) <= st.r2)) return;
+  const int base = jt * kTileT;
+  __syncthreads();
+  for (int k = threadIdx.x; k < kTileT; k += kTileS) {
+    sh.x[k] = t[2 * (base + k)];
+    sh.y[k] = t[2 * (base + k) + 1];
+    sh.v[k] = v[base + k];
+  }
+  __syncthreads();
+  for (int k = 0; k < kTileT; ++k) {
+    const float d = sh.v[k] ? dist2(st.sx, st.sy, sh.x[k], sh.y[k]) : CUDART_INF_F;
+    if (d < best) {
+      best = d;
+      barg = base + k;
+    }
+  }
+}
+
+// Pointers of keyframe bs = lane * S + s.
+struct Keyframe {
+  const float* t;
+  const unsigned char* v;
+  const float* tb;
+};
+
+__device__ __forceinline__ Keyframe keyframe(const float* tar,
+                                             const unsigned char* valid,
+                                             const float* tar_bounds, int bs,
+                                             int M) {
+  return {tar + static_cast<size_t>(bs) * M * 2,
+          valid + static_cast<size_t>(bs) * M,
+          tar_bounds + static_cast<size_t>(bs) * (M / kTileT) * 4};
+}
+
+// Kernel C. grid (B*S, Msrc / kTileS), block kTileS. src_bounds
+// (B, Msrc/kTileS, 4), tar_bounds (B, S, M/kTileT, 4) as
 // [xmin, xmax, ymin, ymax] (empty tiles +inf/-inf, so they never pass);
-// radius (B,). The gap test is uniform across the block, so skipping a
-// target tile is a branch no thread diverges on.
+// radius (B,).
 __global__ void nn_min_sparse_kernel(const float* __restrict__ src,
                                      const float* __restrict__ src_bounds,
                                      const float* __restrict__ tar,
@@ -108,50 +211,106 @@ __global__ void nn_min_sparse_kernel(const float* __restrict__ src,
                                      int S, int Msrc, int M,
                                      int* __restrict__ nn,
                                      float* __restrict__ d2) {
-  __shared__ float sh_x[kTileT];
-  __shared__ float sh_y[kTileT];
-  __shared__ unsigned char sh_v[kTileT];
+  __shared__ TileBuf sh;
   const int bs = blockIdx.x;
-  const int lane = bs / S;
-  const int tile = blockIdx.y;
-  const int row = tile * kTileS + threadIdx.x;   // Msrc % kTileS == 0
-  const int n_src_tiles = Msrc / kTileS;
-  const int n_tar_tiles = M / kTileT;
-  const float sx = src[(static_cast<size_t>(lane) * Msrc + row) * 2];
-  const float sy = src[(static_cast<size_t>(lane) * Msrc + row) * 2 + 1];
-  const float* sb = src_bounds + (static_cast<size_t>(lane) * n_src_tiles + tile) * 4;
-  const float sxmin = sb[0], sxmax = sb[1], symin = sb[2], symax = sb[3];
-  const float r = radius[lane];
-  const float r2 = __fmul_rn(r, r);
-  const float* t = tar + static_cast<size_t>(bs) * M * 2;
-  const unsigned char* v = valid + static_cast<size_t>(bs) * M;
-  const float* tb = tar_bounds + static_cast<size_t>(bs) * n_tar_tiles * 4;
+  const SrcTile st = load_src_tile(src, src_bounds, radius, bs / S, blockIdx.y, Msrc);
+  const Keyframe kf = keyframe(tar, valid, tar_bounds, bs, M);
   float best = CUDART_INF_F;
   int barg = 0;
-  for (int jt = 0; jt < n_tar_tiles; ++jt) {
-    const float* b = tb + jt * 4;
-    const float gapx = fmaxf(fmaxf(__fsub_rn(b[0], sxmax), __fsub_rn(sxmin, b[1])), 0.f);
-    const float gapy = fmaxf(fmaxf(__fsub_rn(b[2], symax), __fsub_rn(symin, b[3])), 0.f);
-    if (!(__fadd_rn(__fmul_rn(gapx, gapx), __fmul_rn(gapy, gapy)) <= r2)) continue;
-    const int base = jt * kTileT;
-    __syncthreads();
-    for (int k = threadIdx.x; k < kTileT; k += blockDim.x) {
-      sh_x[k] = t[2 * (base + k)];
-      sh_y[k] = t[2 * (base + k) + 1];
-      sh_v[k] = v[base + k];
-    }
-    __syncthreads();
-    for (int k = 0; k < kTileT; ++k) {
-      const float d = sh_v[k] ? dist2(sx, sy, sh_x[k], sh_y[k]) : CUDART_INF_F;
-      if (d < best) {
-        best = d;
-        barg = base + k;
-      }
-    }
+  for (int jt = 0; jt < M / kTileT; ++jt) scan_tile(st, kf.t, kf.v, kf.tb, jt, sh, best, barg);
+  const size_t o = static_cast<size_t>(bs) * Msrc + blockIdx.y * kTileS + threadIdx.x;
+  nn[o] = barg;
+  d2[o] = best;
+}
+
+// Kernel D1. grid (B, Msrc / kTileS), block kTileS: one block per (lane,
+// source tile) walks the lane's S keyframes at runtime.
+__global__ void nn_min_sparse_multi_kernel(const float* __restrict__ src,
+                                           const float* __restrict__ src_bounds,
+                                           const float* __restrict__ tar,
+                                           const float* __restrict__ tar_bounds,
+                                           const unsigned char* __restrict__ valid,
+                                           const float* __restrict__ radius,
+                                           int S, int Msrc, int M,
+                                           int* __restrict__ nn,
+                                           float* __restrict__ d2) {
+  __shared__ TileBuf sh;
+  const int lane = blockIdx.x;
+  const SrcTile st = load_src_tile(src, src_bounds, radius, lane, blockIdx.y, Msrc);
+  const int row = blockIdx.y * kTileS + threadIdx.x;
+  for (int s = 0; s < S; ++s) {
+    const int bs = lane * S + s;
+    const Keyframe kf = keyframe(tar, valid, tar_bounds, bs, M);
+    float best = CUDART_INF_F;
+    int barg = 0;
+    for (int jt = 0; jt < M / kTileT; ++jt) scan_tile(st, kf.t, kf.v, kf.tb, jt, sh, best, barg);
+    const size_t o = static_cast<size_t>(bs) * Msrc + row;
+    nn[o] = barg;
+    d2[o] = best;
   }
+}
+
+// Kernel D2. As D1, with kNT = M / kTileT target tiles known at compile
+// time (the tile loop fully unrolled) and the keyframe loop unrolled by 2.
+template <int kNT>
+__global__ void nn_min_sparse_unrolled_kernel(const float* __restrict__ src,
+                                              const float* __restrict__ src_bounds,
+                                              const float* __restrict__ tar,
+                                              const float* __restrict__ tar_bounds,
+                                              const unsigned char* __restrict__ valid,
+                                              const float* __restrict__ radius,
+                                              int S, int Msrc,
+                                              int* __restrict__ nn,
+                                              float* __restrict__ d2) {
+  constexpr int M = kNT * kTileT;
+  __shared__ TileBuf sh;
+  const int lane = blockIdx.x;
+  const SrcTile st = load_src_tile(src, src_bounds, radius, lane, blockIdx.y, Msrc);
+  const int row = blockIdx.y * kTileS + threadIdx.x;
+#pragma unroll 2
+  for (int s = 0; s < S; ++s) {
+    const int bs = lane * S + s;
+    const Keyframe kf = keyframe(tar, valid, tar_bounds, bs, M);
+    float best = CUDART_INF_F;
+    int barg = 0;
+#pragma unroll
+    for (int jt = 0; jt < kNT; ++jt) scan_tile(st, kf.t, kf.v, kf.tb, jt, sh, best, barg);
+    const size_t o = static_cast<size_t>(bs) * Msrc + row;
+    nn[o] = barg;
+    d2[o] = best;
+  }
+}
+
+// Kernel E. grid (B*S, Msrc / kTileS), block kTileS: kernel C, then each
+// thread copies its winner's attribute column attrs_t[bs, :, barg] (D_pad
+// values) to g[bs, :, row]; zeros where the row's best never improved
+// (d2 = +inf: every tile pair skipped or no valid target).
+__global__ void nn_min_sparse_attrs_kernel(const float* __restrict__ src,
+                                           const float* __restrict__ src_bounds,
+                                           const float* __restrict__ tar,
+                                           const float* __restrict__ tar_bounds,
+                                           const unsigned char* __restrict__ valid,
+                                           const float* __restrict__ attrs_t,
+                                           const float* __restrict__ radius,
+                                           int S, int Msrc, int M, int Dpad,
+                                           int* __restrict__ nn,
+                                           float* __restrict__ d2,
+                                           float* __restrict__ g) {
+  __shared__ TileBuf sh;
+  const int bs = blockIdx.x;
+  const SrcTile st = load_src_tile(src, src_bounds, radius, bs / S, blockIdx.y, Msrc);
+  const Keyframe kf = keyframe(tar, valid, tar_bounds, bs, M);
+  float best = CUDART_INF_F;
+  int barg = 0;
+  for (int jt = 0; jt < M / kTileT; ++jt) scan_tile(st, kf.t, kf.v, kf.tb, jt, sh, best, barg);
+  const int row = blockIdx.y * kTileS + threadIdx.x;
   const size_t o = static_cast<size_t>(bs) * Msrc + row;
   nn[o] = barg;
   d2[o] = best;
+  const bool hit = best < CUDART_INF_F;
+  const float* a = attrs_t + static_cast<size_t>(bs) * Dpad * M + barg;
+  float* go = g + static_cast<size_t>(bs) * Dpad * Msrc + row;
+  for (int d = 0; d < Dpad; ++d) go[static_cast<size_t>(d) * Msrc] = hit ? a[static_cast<size_t>(d) * M] : 0.f;
 }
 
 }  // namespace
@@ -177,6 +336,62 @@ int cfear_nn_min_sparse(const float* src, const float* src_bounds,
   const dim3 grid(B * S, Msrc / kTileS);
   nn_min_sparse_kernel<<<grid, kTileS, 0, static_cast<cudaStream_t>(stream)>>>(
       src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, M, nn, d2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cfear_nn_min_sparse_multi(const float* src, const float* src_bounds,
+                              const float* tar, const float* tar_bounds,
+                              const unsigned char* valid, const float* radius,
+                              int B, int S, int Msrc, int M, int* nn, float* d2,
+                              void* stream) {
+  const dim3 grid(B, Msrc / kTileS);
+  nn_min_sparse_multi_kernel<<<grid, kTileS, 0, static_cast<cudaStream_t>(stream)>>>(
+      src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, M, nn, d2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// M must be 512, 1024, 2048 or 3072 (the wrapper checks); any other M
+// returns cudaErrorInvalidValue without launching.
+int cfear_nn_min_sparse_unrolled(const float* src, const float* src_bounds,
+                                 const float* tar, const float* tar_bounds,
+                                 const unsigned char* valid, const float* radius,
+                                 int B, int S, int Msrc, int M, int* nn,
+                                 float* d2, void* stream) {
+  const dim3 grid(B, Msrc / kTileS);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (M) {
+    case 1 * kTileT:
+      nn_min_sparse_unrolled_kernel<1><<<grid, kTileS, 0, st>>>(
+          src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, nn, d2);
+      break;
+    case 2 * kTileT:
+      nn_min_sparse_unrolled_kernel<2><<<grid, kTileS, 0, st>>>(
+          src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, nn, d2);
+      break;
+    case 4 * kTileT:
+      nn_min_sparse_unrolled_kernel<4><<<grid, kTileS, 0, st>>>(
+          src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, nn, d2);
+      break;
+    case 6 * kTileT:
+      nn_min_sparse_unrolled_kernel<6><<<grid, kTileS, 0, st>>>(
+          src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, nn, d2);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int cfear_nn_min_sparse_attrs(const float* src, const float* src_bounds,
+                              const float* tar, const float* tar_bounds,
+                              const unsigned char* valid, const float* attrs_t,
+                              const float* radius, int B, int S, int Msrc,
+                              int M, int Dpad, int* nn, float* d2, float* g,
+                              void* stream) {
+  const dim3 grid(B * S, Msrc / kTileS);
+  nn_min_sparse_attrs_kernel<<<grid, kTileS, 0, static_cast<cudaStream_t>(stream)>>>(
+      src, src_bounds, tar, tar_bounds, valid, attrs_t, radius, S, Msrc, M,
+      Dpad, nn, d2, g);
   return static_cast<int>(cudaGetLastError());
 }
 

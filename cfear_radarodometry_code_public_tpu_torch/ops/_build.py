@@ -113,6 +113,13 @@ def library() -> ctypes.CDLL:
         lib.cfear_nn_min_sparse.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                             p, p, p]
         lib.cfear_nn_min_sparse.restype = i
+        for name in ("cfear_nn_min_sparse_multi",
+                     "cfear_nn_min_sparse_unrolled"):
+            getattr(lib, name).argtypes = lib.cfear_nn_min_sparse.argtypes
+            getattr(lib, name).restype = i
+        lib.cfear_nn_min_sparse_attrs.argtypes = [p, p, p, p, p, p, p, i, i,
+                                                  i, i, i, p, p, p, p]
+        lib.cfear_nn_min_sparse_attrs.restype = i
         lib.cfear_lm_solve_fused.argtypes = [p, p, i, i, i, i, f, i, f, i,
                                              p, p]
         lib.cfear_lm_solve_fused.restype = i

@@ -1,15 +1,19 @@
 """Exact 1-NN association: CUDA kernels and their plain PyTorch twins
-(port of `ops/pallas_assoc.py`, kernels A `nn_min` and C `nn_min_sparse`).
+(port of `ops/pallas_assoc.py`: kernels A `nn_min`, C `nn_min_sparse`, D1
+`nn_min_sparse_multi`, D2 `nn_min_sparse_unrolled` and E
+`nn_min_sparse_attrs`).
 
-Every function takes a leading lane axis, so one launch serves a batched
-step: src (B, Msrc, 2), tar (B, S, M, 2), valid (B, S, M) ->
-nn (B, S, Msrc) int32, d2 (B, S, Msrc) float32.
+Every function takes the reference's layout with a leading lane axis, so one
+launch serves a batched step: src (B, Msrc, 2), tar (B, S, M, 2),
+valid (B, S, M) -> nn (B, S, Msrc) int32, d2 (B, S, Msrc) float32.
+D1 and D2 compute C's function (keyframe loop inside the kernel, at runtime
+or unrolled) and share C's twin; E adds the winner's attribute column,
+attrs_t (B, S, D_pad, M) -> g (B, S, D_pad, Msrc).
 
-Dispatch: `nn_min` / `nn_min_sparse` run their plain twin only when the
-tensors lie on the CPU. For CUDA tensors they launch the kernel of
-`csrc/nn_assoc.cu` or raise; there is no fallback. The kernels and the twins
-agree bit for bit (same difference form, no FMA contraction, lowest-index
-argmin on ties).
+Dispatch: each wrapper runs its plain twin only when the tensors lie on the
+CPU. For CUDA tensors it launches its kernel of `csrc/nn_assoc.cu` or
+raises; there is no fallback. The kernels and the twins agree bit for bit
+(same difference form, no FMA contraction, lowest-index argmin on ties).
 
 `launches` counts kernel launches per kernel (CPU calls add nothing);
 `reset_launches()` zeroes it.
@@ -19,11 +23,13 @@ from __future__ import annotations
 
 import torch
 
-TS_SPARSE = 256      # source rows per skip-test granule (kernel C)
-TT_SPARSE = 512      # target rows per skip-test granule (kernel C)
+TS_SPARSE = 256      # source rows per skip-test granule (kernels C, D1, D2, E)
+TT_SPARSE = 512      # target rows per skip-test granule
 _TS = 256            # cell-budget granule of the dense kernel's policy
+UNROLLED_M = (512, 1024, 2048, 3072)   # target budgets kernel D2 is built for
 
-launches = {"nn_min": 0, "nn_min_sparse": 0}
+launches = {"nn_min": 0, "nn_min_sparse": 0, "nn_min_sparse_multi": 0,
+            "nn_min_sparse_unrolled": 0, "nn_min_sparse_attrs": 0}
 
 
 def reset_launches() -> None:
@@ -69,9 +75,10 @@ def nn_min_plain(src, tar, valid):
     return torch.argmin(d2, dim=-1).to(torch.int32), d2.amin(-1)
 
 
-def _pair_live(src_bounds, tar_bounds, radius):
+def pair_live(src_bounds, tar_bounds, radius):
     """(B, S, Msrc/TS, M/TT) bool: the tile pair's bbox gap is within the
-    radius (the kernel's per-block skip test, in the same f32 arithmetic)."""
+    radius (the kernels' per-block skip test, in the same f32 arithmetic).
+    Its mean is the executed share of tile pairs."""
     sb = src_bounds[:, None, :, None, :]                 # (B, 1, ns, 1, 4)
     tb = tar_bounds[:, :, None, :, :]                    # (B, S, 1, nt, 4)
     zero = sb.new_zeros(())
@@ -84,15 +91,29 @@ def _pair_live(src_bounds, tar_bounds, radius):
 
 
 def nn_min_sparse_plain(src, src_bounds, tar, tar_bounds, valid, radius):
-    """Plain twin of kernel C: kernel A restricted to tile pairs that pass
-    the bbox gap test; rows with no unskipped valid target report
+    """Plain twin of kernels C, D1 and D2: kernel A restricted to tile pairs
+    that pass the bbox gap test; rows with no unskipped valid target report
     (+inf, 0). Equal to A on every row whose true 1-NN is within the
     radius; other rows report d2 >= radius^2."""
-    live = _pair_live(src_bounds, tar_bounds, radius)
+    live = pair_live(src_bounds, tar_bounds, radius)
     live = live.repeat_interleave(TS_SPARSE, 2).repeat_interleave(TT_SPARSE, 3)
     d2 = torch.where(live, _d2_dense(src, tar, valid),
                      src.new_full((), float("inf")))
     return torch.argmin(d2, dim=-1).to(torch.int32), d2.amin(-1)
+
+
+def nn_min_sparse_attrs_plain(src, src_bounds, tar, tar_bounds, valid,
+                              attrs_t, radius):
+    """Plain twin of kernel E: C's twin, then the winner's attribute column
+    g[..., :, n] = attrs_t[..., :, nn[n]] wherever d2 is finite, zeros
+    where it is +inf."""
+    nn, d2 = nn_min_sparse_plain(src, src_bounds, tar, tar_bounds, valid,
+                                 radius)
+    idx = nn.to(torch.int64)[:, :, None, :].expand(-1, -1, attrs_t.shape[2],
+                                                   -1)
+    g = torch.gather(attrs_t, 3, idx)
+    return nn, d2, torch.where(torch.isfinite(d2)[:, :, None, :], g,
+                               g.new_zeros(()))
 
 
 def _check(name, **tensors):
@@ -107,6 +128,8 @@ def _check(name, **tensors):
         want = torch.bool if k == "valid" else torch.float32
         if t.dtype != want:
             raise TypeError(f"{name}: {k} must be {want}, got {t.dtype}")
+    if dev.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"{name}: no kernel for device {dev}")
     return dev
 
 
@@ -120,9 +143,41 @@ def _check_shapes(name, src, tar, valid):
                          "do not match (B, Msrc, 2), (B, S, M, 2), (B, S, M)")
 
 
-def _raise_on(name, err: int):
+def _check_sparse(name, src, src_bounds, tar, tar_bounds, valid, radius,
+                  **extra):
+    """The checks kernels C, D1, D2 and E share; returns the device."""
+    dev = _check(name, src=src, src_bounds=src_bounds, tar=tar,
+                 tar_bounds=tar_bounds, valid=valid, radius=radius, **extra)
+    _check_shapes(name, src, tar, valid)
+    b, s, m = valid.shape
+    m_src = src.shape[1]
+    if not supported_sparse(m_src, m):
+        raise ValueError(
+            f"{name}: m_src={m_src} % {TS_SPARSE} and m_tar={m} % "
+            f"{TT_SPARSE} must both be 0")
+    if (src_bounds.shape != (b, m_src // TS_SPARSE, 4)
+            or tar_bounds.shape != (b, s, m // TT_SPARSE, 4)
+            or radius.shape != (b,)):
+        raise ValueError(f"{name}: bounds or radius shape mismatch")
+    return dev
+
+
+def _launch(name, entry, dev, *args):
+    """Call the library's `entry` with `args` and the current stream; raise
+    on a CUDA error, else count one launch of `name`."""
+    from cfear_radarodometry_code_public_tpu_torch.ops import _build
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(_build.library(), entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    launches[name] += 1
+
+
+def _nn_out(valid, m_src, dev):
+    b, s, _ = valid.shape
+    return (torch.empty((b, s, m_src), dtype=torch.int32, device=dev),
+            torch.empty((b, s, m_src), dtype=torch.float32, device=dev))
 
 
 def nn_min(src, tar, valid):
@@ -132,22 +187,24 @@ def nn_min(src, tar, valid):
     _check_shapes("nn_min", src, tar, valid)
     if dev.type == "cpu":
         return nn_min_plain(src, tar, valid)
-    if dev.type != "cuda":
-        raise RuntimeError(f"nn_min: no kernel for device {dev}")
-    from cfear_radarodometry_code_public_tpu_torch.ops import _build
     b, s, m = valid.shape
-    m_src = src.shape[1]
-    nn = torch.empty((b, s, m_src), dtype=torch.int32, device=dev)
-    d2 = torch.empty((b, s, m_src), dtype=torch.float32, device=dev)
-    if nn.numel() == 0:
-        return nn, d2
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _build.library().cfear_nn_min(
-            src.data_ptr(), tar.data_ptr(), valid.data_ptr(), b, s, m_src, m,
-            nn.data_ptr(), d2.data_ptr(), stream)
-    _raise_on("nn_min", err)
-    launches["nn_min"] += 1
+    nn, d2 = _nn_out(valid, src.shape[1], dev)
+    if nn.numel():
+        _launch("nn_min", "cfear_nn_min", dev, src.data_ptr(), tar.data_ptr(),
+                valid.data_ptr(), b, s, src.shape[1], m, nn.data_ptr(),
+                d2.data_ptr())
+    return nn, d2
+
+
+def _sparse(name, entry, src, src_bounds, tar, tar_bounds, valid, radius):
+    """Launch one of C, D1, D2 (same arguments, same outputs)."""
+    b, s, m = valid.shape
+    nn, d2 = _nn_out(valid, src.shape[1], src.device)
+    if nn.numel():
+        _launch(name, entry, src.device, src.data_ptr(), src_bounds.data_ptr(),
+                tar.data_ptr(), tar_bounds.data_ptr(), valid.data_ptr(),
+                radius.data_ptr(), b, s, src.shape[1], m, nn.data_ptr(),
+                d2.data_ptr())
     return nn, d2
 
 
@@ -155,35 +212,66 @@ def nn_min_sparse(src, src_bounds, tar, tar_bounds, valid, radius):
     """Block-sparse exact 1-NN within `radius` (B,) per keyframe (kernel C
     on CUDA, `nn_min_sparse_plain` on the CPU). src_bounds
     (B, Msrc/256, 4), tar_bounds (B, S, M/512, 4) from `tile_bounds`."""
-    dev = _check("nn_min_sparse", src=src, src_bounds=src_bounds, tar=tar,
-                 tar_bounds=tar_bounds, valid=valid, radius=radius)
-    _check_shapes("nn_min_sparse", src, tar, valid)
-    b, s, m = valid.shape
-    m_src = src.shape[1]
-    if not supported_sparse(m_src, m):
-        raise ValueError(
-            f"nn_min_sparse: m_src={m_src} % {TS_SPARSE} and m_tar={m} % "
-            f"{TT_SPARSE} must both be 0")
-    if (src_bounds.shape != (b, m_src // TS_SPARSE, 4)
-            or tar_bounds.shape != (b, s, m // TT_SPARSE, 4)
-            or radius.shape != (b,)):
-        raise ValueError("nn_min_sparse: bounds or radius shape mismatch")
+    args = (src, src_bounds, tar, tar_bounds, valid, radius)
+    if _check_sparse("nn_min_sparse", *args).type == "cpu":
+        return nn_min_sparse_plain(*args)
+    return _sparse("nn_min_sparse", "cfear_nn_min_sparse", *args)
+
+
+def nn_min_sparse_multi(src, src_bounds, tar, tar_bounds, valid, radius):
+    """`nn_min_sparse` with the keyframe loop inside the kernel (kernel D1
+    on CUDA: one block per (lane, 256-row source tile) walks the S
+    keyframes; `nn_min_sparse_plain` on the CPU). Identical outputs."""
+    args = (src, src_bounds, tar, tar_bounds, valid, radius)
+    if _check_sparse("nn_min_sparse_multi", *args).type == "cpu":
+        return nn_min_sparse_plain(*args)
+    return _sparse("nn_min_sparse_multi", "cfear_nn_min_sparse_multi", *args)
+
+
+def nn_min_sparse_unrolled(src, src_bounds, tar, tar_bounds, valid, radius):
+    """`nn_min_sparse` with the loops unrolled at compile time (kernel D2 on
+    CUDA, built for the target budgets `UNROLLED_M`; `nn_min_sparse_plain`
+    on the CPU). Identical outputs. Any other M raises ValueError."""
+    args = (src, src_bounds, tar, tar_bounds, valid, radius)
+    dev = _check_sparse("nn_min_sparse_unrolled", *args)
+    m = valid.shape[2]
+    if m not in UNROLLED_M:
+        raise ValueError(f"nn_min_sparse_unrolled: M={m} is not a target "
+                         f"budget the kernel is built for {UNROLLED_M}")
     if dev.type == "cpu":
-        return nn_min_sparse_plain(src, src_bounds, tar, tar_bounds, valid,
-                                   radius)
-    if dev.type != "cuda":
-        raise RuntimeError(f"nn_min_sparse: no kernel for device {dev}")
-    from cfear_radarodometry_code_public_tpu_torch.ops import _build
-    nn = torch.empty((b, s, m_src), dtype=torch.int32, device=dev)
-    d2 = torch.empty((b, s, m_src), dtype=torch.float32, device=dev)
-    if nn.numel() == 0:
-        return nn, d2
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _build.library().cfear_nn_min_sparse(
-            src.data_ptr(), src_bounds.data_ptr(), tar.data_ptr(),
-            tar_bounds.data_ptr(), valid.data_ptr(), radius.data_ptr(),
-            b, s, m_src, m, nn.data_ptr(), d2.data_ptr(), stream)
-    _raise_on("nn_min_sparse", err)
-    launches["nn_min_sparse"] += 1
-    return nn, d2
+        return nn_min_sparse_plain(*args)
+    return _sparse("nn_min_sparse_unrolled", "cfear_nn_min_sparse_unrolled",
+                   *args)
+
+
+def nn_min_sparse_attrs(src, src_bounds, tar, tar_bounds, valid, attrs_t,
+                        radius):
+    """`nn_min_sparse` plus the winner's attribute column (kernel E on CUDA,
+    `nn_min_sparse_attrs_plain` on the CPU). attrs_t (B, S, D_pad, M) is
+    the transposed world-attribute matrix, D_pad a multiple of 8. Returns
+    (nn, d2, g (B, S, D_pad, Msrc)) with g[..., :, n] = attrs_t[..., :,
+    nn[n]] where d2 is finite and zeros where it is +inf."""
+    dev = _check_sparse("nn_min_sparse_attrs", src, src_bounds, tar,
+                        tar_bounds, valid, radius, attrs_t=attrs_t)
+    b, s, m = valid.shape
+    if attrs_t.dim() != 4 or attrs_t.shape[:2] != (b, s) \
+            or attrs_t.shape[3] != m:
+        raise ValueError(f"nn_min_sparse_attrs: attrs_t must be ({b}, {s}, "
+                         f"D_pad, {m}), got {tuple(attrs_t.shape)}")
+    d_pad = attrs_t.shape[2]
+    if d_pad == 0 or d_pad % 8:
+        raise ValueError(f"nn_min_sparse_attrs: D_pad={d_pad} must be a "
+                         "positive multiple of 8")
+    if dev.type == "cpu":
+        return nn_min_sparse_attrs_plain(src, src_bounds, tar, tar_bounds,
+                                         valid, attrs_t, radius)
+    m_src = src.shape[1]
+    nn, d2 = _nn_out(valid, m_src, dev)
+    g = torch.empty((b, s, d_pad, m_src), dtype=torch.float32, device=dev)
+    if nn.numel():
+        _launch("nn_min_sparse_attrs", "cfear_nn_min_sparse_attrs", dev,
+                src.data_ptr(), src_bounds.data_ptr(), tar.data_ptr(),
+                tar_bounds.data_ptr(), valid.data_ptr(), attrs_t.data_ptr(),
+                radius.data_ptr(), b, s, m_src, m, d_pad, nn.data_ptr(),
+                d2.data_ptr(), g.data_ptr())
+    return nn, d2, g

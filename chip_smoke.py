@@ -5,14 +5,21 @@
 Builds the port's CUDA kernels from `cfear_radarodometry_code_public_tpu_torch/
 csrc/` with nvcc and checks each against its plain PyTorch twin on the card:
 the 1-NN kernels A and C, the fused LM solve F (both variants, three cost /
-loss pairs) and the feature-moment kernel G (on the slice's own frames).
+loss pairs at S=4, and at the s50 widths S=16 and S=50) and the
+feature-moment kernel G (on the slice's own frames).
 Then it drives the CFEAR-3 host-ingest odometry slice at Oxford sensor scale
 (400 x 3768 polar sweeps, k=40, point_budget 8192, max_cells 1024, S=4
 keyframes, Morton-ordered cells, block-sparse association) through the
 port's entry points: single-sequence (`OdometryRunner`), the preset as users
 call it (`auto`: kernel A), batched x8 (`make_batched_step`, two runs that
 must agree bit for bit), and single-sequence with `feature.backend="pallas"`
-(kernel G). Each path is held against a JAX golden
+(kernel G). Then CFEAR-3-s50, the 50-keyframe submap, over 128 frames:
+exact and with the K=16 gate (`s50`, `s50-k16`), batched x8
+(`s50-batched`), and the preset as users call it (`s50-preset`). Last, the
+multi-keyframe kernels D1, D2 and the fused-lookup kernel E run on the
+50-keyframe window the `s50` path ends with, at B=1 and B=8, and are held
+bit for bit against kernel C, the flat gather and their twins
+(`s50-window`). Each path is held against a JAX golden
 (`tools/make_torch_port_golden.py`) or the single run, and must launch the
 kernels it runs (launch counts zeroed just before each path, read just
 after). Exits non-zero, printing no result, when there is no CUDA card or
@@ -38,7 +45,10 @@ from cfear_radarodometry_code_public_tpu_torch._shared import (
 from cfear_radarodometry_code_public_tpu_torch.eval import ate_rmse
 from cfear_radarodometry_code_public_tpu_torch.models import odometry
 from cfear_radarodometry_code_public_tpu_torch.ops import (
-    _build, cuda_assoc, cuda_features, cuda_lm, features, filtering)
+    _build, cuda_assoc, cuda_features, cuda_lm, features, filtering,
+    registration)
+from cfear_radarodometry_code_public_tpu_torch.ops.features import CellMap
+from cfear_radarodometry_code_public_tpu_torch.utils import se2
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 _GOLDEN_DIR = os.path.join(ROOT, "cfear_radarodometry_code_public_tpu_torch",
@@ -47,6 +57,11 @@ GOLDEN = os.path.join(_GOLDEN_DIR, "cfear3_oxford_seed1_64.npz")
 GOLDEN_PALLAS = os.path.join(_GOLDEN_DIR,
                              "cfear3_oxford_seed1_64_pallasfeat.npz")
 SEQUENCE = {"seed": 1, "n_frames": 64, "speed": 6.0}   # as bench.py renders it
+# CFEAR-3-s50: bench.py's default 128 frames; at 6 m/s nearly every frame
+# is a keyframe, so the 50-keyframe window is full for the last ~75 frames
+S50_SEQUENCE = {"seed": 1, "n_frames": 128, "speed": 6.0}
+GOLDEN_S50 = os.path.join(_GOLDEN_DIR, "cfear3s50_oxford_seed1_128.npz")
+GOLDEN_S50_K16 = os.path.join(_GOLDEN_DIR, "cfear3s50k16_oxford_seed1_128.npz")
 BATCH = 8
 # Trajectory tolerances against the JAX-on-CPU golden and between the
 # port's own runs. They differ by f32 ulps (sin/cos, sum order, XLA's FMA
@@ -56,7 +71,12 @@ BATCH = 8
 # dense form and its block-sparse kernel differ by 2.7 cm per pose and
 # 8.6 mm per frame-to-frame motion (JAX on the CPU). The tolerances are
 # about 3x that; a wrong association rule or sign costs 0.1-1 m.
-POS_TOL, YAW_TOL, MOTION_TOL = 0.08, 3e-3, 0.025
+TOL = (0.08, 3e-3, 0.025)   # (position m, yaw rad, motion m)
+# CFEAR-3-s50 against its goldens: on the s50 sequence the reference's
+# dense form and its block-sparse kernel differ by 1.68 cm per pose,
+# 4.1e-4 rad and 1.68 cm per frame-to-frame motion (JAX on the CPU, both the
+# exact window and K16); the limits are about 3x that.
+S50_TOL = (0.05, 1.25e-3, 0.05)
 # Kernel F against its twin: the tolerance of the reference's own
 # kernel-vs-XLA test (tests/test_registration.py:565-567); the two sum in
 # another order, which can move an accept or convergence test by an ulp.
@@ -72,6 +92,10 @@ KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
     "nn_min_sparse": (f"{_PKG}/ops/pallas_assoc.py:263", "nn_assoc.cu"),
     "lm_solve_fused": (f"{_PKG}/ops/pallas_lm.py:339", "lm_fused.cu"),
     "moment_accumulate": (f"{_PKG}/ops/pallas_features.py:135", "moments.cu"),
+    "nn_min_sparse_multi": (f"{_PKG}/ops/pallas_assoc.py:376", "nn_assoc.cu"),
+    "nn_min_sparse_unrolled": (f"{_PKG}/ops/pallas_assoc.py:479",
+                               "nn_assoc.cu"),
+    "nn_min_sparse_attrs": (f"{_PKG}/ops/pallas_assoc.py:591", "nn_assoc.cu"),
 }
 
 
@@ -91,6 +115,20 @@ def slice_config(assoc_method: str = "pallas_sparse", spatial_sort=True,
         feature=feat,
         registration=dataclasses.replace(cfg.registration,
                                          assoc_method=assoc_method))
+
+
+def s50_config(k_active: int = 0):
+    """CFEAR-3-s50 at Oxford scale with the bench settings for that preset
+    (`bench.py:124-143` under `--preset CFEAR-3-s50`): point_budget 8192,
+    max_cells 1024, spatial_sort on, `assoc_method="pallas_sparse"` (kernel
+    C); `k_active=16` is `--max-active-keyframes 16`, the K16 gate."""
+    cfg = port.preset("CFEAR-3-s50", dataset="oxford")
+    return cfg.replace(
+        feature=dataclasses.replace(cfg.feature, point_budget=8192,
+                                    max_cells=1024, spatial_sort=True),
+        registration=dataclasses.replace(
+            cfg.registration, assoc_method="pallas_sparse",
+            max_active_keyframes=k_active))
 
 
 def _say(msg: str) -> None:
@@ -275,44 +313,53 @@ def lm_problem(rng, b, s, m, cost, loss):
     return cfg, packed.astype(f32), pose0.astype(f32), true.astype(f32)
 
 
+def _lm_case(rng, dev, card, s, cost, loss, n=100):
+    """Kernel F, both variants, on `lm_problem(rng, BATCH, s, 1024, cost,
+    loss)` against its plain twin. Returns (|dpose|, early-exit ms, plain
+    ms)."""
+    cfg, packed, pose0, true = lm_problem(rng, BATCH, s, 1024, cost, loss)
+    packed, pose0 = (torch.as_tensor(a).to(dev) for a in (packed, pose0))
+    ee = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=True)
+    masked = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=False)
+    plain = cuda_lm.lm_solve_fused_plain(packed, pose0, cfg)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(ee, masked)):
+        raise AssertionError(f"kernel F {cost}/{loss}: early exit and "
+                             "masked variants differ")
+    dpose = float((ee[0] - plain[0]).abs().max())
+    dcost = float(((ee[1] - plain[1]).abs() / plain[1].abs()).max())
+    if not (np.isfinite(dpose) and dpose <= LM_POSE_TOL
+            and dcost <= LM_COST_RTOL):
+        raise AssertionError(
+            f"kernel F {cost}/{loss} disagrees with its twin: pose "
+            f"{dpose:.3e} (tol {LM_POSE_TOL}), cost rel {dcost:.3e} "
+            f"(tol {LM_COST_RTOL})")
+    off = float((ee[0].cpu() - torch.as_tensor(true)).abs().max())
+    t_ee = _cuda_ms(lambda: cuda_lm.lm_solve_fused(packed, pose0, cfg), n)
+    t_m = _cuda_ms(lambda: cuda_lm.lm_solve_fused(
+        packed, pose0, cfg, early_exit=False), n)
+    t_p = _cuda_ms(lambda: cuda_lm.lm_solve_fused_plain(packed, pose0, cfg),
+                   10)
+    _say(f"kernel F {cost}/{loss}: early exit == masked bit for bit; vs "
+         f"twin |dpose| {dpose:.3e}, cost rel {dcost:.3e}; steps kernel "
+         f"{ee[2].tolist()} twin {plain[2].tolist()}; max |pose - true| "
+         f"{off:.4f}; early exit {t_ee:.4f} ms, masked {t_m:.4f} ms, "
+         f"plain {t_p:.4f} ms at B={BATCH} N={packed.shape[2]} ({card})")
+    return dpose, t_ee, t_p
+
+
 def phase_lm(dev, card):
     """Kernel F, both variants, against its plain twin at the slice's width
-    (B=8 lanes, N = 4 keyframes x 1024 cells)."""
+    (B=8 lanes, N = 4 keyframes x 1024 cells, three cost/loss pairs) and at
+    the s50 widths (P2P/Cauchy, N = 16 and 50 keyframes x 1024 cells: the
+    K16 and the exact window)."""
     rng = np.random.default_rng(1)
-    errs, rows = [], []
-    for cost, loss in LM_CASES:
-        cfg, packed, pose0, true = lm_problem(rng, BATCH, 4, 1024, cost, loss)
-        packed, pose0 = (torch.as_tensor(a).to(dev) for a in (packed, pose0))
-        ee = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=True)
-        masked = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=False)
-        plain = cuda_lm.lm_solve_fused_plain(packed, pose0, cfg)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(ee, masked)):
-            raise AssertionError(f"kernel F {cost}/{loss}: early exit and "
-                                 "masked variants differ")
-        dpose = float((ee[0] - plain[0]).abs().max())
-        dcost = float(((ee[1] - plain[1]).abs() / plain[1].abs()).max())
-        if not (np.isfinite(dpose) and dpose <= LM_POSE_TOL
-                and dcost <= LM_COST_RTOL):
-            raise AssertionError(
-                f"kernel F {cost}/{loss} disagrees with its twin: pose "
-                f"{dpose:.3e} (tol {LM_POSE_TOL}), cost rel {dcost:.3e} "
-                f"(tol {LM_COST_RTOL})")
-        errs.append(dpose)
-        off = float((ee[0].cpu() - torch.as_tensor(true)).abs().max())
-        t_ee = _cuda_ms(lambda: cuda_lm.lm_solve_fused(packed, pose0, cfg), 100)
-        t_m = _cuda_ms(lambda: cuda_lm.lm_solve_fused(
-            packed, pose0, cfg, early_exit=False), 100)
-        t_p = _cuda_ms(lambda: cuda_lm.lm_solve_fused_plain(packed, pose0,
-                                                            cfg), 10)
-        rows.append((t_ee, t_p))
-        _say(f"kernel F {cost}/{loss}: early exit == masked bit for bit; vs "
-             f"twin |dpose| {dpose:.3e}, cost rel {dcost:.3e}; steps kernel "
-             f"{ee[2].tolist()} twin {plain[2].tolist()}; max |pose - true| "
-             f"{off:.4f}; early exit {t_ee:.4f} ms, masked {t_m:.4f} ms, "
-             f"plain {t_p:.4f} ms at B={BATCH} N={packed.shape[2]} ({card})")
-    return {"lm_solve_fused": {"max_abs_err": max(errs), "ms": rows[0][0],
-                               "plain_ms": rows[0][1]}}
+    rows = [_lm_case(rng, dev, card, 4, cost, loss)
+            for cost, loss in LM_CASES]
+    rows += [_lm_case(rng, dev, card, s, "P2P", "Cauchy", n=20)
+             for s in (16, 50)]
+    return {"lm_solve_fused": {"max_abs_err": max(r[0] for r in rows),
+                               "ms": rows[0][1], "plain_ms": rows[0][2]}}
 
 
 def phase_moments(images, dev, card):
@@ -358,7 +405,7 @@ def phase_moments(images, dev, card):
                                   "plain_ms": plain_ms}}
 
 
-def _check_traj(name, got, want, fused, fused_want):
+def _check_traj(name, got, want, fused, fused_want, tol=TOL):
     dpos = float(np.abs(got[:, :2] - want[:, :2]).max())
     dyaw = float(np.abs(got[:, 2] - want[:, 2]).max())
 
@@ -375,9 +422,9 @@ def _check_traj(name, got, want, fused, fused_want):
     if not np.array_equal(fused, fused_want):
         raise AssertionError(f"{name}: keyframe decisions differ at frames "
                              f"{np.flatnonzero(fused != fused_want).tolist()}")
-    if dpos > POS_TOL or dyaw > YAW_TOL or dmot > MOTION_TOL:
+    if dpos > tol[0] or dyaw > tol[1] or dmot > tol[2]:
         raise AssertionError(f"{name}: trajectory outside tolerance "
-                             f"({POS_TOL} m, {YAW_TOL} rad, {MOTION_TOL} m)")
+                             f"({tol[0]} m, {tol[1]} rad, {tol[2]} m)")
     return dpos
 
 
@@ -401,8 +448,36 @@ def _run_single(cfg, images, dev):
     return runner, secs
 
 
-def phase_single(cfg, images, gt, dev, card, golden, name="single"):
-    """One sequence through OdometryRunner, held against a JAX golden."""
+def _accuracy(name, traj, out, gt, g_ate=None):
+    """Print a run's ATE, drift over 50 m and counts; returns the ATE."""
+    ate = ate_rmse(traj[:, :2], gt[:, :2])
+    drift = kitti.kitti_drift(traj, gt, step_size=5, lengths=(50.0,))
+    golden = "" if g_ate is None else f" (golden {g_ate:.4f} m)"
+    _say(f"{name}: ATE {ate:.4f} m{golden}, drift "
+         f"{drift['t_err_percent']:.3f}% over 50 m, keyframes "
+         f"{int(out.fused.sum())}, mean cells {out.num_cells.mean():.1f}, "
+         f"mean assoc {out.num_assoc[1:].mean():.1f}")
+    return ate
+
+
+def _report(name, traj, out, gt, secs, card, g_ate):
+    """Print a path's frames/s, ATE, drift and counts; fail when its ATE is
+    more than 5 cm worse than the golden's `g_ate`."""
+    n = traj.shape[0]
+    _say(f"{name}: {n} frames, first pass {n / secs[0]:.2f} "
+         f"frames/s (warm-up included), second pass {n / secs[1]:.2f} "
+         f"frames/s, host filter included ({card})")
+    ate = _accuracy(name, traj, out, gt, g_ate)
+    if ate > g_ate + 0.05:
+        raise AssertionError(f"{name}: ATE {ate} m worse than the golden's "
+                             f"{g_ate} m")
+
+
+def phase_single(cfg, images, gt, dev, card, golden, name="single",
+                 tol=TOL, full_window=False):
+    """One sequence through OdometryRunner, held against a JAX golden.
+    With `full_window`, the run must end with every keyframe slot valid.
+    Returns (trajectory, frame outputs, final state)."""
     n = images.shape[0]
     runner, secs = _run_single(cfg, images, dev)
     traj, out = runner.trajectory(), runner.frame_outputs()
@@ -414,20 +489,15 @@ def phase_single(cfg, images, gt, dev, card, golden, name="single"):
         raise AssertionError("trajectory not finite or of the wrong shape")
     if not out.success.all():
         raise AssertionError(f"failed frames {np.flatnonzero(~out.success)}")
-    _check_traj(f"{name} vs JAX golden", traj, g_traj, out.fused, g_fused)
-    ate = ate_rmse(traj[:, :2], gt[:, :2])
-    drift = kitti.kitti_drift(traj, gt, step_size=5, lengths=(50.0,))
-    _say(f"{name}: {n} frames, first pass {n / secs[0]:.2f} "
-         f"frames/s (warm-up included), second pass {n / secs[1]:.2f} "
-         f"frames/s, host filter included ({card})")
-    _say(f"{name}: ATE {ate:.4f} m (golden {g_ate:.4f} m), drift "
-         f"{drift['t_err_percent']:.3f}% over 50 m, keyframes "
-         f"{int(out.fused.sum())}, mean cells {out.num_cells.mean():.1f}, "
-         f"mean assoc {out.num_assoc[1:].mean():.1f}")
-    if ate > g_ate + 0.05:
-        raise AssertionError(f"{name}: ATE {ate} m worse than the golden's "
-                             f"{g_ate} m")
-    return traj, out
+    _check_traj(f"{name} vs JAX golden", traj, g_traj, out.fused, g_fused,
+                tol)
+    _report(name, traj, out, gt, secs, card, g_ate)
+    n_kf = int(runner.state.kf_valid.sum())
+    _say(f"{name}: {n_kf} of {cfg.odometry.submap_scan_size} keyframe slots "
+         "valid at the end")
+    if full_window and n_kf != cfg.odometry.submap_scan_size:
+        raise AssertionError(f"{name}: the keyframe window is not full")
+    return traj, out, runner.state
 
 
 def phase_auto(images, traj, out, dev, card):
@@ -444,7 +514,8 @@ def phase_auto(images, traj, out, dev, card):
     _say(f"auto (kernel A): {n / secs[1]:.2f} frames/s ({card})")
 
 
-def phase_batched(cfg, images, traj, out, dev, card, batch=BATCH):
+def phase_batched(cfg, images, gt, traj, out, dev, card, batch=BATCH,
+                  tol=TOL):
     """make_batched_step over `batch` lanes fed the same frames, twice;
     every lane held against the single-sequence run."""
     n = images.shape[0]
@@ -480,7 +551,7 @@ def phase_batched(cfg, images, traj, out, dev, card, batch=BATCH):
                 raise AssertionError(f"batched lane {i} has failed frames")
             dev_lane.append(_check_traj(f"batched lane {i} vs single",
                                         trajs[-1][i], traj, res.fused[i],
-                                        out.fused))
+                                        out.fused, tol))
         _say(f"batched run {rep + 1}: largest |dpos| of each lane from the "
              f"single run (m): {[f'{d:.6f}' for d in dev_lane]}")
     bitwise = all(np.array_equal(a, b) for a, b in zip(*trajs))
@@ -488,9 +559,161 @@ def phase_batched(cfg, images, traj, out, dev, card, batch=BATCH):
          f"{batch * n / secs[1]:.2f} frames/s per card over two runs "
          f"(inputs pre-staged on the card; {card}); trajectories "
          f"bit-identical across the two runs: {bitwise}")
+    _accuracy(f"batched x{batch} lane 0", trajs[-1][0],
+              odometry.FrameOutput(*(a[0] for a in res)), gt)
     if not bitwise:
         raise AssertionError("two batched runs of the same frames gave "
                              "different trajectories")
+
+
+def phase_s50_preset(images, gt, dev, card):
+    """CFEAR-3-s50 as users call it (max_cells 3072, no point budget:
+    candidates ingest; `auto`, which resolves to kernel C on a card) over
+    the s50 sequence: every frame must succeed, and the ATE must be within
+    5 cm of the exact golden's (it has no golden of its own)."""
+    cfg = port.preset("CFEAR-3-s50", dataset="oxford")
+    m = cfg.feature.max_cells
+    method = registration.resolve_assoc_method(
+        cfg, m, m, cfg.odometry.submap_scan_size, dev)
+    if method != "pallas_sparse":
+        raise AssertionError(f"s50-preset: auto resolved to {method}")
+    runner, secs = _run_single(cfg, images, dev)
+    if runner.kind != "candidates":
+        raise AssertionError("s50-preset: expected the candidates ingest")
+    traj, out = runner.trajectory(), runner.frame_outputs()
+    if not np.isfinite(traj).all() or not out.success.all():
+        raise AssertionError("s50-preset: failed or non-finite frames "
+                             f"{np.flatnonzero(~out.success)}")
+    with np.load(GOLDEN_S50) as z:
+        g_ate = float(z["ate"])
+    _report(f"s50-preset (max_cells {m}, auto -> kernel C)", traj, out, gt,
+            secs, card, g_ate)
+
+
+def _lanes(a, b):
+    """(1, ...) -> (b, ...): one lane broadcast over b, contiguous."""
+    return a.expand((b,) + a.shape[1:]).contiguous()
+
+
+def window_inputs(state, cfg, dev):
+    """The real 50-keyframe window that the s50 path ends with, built as the
+    reference's TPU probe builds it (`tools/profile_s50.py:72-117`): the
+    source is the newest keyframe's cells in the world frame at its pose;
+    the targets are the window's `_world_attrs`; bounds by `tile_bounds`;
+    the radius is `assoc_radius`. Returns {B: (args, attrs_t, attrs)} for
+    B = 1 and the window broadcast over B = 8 lanes, where args = (src,
+    src_bounds, tar, tar_bounds, valid, radius) and attrs_t (B, S, D_pad,
+    M) is attrs (B, S, M, D) transposed and zero-padded."""
+    kf = CellMap(*(a[None] for a in state.kf_cells))
+    kf_poses, kf_valid = state.kf_poses[None], state.kf_valid[None]
+    attrs = registration._world_attrs(kf, kf_poses, cfg)     # (1, S, M, D)
+    src_w = se2.transform(kf_poses[:, -1], kf.mean[:, -1])
+    _, s, m, d = attrs.shape
+    d_pad = 8 if d <= 8 else 16
+    attrs_t = attrs.new_zeros((1, s, d_pad, m))
+    attrs_t[:, :, :d] = attrs.transpose(-1, -2)
+    tar_valid = (attrs[..., 6] > 0.5) & kf_valid[..., None]
+    r = cfg.registration.assoc_radius
+    _say(f"s50 window: S={s}, valid keyframes {int(kf_valid.sum())}, mean "
+         f"valid cells {float(kf.valid.float().sum(-1).mean()):.1f}, M={m}, "
+         f"D={d} (D_pad {d_pad}), radius {r} m")
+    win = {}
+    for b in (1, BATCH):
+        src, tar, valid = (_lanes(a, b) for a in (src_w, attrs[..., 0:2],
+                                                  tar_valid))
+        sb = cuda_assoc.tile_bounds(src, _lanes(kf.valid[:, -1], b),
+                                    cuda_assoc.TS_SPARSE).contiguous()
+        tb = cuda_assoc.tile_bounds(tar, valid,
+                                    cuda_assoc.TT_SPARSE).contiguous()
+        radius = torch.full((b,), r, device=dev)
+        win[b] = ((src, sb, tar, tb, valid, radius), _lanes(attrs_t, b),
+                  _lanes(attrs, b))
+    return win
+
+
+def _window_calls(args, at):
+    """name -> a call of one association kernel on the window."""
+    return {
+        "nn_min_sparse": lambda: cuda_assoc.nn_min_sparse(*args),
+        "nn_min_sparse_multi": lambda: cuda_assoc.nn_min_sparse_multi(*args),
+        "nn_min_sparse_unrolled":
+            lambda: cuda_assoc.nn_min_sparse_unrolled(*args),
+        "nn_min_sparse_attrs":
+            lambda: cuda_assoc.nn_min_sparse_attrs(*args[:5], at, args[5])}
+
+
+def drive_window(win):
+    """Kernels C, D1, D2 and E once each on the window at every lane count,
+    as the reference's probe drives them; returns their outputs by B."""
+    outs = {b: {k: f() for k, f in _window_calls(args, at).items()}
+            for b, (args, at, _) in win.items()}
+    torch.cuda.synchronize()
+    return outs
+
+
+def _max_err(a, b) -> float:
+    """Largest |a - b| where both are finite (0.0 where none is)."""
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
+
+
+def phase_window(win, outs, r, card):
+    """The window's outputs (`drive_window`) checked: at every lane count
+    D1 and D2 equal C and their twin bit for bit, E's (nn, d2) equal C's
+    and its g equals the flat gather (`_gather_attrs`) on every row within
+    the radius and is zero on +inf rows and in the padding. Times by CUDA
+    events: C, D1, D2, E, the gather, C + gather, and the twins. Returns
+    the records of D1, D2 and E at B=8."""
+    res = {}
+    for b, (args, at, att) in win.items():
+        o = outs[b]
+        nn_c, d2_c = o["nn_min_sparse"]
+        nn_p, d2_p = cuda_assoc.nn_min_sparse_plain(*args)
+        _, _, g_p = cuda_assoc.nn_min_sparse_attrs_plain(*args[:5], at, args[5])
+        gathered = registration._gather_attrs(att, nn_c)
+        torch.cuda.synchronize()
+        if not (torch.equal(nn_c, nn_p) and torch.equal(d2_c, d2_p)):
+            raise AssertionError(f"B={b}: kernel C differs from its twin")
+        for name, (nn, d2, *_) in o.items():
+            if not (torch.equal(nn, nn_c) and torch.equal(d2, d2_c)):
+                raise AssertionError(f"B={b}: {name} (nn, d2) differ from "
+                                     "kernel C's")
+        g_e = o["nn_min_sparse_attrs"][2]
+        if not torch.equal(g_e, g_p):
+            raise AssertionError(f"B={b}: kernel E's g differs from its twin")
+        d = att.shape[-1]
+        within, inf = d2_c <= r * r, torch.isinf(d2_c)
+        g_rows = g_e.transpose(-1, -2)                     # (B, S, Msrc, D_pad)
+        if not torch.equal(g_rows[..., :d][within], gathered[within]):
+            raise AssertionError(f"B={b}: kernel E's g differs from the flat "
+                                 "gather within the radius")
+        if (g_rows[inf] != 0).any() or (g_rows[..., d:] != 0).any():
+            raise AssertionError(f"B={b}: kernel E's g is not zero on +inf "
+                                 "rows or padding")
+        live = float(cuda_assoc.pair_live(args[1], args[3], args[5])
+                     .float().mean())
+        t = {k: _cuda_ms(f, 50) for k, f in _window_calls(args, at).items()}
+        t["gather"] = _cuda_ms(lambda: registration._gather_attrs(att, nn_c),
+                               50)
+        t["C + gather"] = _cuda_ms(lambda: registration._gather_attrs(
+            att, cuda_assoc.nn_min_sparse(*args)[0]), 50)
+        t["plain"] = _cuda_ms(lambda: cuda_assoc.nn_min_sparse_plain(*args), 5)
+        t["plain E"] = _cuda_ms(lambda: cuda_assoc.nn_min_sparse_attrs_plain(
+            *args[:5], at, args[5]), 5)
+        _say(f"s50 window B={b}: executed tile pairs {live:.4f}, rows within "
+             f"the radius {float(within.float().mean()):.4f}, +inf rows "
+             f"{float(inf.float().mean()):.4f}; D1, D2 == C == twin bit for "
+             f"bit, E (nn, d2) == C, E g == gather within r, 0 on +inf rows")
+        _say(f"s50 window B={b} (ms, CUDA events; {card}): "
+             + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
+        err = {k: _max_err(v[1], d2_p) for k, v in o.items()}
+        err["nn_min_sparse_attrs"] = max(err["nn_min_sparse_attrs"],
+                                         _max_err(g_e, g_p))
+        res = {k: {"max_abs_err": err[k], "ms": t[k],
+                   "plain_ms": t["plain E" if k.endswith("attrs") else "plain"]}
+               for k in ("nn_min_sparse_multi", "nn_min_sparse_unrolled",
+                         "nn_min_sparse_attrs")}
+    return res
 
 
 def _reset_launches() -> None:
@@ -535,17 +758,46 @@ def main() -> int:
                 raise AssertionError(f"the {name} path never launched {k}")
         return result
 
-    traj, out = drive("single", ("nn_min_sparse", "lm_solve_fused"),
-                      lambda: phase_single(cfg, images, gt, dev, card, GOLDEN))
+    traj, out, _ = drive(
+        "single", ("nn_min_sparse", "lm_solve_fused"),
+        lambda: phase_single(cfg, images, gt, dev, card, GOLDEN))
     drive("auto", ("nn_min", "lm_solve_fused"),
           lambda: phase_auto(images, traj, out, dev, card))
     drive("batched", ("nn_min_sparse", "lm_solve_fused"),
-          lambda: phase_batched(cfg, images, traj, out, dev, card))
+          lambda: phase_batched(cfg, images, gt, traj, out, dev, card))
     drive("pallas-features",
           ("moment_accumulate", "nn_min_sparse", "lm_solve_fused"),
           lambda: phase_single(slice_config(feature_backend="pallas"), images,
                                gt, dev, card, GOLDEN_PALLAS,
                                "pallas-features"))
+
+    s50 = s50_config()
+    t0 = time.perf_counter()
+    images50, gt50 = synthetic.make_sequence(cfg=s50, **S50_SEQUENCE)
+    _say(f"rendered {images50.shape} in {time.perf_counter() - t0:.1f} s")
+    traj50, out50, state50 = drive(
+        "s50", ("nn_min_sparse", "lm_solve_fused"),
+        lambda: phase_single(s50, images50, gt50, dev, card, GOLDEN_S50,
+                             "s50", S50_TOL, full_window=True))
+    drive("s50-k16", ("nn_min_sparse", "lm_solve_fused"),
+          lambda: phase_single(s50_config(16), images50, gt50, dev, card,
+                               GOLDEN_S50_K16, "s50-k16", S50_TOL,
+                               full_window=True))
+    drive("s50-batched", ("nn_min_sparse", "lm_solve_fused"),
+          lambda: phase_batched(s50, images50, gt50, traj50, out50, dev, card,
+                                tol=S50_TOL))
+    drive("s50-preset", ("nn_min_sparse", "lm_solve_fused"),
+          lambda: phase_s50_preset(images50, gt50, dev, card))
+    # D1, D2 and E on the window the s50 path ends with: the counted run is
+    # one call of each; the checks against C and the twins, and the
+    # timings, come after the counts are read
+    win = window_inputs(state50, s50, dev)
+    outs = drive("s50-window", ("nn_min_sparse", "nn_min_sparse_multi",
+                                "nn_min_sparse_unrolled",
+                                "nn_min_sparse_attrs"),
+                 lambda: drive_window(win))
+    kernels.update(phase_window(win, outs, s50.registration.assoc_radius,
+                                card))
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     _say(f"kernel launches in the main-path runs: {launches}")
 

@@ -1,13 +1,17 @@
-"""Association kernels A (`nn_min`) and C (`nn_min_sparse`): the port's
-plain twins against the reference's Pallas kernels in interpret mode, on the
-cases of tests/test_registration.py plus a tie case. The CUDA kernels
-against the twins: tests/test_torch_cuda.py.
+"""Association kernels A (`nn_min`), C (`nn_min_sparse`), D1
+(`nn_min_sparse_multi`), D2 (`nn_min_sparse_unrolled`) and E
+(`nn_min_sparse_attrs`): the port's plain twins against the reference's
+Pallas kernels in interpret mode, on the cases of tests/test_registration.py
+plus a tie case, with a lane axis. The CUDA kernels against the twins:
+tests/test_torch_cuda.py.
 
 Tolerance: nearest-neighbour indices are compared exactly. d2 is compared
 bit for bit with the unfused f32 arithmetic (each of -, *, + rounded, the
 TPU kernel's and the CUDA kernel's form), and to within 1 ulp of the
 interpret-mode result: XLA's CPU backend contracts dx*dx + dy*dy into
 fma(dx, dx, dy*dy), one rounding fewer."""
+
+import math
 
 import numpy as np
 import pytest
@@ -142,4 +146,157 @@ def test_wrappers_check_their_inputs():
 def test_cpu_calls_count_no_launches():
     ca.reset_launches()
     ca.nn_min(*_t(*_dense_case()))
-    assert ca.launches == {"nn_min": 0, "nn_min_sparse": 0}
+    src, tar, valid = _sparse_case(s=3)
+    lanes = _lanes([(src, tar, valid)], 4.0)
+    ca.nn_min_sparse(*lanes)
+    ca.nn_min_sparse_multi(*lanes)
+    ca.nn_min_sparse_unrolled(*lanes)
+    ca.nn_min_sparse_attrs(*lanes[:5], torch.zeros(1, 3, 8, 1024), lanes[5])
+    assert set(ca.launches) == {"nn_min", "nn_min_sparse",
+                                "nn_min_sparse_multi",
+                                "nn_min_sparse_unrolled",
+                                "nn_min_sparse_attrs"}
+    assert not any(ca.launches.values())
+
+
+def _lanes(cases, radius):
+    """Per-lane (src, tar, valid) numpy cases -> the sparse kernels'
+    arguments with a lane axis: src, src_bounds, tar, tar_bounds, valid,
+    radius (B,)."""
+    src, tar, valid = (torch.as_tensor(np.stack(a)) for a in zip(*cases))
+    sb = ca.tile_bounds(src, torch.ones(src.shape[:2], dtype=torch.bool),
+                        ca.TS_SPARSE)
+    tb = ca.tile_bounds(tar, valid, ca.TT_SPARSE)
+    return src, sb, tar, tb, valid, torch.full((len(cases),), radius)
+
+
+def _ref_sparse(fn, case, radius, *extra):
+    """A reference block-sparse kernel on one lane, in interpret mode."""
+    src, tar, valid = map(jnp.asarray, case)
+    sb = pa.tile_bounds(src, jnp.ones(src.shape[0], bool), 256)
+    tb = pa.tile_bounds(tar, valid, pa._TT_SPARSE)
+    extra = [jnp.asarray(a) for a in extra]
+    return [np.asarray(a) for a in fn(src, sb, tar, tb, valid, *extra, radius,
+                                      interpret=True, ts=256)]
+
+
+@pytest.mark.parametrize("name,seed", [("multi", 9), ("unrolled", 13)])
+def test_multi_keyframe_twins_match_pallas(name, seed):
+    """D1 and D2 (tests/test_registration.py:608-658: S=6, M=1024,
+    Msrc=512, radius 5) over B=2 lanes: an empty keyframe in each lane and
+    an exact tie across target tiles. nn equal to the reference kernel;
+    d2 within 1 ulp; both equal to C's twin."""
+    radius = 5.0
+    cases = [_sparse_case(seed=seed + i, s=6) for i in range(2)]
+    port_fn = getattr(ca, f"nn_min_sparse_{name}")
+    ref_fn = getattr(pa, f"nn_min_sparse_{name}")
+    args = _lanes(cases, radius)
+    nn_t, d2_t = port_fn(*args)
+    nn_c, d2_c = ca.nn_min_sparse(*args)
+    assert torch.equal(nn_t, nn_c) and torch.equal(d2_t, d2_c)
+    for i, (src, tar, valid) in enumerate(cases):
+        nn_r, d2_r = _ref_sparse(ref_fn, cases[i], radius)
+        np.testing.assert_array_equal(nn_t[i].numpy(), nn_r)
+        _assert_d2(d2_t[i].numpy(), d2_r, nn_r, src, tar)
+        assert np.isinf(d2_t[i, 2].numpy()).all()          # empty keyframe
+        assert nn_t[i, 0, 200] == 300                       # the tie
+
+
+def _attrs_case(rng, s, m, d, d_pad):
+    """Random attribute rows (S, M, D) with zero entries (a zero column and
+    scattered zeros) and their transposed, padded (S, D_pad, M) form."""
+    attrs = rng.normal(size=(s, m, d)).astype(np.float32)
+    attrs[..., 3] = 0.0
+    attrs[rng.random((s, m, d)) < 0.1] = 0.0
+    at = np.zeros((s, d_pad, m), np.float32)
+    at[:, :d] = np.swapaxes(attrs, -1, -2)
+    return attrs, at
+
+
+def test_attrs_twin_matches_pallas():
+    """E (tests/test_registration.py:570-605: S=4, M=1024, Msrc=512, radius
+    5, D=7, D_pad 8) over B=2 lanes with an empty keyframe, a tie and
+    attribute rows that carry zeros: (nn, d2) as C's twin and the reference
+    kernel (d2 within 1 ulp); g bit-equal to the reference's within the
+    radius, and zero on +inf rows."""
+    radius, s, d, d_pad = 5.0, 4, 7, 8
+    rng = np.random.default_rng(5)
+    cases = [_sparse_case(seed=5 + i, s=s) for i in range(2)]
+    ats = [_attrs_case(rng, s, 1024, d, d_pad) for _ in cases]
+    args = _lanes(cases, radius)
+    at_t = torch.as_tensor(np.stack([a[1] for a in ats]))
+    nn_t, d2_t, g_t = ca.nn_min_sparse_attrs(*args[:5], at_t, args[5])
+    nn_c, d2_c = ca.nn_min_sparse(*args)
+    assert torch.equal(nn_t, nn_c) and torch.equal(d2_t, d2_c)
+    assert g_t.shape == (2, s, d_pad, 512)
+    for i, (src, tar, valid) in enumerate(cases):
+        nn_r, d2_r, g_r = _ref_sparse(pa.nn_min_sparse_attrs, cases[i],
+                                      radius, ats[i][1])
+        np.testing.assert_array_equal(nn_t[i].numpy(), nn_r)
+        _assert_d2(d2_t[i].numpy(), d2_r, nn_r, src, tar)
+        g = np.swapaxes(g_t[i].numpy(), -1, -2)            # (S, Msrc, D_pad)
+        within = d2_t[i].numpy() <= radius * radius
+        assert within.any() and (g[within] == 0).any()
+        np.testing.assert_array_equal(g[within],
+                                      np.swapaxes(g_r, -1, -2)[within])
+        np.testing.assert_array_equal(
+            g[within][:, :d],
+            np.take_along_axis(ats[i][0], nn_r[..., None], axis=1)[within])
+        inf = np.isinf(d2_t[i].numpy())
+        assert inf.any() and (g[inf] == 0).all()
+
+
+def test_unrolled_rejects_other_budgets():
+    src, tar, valid = _sparse_case(s=3)
+    tar = np.concatenate([tar, tar[:, :512]], 1)            # M = 1536
+    valid = np.concatenate([valid, valid[:, :512]], 1)
+    args = _lanes([(src, tar, valid)], 4.0)
+    assert ca.supported_sparse(512, 1536)
+    ca.nn_min_sparse_multi(*args)                           # D1 takes any M
+    with pytest.raises(ValueError, match="512, 1024, 2048, 3072"):
+        ca.nn_min_sparse_unrolled(*args)
+    with pytest.raises(ValueError, match="D_pad"):
+        ca.nn_min_sparse_attrs(*args[:5], torch.zeros(1, 3, 7, 1536), args[5])
+
+
+@pytest.mark.parametrize("cost", ["P2P", "P2D"])
+def test_attrs_twin_matches_gather_inside_gate(cost):
+    """E's twin gives the rows `_associate_world` gathers with
+    `_gather_attrs`, on every association its gate accepts, for the
+    world attributes of real cells (D=7 -> D_pad 8 for P2P, D=10 -> 16 for
+    P2D)."""
+    from test_torch_registration import _lane, _problem
+    from torch_port_helpers import both_cfgs
+    from cfear_radarodometry_code_public_tpu_torch.ops import registration as treg
+    from cfear_radarodometry_code_public_tpu_torch.utils import se2
+    cfg, kf_cells, kf_poses, src, guess = _problem(cost, "pallas_sparse",
+                                                   n_kf=4)
+    cfg_t = both_cfgs(cfg)[1]
+    kf_t, src_t = _lane(kf_cells), _lane(src)
+    poses = torch.as_tensor(kf_poses)[None]
+    kf_valid = torch.tensor([[True, True, False, True]])
+    pose = torch.as_tensor(guess)[None]
+    radius = torch.tensor([2.0 * cfg.registration.assoc_radius])
+    attrs = treg._world_attrs(kf_t, poses, cfg_t)
+    assoc, _ = treg._associate_world(
+        attrs, src_t, pose, kf_valid, radius, cfg_t,
+        math.cos(math.radians(cfg.registration.angle_outlier_deg)),
+        "pallas_sparse")
+    b, s, m, d = attrs.shape
+    d_pad = 8 if d <= 8 else 16
+    assert d == (10 if cost == "P2D" else 7)
+    at = torch.zeros(b, s, d_pad, m)
+    at[:, :, :d] = attrs.transpose(-1, -2)
+    src_w = se2.transform(pose, src_t.mean).contiguous()
+    tar_xy = attrs[..., 0:2].contiguous()
+    tar_valid = (attrs[..., 6] > 0.5) & kf_valid[..., None]
+    nn, d2, g = ca.nn_min_sparse_attrs(
+        src_w, ca.tile_bounds(src_w, src_t.valid, ca.TS_SPARSE).contiguous(),
+        tar_xy, ca.tile_bounds(tar_xy, tar_valid, ca.TT_SPARSE).contiguous(),
+        tar_valid, at, radius)
+    assert torch.equal(nn, assoc.tar_idx)
+    ok = assoc.valid
+    assert ok.sum() > 100
+    gathered = treg._gather_attrs(attrs, nn)
+    assert torch.equal(g.transpose(-1, -2)[..., :d][ok], gathered[ok])
+    assert (g.transpose(-1, -2)[..., d:] == 0).all()

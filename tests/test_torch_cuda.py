@@ -59,7 +59,7 @@ def test_kernel_a_bit_equal_to_plain(dev):
     assert torch.equal(nn_k, nn_p) and torch.equal(d2_k, d2_p)
     assert nn_k[0, 0, 9].item() == 300
     assert torch.isinf(d2_k[:, -1]).all() and (nn_k[:, -1] == 0).all()
-    assert ca.launches == {"nn_min": 1, "nn_min_sparse": 0}
+    assert {k: v for k, v in ca.launches.items() if v} == {"nn_min": 1}
 
 
 @pytest.mark.parametrize("radius", [2.0, 4.0])
@@ -77,7 +77,98 @@ def test_kernel_c_bit_equal_to_plain(dev, radius):
     within = d2_a <= radius * radius
     assert torch.equal(nn_k[within], nn_a[within])
     assert (d2_k[~within] >= radius * radius).all()
-    assert ca.launches == {"nn_min": 0, "nn_min_sparse": 1}
+    assert {k: v for k, v in ca.launches.items() if v} == {"nn_min_sparse": 1}
+
+
+def _window(dev, b, s, m=1024, d_pad=8, seed=3):
+    """Sparse-kernel arguments for an S-keyframe window on `dev`: lane
+    b-1's last keyframe is empty, lane 0 has a tie across target tiles;
+    attrs_t (B, S, D_pad, M) with zero entries. Returns (args, attrs_t),
+    args = (src, src_bounds, tar, tar_bounds, valid, radius)."""
+    rng = np.random.default_rng(seed)
+    src = (rng.normal(size=(b, m, 2)) * 50).astype(np.float32)
+    src = np.take_along_axis(src, np.argsort(src[..., :1], 1, kind="stable"), 1)
+    shift = rng.normal(size=(1, s, 1, 2)) * np.arange(s)[None, :, None, None]
+    tar = (src[:, None] + shift + rng.normal(size=(b, s, m, 2))).astype(np.float32)
+    valid = rng.random((b, s, m)) < 0.9
+    valid[b - 1, s - 1] = False
+    tar[0, 0, 700] = tar[0, 0, 300]
+    valid[0, 0, [300, 700]] = True
+    src[0, 9] = tar[0, 0, 300]
+    attrs_t = rng.normal(size=(b, s, d_pad, m)).astype(np.float32)
+    attrs_t[rng.random(attrs_t.shape) < 0.1] = 0.0
+    src, tar, valid, attrs_t = (torch.as_tensor(a).to(dev)
+                                for a in (src, tar, valid, attrs_t))
+    sb = ca.tile_bounds(src, torch.ones_like(valid[:, 0]), ca.TS_SPARSE)
+    tb = ca.tile_bounds(tar, valid, ca.TT_SPARSE)
+    radius = torch.full((b,), 3.0, device=dev)
+    return (src, sb, tar, tb, valid, radius), attrs_t
+
+
+@pytest.mark.parametrize("s", [1, 4, 50])
+def test_kernels_d1_d2_e_bit_equal_to_c_and_twins(dev, s):
+    """D1, D2 and E give kernel C's (nn, d2) bit for bit, and their twins'
+    results, over B=3 lanes with an empty keyframe; E's g is the twin's."""
+    args, attrs_t = _window(dev, 3, s)
+    ca.reset_launches()
+    nn_c, d2_c = ca.nn_min_sparse(*args)
+    outs = {"multi": ca.nn_min_sparse_multi(*args),
+            "unrolled": ca.nn_min_sparse_unrolled(*args)}
+    nn_e, d2_e, g_e = ca.nn_min_sparse_attrs(*args[:5], attrs_t, args[5])
+    nn_p, d2_p = ca.nn_min_sparse_plain(*args)
+    _, _, g_p = ca.nn_min_sparse_attrs_plain(*args[:5], attrs_t, args[5])
+    torch.cuda.synchronize()
+    assert torch.equal(nn_c, nn_p) and torch.equal(d2_c, d2_p)
+    for name, (nn, d2) in {**outs, "attrs": (nn_e, d2_e)}.items():
+        assert torch.equal(nn, nn_c) and torch.equal(d2, d2_c), name
+    assert torch.equal(g_e, g_p)
+    assert torch.isinf(d2_c[2, s - 1]).all() and (nn_c[2, s - 1] == 0).all()
+    assert (g_e[2, s - 1] == 0).all()
+    assert nn_c[0, 0, 9].item() == 300
+    assert set(ca.launches.values()) == {0, 1} and ca.launches["nn_min"] == 0
+
+
+@pytest.mark.parametrize("d_pad", [8, 16])
+def test_kernel_e_takes_both_paddings(dev, d_pad):
+    args, attrs_t = _window(dev, 2, 6, m=2048, d_pad=d_pad)
+    nn, d2, g = ca.nn_min_sparse_attrs(*args[:5], attrs_t, args[5])
+    want = ca.nn_min_sparse_attrs_plain(*args[:5], attrs_t, args[5])
+    torch.cuda.synchronize()
+    assert g.shape == (2, 6, d_pad, 2048)
+    for a, b in zip((nn, d2, g), want):
+        assert torch.equal(a, b)
+    fin = torch.isfinite(d2)
+    assert fin.any() and (~fin).any()
+
+
+def test_kernel_d2_rejects_other_budgets(dev):
+    args, _ = _window(dev, 1, 2, m=1536)
+    nn, _ = ca.nn_min_sparse_multi(*args)                  # D1 takes any M
+    assert nn.shape == (1, 2, 1536)
+    ca.reset_launches()
+    with pytest.raises(ValueError, match="512, 1024, 2048, 3072"):
+        ca.nn_min_sparse_unrolled(*args)
+    assert ca.launches["nn_min_sparse_unrolled"] == 0
+
+
+def test_failed_launch_raises(dev, monkeypatch):
+    """A launch the runtime refuses (the entry returns a CUDA error) raises
+    and counts nothing; the wrapper never falls back to its twin."""
+    from cfear_radarodometry_code_public_tpu_torch.ops import _build
+
+    class Refusing:
+        def __getattr__(self, name):
+            return lambda *args: 1                  # cudaErrorInvalidValue
+
+    args, attrs_t = _window(dev, 1, 2)
+    monkeypatch.setattr(_build, "library", lambda: Refusing())
+    ca.reset_launches()
+    for fn, extra in ((ca.nn_min_sparse, ()), (ca.nn_min_sparse_multi, ()),
+                      (ca.nn_min_sparse_unrolled, ()),
+                      (ca.nn_min_sparse_attrs, (attrs_t,))):
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            fn(*args[:5], *extra, args[5])
+    assert not any(ca.launches.values())
 
 
 def test_kernels_take_odd_sizes(dev):

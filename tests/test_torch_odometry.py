@@ -12,6 +12,7 @@ require identical keyframe decisions and success flags.
 """
 
 import dataclasses
+import functools
 import os
 import subprocess
 import sys
@@ -21,7 +22,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import both_cfgs, jax, ref, slice_cfg
+from torch_port_helpers import both_cfgs, jax, ref, s50_cfg, slice_cfg
 
 from cfear_radarodometry_code_public_tpu.datasets import synthetic
 from cfear_radarodometry_code_public_tpu.eval.trajectory import ate_rmse
@@ -254,6 +255,80 @@ def test_port_runs_without_jax():
     assert "NOJAX-OK" in proc.stdout
 
 
+S50_SLOTS = 12
+
+
+@functools.lru_cache(maxsize=None)
+def _s50_images():
+    return synthetic.make_sequence(seed=3, n_frames=N_FRAMES,
+                                   cfg=s50_cfg()[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _s50_jax(k_active):
+    """The reference over the s50 sequence (pallas_sparse in interpret
+    mode), and its state's leaves after SPLIT frames."""
+    images, _ = _s50_images()
+    runner = jodo.OdometryRunner(s50_cfg(k_active)[0], chunk=12,
+                                 ingest="host")
+    runner.process(images[:SPLIT])
+    leaves = [np.asarray(a) for a in jax.tree.leaves(runner.state)]
+    runner.process(images[SPLIT:])
+    return runner.trajectory(), runner.frame_outputs(), leaves
+
+
+@pytest.mark.parametrize("k_active", [0, 6])
+def test_s50_matches_jax(k_active):
+    """CFEAR-3-s50 cut to a 12-keyframe window that fills (exact, and with
+    the K=6 distance gate) against the reference, block-sparse association
+    on both sides: per-frame poses within the file's tolerances, identical
+    keyframe and success flags, the window full at the end."""
+    images, gt = _s50_images()
+    traj_j, out_j, _ = _s50_jax(k_active)
+    runner = todo.OdometryRunner(s50_cfg(k_active)[1], ingest="host",
+                                 device="cpu", chunk=8)
+    runner.process(images)
+    traj, out = runner.trajectory(), runner.frame_outputs()
+    assert out.success.all() and out_j.success.all()
+    np.testing.assert_array_equal(out.fused, out_j.fused)
+    assert out.fused.sum() > S50_SLOTS + 2          # the window fills, then cycles
+    assert int(runner.state.kf_valid.sum()) == S50_SLOTS
+    _assert_traj_close(traj, traj_j)
+    assert ate_rmse(traj[:, :2], gt[:, :2]) < 0.5
+    assert np.abs(out.num_cells - out_j.num_cells).max() <= 3
+
+
+def test_s50_state_carries_across(tmp_path):
+    """A JAX state at S=12 (after SPLIT frames) carries across through
+    `state_from_numpy`; the port continues the sequence from it, and its
+    own checkpoint of the full window resumes to the same state."""
+    images, _ = _s50_images()
+    _, out_j, leaves = _s50_jax(0)
+    cfg_t = s50_cfg()[1]
+    state = todo.state_from_numpy(leaves, "cpu")
+    like = todo.init_state(cfg_t, "cpu")
+    for got, want in zip(todo.state_leaves(state), todo.state_leaves(like)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+    assert state.kf_cells.valid.shape == (S50_SLOTS, 512)
+    assert bool(state.kf_valid.all())
+    runner = todo.OdometryRunner(cfg_t, ingest="host", device="cpu")
+    runner.state = state
+    runner.process(images[SPLIT:])
+    out = runner.frame_outputs()
+    np.testing.assert_array_equal(out.fused, out_j.fused[SPLIT:])
+    assert out.success.all()
+    np.testing.assert_allclose(out.pose[:, :2], out_j.pose[SPLIT:, :2],
+                               atol=POS_TOL)
+    np.testing.assert_allclose(out.pose[:, 2], out_j.pose[SPLIT:, 2],
+                               atol=YAW_TOL)
+    path = str(tmp_path / "s50.npz")
+    runner.save_checkpoint(path)
+    back = todo.OdometryRunner.resume(cfg_t, path, device="cpu")
+    for a, b in zip(todo.state_leaves(runner.state),
+                    todo.state_leaves(back.state)):
+        assert torch.equal(a, b)
+
+
 def _chip_smoke():
     sys.path.insert(0, REPO)
     try:
@@ -296,3 +371,23 @@ def test_golden_config_matches_chip_smoke():
     assert seq == chip_smoke.SEQUENCE
     assert ref.CFEARConfig.from_dict(cfg).registration.assoc_method \
         == "pallas_sparse"
+
+
+def test_s50_golden_configs_match_chip_smoke():
+    """The two s50 goldens were made for chip_smoke.py's s50 sequence and
+    configurations (`make_torch_port_golden.py --preset CFEAR-3-s50
+    [--k-active 16]`), ran the block-sparse kernel, and filled the window."""
+    import json
+    chip_smoke = _chip_smoke()
+    for k_active, path in ((0, chip_smoke.GOLDEN_S50),
+                           (16, chip_smoke.GOLDEN_S50_K16)):
+        with np.load(path) as z:
+            cfg = json.loads(str(z["config"]))
+            assert json.loads(str(z["sequence"])) == chip_smoke.S50_SEQUENCE
+            assert z["poses"].shape == (chip_smoke.S50_SEQUENCE["n_frames"], 3)
+            assert z["success"].all() and z["fused"].sum() > 50
+        assert cfg == chip_smoke.s50_config(k_active).to_dict()
+        reg = ref.CFEARConfig.from_dict(cfg).registration
+        assert reg.assoc_method == "pallas_sparse"
+        assert reg.max_active_keyframes == k_active
+        assert cfg["odometry"]["submap_scan_size"] == 50

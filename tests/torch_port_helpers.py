@@ -36,6 +36,24 @@ def slice_cfg(**feature):
     return both_cfgs(cfg)
 
 
+def s50_cfg(k_active=0):
+    """CFEAR-3-s50 on the small synthetic sensor of `slice_cfg`, cut to a
+    12-keyframe window that fills on a short sequence (keyframe gate
+    0.5 m), with the block-sparse association; `k_active` is
+    `max_active_keyframes`."""
+    cfg = ref.preset("CFEAR-3-s50", dataset="synthetic")
+    cfg = cfg.replace(
+        feature=dataclasses.replace(cfg.feature, max_cells=512,
+                                    point_budget=2048),
+        filter=dataclasses.replace(cfg.filter, k_strongest=12),
+        registration=dataclasses.replace(
+            cfg.registration, assoc_method="pallas_sparse",
+            max_active_keyframes=k_active),
+        odometry=dataclasses.replace(cfg.odometry, submap_scan_size=12,
+                                     keyframe_min_dist=0.5))
+    return both_cfgs(cfg)
+
+
 def to_jax(tree):
     return jax.tree.map(lambda a: jnp.asarray(np.asarray(a)), tree)
 

@@ -1,22 +1,31 @@
 """Write the JAX golden trajectories that `chip_smoke.py` holds the PyTorch
 port against.
 
-Runs the JAX reference on the CPU over chip_smoke's exact sequence
-(`synthetic.make_sequence(**chip_smoke.SEQUENCE)`, Oxford sensor scale) and
-configuration (`chip_smoke.slice_config()`: CFEAR-3 with the bench
-settings, `assoc_method="pallas_sparse"`, so the block-sparse Pallas kernel
-runs in interpret mode with the arithmetic of the port's kernel C), and
-writes poses, keyframe and success flags, association counts, the ATE
-against ground truth, and the configuration and sequence as JSON to
-`cfear_radarodometry_code_public_tpu_torch/golden/cfear3_oxford_seed1_64.npz`.
-With `--feature-backend pallas` the configuration also sets
-`feature.backend="pallas"` (the moment kernel runs in interpret mode) and
-the file is `golden/cfear3_oxford_seed1_64_pallasfeat.npz`.
+Runs the JAX reference on the CPU over one of chip_smoke's sequences and
+configurations, with `assoc_method="pallas_sparse"`, so the block-sparse
+Pallas kernel runs in interpret mode with the arithmetic of the port's
+kernel C, and writes poses, keyframe and success flags, association counts,
+the ATE against ground truth, and the configuration and sequence as JSON to
+`cfear_radarodometry_code_public_tpu_torch/golden/`:
+
+- `--preset CFEAR-3` (the default): `chip_smoke.slice_config()` over
+  `chip_smoke.SEQUENCE` (64 frames) -> `cfear3_oxford_seed1_64.npz`; with
+  `--feature-backend pallas` the configuration also sets
+  `feature.backend="pallas"` (the moment kernel runs in interpret mode) and
+  the file is `cfear3_oxford_seed1_64_pallasfeat.npz`.
+- `--preset CFEAR-3-s50`: `chip_smoke.s50_config()` (the 50-keyframe
+  window) over `chip_smoke.S50_SEQUENCE` (128 frames) ->
+  `cfear3s50_oxford_seed1_128.npz`; with `--k-active 16`,
+  `chip_smoke.s50_config(16)` -> `cfear3s50k16_oxford_seed1_128.npz`.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --feature-backend pallas
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset CFEAR-3-s50
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset CFEAR-3-s50 --k-active 16
 
-The first takes seconds on one CPU process, the second about a minute.
+On one CPU process the first takes about 10 s and the second about a
+minute; the s50 exact golden took 39 s and the K16 golden 18 s (rendering
+of the 128 frames excluded).
 """
 
 from __future__ import annotations
@@ -41,24 +50,42 @@ from cfear_radarodometry_code_public_tpu.eval.trajectory import ate_rmse  # noqa
 from cfear_radarodometry_code_public_tpu.models.odometry import OdometryRunner  # noqa: E402
 
 
+def target(preset: str, feature_backend: str, k_active: int):
+    """(configuration, sequence, output path) of one golden."""
+    if preset == "CFEAR-3-s50":
+        if feature_backend != "auto":
+            raise SystemExit("--feature-backend applies to CFEAR-3 only")
+        if k_active not in (0, 16):
+            raise SystemExit("--k-active is 0 (exact) or 16")
+        path = chip_smoke.GOLDEN_S50_K16 if k_active else chip_smoke.GOLDEN_S50
+        return chip_smoke.s50_config(k_active), chip_smoke.S50_SEQUENCE, path
+    if k_active:
+        raise SystemExit("--k-active applies to CFEAR-3-s50 only")
+    if feature_backend == "pallas":
+        return (chip_smoke.slice_config(feature_backend="pallas"),
+                chip_smoke.SEQUENCE, chip_smoke.GOLDEN_PALLAS)
+    return chip_smoke.slice_config(), chip_smoke.SEQUENCE, chip_smoke.GOLDEN
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--preset", choices=("CFEAR-3", "CFEAR-3-s50"),
+                    default="CFEAR-3")
     ap.add_argument("--feature-backend", choices=("auto", "pallas"),
                     default="auto")
+    ap.add_argument("--k-active", type=int, default=0)
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
-    if args.feature_backend == "pallas":
-        cfg_dict = chip_smoke.slice_config(feature_backend="pallas").to_dict()
-        path = chip_smoke.GOLDEN_PALLAS
-    else:
-        cfg_dict = chip_smoke.slice_config().to_dict()
-        path = chip_smoke.GOLDEN
+    port_cfg, sequence, path = target(args.preset, args.feature_backend,
+                                      args.k_active)
+    cfg_dict = port_cfg.to_dict()
     cfg = CFEARConfig.from_dict(cfg_dict)
-    images, gt = synthetic.make_sequence(cfg=cfg, **chip_smoke.SEQUENCE)
+    images, gt = synthetic.make_sequence(cfg=cfg, **sequence)
     t0 = time.perf_counter()
     # one chunk size that divides the frames after the bootstrap frame, so
     # the reference compiles no ragged-tail step
-    runner = OdometryRunner(cfg, chunk=(images.shape[0] - 1) // 3,
+    rest = images.shape[0] - 1
+    runner = OdometryRunner(cfg, chunk=rest // 3 if rest % 3 == 0 else rest,
                             ingest="host")
     runner.process(images)
     traj = runner.trajectory()
@@ -69,7 +96,7 @@ def main() -> None:
         path, poses=traj, gt=gt, fused=out.fused,
         success=out.success, num_assoc=out.num_assoc,
         num_cells=out.num_cells, ate=np.float64(ate),
-        config=json.dumps(cfg_dict), sequence=json.dumps(chip_smoke.SEQUENCE))
+        config=json.dumps(cfg_dict), sequence=json.dumps(sequence))
     print(f"{path}: {images.shape[0]} frames, ATE {ate:.4f} m, "
           f"keyframes {int(out.fused.sum())}, all successful "
           f"{bool(out.success.all())}, {time.perf_counter() - t0:.1f} s "

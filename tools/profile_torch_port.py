@@ -1,12 +1,16 @@
-"""Where the time goes in the PyTorch port's CFEAR-3 slice on a CUDA card.
+"""Where the time goes in the PyTorch port's odometry step on a CUDA card.
 
     python tools/profile_torch_port.py [--frames 24] [--batch 8]
                                        [--feature-backends auto,pallas]
+    python tools/profile_torch_port.py --preset CFEAR-3-s50 [--k-active 16]
 
 Runs `chip_smoke.py`'s configuration (CFEAR-3, Oxford scale, bench
 settings) on synthetic frames, once per feature backend ("auto": the
 scatter form; "pallas": kernel G), warms up, then traces a window of frames
 with `torch.profiler` for the single-sequence step and the batched step.
+With `--preset CFEAR-3-s50` it runs `chip_smoke.s50_config(k_active)` over
+the s50 sequence instead (128 frames by default, so the traced second half
+runs with the 50-keyframe window full).
 Prints per window: wall ms per step (second of two unprofiled passes; the
 first beside it), device busy ms per step (sum of kernel
 times) and the idle share, kernel launches per step, the time under each
@@ -86,9 +90,9 @@ def _window(name, step, state, frames, card):
               f"x{c / steps:7.1f}  {kname[:90]}")
 
 
-def _profile(cfg, tag, args, dev, card):
+def _profile(cfg, tag, args, dev, card, sequence):
     n = args.frames
-    images, _ = synthetic.make_sequence(cfg=cfg, **chip_smoke.SEQUENCE)
+    images, _ = synthetic.make_sequence(cfg=cfg, **sequence)
     rows = odometry.host_filter(images[:n], cfg, "compact")
     half = n // 2
 
@@ -118,10 +122,16 @@ def _profile(cfg, tag, args, dev, card):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--frames", type=int, default=24)
+    ap.add_argument("--preset", choices=("CFEAR-3", "CFEAR-3-s50"),
+                    default="CFEAR-3")
+    ap.add_argument("--k-active", type=int, default=0)
+    ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--feature-backends", default="auto,pallas")
     args = ap.parse_args()
+    s50 = args.preset == "CFEAR-3-s50"
+    if args.frames is None:
+        args.frames = chip_smoke.S50_SEQUENCE["n_frames"] if s50 else 24
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
@@ -129,9 +139,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
+    if s50:
+        tag = f"s50-k{args.k_active}" if args.k_active else "s50"
+        _profile(chip_smoke.s50_config(args.k_active), tag, args, dev, card,
+                 chip_smoke.S50_SEQUENCE)
+        return 0
     for backend in args.feature_backends.split(","):
         _profile(chip_smoke.slice_config(feature_backend=backend), backend,
-                 args, dev, card)
+                 args, dev, card, chip_smoke.SEQUENCE)
     return 0
 
 
