@@ -46,8 +46,9 @@
 // that serial walk (latency of the staging loads and the dependent scan)
 // and are expected to be slower than C; the design keeps them as the
 // reference wrote them and measures that. D2 differs from D1 only in what
-// the compiler knows: the number of target tiles is a template argument
-// (M = 512, 1024, 2048, 3072) and the keyframe loop is unrolled by 2.
+// the compiler knows: they are one template, D1 with the number of target
+// tiles read at runtime, D2 with it a template argument (for the budgets of
+// `UNROLLED_M` in ops/cuda_assoc.py) and the keyframe loop unrolled by 2.
 //
 // E exists on the TPU to fold the attribute gather into the kernel, where
 // it cost a one-hot MXU product per executed tile pair. On Hopper the
@@ -59,6 +60,14 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+// The target tile counts (M / 512) kernel D2 is instantiated for, as a bit
+// mask: bit n set instantiates n tiles. The one list is `UNROLLED_M` in
+// ops/cuda_assoc.py; ops/_build.py passes it here (a mask, because nvcc
+// splits option values at commas).
+#ifndef CFEAR_UNROLLED_MASK
+#error "build with -DCFEAR_UNROLLED_MASK=<tile-count bits> (ops/_build.py does)"
+#endif
 
 namespace {
 
@@ -223,8 +232,12 @@ __global__ void nn_min_sparse_kernel(const float* __restrict__ src,
   d2[o] = best;
 }
 
-// Kernel D1. grid (B, Msrc / kTileS), block kTileS: one block per (lane,
-// source tile) walks the lane's S keyframes at runtime.
+// Kernels D1 and D2. grid (B, Msrc / kTileS), block kTileS: one block per
+// (lane, source tile) walks the lane's S keyframes. D1 is kNT = 0: the
+// number of target tiles M / kTileT is read at runtime. D2 is kNT > 0: M =
+// kNT * kTileT is known at compile time, so the tile loop is unrolled in
+// full and the keyframe loop by 2.
+template <int kNT>
 __global__ void nn_min_sparse_multi_kernel(const float* __restrict__ src,
                                            const float* __restrict__ src_bounds,
                                            const float* __restrict__ tar,
@@ -234,47 +247,19 @@ __global__ void nn_min_sparse_multi_kernel(const float* __restrict__ src,
                                            int S, int Msrc, int M,
                                            int* __restrict__ nn,
                                            float* __restrict__ d2) {
+  const int m = kNT > 0 ? kNT * kTileT : M;
   __shared__ TileBuf sh;
   const int lane = blockIdx.x;
   const SrcTile st = load_src_tile(src, src_bounds, radius, lane, blockIdx.y, Msrc);
   const int row = blockIdx.y * kTileS + threadIdx.x;
+#pragma unroll (kNT > 0 ? 2 : 1)
   for (int s = 0; s < S; ++s) {
     const int bs = lane * S + s;
-    const Keyframe kf = keyframe(tar, valid, tar_bounds, bs, M);
-    float best = CUDART_INF_F;
-    int barg = 0;
-    for (int jt = 0; jt < M / kTileT; ++jt) scan_tile(st, kf.t, kf.v, kf.tb, jt, sh, best, barg);
-    const size_t o = static_cast<size_t>(bs) * Msrc + row;
-    nn[o] = barg;
-    d2[o] = best;
-  }
-}
-
-// Kernel D2. As D1, with kNT = M / kTileT target tiles known at compile
-// time (the tile loop fully unrolled) and the keyframe loop unrolled by 2.
-template <int kNT>
-__global__ void nn_min_sparse_unrolled_kernel(const float* __restrict__ src,
-                                              const float* __restrict__ src_bounds,
-                                              const float* __restrict__ tar,
-                                              const float* __restrict__ tar_bounds,
-                                              const unsigned char* __restrict__ valid,
-                                              const float* __restrict__ radius,
-                                              int S, int Msrc,
-                                              int* __restrict__ nn,
-                                              float* __restrict__ d2) {
-  constexpr int M = kNT * kTileT;
-  __shared__ TileBuf sh;
-  const int lane = blockIdx.x;
-  const SrcTile st = load_src_tile(src, src_bounds, radius, lane, blockIdx.y, Msrc);
-  const int row = blockIdx.y * kTileS + threadIdx.x;
-#pragma unroll 2
-  for (int s = 0; s < S; ++s) {
-    const int bs = lane * S + s;
-    const Keyframe kf = keyframe(tar, valid, tar_bounds, bs, M);
+    const Keyframe kf = keyframe(tar, valid, tar_bounds, bs, m);
     float best = CUDART_INF_F;
     int barg = 0;
 #pragma unroll
-    for (int jt = 0; jt < kNT; ++jt) scan_tile(st, kf.t, kf.v, kf.tb, jt, sh, best, barg);
+    for (int jt = 0; jt < m / kTileT; ++jt) scan_tile(st, kf.t, kf.v, kf.tb, jt, sh, best, barg);
     const size_t o = static_cast<size_t>(bs) * Msrc + row;
     nn[o] = barg;
     d2[o] = best;
@@ -313,6 +298,33 @@ __global__ void nn_min_sparse_attrs_kernel(const float* __restrict__ src,
   for (int d = 0; d < Dpad; ++d) go[static_cast<size_t>(d) * Msrc] = hit ? a[static_cast<size_t>(d) * M] : 0.f;
 }
 
+// Launch D1 (kNT = 0) or D2 for kNT target tiles; false, without
+// launching, when kNT > 0 and M is not kNT * kTileT.
+template <int kNT>
+bool launch_multi(const float* src, const float* src_bounds, const float* tar,
+                  const float* tar_bounds, const unsigned char* valid,
+                  const float* radius, int B, int S, int Msrc, int M, int* nn,
+                  float* d2, cudaStream_t stream) {
+  if (kNT > 0 && M != kNT * kTileT) return false;
+  nn_min_sparse_multi_kernel<kNT><<<dim3(B, Msrc / kTileS), kTileS, 0, stream>>>(
+      src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, M, nn, d2);
+  return true;
+}
+
+// D2 for whichever tile count in CFEAR_UNROLLED_MASK, from kNT down to 1,
+// matches M; false, without launching, when none does.
+template <int kNT, typename... Args>
+bool launch_unrolled(Args... args) {
+  if constexpr (kNT == 0) {
+    return false;
+  } else {
+    if constexpr (((CFEAR_UNROLLED_MASK) >> kNT) & 1) {
+      if (launch_multi<kNT>(args...)) return true;
+    }
+    return launch_unrolled<kNT - 1>(args...);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -344,41 +356,22 @@ int cfear_nn_min_sparse_multi(const float* src, const float* src_bounds,
                               const unsigned char* valid, const float* radius,
                               int B, int S, int Msrc, int M, int* nn, float* d2,
                               void* stream) {
-  const dim3 grid(B, Msrc / kTileS);
-  nn_min_sparse_multi_kernel<<<grid, kTileS, 0, static_cast<cudaStream_t>(stream)>>>(
-      src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, M, nn, d2);
+  launch_multi<0>(src, src_bounds, tar, tar_bounds, valid, radius, B, S, Msrc,
+                  M, nn, d2, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
-// M must be 512, 1024, 2048 or 3072 (the wrapper checks); any other M
-// returns cudaErrorInvalidValue without launching.
+// M must be one of the budgets D2 is built for (CFEAR_UNROLLED_MASK; the
+// wrapper checks); any other M returns cudaErrorInvalidValue without
+// launching.
 int cfear_nn_min_sparse_unrolled(const float* src, const float* src_bounds,
                                  const float* tar, const float* tar_bounds,
                                  const unsigned char* valid, const float* radius,
                                  int B, int S, int Msrc, int M, int* nn,
                                  float* d2, void* stream) {
-  const dim3 grid(B, Msrc / kTileS);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (M) {
-    case 1 * kTileT:
-      nn_min_sparse_unrolled_kernel<1><<<grid, kTileS, 0, st>>>(
-          src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, nn, d2);
-      break;
-    case 2 * kTileT:
-      nn_min_sparse_unrolled_kernel<2><<<grid, kTileS, 0, st>>>(
-          src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, nn, d2);
-      break;
-    case 4 * kTileT:
-      nn_min_sparse_unrolled_kernel<4><<<grid, kTileS, 0, st>>>(
-          src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, nn, d2);
-      break;
-    case 6 * kTileT:
-      nn_min_sparse_unrolled_kernel<6><<<grid, kTileS, 0, st>>>(
-          src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, nn, d2);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!launch_unrolled<30>(src, src_bounds, tar, tar_bounds, valid, radius, B,
+                           S, Msrc, M, nn, d2, static_cast<cudaStream_t>(stream)))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -4,7 +4,11 @@ At first use, every `csrc/*.cu` is compiled for Hopper, one nvcc process
 per source, all started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         -Xcompiler -fPIC -Xptxas -v -c
+         -Xcompiler -fPIC -Xptxas -v -DCFEAR_UNROLLED_MASK=0x56 -c
+
+(the define is the set of target tile counts kernel D2 is instantiated
+for, bit n for n tiles, made from `cuda_assoc.UNROLLED_M`: 512, 1024,
+2048, 3072 -> 1, 2, 4, 6)
 
 and the objects are linked into one shared library in `<package>/_build/`
 (git-ignored), under a name that carries a hash of the sources and flags,
@@ -24,12 +28,17 @@ import subprocess
 import threading
 import time
 
+from cfear_radarodometry_code_public_tpu_torch.ops.cuda_assoc import (
+    TT_SPARSE, UNROLLED_M)
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
 BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
-COMPILE_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                        "-Xptxas", "-v", "-c")
+COMPILE_FLAGS = ARCH + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    f"-DCFEAR_UNROLLED_MASK={sum(1 << (m // TT_SPARSE) for m in UNROLLED_M):#x}",
+    "-c")
 LINK_FLAGS = ARCH + ("-shared",)
 
 _lock = threading.Lock()

@@ -26,7 +26,9 @@ import torch
 TS_SPARSE = 256      # source rows per skip-test granule (kernels C, D1, D2, E)
 TT_SPARSE = 512      # target rows per skip-test granule
 _TS = 256            # cell-budget granule of the dense kernel's policy
-UNROLLED_M = (512, 1024, 2048, 3072)   # target budgets kernel D2 is built for
+# target budgets kernel D2 is built for: the one list, which `_build` passes
+# to nvcc as the template instances (M / TT_SPARSE tiles each, at most 30)
+UNROLLED_M = (512, 1024, 2048, 3072)
 
 launches = {"nn_min": 0, "nn_min_sparse": 0, "nn_min_sparse_multi": 0,
             "nn_min_sparse_unrolled": 0, "nn_min_sparse_attrs": 0}

@@ -5,8 +5,8 @@
 Builds the port's CUDA kernels from `cfear_radarodometry_code_public_tpu_torch/
 csrc/` with nvcc and checks each against its plain PyTorch twin on the card:
 the 1-NN kernels A and C, the fused LM solve F (both variants, three cost /
-loss pairs at S=4, and at the s50 widths S=16 and S=50) and the
-feature-moment kernel G (on the slice's own frames).
+loss pairs at S=4, and at the s50 widths: S=16 and S=50 of 1024 cells, and
+S=50 of 3072) and the feature-moment kernel G (on the slice's own frames).
 Then it drives the CFEAR-3 host-ingest odometry slice at Oxford sensor scale
 (400 x 3768 polar sweeps, k=40, point_budget 8192, max_cells 1024, S=4
 keyframes, Morton-ordered cells, block-sparse association) through the
@@ -15,11 +15,12 @@ call it (`auto`: kernel A), batched x8 (`make_batched_step`, two runs that
 must agree bit for bit), and single-sequence with `feature.backend="pallas"`
 (kernel G). Then CFEAR-3-s50, the 50-keyframe submap, over 128 frames:
 exact and with the K=16 gate (`s50`, `s50-k16`), batched x8
-(`s50-batched`), and the preset as users call it (`s50-preset`). Last, the
-multi-keyframe kernels D1, D2 and the fused-lookup kernel E run on the
-50-keyframe window the `s50` path ends with, at B=1 and B=8, and are held
-bit for bit against kernel C, the flat gather and their twins
-(`s50-window`). Each path is held against a JAX golden
+(`s50-batched`), and the preset as users call it (`s50-preset`), after which
+C, D1, D2 and E are held against their twins on the window that path ends
+with (B=1, M=3072). Last, the multi-keyframe kernels D1, D2 and the
+fused-lookup kernel E run on the 50-keyframe window the `s50` path ends
+with, at B=1 and B=8, and are held bit for bit against kernel C, the flat
+gather and their twins (`s50-window`). Each path is held against a JAX golden
 (`tools/make_torch_port_golden.py`) or the single run, and must launch the
 kernels it runs (launch counts zeroed just before each path, read just
 after). Exits non-zero, printing no result, when there is no CUDA card or
@@ -68,14 +69,18 @@ BATCH = 8
 # in the golden's distances), which move a few points across voxel and gate
 # boundaries and flip a few accepted associations. The reference itself
 # spreads as far between its own association backends: on this sequence its
-# dense form and its block-sparse kernel differ by 2.7 cm per pose and
-# 8.6 mm per frame-to-frame motion (JAX on the CPU). The tolerances are
-# about 3x that; a wrong association rule or sign costs 0.1-1 m.
+# dense form and its block-sparse kernel differ by 2.18 cm per pose, 5.0e-4
+# rad and 8.8 mm per frame-to-frame motion (JAX on the CPU;
+# `tools/make_torch_port_golden.py --assoc-method dense` prints it). The
+# tolerances are about 3x that; a wrong association rule or sign costs
+# 0.1-1 m.
 TOL = (0.08, 3e-3, 0.025)   # (position m, yaw rad, motion m)
-# CFEAR-3-s50 against its goldens: on the s50 sequence the reference's
-# dense form and its block-sparse kernel differ by 1.68 cm per pose,
-# 4.1e-4 rad and 1.68 cm per frame-to-frame motion (JAX on the CPU, both the
-# exact window and K16); the limits are about 3x that.
+# CFEAR-3-s50 against its goldens, set the same way (`... --preset
+# CFEAR-3-s50 [--k-active 16] --assoc-method dense`): dense against
+# block-sparse, the exact window differs by 1.68 cm per pose, 4.10e-4 rad
+# and 1.68 cm per motion, K16 by 1.68 cm, 3.96e-4 rad and 1.68 cm (the
+# largest position difference is on frame 1, whose pose is its motion,
+# before the gate has a keyframe to drop). The limits are about 3x that.
 S50_TOL = (0.05, 1.25e-3, 0.05)
 # Kernel F against its twin: the tolerance of the reference's own
 # kernel-vs-XLA test (tests/test_registration.py:565-567); the two sum in
@@ -313,11 +318,11 @@ def lm_problem(rng, b, s, m, cost, loss):
     return cfg, packed.astype(f32), pose0.astype(f32), true.astype(f32)
 
 
-def _lm_case(rng, dev, card, s, cost, loss, n=100):
-    """Kernel F, both variants, on `lm_problem(rng, BATCH, s, 1024, cost,
+def _lm_case(rng, dev, card, s, cost, loss, n=100, m=1024):
+    """Kernel F, both variants, on `lm_problem(rng, BATCH, s, m, cost,
     loss)` against its plain twin. Returns (|dpose|, early-exit ms, plain
     ms)."""
-    cfg, packed, pose0, true = lm_problem(rng, BATCH, s, 1024, cost, loss)
+    cfg, packed, pose0, true = lm_problem(rng, BATCH, s, m, cost, loss)
     packed, pose0 = (torch.as_tensor(a).to(dev) for a in (packed, pose0))
     ee = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=True)
     masked = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=False)
@@ -352,12 +357,13 @@ def phase_lm(dev, card):
     """Kernel F, both variants, against its plain twin at the slice's width
     (B=8 lanes, N = 4 keyframes x 1024 cells, three cost/loss pairs) and at
     the s50 widths (P2P/Cauchy, N = 16 and 50 keyframes x 1024 cells: the
-    K16 and the exact window)."""
+    K16 and the exact window; and 50 x 3072 cells, N = 153,600: the
+    `s50-preset` window)."""
     rng = np.random.default_rng(1)
     rows = [_lm_case(rng, dev, card, 4, cost, loss)
             for cost, loss in LM_CASES]
-    rows += [_lm_case(rng, dev, card, s, "P2P", "Cauchy", n=20)
-             for s in (16, 50)]
+    rows += [_lm_case(rng, dev, card, s, "P2P", "Cauchy", n=20, m=m)
+             for s, m in ((16, 1024), (50, 1024), (50, 3072))]
     return {"lm_solve_fused": {"max_abs_err": max(r[0] for r in rows),
                                "ms": rows[0][1], "plain_ms": rows[0][2]}}
 
@@ -405,17 +411,23 @@ def phase_moments(images, dev, card):
                                   "plain_ms": plain_ms}}
 
 
-def _check_traj(name, got, want, fused, fused_want, tol=TOL):
-    dpos = float(np.abs(got[:, :2] - want[:, :2]).max())
-    dyaw = float(np.abs(got[:, 2] - want[:, 2]).max())
-
+def traj_spread(got, want):
+    """(max |dpos| m, max |dyaw| rad, max |dmotion| m) between two (N, 3)
+    trajectories; a motion is the frame-to-frame step in the earlier
+    pose's frame."""
     def motions(t):
         d = t[1:] - t[:-1]
         c, s = np.cos(t[:-1, 2]), np.sin(t[:-1, 2])
         return np.stack([c * d[:, 0] + s * d[:, 1],
                          -s * d[:, 0] + c * d[:, 1]], -1)
 
-    dmot = float(np.abs(motions(got) - motions(want)).max())
+    return (float(np.abs(got[:, :2] - want[:, :2]).max()),
+            float(np.abs(got[:, 2] - want[:, 2]).max()),
+            float(np.abs(motions(got) - motions(want)).max()))
+
+
+def _check_traj(name, got, want, fused, fused_want, tol=TOL):
+    dpos, dyaw, dmot = traj_spread(got, want)
     _say(f"{name}: max |dpos| {dpos:.6f} m, |dyaw| {dyaw:.3e} rad, "
          f"|dmotion| {dmot:.6f} m; fused flags equal: "
          f"{bool(np.array_equal(fused, fused_want))}")
@@ -448,18 +460,6 @@ def _run_single(cfg, images, dev):
     return runner, secs
 
 
-def _accuracy(name, traj, out, gt, g_ate=None):
-    """Print a run's ATE, drift over 50 m and counts; returns the ATE."""
-    ate = ate_rmse(traj[:, :2], gt[:, :2])
-    drift = kitti.kitti_drift(traj, gt, step_size=5, lengths=(50.0,))
-    golden = "" if g_ate is None else f" (golden {g_ate:.4f} m)"
-    _say(f"{name}: ATE {ate:.4f} m{golden}, drift "
-         f"{drift['t_err_percent']:.3f}% over 50 m, keyframes "
-         f"{int(out.fused.sum())}, mean cells {out.num_cells.mean():.1f}, "
-         f"mean assoc {out.num_assoc[1:].mean():.1f}")
-    return ate
-
-
 def _report(name, traj, out, gt, secs, card, g_ate):
     """Print a path's frames/s, ATE, drift and counts; fail when its ATE is
     more than 5 cm worse than the golden's `g_ate`."""
@@ -467,7 +467,12 @@ def _report(name, traj, out, gt, secs, card, g_ate):
     _say(f"{name}: {n} frames, first pass {n / secs[0]:.2f} "
          f"frames/s (warm-up included), second pass {n / secs[1]:.2f} "
          f"frames/s, host filter included ({card})")
-    ate = _accuracy(name, traj, out, gt, g_ate)
+    ate = ate_rmse(traj[:, :2], gt[:, :2])
+    drift = kitti.kitti_drift(traj, gt, step_size=5, lengths=(50.0,))
+    _say(f"{name}: ATE {ate:.4f} m (golden {g_ate:.4f} m), drift "
+         f"{drift['t_err_percent']:.3f}% over 50 m, keyframes "
+         f"{int(out.fused.sum())}, mean cells {out.num_cells.mean():.1f}, "
+         f"mean assoc {out.num_assoc[1:].mean():.1f}")
     if ate > g_ate + 0.05:
         raise AssertionError(f"{name}: ATE {ate} m worse than the golden's "
                              f"{g_ate} m")
@@ -514,8 +519,7 @@ def phase_auto(images, traj, out, dev, card):
     _say(f"auto (kernel A): {n / secs[1]:.2f} frames/s ({card})")
 
 
-def phase_batched(cfg, images, gt, traj, out, dev, card, batch=BATCH,
-                  tol=TOL):
+def phase_batched(cfg, images, traj, out, dev, card, batch=BATCH, tol=TOL):
     """make_batched_step over `batch` lanes fed the same frames, twice;
     every lane held against the single-sequence run."""
     n = images.shape[0]
@@ -559,8 +563,6 @@ def phase_batched(cfg, images, gt, traj, out, dev, card, batch=BATCH,
          f"{batch * n / secs[1]:.2f} frames/s per card over two runs "
          f"(inputs pre-staged on the card; {card}); trajectories "
          f"bit-identical across the two runs: {bitwise}")
-    _accuracy(f"batched x{batch} lane 0", trajs[-1][0],
-              odometry.FrameOutput(*(a[0] for a in res)), gt)
     if not bitwise:
         raise AssertionError("two batched runs of the same frames gave "
                              "different trajectories")
@@ -570,7 +572,8 @@ def phase_s50_preset(images, gt, dev, card):
     """CFEAR-3-s50 as users call it (max_cells 3072, no point budget:
     candidates ingest; `auto`, which resolves to kernel C on a card) over
     the s50 sequence: every frame must succeed, and the ATE must be within
-    5 cm of the exact golden's (it has no golden of its own)."""
+    5 cm of the exact golden's (it has no golden of its own). Returns the
+    configuration and the final state."""
     cfg = port.preset("CFEAR-3-s50", dataset="oxford")
     m = cfg.feature.max_cells
     method = registration.resolve_assoc_method(
@@ -588,6 +591,7 @@ def phase_s50_preset(images, gt, dev, card):
         g_ate = float(z["ate"])
     _report(f"s50-preset (max_cells {m}, auto -> kernel C)", traj, out, gt,
             secs, card, g_ate)
+    return cfg, runner.state
 
 
 def _lanes(a, b):
@@ -595,15 +599,15 @@ def _lanes(a, b):
     return a.expand((b,) + a.shape[1:]).contiguous()
 
 
-def window_inputs(state, cfg, dev):
-    """The real 50-keyframe window that the s50 path ends with, built as the
+def window_inputs(state, cfg, dev, name="s50 window", lanes=(1, BATCH)):
+    """The real keyframe window that an s50 run ends with, built as the
     reference's TPU probe builds it (`tools/profile_s50.py:72-117`): the
     source is the newest keyframe's cells in the world frame at its pose;
     the targets are the window's `_world_attrs`; bounds by `tile_bounds`;
     the radius is `assoc_radius`. Returns {B: (args, attrs_t, attrs)} for
-    B = 1 and the window broadcast over B = 8 lanes, where args = (src,
-    src_bounds, tar, tar_bounds, valid, radius) and attrs_t (B, S, D_pad,
-    M) is attrs (B, S, M, D) transposed and zero-padded."""
+    each lane count B in `lanes` (the window broadcast over B lanes), where
+    args = (src, src_bounds, tar, tar_bounds, valid, radius) and attrs_t
+    (B, S, D_pad, M) is attrs (B, S, M, D) transposed and zero-padded."""
     kf = CellMap(*(a[None] for a in state.kf_cells))
     kf_poses, kf_valid = state.kf_poses[None], state.kf_valid[None]
     attrs = registration._world_attrs(kf, kf_poses, cfg)     # (1, S, M, D)
@@ -614,11 +618,11 @@ def window_inputs(state, cfg, dev):
     attrs_t[:, :, :d] = attrs.transpose(-1, -2)
     tar_valid = (attrs[..., 6] > 0.5) & kf_valid[..., None]
     r = cfg.registration.assoc_radius
-    _say(f"s50 window: S={s}, valid keyframes {int(kf_valid.sum())}, mean "
+    _say(f"{name}: S={s}, valid keyframes {int(kf_valid.sum())}, mean "
          f"valid cells {float(kf.valid.float().sum(-1).mean()):.1f}, M={m}, "
          f"D={d} (D_pad {d_pad}), radius {r} m")
     win = {}
-    for b in (1, BATCH):
+    for b in lanes:
         src, tar, valid = (_lanes(a, b) for a in (src_w, attrs[..., 0:2],
                                                   tar_valid))
         sb = cuda_assoc.tile_bounds(src, _lanes(kf.valid[:, -1], b),
@@ -651,19 +655,14 @@ def drive_window(win):
     return outs
 
 
-def _max_err(a, b) -> float:
-    """Largest |a - b| where both are finite (0.0 where none is)."""
-    fin = torch.isfinite(a) & torch.isfinite(b)
-    return float((a[fin] - b[fin]).abs().max()) if fin.any() else 0.0
-
-
-def phase_window(win, outs, r, card):
-    """The window's outputs (`drive_window`) checked: at every lane count
-    D1 and D2 equal C and their twin bit for bit, E's (nn, d2) equal C's
-    and its g equals the flat gather (`_gather_attrs`) on every row within
-    the radius and is zero on +inf rows and in the padding. Times by CUDA
-    events: C, D1, D2, E, the gather, C + gather, and the twins. Returns
-    the records of D1, D2 and E at B=8."""
+def phase_window(win, outs, r, card, name="s50 window"):
+    """The window's outputs (`drive_window`) checked: at every lane count C
+    equals its twin, D1 and D2 equal C bit for bit, E's (nn, d2) equal C's,
+    its g equals its twin's and the flat gather (`_gather_attrs`) on every
+    row within the radius and is zero on +inf rows and in the padding.
+    Times by CUDA events: C, D1, D2, E, the gather, C + gather, and the
+    twins. Returns {B: records of D1, D2 and E}; every check is bit for
+    bit, so each max_abs_err is 0.0."""
     res = {}
     for b, (args, at, att) in win.items():
         o = outs[b]
@@ -673,22 +672,23 @@ def phase_window(win, outs, r, card):
         gathered = registration._gather_attrs(att, nn_c)
         torch.cuda.synchronize()
         if not (torch.equal(nn_c, nn_p) and torch.equal(d2_c, d2_p)):
-            raise AssertionError(f"B={b}: kernel C differs from its twin")
-        for name, (nn, d2, *_) in o.items():
+            raise AssertionError(f"{name} B={b}: kernel C differs from its "
+                                 "twin")
+        for k, (nn, d2, *_) in o.items():
             if not (torch.equal(nn, nn_c) and torch.equal(d2, d2_c)):
-                raise AssertionError(f"B={b}: {name} (nn, d2) differ from "
+                raise AssertionError(f"{name} B={b}: {k} (nn, d2) differ from "
                                      "kernel C's")
         g_e = o["nn_min_sparse_attrs"][2]
         if not torch.equal(g_e, g_p):
-            raise AssertionError(f"B={b}: kernel E's g differs from its twin")
+            raise AssertionError(f"{name} B={b}: kernel E's g differs from its twin")
         d = att.shape[-1]
         within, inf = d2_c <= r * r, torch.isinf(d2_c)
         g_rows = g_e.transpose(-1, -2)                     # (B, S, Msrc, D_pad)
         if not torch.equal(g_rows[..., :d][within], gathered[within]):
-            raise AssertionError(f"B={b}: kernel E's g differs from the flat "
+            raise AssertionError(f"{name} B={b}: kernel E's g differs from the flat "
                                  "gather within the radius")
         if (g_rows[inf] != 0).any() or (g_rows[..., d:] != 0).any():
-            raise AssertionError(f"B={b}: kernel E's g is not zero on +inf "
+            raise AssertionError(f"{name} B={b}: kernel E's g is not zero on +inf "
                                  "rows or padding")
         live = float(cuda_assoc.pair_live(args[1], args[3], args[5])
                      .float().mean())
@@ -700,19 +700,16 @@ def phase_window(win, outs, r, card):
         t["plain"] = _cuda_ms(lambda: cuda_assoc.nn_min_sparse_plain(*args), 5)
         t["plain E"] = _cuda_ms(lambda: cuda_assoc.nn_min_sparse_attrs_plain(
             *args[:5], at, args[5]), 5)
-        _say(f"s50 window B={b}: executed tile pairs {live:.4f}, rows within "
+        _say(f"{name} B={b}: executed tile pairs {live:.4f}, rows within "
              f"the radius {float(within.float().mean()):.4f}, +inf rows "
              f"{float(inf.float().mean()):.4f}; D1, D2 == C == twin bit for "
              f"bit, E (nn, d2) == C, E g == gather within r, 0 on +inf rows")
-        _say(f"s50 window B={b} (ms, CUDA events; {card}): "
+        _say(f"{name} B={b} (ms, CUDA events; {card}): "
              + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
-        err = {k: _max_err(v[1], d2_p) for k, v in o.items()}
-        err["nn_min_sparse_attrs"] = max(err["nn_min_sparse_attrs"],
-                                         _max_err(g_e, g_p))
-        res = {k: {"max_abs_err": err[k], "ms": t[k],
-                   "plain_ms": t["plain E" if k.endswith("attrs") else "plain"]}
-               for k in ("nn_min_sparse_multi", "nn_min_sparse_unrolled",
-                         "nn_min_sparse_attrs")}
+        res[b] = {k: {"max_abs_err": 0.0, "ms": t[k], "plain_ms":
+                      t["plain E" if k.endswith("attrs") else "plain"]}
+                  for k in ("nn_min_sparse_multi", "nn_min_sparse_unrolled",
+                            "nn_min_sparse_attrs")}
     return res
 
 
@@ -764,7 +761,7 @@ def main() -> int:
     drive("auto", ("nn_min", "lm_solve_fused"),
           lambda: phase_auto(images, traj, out, dev, card))
     drive("batched", ("nn_min_sparse", "lm_solve_fused"),
-          lambda: phase_batched(cfg, images, gt, traj, out, dev, card))
+          lambda: phase_batched(cfg, images, traj, out, dev, card))
     drive("pallas-features",
           ("moment_accumulate", "nn_min_sparse", "lm_solve_fused"),
           lambda: phase_single(slice_config(feature_backend="pallas"), images,
@@ -784,10 +781,15 @@ def main() -> int:
                                GOLDEN_S50_K16, "s50-k16", S50_TOL,
                                full_window=True))
     drive("s50-batched", ("nn_min_sparse", "lm_solve_fused"),
-          lambda: phase_batched(s50, images50, gt50, traj50, out50, dev, card,
+          lambda: phase_batched(s50, images50, traj50, out50, dev, card,
                                 tol=S50_TOL))
-    drive("s50-preset", ("nn_min_sparse", "lm_solve_fused"),
-          lambda: phase_s50_preset(images50, gt50, dev, card))
+    preset, state_p = drive("s50-preset", ("nn_min_sparse", "lm_solve_fused"),
+                            lambda: phase_s50_preset(images50, gt50, dev, card))
+    # kernel C at the preset's shapes (B=1, S=50, Msrc=M=3072) against its
+    # twin on the window that path ends with, and D1, D2, E beside it
+    win_p = window_inputs(state_p, preset, dev, "s50-preset window", (1,))
+    phase_window(win_p, drive_window(win_p),
+                 preset.registration.assoc_radius, card, "s50-preset window")
     # D1, D2 and E on the window the s50 path ends with: the counted run is
     # one call of each; the checks against C and the twins, and the
     # timings, come after the counts are read
@@ -796,8 +798,9 @@ def main() -> int:
                                 "nn_min_sparse_unrolled",
                                 "nn_min_sparse_attrs"),
                  lambda: drive_window(win))
+    # the kernels line keeps the s50 window's B=8 times
     kernels.update(phase_window(win, outs, s50.registration.assoc_radius,
-                                card))
+                                card)[BATCH])
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     _say(f"kernel launches in the main-path runs: {launches}")
 

@@ -26,11 +26,21 @@ the ATE against ground truth, and the configuration and sequence as JSON to
 On one CPU process the first takes about 10 s and the second about a
 minute; the s50 exact golden took 39 s and the K16 golden 18 s (rendering
 of the 128 frames excluded).
+
+With `--assoc-method dense` the tool runs the same configuration with the
+reference's dense association instead, writes nothing, and prints that
+run's spread from the committed golden (max per pose, yaw and
+frame-to-frame motion, and whether the keyframe decisions agree): the
+reference's own spread between its two association backends, on which
+`chip_smoke.TOL` and `chip_smoke.S50_TOL` are set at about 3x.
+
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset CFEAR-3-s50 --assoc-method dense
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -74,10 +84,15 @@ def main() -> None:
     ap.add_argument("--feature-backend", choices=("auto", "pallas"),
                     default="auto")
     ap.add_argument("--k-active", type=int, default=0)
+    ap.add_argument("--assoc-method", choices=("pallas_sparse", "dense"),
+                    default="pallas_sparse")
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
     port_cfg, sequence, path = target(args.preset, args.feature_backend,
                                       args.k_active)
+    if args.assoc_method == "dense":
+        port_cfg = port_cfg.replace(registration=dataclasses.replace(
+            port_cfg.registration, assoc_method="dense"))
     cfg_dict = port_cfg.to_dict()
     cfg = CFEARConfig.from_dict(cfg_dict)
     images, gt = synthetic.make_sequence(cfg=cfg, **sequence)
@@ -91,6 +106,16 @@ def main() -> None:
     traj = runner.trajectory()
     out = runner.frame_outputs()
     ate = ate_rmse(traj[:, :2], gt[:, :2])
+    if args.assoc_method == "dense":
+        with np.load(path) as z:
+            g_poses, g_fused = z["poses"], z["fused"]
+        dpos, dyaw, dmot = chip_smoke.traj_spread(traj, g_poses)
+        print(f"dense vs {os.path.basename(path)}: max |dpos| {dpos:.6f} m, "
+              f"|dyaw| {dyaw:.3e} rad, |dmotion| {dmot:.6f} m; keyframe "
+              f"flags equal {bool(np.array_equal(out.fused, g_fused))}; "
+              f"ATE {ate:.4f} m, all successful {bool(out.success.all())}, "
+              f"{time.perf_counter() - t0:.1f} s on the CPU")
+        return
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(
         path, poses=traj, gt=gt, fused=out.fused,
