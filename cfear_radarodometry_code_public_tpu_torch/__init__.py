@@ -7,9 +7,12 @@ function names. Plain tensor code is PyTorch; the TPU Pallas kernels on the
 ported path are hand-written CUDA C++ for Hopper (`csrc/`), each with a plain
 PyTorch twin that the CPU runs and the tests compare against.
 
-This package imports `torch` and never `jax`: the framework-free reference
-modules (config, synthetic data, native host filter, KITTI drift) are loaded
-by file path in `_shared.py`.
+This package imports `torch` and never `jax`, and nothing of the reference
+package: it keeps its own copies of the reference's framework-free modules
+(`config.py`, `datasets/synthetic.py`, `utils/native_io.py` over
+`csrc/cfear_io.cpp`, `eval/kitti.py`), which tests hold equal to the
+reference. Its entry points run on a CUDA card unless the caller passes
+`device="cpu"`.
 """
 
 __version__ = "0.1.0"
@@ -23,12 +26,6 @@ import torch as _torch
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
-from cfear_radarodometry_code_public_tpu_torch._shared import config as _config  # noqa: E402
-
-CFEARConfig = _config.CFEARConfig
-FeatureConfig = _config.FeatureConfig
-FilterConfig = _config.FilterConfig
-OdometryConfig = _config.OdometryConfig
-RadarConfig = _config.RadarConfig
-RegistrationConfig = _config.RegistrationConfig
-preset = _config.preset
+from cfear_radarodometry_code_public_tpu_torch.config import (  # noqa: E402,F401
+    CFEARConfig, FeatureConfig, FilterConfig, OdometryConfig, RadarConfig,
+    RegistrationConfig, preset)

@@ -3,6 +3,10 @@
 // Replaces the TPU Pallas kernels
 //   A  cfear_radarodometry_code_public_tpu/ops/pallas_assoc.py:nn_min
 //      (_nn_kernel): dense 1-NN per keyframe;
+//   B1 pallas_assoc.py:nn_min_multi (_nn_multi_kernel): A's function with
+//      the keyframe loop inside the kernel, at runtime;
+//   B2 pallas_assoc.py:nn_min_multi_unrolled (_nn_multi_unrolled_kernel):
+//      A's function with the keyframe loop unrolled at compile time;
 //   C  cfear_radarodometry_code_public_tpu/ops/pallas_assoc.py:nn_min_sparse
 //      (_nn_sparse_kernel): the same, skipping (256-row source tile, 512-row
 //      target tile) pairs whose bounding boxes are farther apart than the
@@ -25,8 +29,9 @@
 // contracting into an FMA, which would move d2 by an ulp and flip near-tie
 // argmins); +inf for invalid targets; targets scanned in index order with a
 // strict '<' so the lowest index wins ties, as argmin does; rows with no
-// valid (or no unskipped) target report (+inf, 0). C, D1, D2 and E share
-// one per-tile scan (`scan_tile`), so they give the same bits.
+// valid (or no unskipped) target report (+inf, 0). A, B1 and B2 share one
+// per-chunk scan (`scan_keyframe`), C, D1, D2 and E one per-tile scan
+// (`scan_tile`), so each family gives the same bits.
 //
 // What bounds them on an H100: at the CFEAR-3 bench shape (B=8, S=4,
 // M=Msrc=1024) one call is ~34 M distance evaluations, microseconds of ALU
@@ -36,6 +41,27 @@
 // design is the simple one: one source row per thread, the keyframe's
 // targets staged through shared memory in chunks so every thread reads the
 // same target (a broadcast, no bank conflicts).
+//
+// B1 and B2 exist on the TPU for the same reason as D1 and D2 below: the
+// grid runs in order on one core and every grid step has a fixed cost
+// (~5 us), so the reference moved the keyframe axis of A's (S, Msrc/ts)
+// grid into the kernel, with fat source tiles (ts = 512 up to M = 2048,
+// else 256, `_ts_multi`). Hopper has no such cost. Moving the keyframe loop
+// into the block only shrinks the grid: from A's B*S*ceil(Msrc/128) blocks
+// of 128 threads to B*Msrc/ts blocks of ts threads, e.g. 512 -> 32 blocks at
+// B=8, S=4, M=2048 (4 -> 1 per lane and source tile at B=1), each thread
+// walking S keyframes of M targets in turn. The work is the same and
+// operation-bound (5 flops and a compare per distance), so the shorter grid
+// leaves most of the 132 SMs idle: they are predicted to be slower than A
+// (several times at B=8, where A fills the card), and the design keeps them
+// as the reference wrote them and measures that. B2 differs from B1 only
+// in what the compiler knows: one template, B1 with S read at runtime, B2
+// with S a template argument (the list `UNROLLED_S` in ops/cuda_assoc.py:
+// 1, the reverse problem of the health check, and 4, CFEAR-3's window) and
+// the keyframe loop unrolled. Measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (chip_smoke.py, long-run window, CUDA events): at S=4, M=2048
+// B1 0.28 ms and B2 0.29 ms against A's 0.065 ms (B=1) and 0.079 ms (B=8);
+// at S=1 B1 0.073 ms and B2 0.077 ms against A's 0.064 ms at both B.
 //
 // D1 and D2 exist on the TPU because every grid step there has a fixed
 // cost (3,200 thin steps at B=8, S=50); a loop inside the kernel replaced
@@ -64,9 +90,13 @@
 // The target tile counts (M / 512) kernel D2 is instantiated for, as a bit
 // mask: bit n set instantiates n tiles. The one list is `UNROLLED_M` in
 // ops/cuda_assoc.py; ops/_build.py passes it here (a mask, because nvcc
-// splits option values at commas).
+// splits option values at commas). CFEAR_UNROLLED_S_MASK is the same for
+// the keyframe counts of kernel B2 (`UNROLLED_S`).
 #ifndef CFEAR_UNROLLED_MASK
 #error "build with -DCFEAR_UNROLLED_MASK=<tile-count bits> (ops/_build.py does)"
+#endif
+#ifndef CFEAR_UNROLLED_S_MASK
+#error "build with -DCFEAR_UNROLLED_S_MASK=<keyframe-count bits> (ops/_build.py does)"
 #endif
 
 namespace {
@@ -82,15 +112,49 @@ __device__ __forceinline__ float dist2(float sx, float sy, float tx, float ty) {
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
 }
 
+struct ChunkBuf {
+  float x[kChunkA];
+  float y[kChunkA];
+  unsigned char v[kChunkA];
+};
+
+// The dense scan of kernels A, B1 and B2: one keyframe's M targets (t, v)
+// staged through shared memory in chunks of kChunkA (every thread of the
+// block loads, so every thread must call it), each chunk scanned in index
+// order into (best, barg) by the threads whose row is `active`.
+__device__ __forceinline__ void scan_keyframe(bool active, float sx, float sy,
+                                              const float* __restrict__ t,
+                                              const unsigned char* __restrict__ v,
+                                              int M, ChunkBuf& sh, float& best,
+                                              int& barg) {
+  for (int base = 0; base < M; base += kChunkA) {
+    const int n = min(kChunkA, M - base);
+    __syncthreads();
+    for (int k = threadIdx.x; k < n; k += blockDim.x) {
+      sh.x[k] = t[2 * (base + k)];
+      sh.y[k] = t[2 * (base + k) + 1];
+      sh.v[k] = v[base + k];
+    }
+    __syncthreads();
+    if (active) {
+      for (int k = 0; k < n; ++k) {
+        const float d = sh.v[k] ? dist2(sx, sy, sh.x[k], sh.y[k]) : CUDART_INF_F;
+        if (d < best) {
+          best = d;
+          barg = base + k;
+        }
+      }
+    }
+  }
+}
+
 // Kernel A. grid (B*S, ceil(Msrc / kThreadsA)), block kThreadsA.
 __global__ void nn_min_kernel(const float* __restrict__ src,
                               const float* __restrict__ tar,
                               const unsigned char* __restrict__ valid,
                               int S, int Msrc, int M,
                               int* __restrict__ nn, float* __restrict__ d2) {
-  __shared__ float sh_x[kChunkA];
-  __shared__ float sh_y[kChunkA];
-  __shared__ unsigned char sh_v[kChunkA];
+  __shared__ ChunkBuf sh;
   const int bs = blockIdx.x;               // lane * S + keyframe
   const int lane = bs / S;
   const int row = blockIdx.y * blockDim.x + threadIdx.x;
@@ -100,33 +164,64 @@ __global__ void nn_min_kernel(const float* __restrict__ src,
     sx = src[(static_cast<size_t>(lane) * Msrc + row) * 2];
     sy = src[(static_cast<size_t>(lane) * Msrc + row) * 2 + 1];
   }
-  const float* t = tar + static_cast<size_t>(bs) * M * 2;
-  const unsigned char* v = valid + static_cast<size_t>(bs) * M;
   float best = CUDART_INF_F;
   int barg = 0;
-  for (int base = 0; base < M; base += kChunkA) {
-    const int n = min(kChunkA, M - base);
-    __syncthreads();
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      sh_x[k] = t[2 * (base + k)];
-      sh_y[k] = t[2 * (base + k) + 1];
-      sh_v[k] = v[base + k];
-    }
-    __syncthreads();
-    if (active) {
-      for (int k = 0; k < n; ++k) {
-        const float d = sh_v[k] ? dist2(sx, sy, sh_x[k], sh_y[k]) : CUDART_INF_F;
-        if (d < best) {
-          best = d;
-          barg = base + k;
-        }
-      }
-    }
-  }
+  scan_keyframe(active, sx, sy, tar + static_cast<size_t>(bs) * M * 2,
+                valid + static_cast<size_t>(bs) * M, M, sh, best, barg);
   if (active) {
     const size_t o = static_cast<size_t>(bs) * Msrc + row;
     nn[o] = barg;
     d2[o] = best;
+  }
+}
+
+// Kernels B1 and B2. grid (B, Msrc / ts), block ts (512 or 256; the
+// wrapper checks Msrc % ts == 0): one block per (lane, source tile) walks
+// the lane's S keyframes with A's scan. B1 is kS = 0 (S read at runtime),
+// B2 is kS > 0 (S = kS known at compile time, the keyframe loop unrolled).
+template <int kS>
+__global__ void nn_min_multi_kernel(const float* __restrict__ src,
+                                    const float* __restrict__ tar,
+                                    const unsigned char* __restrict__ valid,
+                                    int S, int Msrc, int M,
+                                    int* __restrict__ nn, float* __restrict__ d2) {
+  const int s_n = kS > 0 ? kS : S;
+  __shared__ ChunkBuf sh;
+  const int lane = blockIdx.x;
+  const int row = blockIdx.y * blockDim.x + threadIdx.x;
+  const float sx = src[(static_cast<size_t>(lane) * Msrc + row) * 2];
+  const float sy = src[(static_cast<size_t>(lane) * Msrc + row) * 2 + 1];
+#pragma unroll (kS > 0 ? kS : 1)
+  for (int s = 0; s < s_n; ++s) {
+    const size_t bs = static_cast<size_t>(lane) * s_n + s;
+    float best = CUDART_INF_F;
+    int barg = 0;
+    scan_keyframe(true, sx, sy, tar + bs * M * 2, valid + bs * M, M, sh, best,
+                  barg);
+    nn[bs * Msrc + row] = barg;
+    d2[bs * Msrc + row] = best;
+  }
+}
+
+// B2 for whichever keyframe count in CFEAR_UNROLLED_S_MASK, from kS down to
+// 1, equals S; false, without launching, when none does.
+template <int kS>
+bool launch_multi_unrolled(const float* src, const float* tar,
+                           const unsigned char* valid, int B, int S, int Msrc,
+                           int M, int ts, int* nn, float* d2,
+                           cudaStream_t stream) {
+  if constexpr (kS == 0) {
+    return false;
+  } else {
+    if constexpr (((CFEAR_UNROLLED_S_MASK) >> kS) & 1) {
+      if (S == kS) {
+        nn_min_multi_kernel<kS><<<dim3(B, Msrc / ts), ts, 0, stream>>>(
+            src, tar, valid, S, Msrc, M, nn, d2);
+        return true;
+      }
+    }
+    return launch_multi_unrolled<kS - 1>(src, tar, valid, B, S, Msrc, M, ts,
+                                         nn, d2, stream);
   }
 }
 
@@ -337,6 +432,29 @@ int cfear_nn_min(const float* src, const float* tar, const unsigned char* valid,
   const dim3 grid(B * S, (Msrc + kThreadsA - 1) / kThreadsA);
   nn_min_kernel<<<grid, kThreadsA, 0, static_cast<cudaStream_t>(stream)>>>(
       src, tar, valid, S, Msrc, M, nn, d2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ts is the source tile (512 or 256); Msrc % ts == 0 (the wrapper checks).
+int cfear_nn_min_multi(const float* src, const float* tar,
+                       const unsigned char* valid, int B, int S, int Msrc,
+                       int M, int ts, int* nn, float* d2, void* stream) {
+  nn_min_multi_kernel<0><<<dim3(B, Msrc / ts), ts, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      src, tar, valid, S, Msrc, M, nn, d2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// S must be one of the keyframe counts B2 is built for
+// (CFEAR_UNROLLED_S_MASK; the wrapper checks); any other S returns
+// cudaErrorInvalidValue without launching.
+int cfear_nn_min_multi_unrolled(const float* src, const float* tar,
+                                const unsigned char* valid, int B, int S,
+                                int Msrc, int M, int ts, int* nn, float* d2,
+                                void* stream) {
+  if (!launch_multi_unrolled<16>(src, tar, valid, B, S, Msrc, M, ts, nn, d2,
+                                 static_cast<cudaStream_t>(stream)))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

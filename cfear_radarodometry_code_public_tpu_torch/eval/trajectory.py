@@ -1,7 +1,7 @@
 """Absolute trajectory error (port of `eval/trajectory.py:umeyama_align`
-and `ate_rmse`, which cannot be loaded by path: that module imports the
-reference's JAX se2). The KITTI drift metric is the reference's own,
-`_shared.kitti.kitti_drift`."""
+and `ate_rmse`; the reference module also holds SE(2) trajectory helpers
+over its JAX se2, which the port does not need). The KITTI drift metric is
+`eval/kitti.py`."""
 
 from __future__ import annotations
 

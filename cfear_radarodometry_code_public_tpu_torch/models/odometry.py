@@ -13,15 +13,25 @@ Keyframe window: a FIFO ring of S cell maps (`AddToReference`,
 the previous frame motion (`:146-150`); velocity/acceleration sanity
 fallback (`:76-94,197-199`).
 
+Optional branches of the reference's `_fuse_frame`, all ported: the
+reverse-registration health check (`odometry.health_check_every`), the
+cost-sampling covariance (`odometry.estimate_cov_by_sampling`) and
+time-continuous registration (`registration.time_continuous`: the velocity
+warp at cell level instead of the cloud-level compensation).
+
 Ingest kinds: "compact" (`native_io.filter_frames_host_compact` rows, used
 when `feature.point_budget` is set) and "candidates"
 (`native_io.filter_frames_host`). Not ported yet (raise
-NotImplementedError): image ingest, `health_check_every > 0`,
-`estimate_cov_by_sampling`, and what `features`/`registration` reject.
+NotImplementedError): image ingest, `filter.method="cacfar"`,
+`feature.use_raw_pointcloud` and `registration.assoc_method="grid"`.
+
+`OdometryRunner` runs on the CUDA card unless it is given `device="cpu"`;
+without a card it raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import queue
 import threading
@@ -31,7 +41,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from cfear_radarodometry_code_public_tpu_torch._shared import native_io
+from cfear_radarodometry_code_public_tpu_torch.utils import native_io
 from cfear_radarodometry_code_public_tpu_torch.ops import (
     features, filtering, registration)
 from cfear_radarodometry_code_public_tpu_torch.ops.features import CellMap
@@ -64,13 +74,12 @@ class FrameOutput(NamedTuple):
     num_assoc: torch.Tensor
     num_cells: torch.Tensor
     reg_iterations: torch.Tensor
-    # reverse-registration health signal: not ported; every frame reports
-    # unchecked (checked=False, healthy=True, 0, 0), as the reference does
-    # with health_check_every=0
-    health_checked: torch.Tensor
-    healthy: torch.Tensor
-    health_dist: torch.Tensor
-    health_rot: torch.Tensor
+    # reverse-registration health signal (odometry.health_check_every):
+    # unchecked frames carry (checked=False, healthy=True, 0, 0)
+    health_checked: torch.Tensor   # bool
+    healthy: torch.Tensor          # bool
+    health_dist: torch.Tensor      # m — forward/backward discrepancy
+    health_rot: torch.Tensor       # rad
 
 
 INGEST_KINDS = ("compact", "candidates")
@@ -78,7 +87,6 @@ INGEST_KINDS = ("compact", "candidates")
 
 def check_supported(cfg, ingest: str) -> None:
     """Raise for settings this slice of the port does not run yet."""
-    odo = cfg.odometry
     if ingest not in INGEST_KINDS:
         raise NotImplementedError(
             f"ingest '{ingest}' is not ported yet; the port takes host-"
@@ -88,14 +96,6 @@ def check_supported(cfg, ingest: str) -> None:
         raise NotImplementedError(
             "filter.method='cacfar' is not ported yet (ROADMAP queue 1, "
             "item 4)")
-    if odo.health_check_every:
-        raise NotImplementedError(
-            "odometry.health_check_every > 0 is not ported yet (ROADMAP "
-            "queue 1, item 11: the reverse-registration health check)")
-    if odo.estimate_cov_by_sampling:
-        raise NotImplementedError(
-            "odometry.estimate_cov_by_sampling is not ported yet (ROADMAP "
-            "queue 1, item 11: sample_covariance)")
     if cfg.feature.use_raw_pointcloud:
         raise NotImplementedError(
             "feature.use_raw_pointcloud is not ported yet (ROADMAP queue 1, "
@@ -179,7 +179,9 @@ def _extract_cells(states: OdometryState, inputs, cfg, ingest: str):
             pts = filtering.points_from_compact(inputs, cfg)
         else:
             pts = filtering.points_from_candidates(inputs, cfg)
-    if cfg.odometry.compensate:
+    # with time-continuous registration the velocity warp moves to the
+    # cells (`_fuse_frame`); both would compensate the distortion twice
+    if cfg.odometry.compensate and not cfg.registration.time_continuous:
         with record_function("compensate"):
             pts = pts._replace(xy=se2.compensate_points(pts.xy, states.tmot,
                                                         cfg.radar.ccw))
@@ -195,6 +197,13 @@ def _fuse_frame(state: OdometryState, cells: CellMap, cfg):
     dt = cfg.radar.sensor_period
     guess = se2.compose(state.t_prev, state.tmot) if odo.use_guess \
         else state.t_prev
+    if cfg.registration.time_continuous:
+        # `RegisterTimeContinuous` (`n_scan_normal.cpp:67-80`): the cells
+        # are warped by the previous frame motion before the solve, and the
+        # warped cells enter the keyframe window
+        with record_function("compensate"):
+            cells = features.compensate_cells(cells, state.tmot,
+                                              cfg.radar.ccw)
     with record_function("register"):
         res = registration.register(state.kf_cells, state.kf_poses,
                                     state.kf_valid, cells, guess, cfg=cfg)
@@ -206,6 +215,17 @@ def _fuse_frame(state: OdometryState, cells: CellMap, cfg):
     sane = (vel <= odo.vel_limit) & (acc <= odo.acc_limit)
     t_cur = torch.where(sane[:, None], t_cur, guess)
     tmot = se2.relative(state.t_prev, t_cur)
+
+    cov = res.cov
+    if odo.estimate_cov_by_sampling:
+        # (`odometrykeyframefuser.cpp:203-208`): the sampled covariance
+        # where the fitted quadratic is convex
+        with record_function("sample_covariance"):
+            cov_s, convex = registration.sample_covariance(
+                state.kf_cells, state.kf_poses, state.kf_valid, cells, t_cur,
+                cfg)
+        cov = torch.where(convex[:, None, None], cov_s, cov)
+    checked, healthy, h_dist, h_rot = _health_check(state, cells, t_cur, cfg)
 
     keydiff = se2.relative(state.kf_poses[:, -1], t_cur)
     keydist = _norm2(keydiff[:, 0], keydiff[:, 1])
@@ -224,16 +244,55 @@ def _fuse_frame(state: OdometryState, cells: CellMap, cfg):
     plain_state = state._replace(t_prev=t_cur, tmot=tmot,
                                  frame_nr=state.frame_nr + 1)
     new_state = _lane_select(fuse, fused_state, plain_state)
-    zero = torch.zeros_like(res.score)
     out = FrameOutput(
         pose=t_cur, shift=torch.where(fuse[:, None], t_cur,
                                       torch.zeros_like(t_cur)),
-        fused=fuse, cov=res.cov, success=res.success, score=res.score,
+        fused=fuse, cov=cov, success=res.success, score=res.score,
         num_assoc=res.num_assoc, num_cells=cells.n,
-        reg_iterations=res.iterations,
-        health_checked=torch.zeros_like(fuse), healthy=torch.ones_like(fuse),
-        health_dist=zero, health_rot=zero)
+        reg_iterations=res.iterations, health_checked=checked,
+        healthy=healthy, health_dist=h_dist, health_rot=h_rot)
     return new_state, out
+
+
+def _health_check(state: OdometryState, cells: CellMap, t_cur, cfg):
+    """Reverse-registration health check (`health_check_every`): on a
+    checked frame, the last keyframe's cells are registered against the
+    current cells placed at t_cur (the reverse problem, guess = the stored
+    keyframe pose), and the discrepancy from the stored pose is the health
+    signal. A checked frame is healthy only if the reverse solve succeeded
+    and the discrepancy is within both limits. The reference branches with
+    `lax.cond`, which under vmap runs both sides; here the reverse solve
+    runs only on steps where some lane is checked, over all lanes, and the
+    lanes that are not checked are masked. Returns (checked, healthy,
+    dist, rot), each (B,)."""
+    odo = cfg.odometry
+    b = t_cur.shape[0]
+    zero = t_cur.new_zeros(b)
+    no = torch.zeros(b, dtype=torch.bool, device=t_cur.device)
+    if not odo.health_check_every:
+        return no, ~no, zero, zero
+    checked = (torch.remainder(state.frame_nr, odo.health_check_every) == 0) \
+        & state.kf_valid[:, -1]
+    if not bool(checked.any()):
+        return checked, ~no, zero, zero
+    # the reverse solve always registers (a disable_registration ablation
+    # would otherwise echo its guess and report healthy)
+    cfg_rev = cfg.replace(registration=dataclasses.replace(
+        cfg.registration, disable_registration=False))
+    with record_function("health_check"):
+        res = registration.register(
+            CellMap(*(a[:, None] for a in cells)), t_cur[:, None],
+            torch.ones((b, 1), dtype=torch.bool, device=t_cur.device),
+            CellMap(*(a[:, -1] for a in state.kf_cells)),
+            state.kf_poses[:, -1], cfg=cfg_rev)
+    d = se2.relative(state.kf_poses[:, -1], res.pose)
+    h_dist = torch.where(checked, _norm2(d[:, 0], d[:, 1]), zero)
+    h_rot = torch.where(checked, se2.normalize_angle(d[:, 2]).abs(), zero)
+    # a failed reverse solve echoes its guess (d == 0): only its success
+    # flag tells it from an agreeing one
+    healthy = ~checked | (res.success & (h_dist <= odo.health_max_dist)
+                          & (h_rot <= math.radians(odo.health_max_rot_deg)))
+    return checked, healthy, h_dist, h_rot
 
 
 def _norm2(x, y):
@@ -346,8 +405,15 @@ class OdometryRunner:
     `offline_odometry.cpp:98-126`). A feeder thread runs the native host
     filter on chunk i+1 and uploads it while the device runs chunk i."""
 
-    def __init__(self, cfg, ingest: str = "host", device="cpu",
+    def __init__(self, cfg, ingest: str = "host", device="cuda",
                  chunk: int = 16, dtype=torch.float32):
+        """`device`: the CUDA card by default; the CPU (the kernels' plain
+        twins) only when asked for with `device="cpu"`."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "OdometryRunner runs on a CUDA card by default and found "
+                "none; pass device='cpu' to run on the CPU")
         if ingest != "host":
             raise NotImplementedError(
                 f"ingest '{ingest}' is not ported yet; OdometryRunner takes "
@@ -355,7 +421,7 @@ class OdometryRunner:
                 "filters)")
         self.cfg = cfg
         self.chunk = chunk
-        self.device = torch.device(device)
+        self.device = device
         self.dtype = dtype
         self.kind = "compact" if cfg.feature.point_budget else "candidates"
         self.step = make_step(cfg, self.kind)
@@ -428,7 +494,7 @@ class OdometryRunner:
         np.savez_compressed(path, **payload)
 
     @classmethod
-    def resume(cls, cfg, path: str, device="cpu", chunk: int = 16,
+    def resume(cls, cfg, path: str, device="cuda", chunk: int = 16,
                ingest: str = "host") -> "OdometryRunner":
         runner = cls(cfg, ingest=ingest, device=device, chunk=chunk)
         with np.load(path) as z:

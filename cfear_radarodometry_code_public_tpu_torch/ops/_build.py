@@ -4,11 +4,13 @@ At first use, every `csrc/*.cu` is compiled for Hopper, one nvcc process
 per source, all started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-         -Xcompiler -fPIC -Xptxas -v -DCFEAR_UNROLLED_MASK=0x56 -c
+         -Xcompiler -fPIC -Xptxas -v -DCFEAR_UNROLLED_MASK=0x56
+         -DCFEAR_UNROLLED_S_MASK=0x12 -c
 
-(the define is the set of target tile counts kernel D2 is instantiated
-for, bit n for n tiles, made from `cuda_assoc.UNROLLED_M`: 512, 1024,
-2048, 3072 -> 1, 2, 4, 6)
+(the first define is the set of target tile counts kernel D2 is
+instantiated for, bit n for n tiles, made from `cuda_assoc.UNROLLED_M`:
+512, 1024, 2048, 3072 -> 1, 2, 4, 6; the second the keyframe counts of
+kernel B2, bit n for S = n, from `cuda_assoc.UNROLLED_S`: 1, 4)
 
 and the objects are linked into one shared library in `<package>/_build/`
 (git-ignored), under a name that carries a hash of the sources and flags,
@@ -29,7 +31,7 @@ import threading
 import time
 
 from cfear_radarodometry_code_public_tpu_torch.ops.cuda_assoc import (
-    TT_SPARSE, UNROLLED_M)
+    TT_SPARSE, UNROLLED_M, UNROLLED_S)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
@@ -38,6 +40,7 @@ ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     f"-DCFEAR_UNROLLED_MASK={sum(1 << (m // TT_SPARSE) for m in UNROLLED_M):#x}",
+    f"-DCFEAR_UNROLLED_S_MASK={sum(1 << s for s in UNROLLED_S):#x}",
     "-c")
 LINK_FLAGS = ARCH + ("-shared",)
 
@@ -119,6 +122,9 @@ def library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cfear_nn_min.argtypes = [p, p, p, i, i, i, i, p, p, p]
         lib.cfear_nn_min.restype = i
+        for name in ("cfear_nn_min_multi", "cfear_nn_min_multi_unrolled"):
+            getattr(lib, name).argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+            getattr(lib, name).restype = i
         lib.cfear_nn_min_sparse.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                             p, p, p]
         lib.cfear_nn_min_sparse.restype = i

@@ -1,12 +1,13 @@
 """Exact 1-NN association: CUDA kernels and their plain PyTorch twins
-(port of `ops/pallas_assoc.py`: kernels A `nn_min`, C `nn_min_sparse`, D1
-`nn_min_sparse_multi`, D2 `nn_min_sparse_unrolled` and E
-`nn_min_sparse_attrs`).
+(port of `ops/pallas_assoc.py`: kernels A `nn_min`, B1 `nn_min_multi`, B2
+`nn_min_multi_unrolled`, C `nn_min_sparse`, D1 `nn_min_sparse_multi`, D2
+`nn_min_sparse_unrolled` and E `nn_min_sparse_attrs`).
 
 Every function takes the reference's layout with a leading lane axis, so one
 launch serves a batched step: src (B, Msrc, 2), tar (B, S, M, 2),
 valid (B, S, M) -> nn (B, S, Msrc) int32, d2 (B, S, Msrc) float32.
-D1 and D2 compute C's function (keyframe loop inside the kernel, at runtime
+B1 and B2 compute A's function (keyframe loop inside the kernel, at runtime
+or unrolled) and share A's twin; D1 and D2 compute C's function (keyframe loop inside the kernel, at runtime
 or unrolled) and share C's twin; E adds the winner's attribute column,
 attrs_t (B, S, D_pad, M) -> g (B, S, D_pad, Msrc).
 
@@ -29,8 +30,12 @@ _TS = 256            # cell-budget granule of the dense kernel's policy
 # target budgets kernel D2 is built for: the one list, which `_build` passes
 # to nvcc as the template instances (M / TT_SPARSE tiles each, at most 30)
 UNROLLED_M = (512, 1024, 2048, 3072)
+# keyframe counts kernel B2 is built for, the one list (`_build` passes it
+# to nvcc): 1 is the health check's reverse problem, 4 CFEAR-3's window
+UNROLLED_S = (1, 4)
 
-launches = {"nn_min": 0, "nn_min_sparse": 0, "nn_min_sparse_multi": 0,
+launches = {"nn_min": 0, "nn_min_multi": 0, "nn_min_multi_unrolled": 0,
+            "nn_min_sparse": 0, "nn_min_sparse_multi": 0,
             "nn_min_sparse_unrolled": 0, "nn_min_sparse_attrs": 0}
 
 
@@ -42,6 +47,18 @@ def reset_launches() -> None:
 def supported(m: int) -> bool:
     """Same policy as the reference: the cell budget tiles evenly."""
     return m % _TS == 0
+
+
+def ts_multi(m: int) -> int:
+    """Source rows per block of kernels B1 and B2: the reference's
+    `_ts_multi`, 512 up to M = 2048, else 256."""
+    return 512 if m <= 2048 else 256
+
+
+def supported_multi(m_src: int, m_tar: int) -> bool:
+    """The reference's `supported_multi`: the source tiles evenly and the
+    target budget is a multiple of 128."""
+    return m_src % ts_multi(m_tar) == 0 and m_tar % 128 == 0
 
 
 def supported_sparse(m_src: int, m_tar: int) -> bool:
@@ -196,6 +213,48 @@ def nn_min(src, tar, valid):
                 valid.data_ptr(), b, s, src.shape[1], m, nn.data_ptr(),
                 d2.data_ptr())
     return nn, d2
+
+
+def _multi(name, entry, src, tar, valid):
+    """Check the shapes kernels B1 and B2 take, then run `nn_min_plain` on
+    the CPU or launch `entry` on CUDA."""
+    dev = _check(name, src=src, tar=tar, valid=valid)
+    _check_shapes(name, src, tar, valid)
+    b, s, m = valid.shape
+    m_src = src.shape[1]
+    if not supported_multi(m_src, m):
+        raise ValueError(
+            f"{name}: m_src={m_src} % {ts_multi(m)} and m_tar={m} % 128 "
+            "must both be 0")
+    if dev.type == "cpu":
+        return nn_min_plain(src, tar, valid)
+    nn, d2 = _nn_out(valid, m_src, dev)
+    if nn.numel():
+        _launch(name, entry, dev, src.data_ptr(), tar.data_ptr(),
+                valid.data_ptr(), b, s, m_src, m, ts_multi(m), nn.data_ptr(),
+                d2.data_ptr())
+    return nn, d2
+
+
+def nn_min_multi(src, tar, valid):
+    """`nn_min` with the keyframe loop inside the kernel (kernel B1 on
+    CUDA: one block per (lane, source tile of `ts_multi(M)` rows) walks the
+    S keyframes; `nn_min_plain` on the CPU). Identical outputs. Shapes the
+    reference refuses (`supported_multi`) raise ValueError."""
+    return _multi("nn_min_multi", "cfear_nn_min_multi", src, tar, valid)
+
+
+def nn_min_multi_unrolled(src, tar, valid):
+    """`nn_min_multi` with the keyframe loop unrolled at compile time
+    (kernel B2 on CUDA, built for the keyframe counts `UNROLLED_S`;
+    `nn_min_plain` on the CPU). Identical outputs. Any other S, and the
+    shapes `nn_min_multi` refuses, raise ValueError."""
+    s = valid.shape[1] if valid.dim() == 3 else None
+    if s not in UNROLLED_S:
+        raise ValueError(f"nn_min_multi_unrolled: S={s} is not a keyframe "
+                         f"count the kernel is built for {UNROLLED_S}")
+    return _multi("nn_min_multi_unrolled", "cfear_nn_min_multi_unrolled",
+                  src, tar, valid)
 
 
 def _sparse(name, entry, src, src_bounds, tar, tar_bounds, valid, radius):

@@ -31,6 +31,7 @@ import torch
 
 from cfear_radarodometry_code_public_tpu_torch.ops import cuda_features
 from cfear_radarodometry_code_public_tpu_torch.ops.filtering import PointCloud
+from cfear_radarodometry_code_public_tpu_torch.utils import se2
 
 
 class CellMap(NamedTuple):
@@ -461,3 +462,30 @@ def _finalize_cells(mean, nvec, cxx, cxy, cyy, nsamp, planarity, cell_ok,
         planarity=torch.where(kept_valid, kept[..., 8], zero),
         valid=kept_valid,
     )
+
+
+def transform_cells(cells: CellMap, pose) -> CellMap:
+    """Rigid-transform cell maps (..., M, ...) by SE(2) poses (..., 3)
+    (`cell::TransformCopy`, `pointnormal.cpp:515-529`, with the covariance
+    rotated as R Sigma R^T, as the reference does)."""
+    R = se2.rotmat(pose[..., 2])
+    cov = torch.einsum("...ij,...njk,...lk->...nil", R, cells.cov, R)
+    return cells._replace(mean=se2.transform(pose, cells.mean),
+                          normal=se2.rotate(pose, cells.normal), cov=cov)
+
+
+def compensate_cells(cells: CellMap, tmot, ccw: bool) -> CellMap:
+    """Motion-compensate cell means, normals and covariances (..., M, ...)
+    by each cell's relative scan time and the motion tmot (..., 3)
+    (`MapPointNormal::Compensate`, `pointnormal.cpp:113-133`)."""
+    d = se2.rel_timestamp(cells.mean, ccw)                   # (..., M)
+    ang = d * tmot[..., None, 2]
+    c, s = torch.cos(ang), torch.sin(ang)
+    x, y = cells.mean[..., 0], cells.mean[..., 1]
+    mean = torch.stack([c * x - s * y + d * tmot[..., None, 0],
+                        s * x + c * y + d * tmot[..., None, 1]], -1)
+    nx, ny = cells.normal[..., 0], cells.normal[..., 1]
+    normal = torch.stack([c * nx - s * ny, s * nx + c * ny], -1)
+    R = se2.rotmat(ang)
+    cov = torch.einsum("...nij,...njk,...nlk->...nil", R, cells.cov, R)
+    return cells._replace(mean=mean, normal=normal, cov=cov)

@@ -1,7 +1,7 @@
 """Host-ingest half of the filter stage (port of `ops/filtering.py`).
 
 Only the main path is ported: the native host filter
-(`_shared.native_io`) selects the k-strongest candidates on CPU threads, and
+(`utils/native_io`) selects the k-strongest candidates on CPU threads, and
 these functions turn its rows into a fixed-size masked point cloud on the
 device. Conventions (`radar_filters.cpp:315-330`): theta = (azimuth+1)/A*2pi,
 range = (bin+0.5)*dr. The on-device image filter (k-strongest, NMS, CA-CFAR)

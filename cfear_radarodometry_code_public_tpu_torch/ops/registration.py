@@ -1,5 +1,4 @@
-"""Scan-to-multi-keyframe registration (port of `ops/registration.py`,
-main path only).
+"""Scan-to-multi-keyframe registration (port of `ops/registration.py`).
 
 Batched over a leading lane axis (B = 1 is the single sequence): the newest
 scan of each lane is registered against that lane's S keyframes; only its
@@ -10,9 +9,18 @@ packed LM solve (`lm.lm_solve_packed`: CUDA kernel F on a card, one launch
 per solve; the plain loop on the CPU). The reference's `while_loop` becomes
 a fixed-trip loop in which a finished lane keeps its state, with an early
 stop once every lane is done. Afterwards the Censi-scaled covariance.
+With `soft_constraint` the inner solve is the reference's einsum LM with
+the guess prior (`_lm_solve`), which does not go through kernel F, as in
+the reference.
 
-Not ported yet (raise NotImplementedError): `soft_constraint`,
-`time_continuous`, `assoc_method="grid"`.
+The cost-evaluation entry points (`get_cost`, `sample_covariance`,
+`cost_surface`) ride the same association backends: the poses they
+evaluate are folded into the lane axis, with the keyframe window gated and
+packed once, so one association pass serves all of them. Also ported:
+`register_time_continuous`, `is_consistent`, `register_scans_service`.
+`assoc_method="grid"` is not ported (raises NotImplementedError): a parity
+ablation that the reference's config calls ~400x slower than the kernels.
+`refine_many_to_many` belongs with the pose-graph slice.
 """
 
 from __future__ import annotations
@@ -24,7 +32,8 @@ import torch
 from torch.profiler import record_function
 
 from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc, lm, losses
-from cfear_radarodometry_code_public_tpu_torch.ops.features import CellMap
+from cfear_radarodometry_code_public_tpu_torch.ops.features import (
+    CellMap, compensate_cells)
 from cfear_radarodometry_code_public_tpu_torch.utils import se2
 
 
@@ -52,14 +61,6 @@ _FAST_DENSE = ("dense", "pallas", "pallas_sparse")
 def check_supported(cfg) -> None:
     """Raise for registration settings the port does not run yet."""
     reg = cfg.registration
-    if reg.soft_constraint:
-        raise NotImplementedError(
-            "registration.soft_constraint is not ported yet (ROADMAP queue 1, "
-            "item 11: the einsum LM with the guess prior)")
-    if reg.time_continuous:
-        raise NotImplementedError(
-            "registration.time_continuous is not ported yet (ROADMAP queue 1, "
-            "item 11: register_time_continuous)")
     if reg.assoc_method == "grid":
         raise NotImplementedError(
             "registration.assoc_method='grid' is not ported (ROADMAP queue 1, "
@@ -192,9 +193,34 @@ def _residuals(pose, src: CellMap, tgt, cfg):
     return diff, J
 
 
-def _cost_grad_hess(pose, src, tgt, assoc: Associations, cfg):
+def _soft_terms(pose, guess, soft_scale, soft_sqrt_info):
+    """The guess prior's residual rs (B, 3) and Jacobian Js (B, 3, 3)
+    (`n_scan_normal.cpp:373-377`): rs = scale * L (pose - guess), the angle
+    difference wrapped."""
+    d = pose - guess
+    d = torch.stack([d[:, 0], d[:, 1], se2.normalize_angle(d[:, 2])], -1)
+    js = soft_scale[:, None, None] * soft_sqrt_info
+    return torch.einsum("bij,bj->bi", js, d), js
+
+
+def _cost_only(pose, src, tgt, assoc: Associations, cfg, guess=None,
+               soft_scale=None, soft_sqrt_info=None):
+    """Total robust cost (B,) without gradient or Hessian; with
+    `soft_sqrt_info`, plus the guess prior."""
+    reg = cfg.registration
+    r, _ = _residuals(pose, src, tgt, cfg)
+    rho_s, _ = losses.rho((r * r).sum(-1), reg.loss, reg.loss_limit)
+    cost = 0.5 * (assoc.weight * assoc.valid * rho_s).sum((-2, -1))
+    if soft_sqrt_info is not None:
+        rs, _ = _soft_terms(pose, guess, soft_scale, soft_sqrt_info)
+        cost = cost + 0.5 * (rs * rs).sum(-1)
+    return cost
+
+
+def _cost_grad_hess(pose, src, tgt, assoc: Associations, cfg, guess=None,
+                    soft_scale=None, soft_sqrt_info=None):
     """Total robust cost (B,), gradient (B, 3) and IRLS Gauss-Newton
-    Hessian (B, 3, 3)."""
+    Hessian (B, 3, 3); with `soft_sqrt_info`, plus the guess prior."""
     reg = cfg.registration
     r, J = _residuals(pose, src, tgt, cfg)
     s = (r * r).sum(-1)
@@ -204,6 +230,11 @@ def _cost_grad_hess(pose, src, tgt, assoc: Associations, cfg):
     wd = w * drho
     g = torch.einsum("bsm,bsmdp,bsmd->bp", wd, J, r)
     H = torch.einsum("bsm,bsmdp,bsmdq->bpq", wd, J, J)
+    if soft_sqrt_info is not None:
+        rs, js = _soft_terms(pose, guess, soft_scale, soft_sqrt_info)
+        cost = cost + 0.5 * (rs * rs).sum(-1)
+        g = g + torch.einsum("bip,bi->bp", js, rs)
+        H = H + torch.einsum("bip,biq->bpq", js, js)
     return cost, g, H
 
 
@@ -236,6 +267,73 @@ def _inv3(A, eps=1e-30):
     eye = torch.eye(3, dtype=A.dtype, device=A.device)
     return torch.stack([_solve3(A, eye[:, i].expand(A.shape[:-1]), eps)
                         for i in range(3)], -1)
+
+
+def _norm3(v):
+    return torch.sqrt((v * v).sum(-1))
+
+
+def _lm_solve(pose0, src, tgt, assoc: Associations, cfg, guess, soft_scale,
+              soft_sqrt_info):
+    """The reference's einsum trust-region LM (`_lm_solve`), batched over
+    lanes: the `while_loop` becomes a fixed trip of `max_itr_solver`
+    iterations in which a finished lane keeps its state, stopped early once
+    every lane is done. Used with `soft_constraint` (the guess prior), as
+    in the reference. Returns (pose (B, 3), cost, steps int32, last
+    relative decrease), each per lane."""
+    reg = cfg.registration
+    b, dt, dev = pose0.shape[0], pose0.dtype, pose0.device
+
+    def cgh(p):
+        return _cost_grad_hess(p, src, tgt, assoc, cfg, guess, soft_scale,
+                               soft_sqrt_info)
+
+    pose = pose0
+    cost, g, H = cgh(pose0)
+    radius = torch.full((b,), 1e4, dtype=dt, device=dev)
+    dec = torch.full((b,), 2.0, dtype=dt, device=dev)
+    steps = torch.zeros(b, dtype=torch.int32, device=dev)
+    last_rel = torch.full((b,), float("inf"), dtype=dt, device=dev)
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    for _ in range(reg.max_itr_solver):
+        if bool(done.all()):
+            break
+        diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), 1e-6, 1e32)
+        delta = -_solve3(H + torch.diag_embed(diag / radius[:, None]), g)
+        new_pose = pose + delta
+        new_cost = _cost_only(new_pose, src, tgt, assoc, cfg, guess,
+                              soft_scale, soft_sqrt_info)
+        model_red = -((g * delta).sum(-1)
+                      + 0.5 * (delta * torch.einsum("bpq,bq->bp", H, delta)
+                               ).sum(-1))
+        rel = (cost - new_cost) / torch.clamp(model_red, min=1e-30)
+        accept = (rel > 1e-3) & torch.isfinite(new_cost)
+        t = 2.0 * rel - 1.0
+        shrink = 1.0 - t * t * t
+        r_ok = radius / torch.clamp(torch.clamp(shrink, min=1.0 / 3.0),
+                                    min=1e-3)
+        r_bad = radius / dec
+        func_conv = (cost - new_cost).abs() <= reg.function_tolerance * cost
+        pred_conv = model_red <= reg.function_tolerance * cost
+        step_small = _norm3(delta) <= 1e-8 * (_norm3(pose) + 1e-8)
+        new_done = (accept & func_conv) | pred_conv | step_small \
+            | (r_bad < 1e-32)
+        cost2, g2, H2 = cgh(new_pose)
+        # a lane that is done keeps its state; a rejected step keeps the
+        # pose and its (cost, g, H)
+        upd, take = ~done, ~done & accept
+        pose = torch.where(take[:, None], new_pose, pose)
+        cost = torch.where(take, cost2, cost)
+        g = torch.where(take[:, None], g2, g)
+        H = torch.where(take[:, None, None], H2, H)
+        radius = torch.where(upd, torch.where(
+            accept, torch.clamp(r_ok, max=1e16), r_bad), radius)
+        dec = torch.where(upd, torch.where(accept, torch.full_like(dec, 2.0),
+                                           dec * 2.0), dec)
+        steps = steps + take.to(torch.int32)
+        last_rel = torch.where(upd, rel, last_rel)
+        done = done | new_done
+    return pose, cost, steps, last_rel
 
 
 def resolve_assoc_method(cfg, m_src: int, m_tar: int, s_act: int,
@@ -275,12 +373,13 @@ def _active_window(kf_cells: CellMap, kf_poses, kf_valid, center, cfg):
 
 
 def register(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, guess,
-             cfg=None) -> RegistrationResult:
+             reg_cov_guess=None, cfg=None) -> RegistrationResult:
     """Register each lane's newest scan against its S keyframes.
 
     kf_cells leaves (B, S, M, ...) in their local frames, kf_poses (B, S, 3)
     FIXED poses, kf_valid (B, S), src leaves (B, M, ...) in its local frame,
-    guess (B, 3)."""
+    guess (B, 3). With `soft_constraint`, `reg_cov_guess` (B, 3, 3; the
+    identity when None) is the covariance of the guess prior."""
     check_supported(cfg)
     reg = cfg.registration
     dtype, dev = guess.dtype, guess.device
@@ -301,6 +400,15 @@ def register(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, guess,
     method = resolve_assoc_method(cfg, m_src, m_tar, s_kf, dev)
     attrs = _world_attrs(kf_cells, kf_poses, cfg)
     cos_gate = math.cos(math.radians(reg.angle_outlier_deg))
+    soft_scale = soft_sqrt_info = None
+    if reg.soft_constraint:
+        if reg_cov_guess is None:
+            reg_cov_guess = torch.eye(3, dtype=dtype, device=dev).expand(b, 3, 3)
+        soft_scale = torch.sqrt(torch.clamp(
+            src.valid.sum(-1).to(dtype), min=1.0))
+        # sqrt information of the guess prior: chol of cov^-1
+        soft_sqrt_info = torch.linalg.cholesky(_inv3(
+            reg_cov_guess + 1e-9 * torch.eye(3, dtype=dtype, device=dev)))
 
     fmax = torch.finfo(dtype).max
     pose, prev_pose = guess, guess
@@ -326,13 +434,18 @@ def register(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, guess,
             a_new, tgt = _associate_world(attrs, src, pose, kf_valid, radius,
                                           cfg, cos_gate, method)
         n_assoc = a_new.valid.sum((-2, -1), dtype=torch.int32)
-        n_res = n_assoc * res_dim
+        n_res = n_assoc * res_dim + (3 if reg.soft_constraint else 0)
         failed_new = n_res <= 1                    # (`n_scan_normal.cpp:370`)
         with record_function("lm_solve"):
-            packed = lm.pack_associations(src.mean, tgt,
-                                          a_new.weight * a_new.valid, cfg)
-            lm_pose, lm_cost, lm_steps, lm_rel = lm.lm_solve_packed(
-                packed, pose, cfg)
+            if reg.soft_constraint:
+                lm_pose, lm_cost, lm_steps, lm_rel = _lm_solve(
+                    pose, src, tgt, a_new, cfg, guess, soft_scale,
+                    soft_sqrt_info)
+            else:
+                packed = lm.pack_associations(src.mean, tgt,
+                                              a_new.weight * a_new.valid, cfg)
+                lm_pose, lm_cost, lm_steps, lm_rel = lm.lm_solve_packed(
+                    packed, pose, cfg)
         current = lm_cost
         rel_improvement = (prev_score - current) / prev_score
         # convergence rules (`n_scan_normal.cpp:134-149`), after min_itr
@@ -361,7 +474,8 @@ def register(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, guess,
     # (`n_scan_normal.cpp:392-433`) at the final pose, on the associations
     # of the last executed iteration
     tgt = _tgt_from_attrs(_gather_attrs(attrs, assoc.tar_idx), cfg)
-    cost_f, _, H = _cost_grad_hess(pose, src, tgt, assoc, cfg)
+    cost_f, _, H = _cost_grad_hess(pose, src, tgt, assoc, cfg, guess,
+                                   soft_scale, soft_sqrt_info)
     dof = torch.clamp(num_res.to(dtype) - 3.0, min=1.0)
     Hinv = _inv3(H + 1e-9 * torch.eye(3, dtype=dtype, device=dev))
     cov = reg.covariance_scaler * (cost_f / dof)[:, None, None] * Hinv
@@ -375,3 +489,182 @@ def register(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, guess,
     return RegistrationResult(
         pose=pose, cov=cov, success=~failed & ~collapsed, score=score,
         final_cost=final_cost, num_assoc=num_assoc, iterations=itr)
+
+
+def is_consistent(pose, guess, max_distance: float = 1.0,
+                  max_angle_deg: float = 5.0):
+    """Consistency gate of registration results (..., 3) against their
+    guesses (`IsConsistent`, `registration_srv_node.cpp:131-142`): the
+    discrepancy T_guess^-1 T_pose within both limits."""
+    d = se2.relative(guess, pose)
+    dist = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+    ang = torch.rad2deg(se2.normalize_angle(d[..., 2])).abs()
+    return (dist <= max_distance) & (ang <= max_angle_deg)
+
+
+def register_scans_service(scans: CellMap, poses, cfg,
+                           consistency_max_distance: float = 1.0,
+                           consistency_max_angle_deg: float = 5.0):
+    """"Registration as a service" (`registration_srv_node.cpp:242-313`):
+    per lane, the newest of N scans (leaves (B, N, M, ...), poses (B, N, 3))
+    registered against the rest, and gated on consistency with its initial
+    pose. Returns (RegistrationResult, consistent (B,))."""
+    kf = CellMap(*(a[:, :-1] for a in scans))
+    src = CellMap(*(a[:, -1] for a in scans))
+    valid = torch.ones(poses.shape[:1] + (poses.shape[1] - 1,),
+                       dtype=torch.bool, device=poses.device)
+    res = register(kf, poses[:, :-1], valid, src, poses[:, -1], cfg=cfg)
+    ok = res.success & is_consistent(res.pose, poses[:, -1],
+                                     consistency_max_distance,
+                                     consistency_max_angle_deg)
+    return res, ok
+
+
+def register_time_continuous(kf_cells: CellMap, kf_poses, kf_valid,
+                             src: CellMap, guess, tvel, ccw: bool,
+                             cfg=None) -> RegistrationResult:
+    """Time-continuous variant (`RegisterTimeContinuous`,
+    `n_scan_normal.cpp:67-80`): each source cell pre-warped by the fixed
+    velocity tvel (B, 3) at its relative scan time, then the ordinary
+    solve."""
+    return register(kf_cells, kf_poses, kf_valid,
+                    compensate_cells(src, tvel, ccw), guess, cfg=cfg)
+
+
+def get_cost(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, src_pose,
+             cfg, attrs=None):
+    """The association cost at fixed poses, no solve (`GetCost`,
+    `n_scan_normal.cpp:188-213`): associate at `assoc_radius` through the
+    backend `register` would use (`resolve_assoc_method`: kernels A or C on
+    a card), then the robust cost. Pass `attrs` from `_world_attrs` to
+    evaluate many poses against one packed window. Returns (cost (B,),
+    number of residual scalars (B,) int32)."""
+    reg = cfg.registration
+    check_supported(cfg)
+    method = resolve_assoc_method(cfg, src.valid.shape[1],
+                                  kf_cells.valid.shape[2], kf_valid.shape[1],
+                                  src_pose.device)
+    if attrs is None:
+        attrs = _world_attrs(kf_cells, kf_poses, cfg)
+    radius = src_pose.new_full((src_pose.shape[0],), reg.assoc_radius)
+    assoc, tgt = _associate_world(
+        attrs, src, src_pose, kf_valid, radius, cfg,
+        math.cos(math.radians(reg.angle_outlier_deg)), method)
+    res_dim = 1 if reg.cost == "P2L" else 2
+    return (_cost_only(src_pose, src, tgt, assoc, cfg),
+            assoc.valid.sum((-2, -1), dtype=torch.int32) * res_dim)
+
+
+def _cost_at_offsets(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap,
+                     pose, offs, cfg, max_lanes: int | None = None):
+    """`get_cost` at pose (B, 3) + each of offs (K, 3), as B*K lanes of one
+    association pass (the window is packed once and broadcast over the
+    offsets; at most `max_lanes` lanes per pass). Returns (costs (B, K),
+    n_res (B, K))."""
+    b, k = pose.shape[0], offs.shape[0]
+    attrs = _world_attrs(kf_cells, kf_poses, cfg)
+    step = k if max_lanes is None else max(1, max_lanes // b)
+    costs, n_res = [], []
+    for lo in range(0, k, step):
+        o = offs[lo:lo + step]
+        n = o.shape[0]
+
+        def fold(a):    # (B, ...) -> (B * n, ...), each lane repeated n times
+            return a[:, None].expand((b, n) + a.shape[1:]).reshape(
+                (b * n,) + a.shape[1:])
+
+        c, r = get_cost(CellMap(*(fold(a) for a in kf_cells)),
+                        fold(kf_poses), fold(kf_valid),
+                        CellMap(*(fold(a) for a in src)),
+                        (pose[:, None] + o[None]).reshape(b * n, 3), cfg,
+                        attrs=fold(attrs))
+        costs.append(c.reshape(b, n))
+        n_res.append(r.reshape(b, n))
+    return torch.cat(costs, 1), torch.cat(n_res, 1)
+
+
+def _sampling_offsets(cfg, dtype, device):
+    """The k^3 (x, y, yaw) offsets of `sample_covariance`, in the
+    reference's meshgrid order."""
+    odo = cfg.odometry
+    k = odo.cov_sampling_samples_per_axis
+    xy = torch.linspace(-odo.cov_sampling_xy_range * 0.5,
+                        odo.cov_sampling_xy_range * 0.5, k,
+                        dtype=dtype, device=device)
+    th = torch.linspace(-odo.cov_sampling_yaw_range * 0.5,
+                        odo.cov_sampling_yaw_range * 0.5, k,
+                        dtype=dtype, device=device)
+    gx, gy, gt = torch.meshgrid(xy, xy, th, indexing="ij")
+    return torch.stack([gx.reshape(-1), gy.reshape(-1), gt.reshape(-1)], -1)
+
+
+def sample_covariance(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap,
+                      pose, cfg):
+    """Covariance by cost sampling around the registration optimum
+    (`approximateCovarianceBySampling`, `odometrykeyframefuser.cpp:261-380`):
+    the cost on a k^3 grid of (x, y, yaw) offsets, a 10-coefficient
+    quadratic fitted by least squares, its constant Hessian H, and where H
+    is positive definite cov = 2 H^-1 * final_cost / (n_res - 3) * scaler.
+    The window is gated at `pose` and packed once; the k^3 offsets of every
+    lane are one association pass over B*k^3 lanes. The fit, `eigvalsh`
+    and the inverse run in float64 in `torch.linalg`. Returns (cov (B, 3,
+    3), convex (B,))."""
+    odo = cfg.odometry
+    dtype = pose.dtype
+    offs = _sampling_offsets(cfg, dtype, pose.device)
+    kf_cells, kf_poses, kf_valid = _active_window(kf_cells, kf_poses,
+                                                  kf_valid, pose, cfg)
+    costs, n_res = _cost_at_offsets(kf_cells, kf_poses, kf_valid, src, pose,
+                                    offs, cfg)
+    o = offs.to(torch.float64)
+    x, y, t = o[:, 0], o[:, 1], o[:, 2]
+    A = torch.stack([x * x, y * y, t * t, x * y, y * t, t * x, x, y, t,
+                     torch.ones_like(x)], -1)                     # (K, 10)
+    coef = torch.linalg.lstsq(A.expand((pose.shape[0],) + A.shape),
+                              costs.to(torch.float64)[..., None]
+                              ).solution[..., 0]                  # (B, 10)
+    c = coef.unbind(-1)
+    H = torch.stack([torch.stack([2 * c[0], c[3], c[5]], -1),
+                     torch.stack([c[3], 2 * c[1], c[4]], -1),
+                     torch.stack([c[5], c[4], 2 * c[2]], -1)], -2)
+    convex = (torch.linalg.eigvalsh(H) > 0.0).all(-1)
+    # the score scale comes from the centre sample
+    centre = int(torch.argmin((offs * offs).sum(-1)))
+    dof = torch.clamp(n_res[:, centre].to(torch.float64) - 3.0, min=1.0)
+    eye = torch.eye(3, dtype=torch.float64, device=pose.device)
+    cov = 2.0 * torch.linalg.inv(H + (~convex).to(H.dtype)[:, None, None]
+                                 * eye) \
+        * (costs[:, centre].to(torch.float64) / dof)[:, None, None] \
+        * odo.cov_sampling_covariance_scaler
+    return cov.to(dtype), convex
+
+
+# lanes per association pass of `cost_surface` with the dense form, whose
+# (lanes, S, Msrc, M) distance matrix is materialised
+_DENSE_ELEMENTS = 1 << 26
+
+
+def cost_surface(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, pose,
+                 cfg, width: float = 5.0, res: float = 0.25):
+    """The registration cost on an (x, y) grid around each lane's pose
+    (`GetSurface`, `n_scan_normal.cpp:29-65`). The grid's poses are folded
+    into the lane axis over the window packed once (in passes of bounded
+    size where the dense form materialises its distances). Returns
+    (surface (B, P, P), extent) with P = 2 ceil(width / res) + 1."""
+    p = 2 * int(math.ceil(width / res)) + 1
+    offs = torch.linspace(-width, width, p, dtype=pose.dtype,
+                          device=pose.device)
+    gx, gy = torch.meshgrid(offs, offs, indexing="xy")
+    grid = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                        torch.zeros_like(gx.reshape(-1))], -1)
+    method = resolve_assoc_method(cfg, src.valid.shape[1],
+                                  kf_cells.valid.shape[2], kf_valid.shape[1],
+                                  pose.device)
+    max_lanes = None
+    if method == "dense":
+        per_lane = (kf_valid.shape[1] * src.valid.shape[1]
+                    * kf_cells.valid.shape[2])
+        max_lanes = max(1, _DENSE_ELEMENTS // per_lane)
+    costs, _ = _cost_at_offsets(kf_cells, kf_poses, kf_valid, src, pose,
+                                grid, cfg, max_lanes)
+    return costs.reshape(pose.shape[0], p, p), (-width, width, -width, width)

@@ -17,15 +17,24 @@ must agree bit for bit), and single-sequence with `feature.backend="pallas"`
 exact and with the K=16 gate (`s50`, `s50-k16`), batched x8
 (`s50-batched`), and the preset as users call it (`s50-preset`), after which
 C, D1, D2 and E are held against their twins on the window that path ends
-with (B=1, M=3072). Last, the multi-keyframe kernels D1, D2 and the
-fused-lookup kernel E run on the 50-keyframe window the `s50` path ends
-with, at B=1 and B=8, and are held bit for bit against kernel C, the flat
-gather and their twins (`s50-window`). Each path is held against a JAX golden
-(`tools/make_torch_port_golden.py`) or the single run, and must launch the
-kernels it runs (launch counts zeroed just before each path, read just
+with (B=1, M=3072). The multi-keyframe kernels D1, D2 and the fused-lookup
+kernel E run on the 50-keyframe window the `s50` path ends with, at B=1 and
+B=8, and are held bit for bit against kernel C, the flat gather and their
+twins (`s50-window`). Last, the long-run odometry path of
+`tools/run_longrun.py` (CFEAR-3, max_cells 2048, the reverse-registration
+health check every 8 frames, `auto` -> kernel A) over 256 frames of the
+extent-1000 world at 12 m/s (`longrun`), split through a checkpoint
+(`longrun-resume`, bit-identical), with the cost-sampling covariance
+(`longrun-cov`), and in the adversarial world at 8 m/s (`longrun-adv8`);
+kernels B1 and B2 run on the window `longrun` ends with (the forward S=4
+and the reverse S=1 problem, B=1 and B=8) and are held bit for bit against
+kernel A and their twin (`longrun-window`). Each path is held against a JAX
+golden (`tools/make_torch_port_golden.py`) or another run, and must launch
+the kernels it runs (launch counts zeroed just before each path, read just
 after). Exits non-zero, printing no result, when there is no CUDA card or
 any phase fails. The last line of stdout is {"ok": true, "device": {...}};
-the line before it lists the kernels.
+the line before it lists the kernels, each with its time, its plain twin's,
+its bound and the time of the closest PyTorch library route.
 """
 
 from __future__ import annotations
@@ -35,21 +44,22 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import cfear_radarodometry_code_public_tpu_torch as port
-from cfear_radarodometry_code_public_tpu_torch._shared import (
-    kitti, native_io, synthetic)
-from cfear_radarodometry_code_public_tpu_torch.eval import ate_rmse
+from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
+from cfear_radarodometry_code_public_tpu_torch.eval import kitti
+from cfear_radarodometry_code_public_tpu_torch.eval.trajectory import ate_rmse
 from cfear_radarodometry_code_public_tpu_torch.models import odometry
 from cfear_radarodometry_code_public_tpu_torch.ops import (
     _build, cuda_assoc, cuda_features, cuda_lm, features, filtering,
     registration)
 from cfear_radarodometry_code_public_tpu_torch.ops.features import CellMap
-from cfear_radarodometry_code_public_tpu_torch.utils import se2
+from cfear_radarodometry_code_public_tpu_torch.utils import native_io, se2
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 _GOLDEN_DIR = os.path.join(ROOT, "cfear_radarodometry_code_public_tpu_torch",
@@ -82,6 +92,27 @@ TOL = (0.08, 3e-3, 0.025)   # (position m, yaw rad, motion m)
 # largest position difference is on frame 1, whose pose is its motion,
 # before the gate has a keyframe to drop). The limits are about 3x that.
 S50_TOL = (0.05, 1.25e-3, 0.05)
+# The long-run odometry path (`tools/run_longrun.py`'s configuration, cut
+# from 1024 to 256 frames, about 770 m at 12 m/s): CFEAR-3 at Oxford scale,
+# max_cells 2048, the reverse-registration health check every 8 frames, in
+# the reference's easy world and its stable adversarial world at 8 m/s.
+LONGRUN_SEQUENCE = {"seed": 11, "n_frames": 256, "speed": 12.0,
+                    "extent": 1000.0}
+ADVERSARIAL = {"n_dynamic": 40, "dropout_prob": 0.5,
+               "speckle_burst_prob": 0.4}
+LONGRUN_ADV8_SEQUENCE = {**LONGRUN_SEQUENCE, "speed": 8.0, **ADVERSARIAL}
+# Its tolerances, set as TOL is (`make_torch_port_golden.py --preset longrun
+# [--adversarial --speed 8] --assoc-method dense`): over the 256 frames the
+# reference's dense form differs from its kernel A by 12.25 cm per pose,
+# 1.10e-3 rad and 2.07 cm per motion in the easy world (4.03 cm, 6.13e-4
+# rad, 1.38 cm in the adversarial one; a pose difference grows along the
+# run as drift does); the limits are about 3x the larger. The health
+# signal's spread is 1.42 cm and 2.99e-4 rad (0.89 cm, 2.55e-4 rad), and
+# HEALTH_TOL is about 3x that: it bounds health_dist and health_rot, and a
+# checked frame whose golden discrepancy lies within it of a limit may flip
+# `healthy`. Keyframe and health-checked flags must be identical.
+LONGRUN_TOL = (0.40, 3.5e-3, 0.06)
+HEALTH_TOL = (0.045, 1e-3)
 # Kernel F against its twin: the tolerance of the reference's own
 # kernel-vs-XLA test (tests/test_registration.py:565-567); the two sum in
 # another order, which can move an accept or convergence test by an ulp.
@@ -94,14 +125,29 @@ MOMENT_RTOL = 1e-4
 _PKG = "cfear_radarodometry_code_public_tpu"
 KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
     "nn_min": (f"{_PKG}/ops/pallas_assoc.py:48", "nn_assoc.cu"),
+    "nn_min_multi": (f"{_PKG}/ops/pallas_assoc.py:143", "nn_assoc.cu"),
+    "nn_min_multi_unrolled": (f"{_PKG}/ops/pallas_assoc.py:683",
+                              "nn_assoc.cu"),
     "nn_min_sparse": (f"{_PKG}/ops/pallas_assoc.py:263", "nn_assoc.cu"),
-    "lm_solve_fused": (f"{_PKG}/ops/pallas_lm.py:339", "lm_fused.cu"),
-    "moment_accumulate": (f"{_PKG}/ops/pallas_features.py:135", "moments.cu"),
     "nn_min_sparse_multi": (f"{_PKG}/ops/pallas_assoc.py:376", "nn_assoc.cu"),
     "nn_min_sparse_unrolled": (f"{_PKG}/ops/pallas_assoc.py:479",
                                "nn_assoc.cu"),
     "nn_min_sparse_attrs": (f"{_PKG}/ops/pallas_assoc.py:591", "nn_assoc.cu"),
+    "lm_solve_fused": (f"{_PKG}/ops/pallas_lm.py:339", "lm_fused.cu"),
+    "moment_accumulate": (f"{_PKG}/ops/pallas_features.py:135", "moments.cu"),
 }
+# The least time the card could take for a kernel's work (`bound_ms`): the
+# larger of its bytes (each input read once, each output written once) over
+# the memory rate and its operations over the float32 rate outside the
+# tensor cores (NVIDIA H100 SXM data sheet; both assume the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# operations counted per squared distance (2 subtractions, 2 products, a
+# sum; the compare is not counted), per LM row and pass (a cost-only pass,
+# and a cost/gradient/Hessian pass, from the twin's arithmetic for P2P), and
+# per (point, neighbour offset) moment row of kernel G (12 products and
+# sums for the row, 9 accumulations)
+NN_FLOPS, LM_COST_FLOPS, LM_CGH_FLOPS, MOMENT_FLOPS = 5, 25, 60, 21
 
 
 def slice_config(assoc_method: str = "pallas_sparse", spatial_sort=True,
@@ -136,6 +182,28 @@ def s50_config(k_active: int = 0):
             max_active_keyframes=k_active))
 
 
+def longrun_config(max_cells: int = 2048, health_every: int = 8):
+    """`tools/run_longrun.py`'s configuration: CFEAR-3 at Oxford scale,
+    host-compact ingest (point_budget 8192), `max_cells` 2048,
+    spatial_sort, `odometry.health_check_every` 8, the preset's
+    `assoc_method="auto"` (kernel A on a card: S=4 is under the sparse
+    kernel's 8)."""
+    cfg = port.preset("CFEAR-3", dataset="oxford")
+    return cfg.replace(
+        feature=dataclasses.replace(cfg.feature, max_cells=max_cells,
+                                    point_budget=8192, spatial_sort=True),
+        odometry=dataclasses.replace(cfg.odometry,
+                                     health_check_every=health_every))
+
+
+def longrun_golden(sequence) -> str:
+    """The golden file of a long-run sequence."""
+    adv = "_adv" if sequence.get("n_dynamic") else ""
+    return os.path.join(
+        _GOLDEN_DIR, f"cfear3_longrun{adv}_seed{sequence['seed']}_"
+        f"{sequence['n_frames']}_{sequence['speed']:g}ms.npz")
+
+
 def _say(msg: str) -> None:
     print(msg, flush=True)
 
@@ -158,6 +226,45 @@ def _cuda_ms(fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """`bound_ms` and `bound_by` of a kernel call from its bytes and
+    operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nn_bound(src, tar, valid, share: float = 1.0, extra_bytes: int = 0):
+    """The bound of one 1-NN call: src, tar and valid read, nn and d2
+    written, NN_FLOPS per distance over the `share` of (source, target)
+    pairs the call must evaluate (the executed tile pairs of a block-sparse
+    kernel)."""
+    b, s, m = valid.shape
+    m_src = src.shape[1]
+    nbytes = b * m_src * 8 + b * s * m * 9 + b * s * m_src * 8 + extra_bytes
+    return bound(nbytes, NN_FLOPS * b * s * m_src * m * share)
+
+
+def library_nn(src, tar, valid):
+    """The closest PyTorch library route to the 1-NN kernels, timed beside
+    them and called nowhere in the port: `torch.cdist` over every (source,
+    target) pair of each keyframe, invalid targets masked, then `min`."""
+    b, s, m = valid.shape
+    d = torch.cdist(src[:, None].expand(b, s, -1, 2).reshape(b * s, -1, 2),
+                    tar.reshape(b * s, m, 2))
+    return d.masked_fill_(~valid.reshape(b * s, 1, m), float("inf")).min(-1)
+
+
+def library_nn_attrs(src, tar, valid, attrs_t):
+    """`library_nn` and then `torch.gather` of the winners' attribute
+    columns: the library route of kernel E."""
+    d, nn = library_nn(src, tar, valid)
+    b, s, d_pad, _ = attrs_t.shape
+    idx = nn.reshape(b, s, 1, -1).expand(b, s, d_pad, -1)
+    return d, nn, torch.gather(attrs_t, 3, idx)
 
 
 def _wall_world(rng):
@@ -230,14 +337,16 @@ def phase_kernels(dev, card):
     if not torch.isinf(d2_a[7, s - 1]).all():
         raise AssertionError("kernel A: empty keyframe must give +inf")
     fin = torch.isfinite(d2_p)
+    lib_ms = _cuda_ms(lambda: library_nn(src, tar, valid), 20)
     res["nn_min"] = {
         "max_abs_err": float((d2_a[fin] - d2_p[fin]).abs().max()),
         "ms": _cuda_ms(lambda: cuda_assoc.nn_min(src, tar, valid), 200),
         "plain_ms": _cuda_ms(lambda: cuda_assoc.nn_min_plain(src, tar, valid),
-                             20)}
+                             20),
+        **nn_bound(src, tar, valid), "library_ms": lib_ms}
     sb = cuda_assoc.tile_bounds(src, src_valid, cuda_assoc.TS_SPARSE)
     tb = cuda_assoc.tile_bounds(tar, valid, cuda_assoc.TT_SPARSE)
-    errs, times, ptimes = [], [], []
+    errs, times, ptimes, bounds = [], [], [], []
     for r in (2.0, 4.0):
         radius = torch.full((b,), r, device=dev)
         nn_c, d2_c = cuda_assoc.nn_min_sparse(src, sb, tar, tb, valid, radius)
@@ -261,15 +370,24 @@ def phase_kernels(dev, card):
             src, sb, tar, tb, valid, radius), 200))
         ptimes.append(_cuda_ms(lambda: cuda_assoc.nn_min_sparse_plain(
             src, sb, tar, tb, valid, radius), 20))
+        share = float(cuda_assoc.pair_live(sb, tb, radius).float().mean())
+        bounds.append(nn_bound(src, tar, valid, share,
+                               sb.numel() * 4 + tb.numel() * 4))
         _say(f"kernel C r={r}: rows within radius "
              f"{float(within.float().mean()):.3f}, kernel {times[-1]:.4f} ms, "
              f"plain {ptimes[-1]:.4f} ms ({card})")
+    # the executed tile pairs set the operations; both radii are averaged
     res["nn_min_sparse"] = {"max_abs_err": max(errs),
                             "ms": float(np.mean(times)),
-                            "plain_ms": float(np.mean(ptimes))}
+                            "plain_ms": float(np.mean(ptimes)),
+                            "bound_ms": float(np.mean(
+                                [x["bound_ms"] for x in bounds])),
+                            "bound_by": bounds[0]["bound_by"],
+                            "library_ms": lib_ms}
     _say(f"kernel A: nn equal, d2 bit-equal; kernel {res['nn_min']['ms']:.4f}"
-         f" ms, plain {res['nn_min']['plain_ms']:.4f} ms at B={b} S={s} "
-         f"M={m} ({card})")
+         f" ms, plain {res['nn_min']['plain_ms']:.4f} ms, bound "
+         f"{res['nn_min']['bound_ms']:.4f} ms, cdist + min {lib_ms:.4f} ms "
+         f"at B={b} S={s} M={m} ({card})")
     _say("kernel C: nn equal, d2 bit-equal to its twin and to A within the "
          "radius, d2 >= r^2 beyond it")
     return res
@@ -318,10 +436,22 @@ def lm_problem(rng, b, s, m, cost, loss):
     return cfg, packed.astype(f32), pose0.astype(f32), true.astype(f32)
 
 
+def lm_bound(packed, steps) -> dict:
+    """The bound of one kernel F call: the packed rows read once, and per
+    lane one cost-only pass per accepted step and one cost/gradient/Hessian
+    pass per accepted step and for the start (rejected steps, which the
+    kernel also evaluates, are not counted: a lower bound on the work)."""
+    b, _, n = packed.shape
+    steps = steps.to(torch.float64)
+    flops = float((n * (LM_COST_FLOPS * steps
+                        + LM_CGH_FLOPS * (steps + 1))).sum())
+    return bound(packed.numel() * 4 + b * 9 * 4, flops)
+
+
 def _lm_case(rng, dev, card, s, cost, loss, n=100, m=1024):
     """Kernel F, both variants, on `lm_problem(rng, BATCH, s, m, cost,
     loss)` against its plain twin. Returns (|dpose|, early-exit ms, plain
-    ms)."""
+    ms, bound)."""
     cfg, packed, pose0, true = lm_problem(rng, BATCH, s, m, cost, loss)
     packed, pose0 = (torch.as_tensor(a).to(dev) for a in (packed, pose0))
     ee = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=True)
@@ -350,7 +480,7 @@ def _lm_case(rng, dev, card, s, cost, loss, n=100, m=1024):
          f"{ee[2].tolist()} twin {plain[2].tolist()}; max |pose - true| "
          f"{off:.4f}; early exit {t_ee:.4f} ms, masked {t_m:.4f} ms, "
          f"plain {t_p:.4f} ms at B={BATCH} N={packed.shape[2]} ({card})")
-    return dpose, t_ee, t_p
+    return dpose, t_ee, t_p, lm_bound(packed, ee[2])
 
 
 def phase_lm(dev, card):
@@ -364,8 +494,10 @@ def phase_lm(dev, card):
             for cost, loss in LM_CASES]
     rows += [_lm_case(rng, dev, card, s, "P2P", "Cauchy", n=20, m=m)
              for s, m in ((16, 1024), (50, 1024), (50, 3072))]
+    # no single PyTorch call solves a trust-region LM: no library route
     return {"lm_solve_fused": {"max_abs_err": max(r[0] for r in rows),
-                               "ms": rows[0][1], "plain_ms": rows[0][2]}}
+                               "ms": rows[0][1], "plain_ms": rows[0][2],
+                               **rows[0][3], "library_ms": None}}
 
 
 def phase_moments(images, dev, card):
@@ -402,13 +534,28 @@ def phase_moments(images, dev, card):
     ms = _cuda_ms(lambda: cuda_features.moment_accumulate(*inputs), 50)
     plain_ms = _cuda_ms(lambda: cuda_features.moment_accumulate_plain(*inputs),
                         5)
+    # the library route: one `index_add_` of every (point, offset) hit's 9
+    # moment columns into its cell (float atomics), on the twin's rows
+    n_off = inputs[6]
+    trank = pack[:, 5 + n_off:5 + 2 * n_off].transpose(1, 2)
+    hits = trank < c_pre
+    rows9 = torch.randn((int(hits.sum()), 9), device=dev)
+    ids = (torch.arange(pack.shape[0], device=dev)[:, None, None] * c_pre
+           + trank.to(torch.int64))[hits]
+    lib_ms = _cuda_ms(lambda: torch.zeros(
+        (pack.shape[0] * c_pre, 9), device=dev).index_add_(0, ids, rows9), 50)
+    g_bound = bound(sum(t.numel() * 4 for t in inputs[:5]) + k1.numel() * 4,
+                    MOMENT_FLOPS * float(hits.sum()))
     _say(f"kernel G: pack {tuple(pack.shape)}, c_pre {c_pre}, cells with "
          f"points per lane {occupied}, live (cell tile, point tile) pairs "
          f"{float(live):.3f}; counts exact, moments within {err_rel:.3e} of "
          f"the row scale ({err_abs:.3e} abs), two launches bit-identical; "
-         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({card})")
+         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+         f"{g_bound['bound_ms']:.4f} ms ({g_bound['bound_by']}), index_add_ "
+         f"{lib_ms:.4f} ms over {int(hits.sum())} hits ({card})")
     return {"moment_accumulate": {"max_abs_err": err_abs, "ms": ms,
-                                  "plain_ms": plain_ms}}
+                                  "plain_ms": plain_ms, **g_bound,
+                                  "library_ms": lib_ms}}
 
 
 def traj_spread(got, want):
@@ -700,16 +847,262 @@ def phase_window(win, outs, r, card, name="s50 window"):
         t["plain"] = _cuda_ms(lambda: cuda_assoc.nn_min_sparse_plain(*args), 5)
         t["plain E"] = _cuda_ms(lambda: cuda_assoc.nn_min_sparse_attrs_plain(
             *args[:5], at, args[5]), 5)
+        t["cdist + min"] = _cuda_ms(lambda: library_nn(args[0], args[2],
+                                                       args[4]), 5)
+        t["cdist + min + gather"] = _cuda_ms(lambda: library_nn_attrs(
+            args[0], args[2], args[4], at), 5)
+        extra = args[1].numel() * 4 + args[3].numel() * 4
+        bnd = nn_bound(args[0], args[2], args[4], live, extra)
+        bnd_e = nn_bound(args[0], args[2], args[4], live,
+                         extra + at.numel() * 4 + g_e.numel() * 4)
         _say(f"{name} B={b}: executed tile pairs {live:.4f}, rows within "
              f"the radius {float(within.float().mean()):.4f}, +inf rows "
              f"{float(inf.float().mean()):.4f}; D1, D2 == C == twin bit for "
              f"bit, E (nn, d2) == C, E g == gather within r, 0 on +inf rows")
         _say(f"{name} B={b} (ms, CUDA events; {card}): "
              + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
-        res[b] = {k: {"max_abs_err": 0.0, "ms": t[k], "plain_ms":
-                      t["plain E" if k.endswith("attrs") else "plain"]}
+        _say(f"{name} B={b}: bound {bnd['bound_ms']:.4f} ms "
+             f"({bnd['bound_by']}; E {bnd_e['bound_ms']:.4f} ms) at the "
+             f"executed share of tile pairs")
+        res[b] = {k: {"max_abs_err": 0.0, "ms": t[k],
+                      **(bnd_e if k.endswith("attrs") else bnd),
+                      "plain_ms": t["plain E" if k.endswith("attrs")
+                                    else "plain"],
+                      "library_ms": t["cdist + min + gather"
+                                      if k.endswith("attrs")
+                                      else "cdist + min"]}
                   for k in ("nn_min_sparse_multi", "nn_min_sparse_unrolled",
                             "nn_min_sparse_attrs")}
+    return res
+
+
+def _run_longrun(cfg, images, dev, passes):
+    """`passes` runs of OdometryRunner over the frames (reset between);
+    returns the runner of the last and the wall time of each."""
+    runner = odometry.OdometryRunner(cfg, ingest="host", device=dev, chunk=16)
+    secs = []
+    for rep in range(passes):
+        if rep:
+            runner.reset()
+        t0 = time.perf_counter()
+        runner.process(images)
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+    return runner, secs
+
+
+def _health_summary(checked, healthy, dist) -> str:
+    if not checked.any():
+        return "no health checks"
+    return (f"{int(checked.sum())} health checks, unhealthy "
+            f"{float((~healthy[checked]).mean()):.4f}, median "
+            f"discrepancy {float(np.median(dist[checked])):.4f} m")
+
+
+def phase_longrun(name, cfg, images, gt, sequence, dev, card, passes=1):
+    """The long-run path through OdometryRunner, held against its JAX
+    golden (`longrun_golden`): every frame successful, keyframe decisions
+    and health-checked flags identical, poses within LONGRUN_TOL,
+    health_dist and health_rot within HEALTH_TOL, and `healthy` identical
+    except on frames whose golden discrepancy lies within HEALTH_TOL of
+    its limit (printed). `auto` must resolve to kernel A for
+    the forward (S=4) and the reverse (S=1) problem. Returns (runner,
+    trajectory, frame outputs)."""
+    m = cfg.feature.max_cells
+    for s_act in (cfg.odometry.submap_scan_size, 1):
+        method = registration.resolve_assoc_method(cfg, m, m, s_act, dev)
+        if method != "pallas":
+            raise AssertionError(f"{name}: auto resolved to {method} at "
+                                 f"S={s_act}, expected kernel A")
+    n = images.shape[0]
+    runner, secs = _run_longrun(cfg, images, dev, passes)
+    traj, out = runner.trajectory(), runner.frame_outputs()
+    with np.load(longrun_golden(sequence)) as z:
+        g = {k: z[k] for k in z.files}
+    if json.loads(str(g["config"])) != cfg.to_dict() \
+            or json.loads(str(g["sequence"])) != sequence:
+        raise AssertionError(f"{name}: golden was made for another "
+                             "configuration or sequence")
+    if not np.isfinite(traj).all() or traj.shape != (n, 3):
+        raise AssertionError(f"{name}: trajectory not finite or of the "
+                             "wrong shape")
+    if not out.success.all():
+        raise AssertionError(f"{name}: failed frames "
+                             f"{np.flatnonzero(~out.success).tolist()}")
+    _check_traj(f"{name} vs JAX golden (kernel A, interpret mode)", traj,
+                g["poses"], out.fused, g["fused"], LONGRUN_TOL)
+    if not np.array_equal(out.health_checked, g["health_checked"]):
+        raise AssertionError(f"{name}: health-checked flags differ")
+    chk = out.health_checked
+    ddist = float(np.abs(out.health_dist - g["health_dist"]).max())
+    drot = float(np.abs(out.health_rot - g["health_rot"]).max())
+    odo = cfg.odometry
+    near = chk & ((np.abs(g["health_dist"] - odo.health_max_dist)
+                   <= HEALTH_TOL[0])
+                  | (np.abs(g["health_rot"]
+                            - np.radians(odo.health_max_rot_deg))
+                     <= HEALTH_TOL[1]))
+    flips = np.flatnonzero(out.healthy != g["healthy"])
+    _say(f"{name}: health vs golden: max |d health_dist| {ddist:.6f} m, "
+         f"|d health_rot| {drot:.3e} rad; healthy differs on frames "
+         f"{flips.tolist()}; checked frames near a limit (within "
+         f"HEALTH_TOL) {np.flatnonzero(near).tolist()}")
+    if ddist > HEALTH_TOL[0] or drot > HEALTH_TOL[1]:
+        raise AssertionError(f"{name}: health_dist or health_rot outside "
+                             f"{HEALTH_TOL}")
+    if not near[flips].all():
+        raise AssertionError(f"{name}: healthy differs on frames away from "
+                             f"the limits: {flips[~near[flips]].tolist()}")
+    ate = ate_rmse(traj[:, :2], gt[:, :2])
+    drift = kitti.kitti_drift(traj, gt)
+    g_drift = kitti.kitti_drift(g["poses"], gt)
+    per_len = " ".join(f"{k:g}m:{v['t_err_percent']:.3f}%" for k, v in
+                       sorted(drift.get("per_length", {}).items()))
+    _say(f"{name}: {n} frames, " + ", ".join(
+        f"pass {i + 1} {n / t:.2f} frames/s" for i, t in enumerate(secs))
+        + f" (host filter included; {card})")
+    _say(f"{name}: ATE {ate:.4f} m (golden {float(g['ate']):.4f}), KITTI "
+         f"drift {drift['t_err_percent']:.4f}% r_err "
+         f"{drift['r_err_deg_per_m']:.5f} deg/m over "
+         f"{drift['n_subsequences']} subsequences ({per_len}; golden "
+         f"{g_drift['t_err_percent']:.4f}%); "
+         f"{_health_summary(chk, out.healthy, out.health_dist)} (golden "
+         f"{_health_summary(chk, g['healthy'], g['health_dist'])}); "
+         f"keyframes {int(out.fused.sum())}, mean cells "
+         f"{out.num_cells.mean():.1f}, mean assoc {out.num_assoc[1:].mean():.1f}")
+    return runner, traj, out
+
+
+def phase_resume(cfg, images, traj, out, dev, card):
+    """The long-run path split at its midpoint through `save_checkpoint`
+    and `OdometryRunner.resume`: trajectory, keyframe flags and health
+    fields bit-identical to the unsplit run (`tools/run_longrun.py:134-156`
+    demands the same of the reference)."""
+    half = images.shape[0] // 2
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "longrun_ckpt.npz")
+        first = odometry.OdometryRunner(cfg, ingest="host", device=dev,
+                                        chunk=16)
+        first.process(images[:half])
+        first.save_checkpoint(ck)
+        runner = odometry.OdometryRunner.resume(cfg, ck, device=dev,
+                                                chunk=16)
+        runner.process(images[half:])
+    traj2, out2 = runner.trajectory(), runner.frame_outputs()
+    same = {k: bool(np.array_equal(getattr(out2, k), getattr(out, k)))
+            for k in ("pose", "fused", "health_checked", "healthy",
+                      "health_dist", "health_rot")}
+    same["trajectory"] = bool(np.array_equal(traj2, traj))
+    _say(f"longrun-resume: split at frame {half}; bit-identical to the "
+         f"unsplit run: {same} (max |delta| "
+         f"{float(np.abs(traj2 - traj).max()):.2e})")
+    if not all(same.values()):
+        raise AssertionError("longrun-resume: the resumed run differs from "
+                             "the unsplit one")
+
+
+def phase_cov(cfg, images, traj, out, dev, card):
+    """The long-run path with `estimate_cov_by_sampling`: poses and health
+    fields equal to the plain run's bit for bit (the covariance feeds
+    nothing back); every covariance finite; the sampled ones (frames where
+    the fit was convex, so the covariance differs from the Censi one)
+    symmetric positive definite."""
+    runner, secs = _run_longrun(cfg, images, dev, 1)
+    traj_c, out_c = runner.trajectory(), runner.frame_outputs()
+    if not (np.array_equal(traj_c, traj)
+            and all(np.array_equal(getattr(out_c, k), getattr(out, k))
+                    for k in ("fused", "health_checked", "healthy",
+                              "health_dist"))):
+        raise AssertionError("longrun-cov: poses or health fields differ "
+                             "from the run without sampling")
+    cov = out_c.cov.astype(np.float64)
+    if not np.isfinite(cov).all():
+        raise AssertionError("longrun-cov: non-finite covariance")
+    sampled = np.flatnonzero((out_c.cov != out.cov).any((1, 2)))
+    c = cov[sampled]
+    asym = float(np.abs(c - c.transpose(0, 2, 1)).max() / np.abs(c).max())
+    evals = np.linalg.eigvalsh(0.5 * (c + c.transpose(0, 2, 1)))
+    n = images.shape[0]
+    _say(f"longrun-cov: {n / secs[0]:.2f} frames/s ({card}); sampled "
+         f"covariance on {len(sampled)} of {n - 1} frames (the rest not "
+         f"convex: Censi), asymmetry {asym:.2e} of the largest entry, "
+         f"smallest eigenvalue {float(evals.min()):.3e}, median sqrt(var) "
+         f"x/y/yaw {np.sqrt(np.median(c[:, [0, 1, 2], [0, 1, 2]], 0)).tolist()}")
+    if len(sampled) == 0 or not (evals > 0).all() or asym > 1e-5:
+        raise AssertionError("longrun-cov: no sampled covariance, or one "
+                             "that is not symmetric positive definite")
+
+
+def longrun_window(state, cfg, dev, lanes=(1, BATCH)):
+    """The dense association problems on the window the long-run path
+    ends with, built as `window_inputs` builds the s50 window: the forward
+    problem (S=4 keyframes of M=2048 as targets, the newest keyframe's
+    cells in the world frame as the source) and the reverse problem of the
+    health check (S=1: the newest keyframe as the only target, the one
+    before it as the source). Returns {(S, B): (src, tar, valid)} for each
+    lane count B in `lanes` (the window broadcast over B lanes)."""
+    kf = CellMap(*(a[None] for a in state.kf_cells))
+    kf_poses, kf_valid = state.kf_poses[None], state.kf_valid[None]
+    attrs = registration._world_attrs(kf, kf_poses, cfg)      # (1, S, M, D)
+    tar_valid = (attrs[..., 6] > 0.5) & kf_valid[..., None]
+    s = attrs.shape[1]
+    problems = {
+        s: (se2.transform(kf_poses[:, -1], kf.mean[:, -1]), attrs[..., 0:2],
+            tar_valid),
+        1: (se2.transform(kf_poses[:, -2], kf.mean[:, -2]),
+            attrs[:, -1:, :, 0:2], tar_valid[:, -1:])}
+    _say(f"longrun window: S={s}, valid keyframes {int(kf_valid.sum())}, "
+         f"mean valid cells {float(kf.valid.float().sum(-1).mean()):.1f}, "
+         f"M={attrs.shape[2]}")
+    return {(k, b): tuple(_lanes(a, b) for a in p)
+            for k, p in problems.items() for b in lanes}
+
+
+def _multi_calls(args):
+    return {"nn_min_multi": lambda: cuda_assoc.nn_min_multi(*args),
+            "nn_min_multi_unrolled":
+                lambda: cuda_assoc.nn_min_multi_unrolled(*args)}
+
+
+def drive_longrun_window(win):
+    """Kernels B1 and B2 once each on every problem of the window."""
+    outs = {key: {k: f() for k, f in _multi_calls(args).items()}
+            for key, args in win.items()}
+    torch.cuda.synchronize()
+    return outs
+
+
+def phase_longrun_window(win, outs, card):
+    """The window's B1 and B2 outputs (`drive_longrun_window`) held bit
+    for bit against kernel A and against their twin, then timed with CUDA
+    events beside A, the twin and the library route. Returns the records of
+    B1 and B2 at the forward problem with B=8."""
+    res = {}
+    for (s, b), args in win.items():
+        nn_a, d2_a = cuda_assoc.nn_min(*args)
+        nn_p, d2_p = cuda_assoc.nn_min_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(nn_a, nn_p) and torch.equal(d2_a, d2_p)):
+            raise AssertionError(f"longrun window S={s} B={b}: kernel A "
+                                 "differs from its twin")
+        for k, (nn, d2) in outs[(s, b)].items():
+            if not (torch.equal(nn, nn_a) and torch.equal(d2, d2_a)):
+                raise AssertionError(f"longrun window S={s} B={b}: {k} "
+                                     "differs from kernel A")
+        t = {k: _cuda_ms(f, 50) for k, f in _multi_calls(args).items()}
+        t["A"] = _cuda_ms(lambda: cuda_assoc.nn_min(*args), 50)
+        t["plain"] = _cuda_ms(lambda: cuda_assoc.nn_min_plain(*args), 5)
+        t["cdist + min"] = _cuda_ms(lambda: library_nn(*args), 5)
+        bnd = nn_bound(*args)
+        within = float((d2_a <= 4.0).float().mean())
+        _say(f"longrun window S={s} B={b}: B1, B2 == A == twin bit for bit "
+             f"(rows within 2 m {within:.4f}); ms (CUDA events; {card}): "
+             + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+             + f", bound {bnd['bound_ms']:.4f} ({bnd['bound_by']})")
+        if (s, b) == (max(k for k, _ in win), BATCH):
+            res = {k: {"max_abs_err": 0.0, "ms": t[k], "plain_ms": t["plain"],
+                       **bnd, "library_ms": t["cdist + min"]}
+                   for k in _multi_calls(args)}
     return res
 
 
@@ -801,6 +1194,35 @@ def main() -> int:
     # the kernels line keeps the s50 window's B=8 times
     kernels.update(phase_window(win, outs, s50.registration.assoc_radius,
                                 card)[BATCH])
+
+    # the long-run path (`tools/run_longrun.py`, cut to 256 frames)
+    lr = longrun_config()
+    t0 = time.perf_counter()
+    images_lr, gt_lr = synthetic.make_sequence(cfg=lr, **LONGRUN_SEQUENCE)
+    _say(f"rendered {images_lr.shape} in {time.perf_counter() - t0:.1f} s")
+    runner_lr, traj_lr, out_lr = drive(
+        "longrun", ("nn_min", "lm_solve_fused"),
+        lambda: phase_longrun("longrun", lr, images_lr, gt_lr,
+                              LONGRUN_SEQUENCE, dev, card, passes=2))
+    drive("longrun-resume", ("nn_min", "lm_solve_fused"),
+          lambda: phase_resume(lr, images_lr, traj_lr, out_lr, dev, card))
+    drive("longrun-cov", ("nn_min", "lm_solve_fused"),
+          lambda: phase_cov(lr.replace(odometry=dataclasses.replace(
+              lr.odometry, estimate_cov_by_sampling=True)), images_lr,
+              traj_lr, out_lr, dev, card))
+    # B1 and B2 on the window the longrun path ends with: the counted run is
+    # one call of each per problem; checks and timings come after the read
+    win_lr = longrun_window(runner_lr.state, lr, dev)
+    outs_lr = drive("longrun-window", ("nn_min_multi", "nn_min_multi_unrolled"),
+                    lambda: drive_longrun_window(win_lr))
+    kernels.update(phase_longrun_window(win_lr, outs_lr, card))
+    del images_lr
+    t0 = time.perf_counter()
+    images_a, gt_a = synthetic.make_sequence(cfg=lr, **LONGRUN_ADV8_SEQUENCE)
+    _say(f"rendered {images_a.shape} in {time.perf_counter() - t0:.1f} s")
+    drive("longrun-adv8", ("nn_min", "lm_solve_fused"),
+          lambda: phase_longrun("longrun-adv8", lr, images_a, gt_a,
+                                LONGRUN_ADV8_SEQUENCE, dev, card))
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     _say(f"kernel launches in the main-path runs: {launches}")
 

@@ -1,4 +1,5 @@
-"""Association kernels A (`nn_min`), C (`nn_min_sparse`), D1
+"""Association kernels A (`nn_min`), B1 (`nn_min_multi`), B2
+(`nn_min_multi_unrolled`), C (`nn_min_sparse`), D1
 (`nn_min_sparse_multi`), D2 (`nn_min_sparse_unrolled`) and E
 (`nn_min_sparse_attrs`): the port's plain twins against the reference's
 Pallas kernels in interpret mode, on the cases of tests/test_registration.py
@@ -152,7 +153,11 @@ def test_cpu_calls_count_no_launches():
     ca.nn_min_sparse_multi(*lanes)
     ca.nn_min_sparse_unrolled(*lanes)
     ca.nn_min_sparse_attrs(*lanes[:5], torch.zeros(1, 3, 8, 1024), lanes[5])
-    assert set(ca.launches) == {"nn_min", "nn_min_sparse",
+    src, tar, valid = _t(*_dense_case(s=4))
+    ca.nn_min_multi(src, tar, valid)
+    ca.nn_min_multi_unrolled(src, tar, valid)
+    assert set(ca.launches) == {"nn_min", "nn_min_multi",
+                                "nn_min_multi_unrolled", "nn_min_sparse",
                                 "nn_min_sparse_multi",
                                 "nn_min_sparse_unrolled",
                                 "nn_min_sparse_attrs"}
@@ -300,3 +305,56 @@ def test_attrs_twin_matches_gather_inside_gate(cost):
     gathered = treg._gather_attrs(attrs, nn)
     assert torch.equal(g.transpose(-1, -2)[..., :d][ok], gathered[ok])
     assert (g.transpose(-1, -2)[..., d:] == 0).all()
+
+
+@pytest.mark.parametrize("s,m", [(1, 1024), (4, 1024), (4, 2560)])
+def test_dense_multi_keyframe_twins_match_pallas(s, m):
+    """B1 and B2 over B=2 lanes against the reference's `nn_min_multi` and
+    `nn_min_multi_unrolled` in interpret mode: S=1 (the health check's
+    reverse problem) and S=4 (CFEAR-3's window, an empty keyframe), both
+    source tiles (512 rows up to M=2048, 256 above), a tie. nn equal, d2
+    within 1 ulp, both equal to A's twin."""
+    msrc = 512
+    cases = []
+    for i in range(2):
+        src, tar, valid = _dense_case(seed=21 + i, s=max(s, 3), m=m)
+        tar, valid = tar[:s].copy(), valid[:s].copy()
+        tar[0, 20] = tar[0, 10]                 # a tie in keyframe 0
+        valid[0, [10, 20]] = True
+        src[5] = tar[0, 10]
+        cases.append((src[:msrc], tar, valid))
+    src, tar, valid = (torch.as_tensor(np.stack(a)) for a in zip(*cases))
+    nn_a, d2_a = ca.nn_min(src, tar, valid)
+    for name in ("nn_min_multi", "nn_min_multi_unrolled"):
+        nn_t, d2_t = getattr(ca, name)(src, tar, valid)
+        assert torch.equal(nn_t, nn_a) and torch.equal(d2_t, d2_a), name
+        for i, (c_src, c_tar, c_valid) in enumerate(cases):
+            nn_r, d2_r = (np.asarray(a) for a in getattr(pa, name)(
+                jnp.asarray(c_src), jnp.asarray(c_tar), jnp.asarray(c_valid),
+                interpret=True))
+            np.testing.assert_array_equal(nn_t[i].numpy(), nn_r)
+            _assert_d2(d2_t[i].numpy(), d2_r, nn_r, c_src, c_tar)
+    assert (nn_a[:, 0, 5] == 10).all()           # lowest index wins the tie
+    if s == 4:
+        assert np.isinf(d2_a[:, 2].numpy()).all() and (nn_a[:, 2] == 0).all()
+
+
+def test_dense_multi_keyframe_wrappers_refuse_what_the_reference_refuses():
+    src, tar, valid = _t(*_dense_case(s=4))                 # M = 512
+    with pytest.raises(ValueError):                         # the reference
+        pa.nn_min_multi(jnp.asarray(src[0, :256]), jnp.asarray(tar[0]),
+                        jnp.asarray(valid[0]), interpret=True)
+    for fn in (ca.nn_min_multi, ca.nn_min_multi_unrolled):
+        with pytest.raises(ValueError, match="% 512"):
+            fn(src[:, :256].contiguous(), tar, valid)
+        with pytest.raises(ValueError, match="% 128"):      # supported_multi
+            fn(src, tar[:, :, :500].contiguous(),
+               valid[:, :, :500].contiguous())
+    assert ca.supported_multi(512, 2048) and ca.supported_multi(256, 2560)
+    assert not ca.supported_multi(256, 2048)
+    assert not ca.supported_multi(512, 1000)
+    assert pa.supported_multi(512, 2048) and not pa.supported_multi(512, 1000)
+    with pytest.raises(ValueError, match=r"\(1, 4\)"):
+        ca.nn_min_multi_unrolled(src[:, :, :0], tar[:, :2].contiguous(),
+                                 valid[:, :2].contiguous())
+    ca.nn_min_multi(src, tar[:, :2].contiguous(), valid[:, :2].contiguous())

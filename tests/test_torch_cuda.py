@@ -128,6 +128,43 @@ def test_kernels_d1_d2_e_bit_equal_to_c_and_twins(dev, s):
     assert set(ca.launches.values()) == {0, 1} and ca.launches["nn_min"] == 0
 
 
+@pytest.mark.parametrize("b,s,m", [(1, 1, 2048), (3, 4, 2048), (2, 4, 3072),
+                                   (2, 1, 1024)])
+def test_kernels_b1_b2_bit_equal_to_a_and_twin(dev, b, s, m):
+    """B1 and B2 give kernel A's (nn, d2) bit for bit, and the twin's, at
+    the health check's reverse problem (S=1) and CFEAR-3's window (S=4),
+    with both source tiles (512 rows up to M=2048, else 256), an empty
+    keyframe (S=4) and a tie across target chunks."""
+    src, tar, valid = _inputs(dev, b=b, s=s, m=m)
+    if s == 1:
+        valid[:, 0] = torch.rand(valid.shape[0], m, device=dev) < 0.9
+        valid[0, 0, [300, 700]] = True
+    ca.reset_launches()
+    nn_a, d2_a = ca.nn_min(src, tar, valid)
+    got = {"multi": ca.nn_min_multi(src, tar, valid),
+           "unrolled": ca.nn_min_multi_unrolled(src, tar, valid)}
+    nn_p, d2_p = ca.nn_min_plain(src, tar, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(nn_a, nn_p) and torch.equal(d2_a, d2_p)
+    for name, (nn, d2) in got.items():
+        assert torch.equal(nn, nn_a) and torch.equal(d2, d2_a), name
+    assert nn_a[0, 0, 9].item() == 300
+    assert {k: v for k, v in ca.launches.items() if v} == {
+        "nn_min": 1, "nn_min_multi": 1, "nn_min_multi_unrolled": 1}
+
+
+def test_kernels_b1_b2_refuse_other_shapes(dev):
+    src, tar, valid = _inputs(dev, b=1, s=2, m=1024)
+    nn, _ = ca.nn_min_multi(src, tar, valid)                # B1 takes any S
+    assert nn.shape == (1, 2, 1024)
+    ca.reset_launches()
+    with pytest.raises(ValueError, match="keyframe count"):
+        ca.nn_min_multi_unrolled(src, tar, valid)
+    with pytest.raises(ValueError, match="% 512"):
+        ca.nn_min_multi(src[:, :768].contiguous(), tar, valid)
+    assert not any(ca.launches.values())
+
+
 @pytest.mark.parametrize("d_pad", [8, 16])
 def test_kernel_e_takes_both_paddings(dev, d_pad):
     args, attrs_t = _window(dev, 2, 6, m=2048, d_pad=d_pad)
@@ -168,6 +205,10 @@ def test_failed_launch_raises(dev, monkeypatch):
                       (ca.nn_min_sparse_attrs, (attrs_t,))):
         with pytest.raises(RuntimeError, match="CUDA error 1"):
             fn(*args[:5], *extra, args[5])
+    src, tar, valid = _inputs(dev, b=1, s=1, m=1024)
+    for fn in (ca.nn_min, ca.nn_min_multi, ca.nn_min_multi_unrolled):
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            fn(src, tar, valid)
     assert not any(ca.launches.values())
 
 

@@ -20,7 +20,7 @@ from torch_port_helpers import both_cfgs, jax, jnp, ref, slice_cfg
 from cfear_radarodometry_code_public_tpu.ops import features as jf
 from cfear_radarodometry_code_public_tpu.ops import filtering as jfl
 from cfear_radarodometry_code_public_tpu.ops import pallas_features as jpf
-from cfear_radarodometry_code_public_tpu_torch._shared import native_io
+from cfear_radarodometry_code_public_tpu_torch.utils import native_io
 from cfear_radarodometry_code_public_tpu_torch.ops import cuda_features as tcf
 from cfear_radarodometry_code_public_tpu_torch.ops import features as tf
 from cfear_radarodometry_code_public_tpu_torch.ops import filtering as tfl

@@ -198,10 +198,9 @@ def test_batched_step_equals_per_lane_steps(seq):
 
 
 @pytest.mark.parametrize("section,field,value", [
-    ("odometry", "health_check_every", 4),
-    ("odometry", "estimate_cov_by_sampling", True),
     ("filter", "method", "cacfar"),
-    ("registration", "soft_constraint", True)])
+    ("feature", "use_raw_pointcloud", True),
+    ("registration", "assoc_method", "grid")])
 def test_unported_options_raise(section, field, value):
     cfg_j, _ = slice_cfg()
     cfg_j = cfg_j.replace(**{section: dataclasses.replace(
@@ -227,7 +226,7 @@ def test_port_runs_without_jax():
         sys.meta_path.insert(0, NoJax())
         import dataclasses
         import cfear_radarodometry_code_public_tpu_torch as port
-        from cfear_radarodometry_code_public_tpu_torch._shared import synthetic
+        from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
         from cfear_radarodometry_code_public_tpu_torch.models import odometry
         cfg = port.preset("CFEAR-3", dataset="synthetic")
         cfg = cfg.replace(
@@ -391,3 +390,206 @@ def test_s50_golden_configs_match_chip_smoke():
         assert reg.assoc_method == "pallas_sparse"
         assert reg.max_active_keyframes == k_active
         assert cfg["odometry"]["submap_scan_size"] == 50
+
+
+HEALTH_FRAMES = 12
+
+
+def _option_cfgs(**odometry):
+    """`slice_cfg` with odometry / registration options, both packages."""
+    reg = odometry.pop("registration", {})
+    cfg_j, _ = slice_cfg()
+    cfg_j = cfg_j.replace(
+        odometry=dataclasses.replace(cfg_j.odometry, **odometry),
+        registration=dataclasses.replace(cfg_j.registration, **reg))
+    return both_cfgs(cfg_j)
+
+
+@functools.lru_cache(maxsize=None)
+def _health_jax():
+    cfg_j, _ = _option_cfgs(health_check_every=2)
+    images, _ = synthetic.make_sequence(seed=3, n_frames=HEALTH_FRAMES,
+                                        cfg=cfg_j)
+    runner = jodo.OdometryRunner(cfg_j, chunk=11, ingest="host")
+    runner.process(images)
+    return images, runner.trajectory(), runner.frame_outputs()
+
+
+def _assert_health_close(out, out_j):
+    np.testing.assert_array_equal(out.health_checked, out_j.health_checked)
+    np.testing.assert_array_equal(out.healthy, out_j.healthy)
+    np.testing.assert_allclose(out.health_dist, out_j.health_dist,
+                               atol=POS_TOL)
+    np.testing.assert_allclose(out.health_rot, out_j.health_rot,
+                               atol=YAW_TOL)
+
+
+def test_health_check_matches_jax():
+    """`health_check_every=2`: the checked flags and `healthy` identical to
+    the reference's, the forward/backward discrepancy within the pose
+    tolerances, and the forward solve unchanged by the check."""
+    images, traj_j, out_j = _health_jax()
+    _, cfg_t = _option_cfgs(health_check_every=2)
+    runner = todo.OdometryRunner(cfg_t, ingest="host", device="cpu")
+    runner.process(images)
+    out = runner.frame_outputs()
+    # frame t >= 1 is checked when the frames before it, t, are a multiple
+    # of 2
+    even = (np.arange(HEALTH_FRAMES) % 2 == 0) & (np.arange(HEALTH_FRAMES) > 0)
+    np.testing.assert_array_equal(out_j.health_checked, even)
+    assert (out.health_dist[even] > 0).all()
+    _assert_health_close(out, out_j)
+    np.testing.assert_array_equal(out.fused, out_j.fused)
+    _assert_traj_close(runner.trajectory(), traj_j)
+
+
+def test_health_check_batched_lanes_equal_single_lanes():
+    """Two lanes one frame apart, so that on every step one lane is checked
+    and the other not: the reverse solve runs over both lanes and masks the
+    unchecked one, and every lane's outputs equal its single-lane run."""
+    images, _, _ = _health_jax()
+    _, cfg_t = _option_cfgs(health_check_every=2)
+    rows = todo.host_filter(images, cfg_t, "compact")
+    frame = [todo.to_device(todo._map(lambda a: a[t], rows), "cpu")
+             for t in range(HEALTH_FRAMES)]
+    boot, step = todo.make_bootstrap(cfg_t), todo.make_step(cfg_t)
+    lanes, singles = [], []
+    for ahead in (0, 1):                # lane 1 is one frame ahead
+        st, _ = boot(todo.init_state(cfg_t, "cpu"), frame[0])
+        for t in range(1, 1 + ahead):
+            st, _ = step(st, frame[t])
+        lanes.append(st)
+        outs = []
+        for t in range(1 + ahead, HEALTH_FRAMES - 1 + ahead):
+            st, o = step(st, frame[t])
+            outs.append(o)
+        singles.append(outs)
+    states = todo._map2(lambda a, b: torch.stack([a, b]), *lanes)
+    stepb = todo.make_batched_step(cfg_t)
+    checked_mix = 0
+    for i, t in enumerate(range(1, HEALTH_FRAMES - 1)):
+        inp = todo._map2(lambda a, b: torch.stack([a, b]), frame[t],
+                         frame[t + 1])
+        states, o = stepb(states, inp)
+        checked_mix += int(o.health_checked.sum()) == 1
+        for lane in (0, 1):
+            for f in todo.FrameOutput._fields:
+                np.testing.assert_allclose(
+                    getattr(o, f)[lane].numpy(),
+                    getattr(singles[lane][i], f).numpy(), rtol=1e-6,
+                    atol=1e-6, err_msg=f"{f} lane {lane} step {i}")
+    assert checked_mix == HEALTH_FRAMES - 2
+
+
+def test_split_resume_keeps_health_fields(tmp_path):
+    """A run split through `save_checkpoint` / `resume` with the health
+    check on: trajectory and health fields bit-identical to the unsplit
+    run."""
+    images, _, _ = _health_jax()
+    _, cfg_t = _option_cfgs(health_check_every=2)
+    whole = todo.OdometryRunner(cfg_t, ingest="host", device="cpu")
+    whole.process(images)
+    first = todo.OdometryRunner(cfg_t, ingest="host", device="cpu")
+    first.process(images[:7])
+    path = str(tmp_path / "health.npz")
+    first.save_checkpoint(path)
+    second = todo.OdometryRunner.resume(cfg_t, path, device="cpu")
+    second.process(images[7:])
+    np.testing.assert_array_equal(second.trajectory(), whole.trajectory())
+    a, b = second.frame_outputs(), whole.frame_outputs()
+    for f in todo.FrameOutput._fields:
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+    assert a.health_checked.sum() == 5
+
+
+def test_cov_sampling_matches_jax():
+    """`estimate_cov_by_sampling`: poses, keyframes and success as the
+    reference's, and bit for bit as the port's run without sampling (the
+    covariance feeds nothing back). The sampled covariance is positive
+    definite wherever it replaces the Censi one; the reference's float32
+    fit is never convex at the default ranges (ROADMAP queue 3), so its
+    covariances stay the Censi ones: that is pinned too."""
+    images, _, _ = _health_jax()
+    images = images[:8]
+    cfg_j, cfg_t = _option_cfgs(estimate_cov_by_sampling=True)
+    _, cfg_plain = _option_cfgs()
+    jr = jodo.OdometryRunner(cfg_j, chunk=7, ingest="host")
+    jr.process(images)
+    jr_plain = jodo.OdometryRunner(_option_cfgs()[0], chunk=7, ingest="host")
+    jr_plain.process(images)
+    tr = todo.OdometryRunner(cfg_t, ingest="host", device="cpu")
+    tr.process(images)
+    tp = todo.OdometryRunner(cfg_plain, ingest="host", device="cpu")
+    tp.process(images)
+    out, out_j = tr.frame_outputs(), jr.frame_outputs()
+    np.testing.assert_array_equal(out.fused, out_j.fused)
+    assert out.success.all()
+    _assert_traj_close(tr.trajectory(), jr.trajectory())
+    np.testing.assert_array_equal(tr.trajectory(), tp.trajectory())
+    np.testing.assert_array_equal(out_j.cov, jr_plain.frame_outputs().cov)
+    sampled = (out.cov != tp.frame_outputs().cov).any((1, 2))
+    assert sampled[1:].all() and not sampled[0]
+    cov = out.cov[1:].astype(np.float64)
+    assert np.isfinite(cov).all()
+    assert (np.linalg.eigvalsh(0.5 * (cov + cov.transpose(0, 2, 1))) > 0).all()
+
+
+def test_time_continuous_matches_jax():
+    """`registration.time_continuous`: the cells warped by the previous
+    motion before the solve, the cloud-level compensation skipped."""
+    images, _, _ = _health_jax()
+    images = images[:8]
+    cfg_j, cfg_t = _option_cfgs(registration={"time_continuous": True})
+    jr = jodo.OdometryRunner(cfg_j, chunk=7, ingest="host")
+    jr.process(images)
+    tr = todo.OdometryRunner(cfg_t, ingest="host", device="cpu")
+    tr.process(images)
+    out, out_j = tr.frame_outputs(), jr.frame_outputs()
+    assert out.success.all()
+    np.testing.assert_array_equal(out.fused, out_j.fused)
+    _assert_traj_close(tr.trajectory(), jr.trajectory())
+    _, cfg_plain = _option_cfgs()
+    tp = todo.OdometryRunner(cfg_plain, ingest="host", device="cpu")
+    tp.process(images)
+    assert not np.array_equal(tr.trajectory(), tp.trajectory())
+
+
+def test_runner_needs_a_card_unless_asked_for_the_cpu(seq, monkeypatch,
+                                                      tmp_path):
+    """`OdometryRunner()` and `resume()` run on the card by default: with
+    no card they raise instead of dropping to the CPU."""
+    _, cfg_t, images, _ = seq
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        todo.OdometryRunner(cfg_t)
+    runner = todo.OdometryRunner(cfg_t, device="cpu")
+    runner.process(images[:2])
+    path = str(tmp_path / "two.npz")
+    runner.save_checkpoint(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        todo.OdometryRunner.resume(cfg_t, path)
+    assert todo.OdometryRunner.resume(cfg_t, path, device="cpu").state \
+        .frame_nr.item() == 2
+
+
+@pytest.mark.parametrize("sequence", ["LONGRUN_SEQUENCE",
+                                      "LONGRUN_ADV8_SEQUENCE"])
+def test_longrun_golden_configs_match_chip_smoke(sequence):
+    """The two long-run goldens were made for chip_smoke.py's long-run
+    configuration and worlds (`make_torch_port_golden.py --preset longrun
+    [--adversarial --speed 8]`), ran kernel A, kept every frame and carry
+    the health fields of 256 frames checked every 8."""
+    import json
+    chip_smoke = _chip_smoke()
+    seq = getattr(chip_smoke, sequence)
+    with np.load(chip_smoke.longrun_golden(seq)) as z:
+        assert json.loads(str(z["config"])) == chip_smoke.longrun_config().to_dict()
+        assert json.loads(str(z["sequence"])) == seq
+        assert str(z["assoc_method"]) == "pallas"
+        assert z["poses"].shape == (seq["n_frames"], 3) and z["success"].all()
+        checked = z["health_checked"]
+        assert checked.sum() == (seq["n_frames"] - 1) // 8
+        assert (z["health_dist"][checked] > 0).all()
+    cfg = chip_smoke.longrun_config()
+    assert cfg.registration.assoc_method == "auto"
+    assert cfg.feature.max_cells == 2048 and cfg.odometry.health_check_every == 8

@@ -77,3 +77,30 @@ def test_association_weight_matches(opt):
 def test_unknown_loss_raises():
     with pytest.raises(ValueError):
         tl.rho(torch.zeros(1), "L7", 1.0)
+
+
+@pytest.mark.parametrize("name", ["exp", "log"])
+def test_se2_exp_log(name):
+    """The exponential and logarithm maps, with the small-angle branch
+    (|w| < 1e-6) on some rows."""
+    arg = _A.copy()
+    arg[0, 2], arg[1, 2] = 0.0, 3e-7
+    _close(getattr(ts, name)(torch.as_tensor(arg)),
+           getattr(js, name)(jnp.asarray(arg)), atol=1e-5, rtol=1e-5)
+    if name == "exp":            # log(exp(xi)) is xi for |w| < pi
+        back = ts.log(ts.exp(torch.as_tensor(arg))).numpy()
+        ok = np.abs(arg[:, 2]) < np.pi
+        np.testing.assert_allclose(back[ok], arg[ok], atol=1e-3)
+
+
+def test_se2_identity_scaled_and_matrices():
+    assert torch.equal(ts.identity(), torch.zeros(3))
+    assert ts.identity(torch.float64).dtype == torch.float64
+    _close(ts.scaled(torch.as_tensor(_A), 0.37),
+           js.scaled(jnp.asarray(_A), 0.37))
+    m_t, m_j = ts.to_matrix(_A), js.to_matrix(_A)
+    assert m_t.dtype == np.float64 and m_t.shape == (5, 4, 4)
+    np.testing.assert_array_equal(m_t, m_j)
+    np.testing.assert_array_equal(ts.from_matrix(m_t), js.from_matrix(m_j))
+    np.testing.assert_array_equal(ts.from_matrix(m_t[..., :3, :]),
+                                  js.from_matrix(m_j[..., :3, :]))

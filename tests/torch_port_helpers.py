@@ -21,7 +21,7 @@ import cfear_radarodometry_code_public_tpu_torch as port  # noqa: E402
 
 def both_cfgs(cfg_ref):
     """The same configuration as the reference's and the port's config
-    classes (the port loads config.py as its own module)."""
+    classes (the port keeps its own copy of config.py)."""
     return cfg_ref, port.CFEARConfig.from_dict(cfg_ref.to_dict())
 
 

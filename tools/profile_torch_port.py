@@ -35,7 +35,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
-from cfear_radarodometry_code_public_tpu_torch._shared import synthetic  # noqa: E402
+from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic  # noqa: E402
 from cfear_radarodometry_code_public_tpu_torch.models import odometry  # noqa: E402
 
 STAGES = ("Filtering", "compensate", "build_normals", "register", "associate",
