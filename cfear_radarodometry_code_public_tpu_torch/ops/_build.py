@@ -136,10 +136,10 @@ def library() -> ctypes.CDLL:
                                                   i, i, i, p, p, p, p]
         lib.cfear_nn_min_sparse_attrs.restype = i
         lib.cfear_lm_solve_fused.argtypes = [p, p, i, i, i, i, f, i, f, i,
-                                             p, p]
+                                             i, i, p, p]
         lib.cfear_lm_solve_fused.restype = i
-        lib.cfear_moment_accumulate.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                                i, p, p]
+        lib.cfear_moment_accumulate.argtypes = [p, p, i, i, i, i, i, p, p,
+                                                p, p]
         lib.cfear_moment_accumulate.restype = i
         _lib = lib
         return lib

@@ -9,13 +9,15 @@ twin (port of `ops/pallas_features.py`, `moment_accumulate`).
 
 (the pack's row layout is `features._moment_inputs`'s). Dispatch: the plain
 twin runs only when the tensors lie on the CPU; for CUDA tensors the
-wrapper launches `csrc/moments.cu` or raises. Both sum each cell in point
-order with no atomics, so both repeat bit for bit. The twin ignores the
-x-slab bounds, so the two agree when the bounds are conservative, as
-`features` builds them.
+wrapper launches `csrc/moments.cu` or raises. The kernel is two launches a
+call: one buckets the (point, offset) hits by cell with integer atomics,
+the other sorts each cell's hits and sums them. Both kernel and twin sum
+each cell in (point, offset) order with no float atomics, so both repeat
+bit for bit and agree bit for bit on the card. Neither reads the x-slab
+bounds, which stay in the signature as the reference function has them.
 
-`launches` counts kernel launches (CPU calls add nothing);
-`reset_launches()` zeroes it.
+`launches` counts kernel launches, `LAUNCHES_PER_CALL` a call (CPU calls
+add nothing); `reset_launches()` zeroes it.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ CT = 128
 PT = 512
 #: most neighbour offsets the kernel takes ((2 * noff + 1)^2, noff <= 2)
 MAX_OFF = 25
+#: kernel launches behind one `moment_accumulate` call (fill, sum)
+LAUNCHES_PER_CALL = 2
 
 launches = {"moment_accumulate": 0}
 _offsets_cache: dict = {}
@@ -124,14 +128,16 @@ def moment_accumulate(pack, ct_lo, ct_hi, pt_lo, pt_hi, offsets_m,
     if out.numel() == 0:
         return out
     offs = _offsets(offsets_m, dev)
+    # scratch: each cell's end in its lane's key list, and the keys
+    ends = torch.empty((b, c_pre), dtype=torch.int32, device=dev)
+    keys = torch.empty((b, n_off * n), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _build.library().cfear_moment_accumulate(
-            pack.data_ptr(), ct_lo.data_ptr(), ct_hi.data_ptr(),
-            pt_lo.data_ptr(), pt_hi.data_ptr(), offs.data_ptr(), b, r, n,
-            n_off, c_pre, out.data_ptr(), stream)
+            pack.data_ptr(), offs.data_ptr(), b, r, n, n_off, c_pre,
+            ends.data_ptr(), keys.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"moment_accumulate: kernel launch failed with "
                            f"CUDA error {err}")
-    launches["moment_accumulate"] += 1
+    launches["moment_accumulate"] += LAUNCHES_PER_CALL
     return out

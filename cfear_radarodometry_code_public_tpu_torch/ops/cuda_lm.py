@@ -5,8 +5,11 @@ of the kernel half of `ops/pallas_lm.py`: `lm_solve_fused`, kernel F).
         -> pose (B, 3), cost (B,), steps (B,) int32, last_rel (B,)
 
 Dispatch: the plain twin runs only when the tensors lie on the CPU. For
-CUDA tensors the wrapper launches `csrc/lm_fused.cu` (one CTA per lane) on
-the current stream or raises; there is no fallback. `early_exit=True` is
+CUDA tensors the wrapper launches `csrc/lm_fused.cu` on the current stream
+or raises; there is no fallback. A lane is a thread-block cluster of 1, 8
+or 16 CTAs, chosen from N alone, that holds the lane's rows in shared
+memory for the whole solve, so a lane's result does not depend on B.
+`early_exit=True` is
 the reference's `_lm_kernel_ee` (the loop breaks once the lane is done),
 False its masked `_lm_kernel` (always `max_itr_solver` iterations, the
 converged state frozen); both give the same result.
@@ -22,7 +25,7 @@ import torch
 COSTS = {"P2P": 0, "P2L": 1, "P2D": 2}
 LOSSES = {"None": 0, "Huber": 1, "Cauchy": 2, "SoftLOne": 3, "Tukey": 4,
           "Combined": 5, "DCS": 6}
-OUT_COLS = 6   # [px, py, pt, cost, steps, last_rel]
+OUT_COLS = 6   # [px, py, pt, cost, steps (int32 bits), last_rel]
 
 launches = {"lm_solve_fused": 0}
 
@@ -73,7 +76,18 @@ def lm_solve_fused(packed, pose0, cfg, early_exit: bool = True):
         return lm_solve_fused_plain(packed, pose0, cfg, early_exit)
     if dev.type != "cuda":
         raise RuntimeError(f"lm_solve_fused: no kernel for device {dev}")
+    return _launch(packed, pose0, cfg, early_exit)
+
+
+def _launch(packed, pose0, cfg, early_exit: bool = True, cluster: int = 0,
+            smem_rows: int = 0):
+    """Launch kernel F on checked CUDA tensors. `cluster` and `smem_rows`
+    are 0 for the kernel's own choice from N; measurements and tests force
+    a cluster size (1, 2, 4, 8, 16) or the rows a CTA keeps in shared
+    memory. A launch the card refuses raises."""
     from cfear_radarodometry_code_public_tpu_torch.ops import _build
+    reg = cfg.registration
+    dev = packed.device
     b, _, n = packed.shape
     out = torch.empty((b, OUT_COLS), dtype=torch.float32, device=dev)
     if b:
@@ -82,10 +96,10 @@ def lm_solve_fused(packed, pose0, cfg, early_exit: bool = True):
             err = _build.library().cfear_lm_solve_fused(
                 packed.data_ptr(), pose0.data_ptr(), b, n, COSTS[reg.cost],
                 LOSSES[reg.loss], reg.loss_limit, reg.max_itr_solver,
-                reg.function_tolerance, int(early_exit), out.data_ptr(),
-                stream)
+                reg.function_tolerance, int(early_exit), cluster, smem_rows,
+                out.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"lm_solve_fused: kernel launch failed with "
                                f"CUDA error {err}")
         launches["lm_solve_fused"] += 1
-    return out[:, :3], out[:, 3], out[:, 4].to(torch.int32), out[:, 5]
+    return out[:, :3], out[:, 3], out[:, 4].view(torch.int32), out[:, 5]

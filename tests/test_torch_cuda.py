@@ -252,6 +252,74 @@ def test_kernel_f_matches_plain(dev, cost, loss, early_exit):
     assert got[2].dtype == torch.int32 and (got[2] > 0).all()
 
 
+def _lm_rows(dev, b, n, cost="P2P", loss="Cauchy", seed=4):
+    """`b` packed problems of exactly `n` rows on `dev` (the smoke's
+    problem over keyframes of 1024 cells, cut to n)."""
+    cfg, packed, pose0, _ = chip_smoke.lm_problem(
+        np.random.default_rng(seed), b, -(-n // 1024), 1024, cost, loss)
+    packed = np.ascontiguousarray(packed[:, :, :n])
+    return (cfg, *(torch.as_tensor(a).to(dev) for a in (packed, pose0)))
+
+
+# one CTA (1,000), clusters of 8 (4,096; 8,192; 8,200: a ragged share;
+# 16,384; 51,200: shared memory full) and of 16 (153,600: half the rows
+# streamed from L2)
+@pytest.mark.parametrize("n", [1000, 4096, 8192, 8200, 16384, 51200, 153600])
+def test_kernel_f_widths_and_lane_independence(dev, n):
+    """At every cluster size: within tolerance of the twin with equal
+    steps, early exit == masked, and lane i of a B=8 call bit-equal to a
+    B=1 call of lane i."""
+    cfg, packed, pose0 = _lm_rows(dev, 8, n)
+    got = cuda_lm.lm_solve_fused(packed, pose0, cfg)
+    masked = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=False)
+    plain = cuda_lm.lm_solve_fused_plain(packed, pose0, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip(got, masked):
+        assert torch.equal(a, b)
+    assert (got[0] - plain[0]).abs().max() <= chip_smoke.LM_POSE_TOL
+    assert ((got[1] - plain[1]).abs() / plain[1]).max() <= chip_smoke.LM_COST_RTOL
+    assert torch.equal(got[2], plain[2]) and (got[2] > 0).all()
+    for i in (0, 3, 7):
+        alone = cuda_lm.lm_solve_fused(packed[i:i + 1].contiguous(),
+                                       pose0[i:i + 1].contiguous(), cfg)
+        for a, b in zip(got, alone):
+            assert torch.equal(a[i], b[0]), f"lane {i}"
+
+
+@pytest.mark.parametrize("cost,loss", [("P2P", "Huber"), ("P2L", "Cauchy")])
+def test_kernel_f_keeps_a_zero_weight_inf_row(dev, cost, loss):
+    """A row with w = 0 that holds inf is evaluated like any other, as the
+    twin does: both end where they started, with a non-finite cost."""
+    cfg, packed, pose0 = _lm_rows(dev, 2, 1000, cost, loss)
+    packed[1, 2, 17] = float("inf")
+    packed[1, 4, 17] = 0.0
+    got = cuda_lm.lm_solve_fused(packed, pose0, cfg)
+    plain = cuda_lm.lm_solve_fused_plain(packed, pose0, cfg)
+    torch.cuda.synchronize()
+    assert (got[0][0] - plain[0][0]).abs().max() <= chip_smoke.LM_POSE_TOL
+    assert torch.equal(got[2], plain[2]) and got[2][1] == 0
+    assert torch.equal(got[0][1], pose0[1]) and not torch.isfinite(got[1][1])
+    assert not torch.isfinite(plain[1][1])
+
+
+def test_kernel_f_refused_launch_raises(dev):
+    """More shared memory than a block may have: the launch is refused,
+    the wrapper raises and counts nothing; the next launch works."""
+    cfg, packed, pose0 = _lm_rows(dev, 1, 16384)
+    cuda_lm.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_lm._launch(packed, pose0, cfg, cluster=1, smem_rows=16384)
+    assert cuda_lm.launches["lm_solve_fused"] == 0
+    auto = cuda_lm.lm_solve_fused(packed, pose0, cfg)
+    for cluster in (1, 2, 4, 16):       # one CTA streams 60% of the rows
+        forced = cuda_lm._launch(packed, pose0, cfg, cluster=cluster)
+        torch.cuda.synchronize()
+        assert (forced[0] - auto[0]).abs().max() <= chip_smoke.LM_POSE_TOL
+        assert torch.equal(forced[2], auto[2])
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        cuda_lm._launch(packed, pose0, cfg, cluster=3)
+
+
 def _cloud(dev, b, n=8192, seed=0):
     """Wall-like point clouds at the slice's point budget, on `dev`."""
     rng = np.random.default_rng(seed)
@@ -270,6 +338,12 @@ def _cloud(dev, b, n=8192, seed=0):
     return filtering.PointCloud(*(torch.as_tensor(a).to(dev) for a in leaves))
 
 
+def _g_check(got, plain):
+    """Rows 0-8 bit-equal to the twin's, rows 9-15 zero."""
+    assert torch.equal(got[:, :9], plain[:, :9])
+    assert (got[:, 9:] == 0).all()
+
+
 def test_kernel_g_matches_plain_and_repeats(dev):
     cfg = chip_smoke.slice_config(feature_backend="pallas")
     inputs = features._moment_inputs(_cloud(dev, 4), cfg)
@@ -278,13 +352,69 @@ def test_kernel_g_matches_plain_and_repeats(dev):
     k2 = cuda_features.moment_accumulate(*inputs)
     plain = cuda_features.moment_accumulate_plain(*inputs)
     torch.cuda.synchronize()
-    assert cuda_features.launches["moment_accumulate"] == 2
+    assert (cuda_features.launches["moment_accumulate"]
+            == 2 * cuda_features.LAUNCHES_PER_CALL)
     assert torch.equal(k1, k2)
     assert torch.equal(k1[:, 0], plain[:, 0]) and (k1[:, 0] > 0).sum() > 1000
     assert (k1[:, 9:] == 0).all()
     for r in range(1, 9):
         scale = plain[:, r].abs().max()
         assert (k1[:, r] - plain[:, r]).abs().max() <= chip_smoke.MOMENT_RTOL * scale
+    _g_check(k1, plain)
+    assert (k1[:, 0] > 32).any()          # some lists are longer than a warp
+
+
+def test_kernel_g_lane_of_batch_equals_single(dev):
+    cfg = chip_smoke.slice_config(feature_backend="pallas")
+    inputs = features._moment_inputs(_cloud(dev, 8, seed=2), cfg)
+    batched = cuda_features.moment_accumulate(*inputs)
+    for i in range(8):
+        alone = cuda_features.moment_accumulate(
+            *(t[i:i + 1].contiguous() for t in inputs[:5]), *inputs[5:])
+        assert torch.equal(alone[0], batched[i]), f"lane {i}"
+
+
+@pytest.mark.parametrize("crowd", [33, 1000, 2000, 5000])
+def test_kernel_g_long_list(dev, crowd):
+    """One voxel holds `crowd` points, its neighbours none: no cap on a
+    cell's list drops hits, and the sum keeps (point, offset) order."""
+    cfg = chip_smoke.slice_config(feature_backend="pallas")
+    leaves = chip_smoke.crowded_cloud(np.random.default_rng(crowd), 2, 8192,
+                                      cfg, crowd)
+    inputs = features._moment_inputs(
+        filtering.PointCloud(*(torch.as_tensor(a).to(dev) for a in leaves)),
+        cfg)
+    k1 = cuda_features.moment_accumulate(*inputs)
+    k2 = cuda_features.moment_accumulate(*inputs)
+    plain = cuda_features.moment_accumulate_plain(*inputs)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2)
+    _g_check(k1, plain)
+    assert (k1[:, 0].amax(-1) >= crowd).all()
+
+
+def test_kernel_g_takes_repeated_targets(dev):
+    """Arbitrary packs: a point may hit one cell through two offsets, and
+    every list is long (73,728 hits over 128 cells)."""
+    rng = np.random.default_rng(8)
+    b, n, n_off, c_pre = 2, 8192, 9, 128
+    trank = rng.integers(0, c_pre + 40, (b, n_off, n))
+    pack = np.concatenate(
+        [rng.uniform(-1.5, 1.5, (b, 2, n)), rng.uniform(0, 160, (b, 1, n)),
+         rng.uniform(-100, 100, (b, 2, n)), trank < c_pre,
+         np.minimum(trank, c_pre), np.zeros((b, 1, n))], 1).astype(np.float32)
+    pack = torch.as_tensor(pack).to(dev)
+    bounds = [torch.zeros((b, k), device=dev) for k in
+              (c_pre // 128, c_pre // 128, n // 512, n // 512)]
+    offsets_m = tuple((dx * 3.0, dy * 3.0) for dx in (-1, 0, 1)
+                      for dy in (-1, 0, 1))
+    got = cuda_features.moment_accumulate(pack, *bounds, offsets_m, n_off,
+                                          c_pre)
+    plain = cuda_features.moment_accumulate_plain(pack, *bounds, offsets_m,
+                                                  n_off, c_pre)
+    torch.cuda.synchronize()
+    _g_check(got, plain)
+    assert got[:, 0].min() > 32
 
 
 @pytest.mark.parametrize("backend", ["auto", "pallas"])

@@ -10,6 +10,8 @@ the cell set exact, means and covariances within 1e-4."""
 
 import dataclasses
 import math
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -24,6 +26,12 @@ from cfear_radarodometry_code_public_tpu_torch.utils import native_io
 from cfear_radarodometry_code_public_tpu_torch.ops import cuda_features as tcf
 from cfear_radarodometry_code_public_tpu_torch.ops import features as tf
 from cfear_radarodometry_code_public_tpu_torch.ops import filtering as tfl
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402
+
+sys.path.remove(REPO)
 
 
 def _points(cfg, seed=0, b=2, n=2500):
@@ -230,6 +238,37 @@ def test_moment_accumulate_plain_matches_jax(source):
     assert got.shape == want.shape == (pack.shape[0], tcf.N_MOMENTS, c_pre)
     assert (want[:, 0] > 0).sum() > 200
     np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    np.testing.assert_array_equal(got[:, 9:], 0.0)
+    for r in range(1, 9):
+        np.testing.assert_allclose(got[:, r], want[:, r],
+                                   atol=1e-4 * np.abs(want[:, r]).max(),
+                                   err_msg=f"moment row {r}")
+
+
+@pytest.mark.parametrize("crowd", [1000, 1500])
+def test_moment_accumulate_plain_matches_jax_on_a_crowded_voxel(crowd):
+    """One voxel holds `crowd` of the 2048 points and its neighbours none
+    (`chip_smoke.crowded_cloud`), so one cell's list is `crowd` hits long:
+    counts exact, that cell's count `crowd`, moments within 1e-4 of each
+    row's scale (f32 sums of up to `crowd` terms, taken in point order here
+    and by a one-hot matrix product in the reference's kernel)."""
+    cfg_j, cfg_t = _pallas_cfgs(pre_cells=1024)
+    leaves = chip_smoke.crowded_cloud(np.random.default_rng(crowd), 2, 2048,
+                                      cfg_t, crowd)
+    pack, ct_lo, ct_hi, pt_lo, pt_hi, offsets_m, n_off, c_pre = \
+        tf._moment_inputs(_torch_points(leaves), cfg_t)
+    got = tcf.moment_accumulate(pack, ct_lo, ct_hi, pt_lo, pt_hi, offsets_m,
+                                n_off, c_pre).numpy()
+    want = np.asarray(jpf.moment_accumulate(
+        jnp.asarray(pack.numpy()), jnp.asarray(ct_lo.numpy()),
+        jnp.asarray(ct_hi.numpy()), jnp.asarray(pt_lo.numpy()),
+        jnp.asarray(pt_hi.numpy()), offsets_m=offsets_m, n_off=n_off,
+        c_pre=c_pre, interpret=True))
+    np.testing.assert_array_equal(got[:, 0], want[:, 0])
+    np.testing.assert_array_equal(got[:, 0].max(-1), crowd)
+    for lane in range(2):       # the crowd's neighbours in rank are small
+        top = np.sort(got[lane, 0])[-2:]
+        assert top[0] < crowd / 10
     np.testing.assert_array_equal(got[:, 9:], 0.0)
     for r in range(1, 9):
         np.testing.assert_allclose(got[:, r], want[:, r],

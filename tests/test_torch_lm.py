@@ -79,6 +79,40 @@ def test_twin_matches_reference_kernel_and_xla(cost, loss):
                                        err_msg=f"lane {i} {name}")
 
 
+@pytest.mark.parametrize("cost,loss", [("P2P", "Huber"), ("P2L", "Cauchy")])
+@pytest.mark.parametrize("s,m", [(2, 500), (2, 4100)])
+def test_twin_matches_xla_at_ragged_widths_and_keeps_an_inf_row(cost, loss,
+                                                                 s, m):
+    """N = 1,000 and 8,200 (no multiple of a kernel tile: 512 threads, 8
+    CTAs), unpadded on both sides. Lanes 0 and 1: pose within 1e-5 of the
+    reference's packed-XLA loop (both reach the same minimum; the sums
+    differ in order only), accepted steps equal. Lane 2 has a row with
+    w = 0 that holds inf: 0 * inf poisons the cost on both sides, no step
+    is accepted and the pose stays where it started."""
+    cfg_t, packed, pose0, _ = chip_smoke.lm_problem(
+        np.random.default_rng(7), B, s, m, cost, loss)
+    cfg_j = ref.CFEARConfig.from_dict(cfg_t.to_dict())
+    assert packed.shape[2] in (1000, 8200)
+    packed[2, 2, 17] = np.inf
+    packed[2, 4, 17] = 0.0
+    pose_t, cost_t, steps_t, _ = (a.numpy() for a in cuda_lm.lm_solve_fused(
+        *_torch(packed, pose0), cfg_t))
+    for i in range(B):
+        p_j, c_j, steps_j, _ = _xla(jnp.asarray(packed[i]),
+                                    jnp.asarray(pose0[i]), cfg=cfg_j)
+        assert steps_t[i] == int(steps_j), f"lane {i}"
+        if i < 2:
+            assert steps_t[i] > 0
+            np.testing.assert_allclose(pose_t[i], np.asarray(p_j), atol=1e-5,
+                                       err_msg=f"lane {i}")
+            np.testing.assert_allclose(cost_t[i], float(c_j), rtol=COST_RTOL)
+        else:
+            assert steps_t[i] == 0 and not np.isfinite(cost_t[i])
+            assert not np.isfinite(float(c_j))
+            np.testing.assert_array_equal(pose_t[i], pose0[i])
+            np.testing.assert_array_equal(np.asarray(p_j), pose0[i])
+
+
 def test_lanes_are_independent():
     """A lane of a batched solve equals the same lane solved alone."""
     _, cfg_t, packed, pose0 = _problem("P2D", "Cauchy", seed=3)
