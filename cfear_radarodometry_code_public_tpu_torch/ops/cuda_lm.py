@@ -82,9 +82,11 @@ def lm_solve_fused(packed, pose0, cfg, early_exit: bool = True):
 def _launch(packed, pose0, cfg, early_exit: bool = True, cluster: int = 0,
             smem_rows: int = 0):
     """Launch kernel F on checked CUDA tensors. `cluster` and `smem_rows`
-    are 0 for the kernel's own choice from N; measurements and tests force
-    a cluster size (1, 2, 4, 8, 16) or the rows a CTA keeps in shared
-    memory. A launch the card refuses raises."""
+    are 0 for the kernel's own choice from N, and no code of the port may
+    pass anything else (`tests/test_torch_lm.py` searches the package for
+    it): only measurements and tests force a cluster size (1, 2, 4, 8, 16)
+    or the rows a CTA keeps in shared memory. A launch the card refuses
+    raises."""
     from cfear_radarodometry_code_public_tpu_torch.ops import _build
     reg = cfg.registration
     dev = packed.device

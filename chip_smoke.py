@@ -5,9 +5,11 @@
 Builds the port's CUDA kernels from `cfear_radarodometry_code_public_tpu_torch/
 csrc/` with nvcc and checks each against its plain PyTorch twin on the card:
 the 1-NN kernels A and C, the fused LM solve F (both variants, three cost /
-loss pairs at S=4, at the long run's width, 4 x 2048 cells, and at the s50
-widths: S=16 and S=50 of 1024 cells, and S=50 of 3072; a lane of a B=8 call
-must equal its own B=1 call bit for bit) and the feature-moment kernel G (on
+loss pairs at S=4, and every width the main paths give it, `LM_SHAPES`: the
+long run's reverse and forward solves, 1 and 4 x 2048 cells, and the s50
+widths, S=16 and S=50 of 1024 cells and S=50 of 3072, so that every cluster
+size the kernel picks is held against the twin; a lane of a B=8 call must
+equal its own B=1 call bit for bit) and the feature-moment kernel G (on
 the slice's own frames, lane by lane as well, and on a cloud in which one
 voxel holds 2,000 points).
 Then it drives the CFEAR-3 host-ingest odometry slice at Oxford sensor scale
@@ -37,7 +39,9 @@ the kernels it runs (launch counts zeroed just before each path, read just
 after). Exits non-zero, printing no result, when there is no CUDA card or
 any phase fails. The last line of stdout is {"ok": true, "device": {...}};
 the line before it lists the kernels, each with its time, its plain twin's,
-its bound and the time of the closest PyTorch library route.
+its bound and the time of the closest PyTorch library route, and
+`host_paced`: the twins and library routes whose time is the host's pace
+(`_cuda_ms`; a kernel timed so fails the run).
 """
 
 from __future__ import annotations
@@ -121,6 +125,14 @@ HEALTH_TOL = (0.045, 1e-3)
 # another order, which can move an accept or convergence test by an ulp.
 LM_POSE_TOL, LM_COST_RTOL = 1e-4, 1e-3
 LM_CASES = (("P2P", "Huber"), ("P2L", "Huber"), ("P2D", "Cauchy"))
+# Kernel F's widths on the main paths, (keyframes, cells, cost, loss) with
+# N = keyframes x cells, one for each cluster size the kernel picks: the
+# long run's reverse solve (N=2,048: one CTA a lane), the slice (4,096) and
+# the long run's forward solve (8,192), the s50 K16 and exact windows
+# (16,384 and 51,200: 8 CTAs a lane) and the s50 preset's (153,600: 16)
+LM_SHAPES = ((1, 2048, "P2P", "Huber"), (4, 1024, "P2P", "Huber"),
+             (4, 2048, "P2P", "Huber"), (16, 1024, "P2P", "Cauchy"),
+             (50, 1024, "P2P", "Cauchy"), (50, 3072, "P2P", "Cauchy"))
 # Kernel G against its twin on the card: rows 0-8 bit-equal (both sum each
 # cell in (point, offset) order with unfused f32 operations), rows 9-15
 # zero. MOMENT_RTOL, 1e-4 of each row's largest value, is the limit where
@@ -221,23 +233,52 @@ def _card() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _cuda_ms(fn, n: int) -> float:
+# Plain twins and library routes whose calls outlasted the timer's spin
+# (`_cuda_ms`): their times are the host's pace, not the card's alone.
+host_paced: list = []
+SPIN_CYCLES = 20_000_000          # ~10 ms at the H100's clock
+MAX_SPIN_CYCLES = 16 * SPIN_CYCLES
+
+
+def _cuda_ms(fn, n: int, twin: str = "") -> float:
     """Mean device ms per call of fn() over n calls, by CUDA events, after
-    warm-up. The calls are issued behind a ~10 ms spin on the stream, so the
-    card runs them back to back however long the host takes to issue each:
-    a kernel of 20 us is timed, not the 40-80 us its wrapper takes on the
-    host. (A plain twin of many launches outlasts the spin and is timed at
-    the host's pace, as it runs in use.)"""
+    warm-up. The calls are queued behind a spin on the stream, so the card
+    runs them back to back however long the host takes to launch each: a
+    kernel of 20 us is timed, not the 40-80 us its wrapper takes on the
+    host. An event recorded straight after the spin tells whether that
+    held: if it has completed when the last call has been queued, the
+    queue drained and the time is the host's pace. A kernel is then timed
+    again behind a spin four times as long, and the smoke fails when the
+    longest does not cover the host. `twin` names a plain twin or library
+    route (many launches, host syncs), which may outlast any spin: it is
+    timed once, at the host's pace if need be, as it runs in use, and then
+    listed in `host_paced`."""
     fn()
     torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    spin = SPIN_CYCLES
+    while True:
+        start, gate, end = (torch.cuda.Event(enable_timing=True)
+                            for _ in range(3))
+        torch.cuda._sleep(spin)
+        gate.record()
+        start.record()
+        for _ in range(n):
+            fn()
+        ahead = not gate.query()   # the spin still ran: nothing started yet
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / n
+        if ahead:
+            return ms
+        if twin:
+            if twin not in host_paced:
+                host_paced.append(twin)
+            return ms
+        if spin >= MAX_SPIN_CYCLES:
+            raise AssertionError(
+                f"timer: the host took longer to queue {n} calls than a "
+                f"spin of {spin} cycles; {ms:.4f} ms is not a device time")
+        spin *= 4
 
 
 def bound(nbytes: float, flops: float) -> dict:
@@ -349,12 +390,13 @@ def phase_kernels(dev, card):
     if not torch.isinf(d2_a[7, s - 1]).all():
         raise AssertionError("kernel A: empty keyframe must give +inf")
     fin = torch.isfinite(d2_p)
-    lib_ms = _cuda_ms(lambda: library_nn(src, tar, valid), 20)
+    lib_ms = _cuda_ms(lambda: library_nn(src, tar, valid), 20,
+                      "cdist + min")
     res["nn_min"] = {
         "max_abs_err": float((d2_a[fin] - d2_p[fin]).abs().max()),
         "ms": _cuda_ms(lambda: cuda_assoc.nn_min(src, tar, valid), 200),
         "plain_ms": _cuda_ms(lambda: cuda_assoc.nn_min_plain(src, tar, valid),
-                             20),
+                             20, "nn_min_plain"),
         **nn_bound(src, tar, valid), "library_ms": lib_ms}
     sb = cuda_assoc.tile_bounds(src, src_valid, cuda_assoc.TS_SPARSE)
     tb = cuda_assoc.tile_bounds(tar, valid, cuda_assoc.TT_SPARSE)
@@ -381,7 +423,7 @@ def phase_kernels(dev, card):
         times.append(_cuda_ms(lambda: cuda_assoc.nn_min_sparse(
             src, sb, tar, tb, valid, radius), 200))
         ptimes.append(_cuda_ms(lambda: cuda_assoc.nn_min_sparse_plain(
-            src, sb, tar, tb, valid, radius), 20))
+            src, sb, tar, tb, valid, radius), 20, "nn_min_sparse_plain"))
         share = float(cuda_assoc.pair_live(sb, tb, radius).float().mean())
         bounds.append(nn_bound(src, tar, valid, share,
                                sb.numel() * 4 + tb.numel() * 4))
@@ -460,13 +502,19 @@ def lm_bound(packed, steps) -> dict:
     return bound(packed.numel() * 4 + b * 9 * 4, flops)
 
 
-def _lm_case(rng, dev, card, s, cost, loss, n=100, m=1024):
+def lm_inputs(rng, dev, s, m, cost, loss):
+    """`lm_problem` at B=BATCH on the card: (cfg, packed, pose0, true)."""
+    cfg, packed, pose0, true = lm_problem(rng, BATCH, s, m, cost, loss)
+    return (cfg, *(torch.as_tensor(a).to(dev) for a in (packed, pose0, true)))
+
+
+def _lm_case(rng, dev, card, s, m, cost, loss):
     """Kernel F, both variants, on `lm_problem(rng, BATCH, s, m, cost,
     loss)` against its plain twin, and each lane solved alone (B=1) against
-    the same lane of the B=8 call. Returns (|dpose|, early-exit ms, plain
-    ms, bound, N)."""
-    cfg, packed, pose0, true = lm_problem(rng, BATCH, s, m, cost, loss)
-    packed, pose0 = (torch.as_tensor(a).to(dev) for a in (packed, pose0))
+    the same lane of the B=8 call. Returns a record: |dpose|, the device ms
+    of the early-exit and masked variants at B=8 and of lane 0 alone, the
+    twin's ms, the bound and N."""
+    cfg, packed, pose0, true = lm_inputs(rng, dev, s, m, cost, loss)
     ee = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=True)
     masked = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=False)
     alone = [cuda_lm.lm_solve_fused(packed[i:i + 1].contiguous(),
@@ -493,43 +541,46 @@ def _lm_case(rng, dev, card, s, cost, loss, n=100, m=1024):
         raise AssertionError(
             f"kernel F {cost}/{loss}: accepted steps {ee[2].tolist()} differ "
             f"from the twin's {plain[2].tolist()}")
-    off = float((ee[0].cpu() - torch.as_tensor(true)).abs().max())
+    off = float((ee[0] - true).abs().max())
+    n = 100 if s * m <= 16384 else 30
     t_ee = _cuda_ms(lambda: cuda_lm.lm_solve_fused(packed, pose0, cfg), n)
     t_m = _cuda_ms(lambda: cuda_lm.lm_solve_fused(
         packed, pose0, cfg, early_exit=False), n)
     t_1 = _cuda_ms(lambda: cuda_lm.lm_solve_fused(
         packed[:1], pose0[:1], cfg), n)
     t_p = _cuda_ms(lambda: cuda_lm.lm_solve_fused_plain(packed, pose0, cfg),
-                   10)
+                   5, "lm_solve_fused_plain")
     _say(f"kernel F {cost}/{loss}: early exit == masked and B=1 == lane of "
          f"B={BATCH} bit for bit; vs twin |dpose| {dpose:.3e}, cost rel "
          f"{dcost:.3e}; steps {ee[2].tolist()} (equal to the twin's); max "
          f"|pose - true| {off:.4f}; early exit {t_ee:.4f} ms, masked "
          f"{t_m:.4f} ms, B=1 {t_1:.4f} ms, plain {t_p:.4f} ms at B={BATCH} "
          f"N={packed.shape[2]} ({card})")
-    return dpose, t_ee, t_p, lm_bound(packed, ee[2]), packed.shape[2]
+    return {"dpose": dpose, "ms": t_ee, "masked_ms": t_m, "b1_ms": t_1,
+            "plain_ms": t_p, "bound": lm_bound(packed, ee[2]),
+            "n": packed.shape[2]}
 
 
 def phase_lm(dev, card):
     """Kernel F, both variants, against its plain twin at the slice's width
-    (B=8 lanes, N = 4 keyframes x 1024 cells, three cost/loss pairs), at the
-    long run's (N = 4 x 2048) and at the s50 widths (P2P/Cauchy, N = 16 and
-    50 keyframes x 1024 cells: the K16 and the exact window; and 50 x 3072
-    cells, N = 153,600: the `s50-preset` window). `ms` is the first case's;
-    `ms_by_n` lists the early-exit time at every width."""
+    (B=8 lanes, N = 4 keyframes x 1024 cells, three cost/loss pairs) and at
+    every other width of `LM_SHAPES`, so that every cluster size the main
+    paths reach (1, 8 and 16 CTAs a lane) is held against the twin, early
+    exit against masked, and B=1 against B=8. `ms` is the slice's
+    (P2P/Huber); `ms_by_n` lists the early-exit time at every width, B=8."""
     rng = np.random.default_rng(1)
-    rows = [_lm_case(rng, dev, card, 4, cost, loss)
+    rows = [_lm_case(rng, dev, card, 4, 1024, cost, loss)
             for cost, loss in LM_CASES]
-    rows += [_lm_case(rng, dev, card, s, "P2P", "Cauchy", n=20, m=m)
-             for s, m in ((16, 1024), (50, 1024), (50, 3072))]
-    rows.append(_lm_case(rng, dev, card, 4, "P2P", "Huber", n=50, m=2048))
+    first = rows[0]
+    rows += [_lm_case(rng, dev, card, *shape) for shape in LM_SHAPES
+             if shape != (4, 1024) + LM_CASES[0]]
+    by_n = sorted(rows[:1] + rows[len(LM_CASES):], key=lambda r: r["n"])
     # no single PyTorch call solves a trust-region LM: no library route
-    return {"lm_solve_fused": {"max_abs_err": max(r[0] for r in rows),
-                               "ms": rows[0][1], "plain_ms": rows[0][2],
-                               **rows[0][3], "library_ms": None,
-                               "ms_by_n": {str(r[4]): r[1] for r in
-                                           sorted(rows[:1] + rows[3:],
-                                                  key=lambda r: r[4])}}}
+    return {"lm_solve_fused": {
+        "max_abs_err": max(r["dpose"] for r in rows), "ms": first["ms"],
+        "plain_ms": first["plain_ms"], **first["bound"], "library_ms": None,
+        **{f"{k}_by_n": {str(r["n"]): r[k] for r in by_n}
+           for k in ("ms", "masked_ms", "b1_ms")}}}
 
 
 def crowded_cloud(rng, b, n, cfg, crowd=CROWD):
@@ -571,15 +622,40 @@ def _check_moments(name, got, plain):
     return float((got - plain).abs().max())
 
 
+def moment_inputs(images, dev):
+    """Kernel G's arguments on the first BATCH frames of `images` as BATCH
+    lanes (`features._moment_inputs` of the host-filtered points), and each
+    lane's alone (B=1): (inputs, [lane inputs])."""
+    cfg = slice_config(feature_backend="pallas")
+    rows = odometry.host_filter(images[:BATCH], cfg, "compact")
+    pts = filtering.points_from_compact(odometry.to_device(rows, dev), cfg)
+    inputs = features._moment_inputs(pts, cfg)
+    one = [tuple(t[i:i + 1].contiguous() for t in inputs[:5])
+           + tuple(inputs[5:]) for i in range(BATCH)]
+    return inputs, one
+
+
+def index_add_yardstick(inputs):
+    """The library route beside kernel G, timed and called nowhere in the
+    port: one `index_add_` of every (point, offset) hit's 9 ready moment
+    columns into its cell (float atomics). Returns (call, hits)."""
+    pack, n_off, c_pre = inputs[0], inputs[6], inputs[7]
+    trank = pack[:, 5 + n_off:5 + 2 * n_off].transpose(1, 2)
+    hits = trank < c_pre
+    rows9 = torch.randn((int(hits.sum()), 9), device=pack.device)
+    ids = (torch.arange(pack.shape[0], device=pack.device)[:, None, None]
+           * c_pre + trank.to(torch.int64))[hits]
+    return (lambda: torch.zeros((pack.shape[0] * c_pre, 9), device=pack.device)
+            .index_add_(0, ids, rows9)), int(hits.sum())
+
+
 def phase_moments(images, dev, card):
     """Kernel G against its plain twin on the slice's first 8 frames as 8
     lanes (N = 8192 points, c_pre = 4608 cells): bit-equal, two launches
     bit-identical, each lane alone (B=1) equal to its lane of the B=8 call;
     and on `crowded_cloud`, where one cell's list is 2,000 hits long."""
     cfg = slice_config(feature_backend="pallas")
-    rows = odometry.host_filter(images[:BATCH], cfg, "compact")
-    pts = filtering.points_from_compact(odometry.to_device(rows, dev), cfg)
-    inputs = features._moment_inputs(pts, cfg)
+    inputs, one = moment_inputs(images, dev)
     pack, c_pre = inputs[0], inputs[7]
     k1 = cuda_features.moment_accumulate(*inputs)
     k2 = cuda_features.moment_accumulate(*inputs)
@@ -588,8 +664,6 @@ def phase_moments(images, dev, card):
     if not torch.equal(k1, k2):
         raise AssertionError("kernel G: two launches differ")
     err_abs = _check_moments("slice", k1, plain)
-    one = [tuple(t[i:i + 1].contiguous() for t in inputs[:5]) + inputs[5:]
-           for i in range(BATCH)]
     for i, lane_inputs in enumerate(one):
         if not torch.equal(cuda_features.moment_accumulate(*lane_inputs)[0],
                            k1[i]):
@@ -612,19 +686,11 @@ def phase_moments(images, dev, card):
     ms_1 = _cuda_ms(lambda: cuda_features.moment_accumulate(*one[0]), 50)
     ms_c = _cuda_ms(lambda: cuda_features.moment_accumulate(*c_inputs), 50)
     plain_ms = _cuda_ms(lambda: cuda_features.moment_accumulate_plain(*inputs),
-                        5)
-    # the library route: one `index_add_` of every (point, offset) hit's 9
-    # moment columns into its cell (float atomics), on the twin's rows
-    n_off = inputs[6]
-    trank = pack[:, 5 + n_off:5 + 2 * n_off].transpose(1, 2)
-    hits = trank < c_pre
-    rows9 = torch.randn((int(hits.sum()), 9), device=dev)
-    ids = (torch.arange(pack.shape[0], device=dev)[:, None, None] * c_pre
-           + trank.to(torch.int64))[hits]
-    lib_ms = _cuda_ms(lambda: torch.zeros(
-        (pack.shape[0] * c_pre, 9), device=dev).index_add_(0, ids, rows9), 50)
+                        5, "moment_accumulate_plain")
+    library, n_hits = index_add_yardstick(inputs)
+    lib_ms = _cuda_ms(library, 50, "index_add_")
     g_bound = bound(sum(t.numel() * 4 for t in inputs[:5]) + k1.numel() * 4,
-                    MOMENT_FLOPS * float(hits.sum()))
+                    MOMENT_FLOPS * float(n_hits))
     over32 = float((plain[:, 0] > 32).sum() / max(sum(occupied), 1))
     _say(f"kernel G: pack {tuple(pack.shape)}, c_pre {c_pre}, cells with "
          f"points per lane {occupied}, {over32:.3f} of them with more than "
@@ -634,10 +700,10 @@ def phase_moments(images, dev, card):
          f"{ms:.4f} ms, B=1 {ms_1:.4f} ms, crowded B=2 {ms_c:.4f} ms, plain "
          f"{plain_ms:.4f} ms, bound {g_bound['bound_ms']:.4f} ms "
          f"({g_bound['bound_by']}), index_add_ {lib_ms:.4f} ms over "
-         f"{int(hits.sum())} hits ({card})")
+         f"{n_hits} hits ({card})")
     return {"moment_accumulate": {"max_abs_err": err_abs, "ms": ms,
                                   "plain_ms": plain_ms, **g_bound,
-                                  "library_ms": lib_ms}}
+                                  "library_ms": lib_ms, "b1_ms": ms_1}}
 
 
 def traj_spread(got, want):
@@ -674,12 +740,13 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _run_single(cfg, images, dev):
-    """Two passes of OdometryRunner over the frames; returns the runner of
-    the second and both wall times."""
+def _run_single(cfg, images, dev, passes=2):
+    """`passes` runs of OdometryRunner over the frames (reset between);
+    returns the runner of the last and the wall time of each. The first
+    pass includes the warm-up."""
     runner = odometry.OdometryRunner(cfg, ingest="host", device=dev, chunk=16)
     secs = []
-    for rep in range(2):
+    for rep in range(passes):
         if rep:
             runner.reset()
         t0 = time.perf_counter()
@@ -693,9 +760,9 @@ def _report(name, traj, out, gt, secs, card, g_ate):
     """Print a path's frames/s, ATE, drift and counts; fail when its ATE is
     more than 5 cm worse than the golden's `g_ate`."""
     n = traj.shape[0]
-    _say(f"{name}: {n} frames, first pass {n / secs[0]:.2f} "
-         f"frames/s (warm-up included), second pass {n / secs[1]:.2f} "
-         f"frames/s, host filter included ({card})")
+    _say(f"{name}: {n} frames, " + ", ".join(
+        f"pass {i + 1} {n / t:.2f} frames/s" for i, t in enumerate(secs))
+        + f" (pass 1 with the warm-up; host filter included; {card})")
     ate = ate_rmse(traj[:, :2], gt[:, :2])
     drift = kitti.kitti_drift(traj, gt, step_size=5, lengths=(50.0,))
     _say(f"{name}: ATE {ate:.4f} m (golden {g_ate:.4f} m), drift "
@@ -708,12 +775,12 @@ def _report(name, traj, out, gt, secs, card, g_ate):
 
 
 def phase_single(cfg, images, gt, dev, card, golden, name="single",
-                 tol=TOL, full_window=False):
-    """One sequence through OdometryRunner, held against a JAX golden.
-    With `full_window`, the run must end with every keyframe slot valid.
-    Returns (trajectory, frame outputs, final state)."""
+                 tol=TOL, full_window=False, passes=2):
+    """One sequence through OdometryRunner (`passes` times), held against a
+    JAX golden. With `full_window`, the run must end with every keyframe
+    slot valid. Returns (trajectory, frame outputs, final state)."""
     n = images.shape[0]
-    runner, secs = _run_single(cfg, images, dev)
+    runner, secs = _run_single(cfg, images, dev, passes)
     traj, out = runner.trajectory(), runner.frame_outputs()
     with np.load(golden) as z:
         if json.loads(str(z["config"])) != cfg.to_dict():
@@ -739,13 +806,14 @@ def phase_auto(images, traj, out, dev, card):
     card it resolves to kernel A; held against the kernel-C run."""
     n = images.shape[0]
     runner, secs = _run_single(slice_config("auto", spatial_sort=False),
-                               images, dev)
+                               images, dev, 1)
     traj_a, out_a = runner.trajectory(), runner.frame_outputs()
     if not out_a.success.all():
         raise AssertionError("auto (kernel A) run has failed frames")
     _check_traj("auto (kernel A) vs pallas_sparse (kernel C)", traj_a, traj,
                 out_a.fused, out.fused)
-    _say(f"auto (kernel A): {n / secs[1]:.2f} frames/s ({card})")
+    _say(f"auto (kernel A): {n / secs[0]:.2f} frames/s, warm-up included "
+         f"({card})")
 
 
 def phase_batched(cfg, images, traj, out, dev, card, batch=BATCH, tol=TOL):
@@ -809,7 +877,7 @@ def phase_s50_preset(images, gt, dev, card):
         cfg, m, m, cfg.odometry.submap_scan_size, dev)
     if method != "pallas_sparse":
         raise AssertionError(f"s50-preset: auto resolved to {method}")
-    runner, secs = _run_single(cfg, images, dev)
+    runner, secs = _run_single(cfg, images, dev, 1)
     if runner.kind != "candidates":
         raise AssertionError("s50-preset: expected the candidates ingest")
     traj, out = runner.trajectory(), runner.frame_outputs()
@@ -923,16 +991,18 @@ def phase_window(win, outs, r, card, name="s50 window"):
                      .float().mean())
         t = {k: _cuda_ms(f, 50) for k, f in _window_calls(args, at).items()}
         t["gather"] = _cuda_ms(lambda: registration._gather_attrs(att, nn_c),
-                               50)
+                               50, "gather")
         t["C + gather"] = _cuda_ms(lambda: registration._gather_attrs(
-            att, cuda_assoc.nn_min_sparse(*args)[0]), 50)
-        t["plain"] = _cuda_ms(lambda: cuda_assoc.nn_min_sparse_plain(*args), 5)
+            att, cuda_assoc.nn_min_sparse(*args)[0]), 50, "C + gather")
+        t["plain"] = _cuda_ms(lambda: cuda_assoc.nn_min_sparse_plain(*args), 5,
+                              "nn_min_sparse_plain")
         t["plain E"] = _cuda_ms(lambda: cuda_assoc.nn_min_sparse_attrs_plain(
-            *args[:5], at, args[5]), 5)
+            *args[:5], at, args[5]), 5, "nn_min_sparse_attrs_plain")
         t["cdist + min"] = _cuda_ms(lambda: library_nn(args[0], args[2],
-                                                       args[4]), 5)
+                                                       args[4]), 5,
+                                    "cdist + min")
         t["cdist + min + gather"] = _cuda_ms(lambda: library_nn_attrs(
-            args[0], args[2], args[4], at), 5)
+            args[0], args[2], args[4], at), 5, "cdist + min + gather")
         extra = args[1].numel() * 4 + args[3].numel() * 4
         bnd = nn_bound(args[0], args[2], args[4], live, extra)
         bnd_e = nn_bound(args[0], args[2], args[4], live,
@@ -956,21 +1026,6 @@ def phase_window(win, outs, r, card, name="s50 window"):
                   for k in ("nn_min_sparse_multi", "nn_min_sparse_unrolled",
                             "nn_min_sparse_attrs")}
     return res
-
-
-def _run_longrun(cfg, images, dev, passes):
-    """`passes` runs of OdometryRunner over the frames (reset between);
-    returns the runner of the last and the wall time of each."""
-    runner = odometry.OdometryRunner(cfg, ingest="host", device=dev, chunk=16)
-    secs = []
-    for rep in range(passes):
-        if rep:
-            runner.reset()
-        t0 = time.perf_counter()
-        runner.process(images)
-        _sync(dev)
-        secs.append(time.perf_counter() - t0)
-    return runner, secs
 
 
 def _health_summary(checked, healthy, dist) -> str:
@@ -997,7 +1052,7 @@ def phase_longrun(name, cfg, images, gt, sequence, dev, card, passes=1):
             raise AssertionError(f"{name}: auto resolved to {method} at "
                                  f"S={s_act}, expected kernel A")
     n = images.shape[0]
-    runner, secs = _run_longrun(cfg, images, dev, passes)
+    runner, secs = _run_single(cfg, images, dev, passes)
     traj, out = runner.trajectory(), runner.frame_outputs()
     with np.load(longrun_golden(sequence)) as z:
         g = {k: z[k] for k in z.files}
@@ -1089,7 +1144,7 @@ def phase_cov(cfg, images, traj, out, dev, card):
     nothing back); every covariance finite; the sampled ones (frames where
     the fit was convex, so the covariance differs from the Censi one)
     symmetric positive definite."""
-    runner, secs = _run_longrun(cfg, images, dev, 1)
+    runner, secs = _run_single(cfg, images, dev, 1)
     traj_c, out_c = runner.trajectory(), runner.frame_outputs()
     if not (np.array_equal(traj_c, traj)
             and all(np.array_equal(getattr(out_c, k), getattr(out, k))
@@ -1173,8 +1228,10 @@ def phase_longrun_window(win, outs, card):
                                      "differs from kernel A")
         t = {k: _cuda_ms(f, 50) for k, f in _multi_calls(args).items()}
         t["A"] = _cuda_ms(lambda: cuda_assoc.nn_min(*args), 50)
-        t["plain"] = _cuda_ms(lambda: cuda_assoc.nn_min_plain(*args), 5)
-        t["cdist + min"] = _cuda_ms(lambda: library_nn(*args), 5)
+        t["plain"] = _cuda_ms(lambda: cuda_assoc.nn_min_plain(*args), 5,
+                              "nn_min_plain")
+        t["cdist + min"] = _cuda_ms(lambda: library_nn(*args), 5,
+                                    "cdist + min")
         bnd = nn_bound(*args)
         within = float((d2_a <= 4.0).float().mean())
         _say(f"longrun window S={s} B={b}: B1, B2 == A == twin bit for bit "
@@ -1208,21 +1265,35 @@ def main() -> int:
     _say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
          f"native host filter: {native_io.native_available()}")
-    kernels = phase_kernels(dev, card)
-    kernels.update(phase_lm(dev, card))
+    # wall seconds of each part of the run, printed before the kernels line
+    took: dict = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        result = fn()
+        took[name] = took.get(name, 0.0) + time.perf_counter() - t0
+        return result
+
+    def render(cfg, sequence):
+        images, gt = timed("render", lambda: synthetic.make_sequence(
+            cfg=cfg, **sequence))
+        _say(f"rendered {images.shape}; {took['render']:.1f} s of rendering "
+             "so far")
+        return images, gt
+
+    kernels = timed("build + A, C", lambda: phase_kernels(dev, card))
+    kernels.update(timed("F", lambda: phase_lm(dev, card)))
 
     cfg = slice_config()
-    t0 = time.perf_counter()
-    images, gt = synthetic.make_sequence(cfg=cfg, **SEQUENCE)
-    _say(f"rendered {images.shape} in {time.perf_counter() - t0:.1f} s")
-    kernels.update(phase_moments(images, dev, card))
+    images, gt = render(cfg, SEQUENCE)
+    kernels.update(timed("G", lambda: phase_moments(images, dev, card)))
 
     # the paths: each one's launches are counted from zero just before it
     paths: dict = {}
 
     def drive(name, needs, fn):
         _reset_launches()
-        result = fn()
+        result = timed(name, fn)
         paths[name] = _launches()
         _say(f"launches in the {name} path: {paths[name]}")
         for k in needs:
@@ -1241,12 +1312,10 @@ def main() -> int:
           ("moment_accumulate", "nn_min_sparse", "lm_solve_fused"),
           lambda: phase_single(slice_config(feature_backend="pallas"), images,
                                gt, dev, card, GOLDEN_PALLAS,
-                               "pallas-features"))
+                               "pallas-features", passes=1))
 
     s50 = s50_config()
-    t0 = time.perf_counter()
-    images50, gt50 = synthetic.make_sequence(cfg=s50, **S50_SEQUENCE)
-    _say(f"rendered {images50.shape} in {time.perf_counter() - t0:.1f} s")
+    images50, gt50 = render(s50, S50_SEQUENCE)
     traj50, out50, state50 = drive(
         "s50", ("nn_min_sparse", "lm_solve_fused"),
         lambda: phase_single(s50, images50, gt50, dev, card, GOLDEN_S50,
@@ -1254,7 +1323,7 @@ def main() -> int:
     drive("s50-k16", ("nn_min_sparse", "lm_solve_fused"),
           lambda: phase_single(s50_config(16), images50, gt50, dev, card,
                                GOLDEN_S50_K16, "s50-k16", S50_TOL,
-                               full_window=True))
+                               full_window=True, passes=1))
     drive("s50-batched", ("nn_min_sparse", "lm_solve_fused"),
           lambda: phase_batched(s50, images50, traj50, out50, dev, card,
                                 tol=S50_TOL))
@@ -1263,8 +1332,9 @@ def main() -> int:
     # kernel C at the preset's shapes (B=1, S=50, Msrc=M=3072) against its
     # twin on the window that path ends with, and D1, D2, E beside it
     win_p = window_inputs(state_p, preset, dev, "s50-preset window", (1,))
-    phase_window(win_p, drive_window(win_p),
-                 preset.registration.assoc_radius, card, "s50-preset window")
+    timed("window checks", lambda: phase_window(
+        win_p, drive_window(win_p), preset.registration.assoc_radius, card,
+        "s50-preset window"))
     # D1, D2 and E on the window the s50 path ends with: the counted run is
     # one call of each; the checks against C and the twins, and the
     # timings, come after the counts are read
@@ -1274,18 +1344,16 @@ def main() -> int:
                                 "nn_min_sparse_attrs"),
                  lambda: drive_window(win))
     # the kernels line keeps the s50 window's B=8 times
-    kernels.update(phase_window(win, outs, s50.registration.assoc_radius,
-                                card)[BATCH])
+    kernels.update(timed("window checks", lambda: phase_window(
+        win, outs, s50.registration.assoc_radius, card))[BATCH])
 
     # the long-run path (`tools/run_longrun.py`, cut to 256 frames)
     lr = longrun_config()
-    t0 = time.perf_counter()
-    images_lr, gt_lr = synthetic.make_sequence(cfg=lr, **LONGRUN_SEQUENCE)
-    _say(f"rendered {images_lr.shape} in {time.perf_counter() - t0:.1f} s")
+    images_lr, gt_lr = render(lr, LONGRUN_SEQUENCE)
     runner_lr, traj_lr, out_lr = drive(
         "longrun", ("nn_min", "lm_solve_fused"),
         lambda: phase_longrun("longrun", lr, images_lr, gt_lr,
-                              LONGRUN_SEQUENCE, dev, card, passes=2))
+                              LONGRUN_SEQUENCE, dev, card))
     drive("longrun-resume", ("nn_min", "lm_solve_fused"),
           lambda: phase_resume(lr, images_lr, traj_lr, out_lr, dev, card))
     drive("longrun-cov", ("nn_min", "lm_solve_fused"),
@@ -1297,22 +1365,27 @@ def main() -> int:
     win_lr = longrun_window(runner_lr.state, lr, dev)
     outs_lr = drive("longrun-window", ("nn_min_multi", "nn_min_multi_unrolled"),
                     lambda: drive_longrun_window(win_lr))
-    kernels.update(phase_longrun_window(win_lr, outs_lr, card))
+    kernels.update(timed("window checks", lambda: phase_longrun_window(
+        win_lr, outs_lr, card)))
     del images_lr
-    t0 = time.perf_counter()
-    images_a, gt_a = synthetic.make_sequence(cfg=lr, **LONGRUN_ADV8_SEQUENCE)
-    _say(f"rendered {images_a.shape} in {time.perf_counter() - t0:.1f} s")
+    images_a, gt_a = render(lr, LONGRUN_ADV8_SEQUENCE)
     drive("longrun-adv8", ("nn_min", "lm_solve_fused"),
           lambda: phase_longrun("longrun-adv8", lr, images_a, gt_a,
                                 LONGRUN_ADV8_SEQUENCE, dev, card))
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     _say(f"kernel launches in the main-path runs: {launches}")
+    _say("wall seconds by part: " + json.dumps(
+        {k: round(v, 1) for k, v in took.items()})
+        + f"; {sum(took.values()):.1f} s in all ({card})")
+    _say(f"timed at the host's pace (calls that outlasted the spin): "
+         f"{host_paced}")
 
     csrc = os.path.relpath(os.path.dirname(_build.SOURCES[0]), ROOT)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": f"{csrc}/{src}",
          "replaces": tpu, "launches": launches[name], **kernels[name]}
-        for name, (tpu, src) in KERNELS.items()]}))
+        for name, (tpu, src) in KERNELS.items()],
+        "host_paced": host_paced}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

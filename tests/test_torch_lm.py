@@ -153,3 +153,22 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises(err):
         cuda_lm.lm_solve_fused(packed, pose0, cfg_t)
     assert cuda_lm.launches["lm_solve_fused"] == 0
+
+
+def test_no_port_code_forces_the_launch_hook():
+    """`cuda_lm._launch(cluster=, smem_rows=)` is for measurements and
+    tests: inside the package only `lm_solve_fused` calls it, and leaves
+    both at 0 (the kernel's own choice from N)."""
+    import re
+    pkg = os.path.dirname(os.path.dirname(os.path.abspath(cuda_lm.__file__)))
+    found = []
+    for top, _, files in os.walk(pkg):
+        for name in (n for n in files if n.endswith(".py")):
+            with open(os.path.join(top, name)) as f:
+                text = f.read()
+            found += [(name, hit) for hit in re.findall(
+                r"cuda_lm\._launch|[(,]\s*(?:cluster|smem_rows)=", text)]
+            if name == "cuda_lm.py":
+                calls = re.findall(r"(?<!def )_launch\(([^)]*)\)", text)
+    assert calls == ["packed, pose0, cfg, early_exit"]
+    assert found == []

@@ -2,57 +2,60 @@
 several source trees on one CUDA card, in turns inside one call.
 
     python tools/compare_torch_kernels.py [--out DIR] PARENT . . PARENT
-    python tools/compare_torch_kernels.py --sweep
-    python tools/compare_torch_kernels.py --by-kernel
+    python tools/compare_torch_kernels.py --mode sweep [--out DIR]
+    python tools/compare_torch_kernels.py --mode by-kernel
 
 Each tree named (a checkout of the repo: `git archive <commit> | tar -x -C
 <dir>`) is run in a process of its own, in the order given, so that two
 versions are compared on one card under one power limit (parent, change,
-change, parent). A run builds that tree's kernels, runs its
-`chip_smoke.phase_lm` and `chip_smoke.phase_moments` (which hold each
-kernel against its plain twin and fail if they disagree), and then times,
-by CUDA events, kernel F (early exit and masked at B=8, early exit at B=1)
-on `chip_smoke.lm_problem` at the five widths of the main paths, and kernel
-G at B=8 and B=1 on the slice's first frames beside the `index_add_`
-yardstick. Each is timed two ways: back-to-back calls (`_call_ms`: the
-slower of host and card) and on the device alone (`_device_ms`: the calls
-queued behind a spin). The table goes to stdout; with `--out DIR` the
-records also go to `DIR/compare_torch_kernels.json` (the sweep's to
+change, parent). A run imports the port package of that tree, builds its
+kernels, and drives them with this tree's `chip_smoke.py`, so that every
+tree gets the same inputs, checks and timer: `phase_lm` and `phase_moments`
+hold each kernel against its plain twin (and fail if they disagree) and
+time it on the device alone (`chip_smoke._cuda_ms`: kernel F's early-exit
+and masked variants at B=8 and early exit at B=1 at every width of
+`chip_smoke.LM_SHAPES`, kernel G at B=8 and B=1 beside the `index_add_`
+yardstick). The one timer here, `_call_ms`, times the same calls back to
+back: the slower of host and card, which is what a caller waits for. The
+table goes to stdout; with `--out DIR` the records also go to
+`DIR/compare_torch_kernels.json` (the sweep's to
 `DIR/sweep_torch_lm_clusters.json`) and everything printed is appended to
 `DIR/compare_torch_kernels.log`.
 
-`--sweep` times this tree's kernel F at every cluster size (1, 2, 4, 8,
-16) for each width and B in (1, 8): the basis of the rule that picks a
-lane's cluster size from N. `--by-kernel` traces this tree's wrappers with
-`torch.profiler` and prints the device time of each `__global__` function
-behind them (kernel G is two: fill and sum).
+`--mode sweep` times this tree's kernel F at every cluster size (1, 2, 4,
+8, 16) for each width and B in (1, 8): the basis of the rule that picks a
+lane's cluster size from N. `--mode by-kernel` traces this tree's wrappers
+with `torch.profiler` and prints the device time of each `__global__`
+function behind them (kernel G is two: fill and sum).
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# (keyframes, cells, cost, loss): N = keyframes x cells
-LM_SHAPES = ((4, 1024, "P2P", "Huber"), (4, 2048, "P2P", "Huber"),
-             (16, 1024, "P2P", "Cauchy"), (50, 1024, "P2P", "Cauchy"),
-             (50, 3072, "P2P", "Cauchy"))
 
 
 def _load(root):
-    """Import `chip_smoke` and the port from the tree at `root`."""
+    """This tree's `chip_smoke` over the port package of the tree at
+    `root`."""
     sys.path.insert(0, os.path.abspath(root))
-    import chip_smoke
-    return chip_smoke
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = cs
+    spec.loader.exec_module(cs)
+    return cs
 
 
 def _call_ms(fn, n: int) -> float:
     """Mean ms per call of fn() over n back-to-back calls: the slower of
-    the host issuing them and the card running them."""
+    the host launching them and the card running them."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -65,46 +68,19 @@ def _call_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def _device_ms(fn, n: int) -> float:
-    """Mean device ms per call of fn() over n calls: the calls are queued
-    behind a ~10 ms spin on the stream, so the card runs them back to back
-    however long the host takes to issue each."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda._sleep(20_000_000)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def _lm_inputs(cs, dev, s, m, cost, loss):
+def _lm_inputs(cs, dev, shape):
     import numpy as np
-    import torch
-    cfg, packed, pose0, _ = cs.lm_problem(np.random.default_rng(1), cs.BATCH,
-                                          s, m, cost, loss)
-    return (cfg, *(torch.as_tensor(a).to(dev) for a in (packed, pose0)))
+    return cs.lm_inputs(np.random.default_rng(1), dev, *shape)[:3]
 
 
 def _g_inputs(cs, dev):
-    """Kernel G's inputs on the slice's first frames: (B=8 inputs, lane 0
-    alone)."""
+    """Kernel G's inputs on the slice's first frames: (frames, B=8 inputs,
+    lane 0 alone)."""
     from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
-    from cfear_radarodometry_code_public_tpu_torch.models import odometry
-    from cfear_radarodometry_code_public_tpu_torch.ops import (features,
-                                                                filtering)
-    images, _ = synthetic.make_sequence(cfg=cs.slice_config(),
-                                        **{**cs.SEQUENCE, "n_frames": 8})
-    cfg = cs.slice_config(feature_backend="pallas")
-    rows = odometry.host_filter(images[:cs.BATCH], cfg, "compact")
-    pts = filtering.points_from_compact(odometry.to_device(rows, dev), cfg)
-    inputs = features._moment_inputs(pts, cfg)
-    one = tuple(t[:1].contiguous() for t in inputs[:5]) + tuple(inputs[5:])
-    return images, inputs, one
+    images, _ = synthetic.make_sequence(
+        cfg=cs.slice_config(), **{**cs.SEQUENCE, "n_frames": cs.BATCH})
+    inputs, one = cs.moment_inputs(images, dev)
+    return images, inputs, one[0]
 
 
 def worker(root) -> int:
@@ -124,44 +100,26 @@ def worker(root) -> int:
         elif "Used" in line and entry and ("lm_solve" in entry
                                            or "moment" in entry):
             print(f"{entry}: {line.split(':', 1)[1].strip()}")
-    cs.phase_lm(dev, card)
+    f = cs.phase_lm(dev, card)["lm_solve_fused"]
     images, inputs, one = _g_inputs(cs, dev)
-    cs.phase_moments(images, dev, card)
+    g = cs.phase_moments(images, dev, card)["moment_accumulate"]
 
     rec = {"root": os.path.relpath(root, HERE), "card": card, "F": {},
-           "G": {}}
-    for s, m, cost, loss in LM_SHAPES:
-        cfg, packed, pose0 = _lm_inputs(cs, dev, s, m, cost, loss)
-        n = 100 if s * m <= 16384 else 30
-        got = cuda_lm.lm_solve_fused(packed, pose0, cfg)
-        rec["F"][str(s * m)] = {
+           "host_paced": cs.host_paced}
+    for shape in cs.LM_SHAPES:
+        cfg, packed, pose0 = _lm_inputs(cs, dev, shape)
+        n = str(packed.shape[2])
+        rec["F"][n] = {
             "call_ms": _call_ms(
-                lambda: cuda_lm.lm_solve_fused(packed, pose0, cfg), n),
-            "ee_ms": _device_ms(
-                lambda: cuda_lm.lm_solve_fused(packed, pose0, cfg), n),
-            "masked_ms": _device_ms(lambda: cuda_lm.lm_solve_fused(
-                packed, pose0, cfg, early_exit=False), n),
-            "b1_ms": _device_ms(lambda: cuda_lm.lm_solve_fused(
-                packed[:1], pose0[:1], cfg), n),
-            "steps": got[2].tolist(),
-            "pose0": [float(x) for x in got[0][0]]}
-    n_off, c_pre = inputs[6], inputs[7]
-    trank = inputs[0][:, 5 + n_off:5 + 2 * n_off].transpose(1, 2)
-    hits = trank < c_pre
-    rows9 = torch.randn((int(hits.sum()), 9), device=dev)
-    ids = (torch.arange(cs.BATCH, device=dev)[:, None, None] * c_pre
-           + trank.to(torch.int64))[hits]
+                lambda: cuda_lm.lm_solve_fused(packed, pose0, cfg), 100),
+            "ee_ms": f["ms_by_n"][n], "masked_ms": f["masked_ms_by_n"][n],
+            "b1_ms": f["b1_ms_by_n"][n]}
     rec["G"] = {
         "call_ms": _call_ms(
             lambda: cuda_features.moment_accumulate(*inputs), 100),
-        "b8_ms": _device_ms(
-            lambda: cuda_features.moment_accumulate(*inputs), 100),
-        "b1_ms": _device_ms(
-            lambda: cuda_features.moment_accumulate(*one), 100),
+        "b8_ms": g["ms"], "b1_ms": g["b1_ms"],
         # the smoke's yardstick: float atomics over ready columns
-        "index_add_ms": _device_ms(lambda: torch.zeros(
-            (cs.BATCH * c_pre, 9), device=dev).index_add_(0, ids, rows9),
-            100)}
+        "index_add_ms": g["library_ms"]}
     print(json.dumps(rec))
     return 0
 
@@ -173,10 +131,8 @@ def sweep(out_dir) -> int:
     dev = torch.device("cuda", 0)
     print(cs._card())
     out = {}
-    # with the long run's reverse problem (one keyframe of 2048 cells)
-    for s, m, cost, loss in ((1, 1024, "P2P", "Huber"),
-                             (1, 2048, "P2P", "Huber")) + LM_SHAPES:
-        cfg, packed, pose0 = _lm_inputs(cs, dev, s, m, cost, loss)
+    for s, m, cost, loss in ((1, 1024, "P2P", "Huber"),) + cs.LM_SHAPES:
+        cfg, packed, pose0 = _lm_inputs(cs, dev, (s, m, cost, loss))
         want = cuda_lm.lm_solve_fused(packed, pose0, cfg)
         for b in (1, cs.BATCH):
             row = {}
@@ -192,7 +148,7 @@ def sweep(out_dir) -> int:
                     continue
                 close = bool((got[0] - want[0][:b]).abs().max()
                              <= cs.LM_POSE_TOL)
-                row[c] = (round(_device_ms(run, 50), 5), close)
+                row[c] = (round(cs._cuda_ms(run, 50), 5), close)
             out[f"N={s * m} B={b}"] = row
             print(f"N={s * m} B={b}: (ms, within tolerance of the chosen "
                   f"size) by cluster size {row}", flush=True)
@@ -231,8 +187,8 @@ def by_kernel() -> int:
     _, inputs, one = _g_inputs(cs, dev)
     trace("G B=8", lambda: cuda_features.moment_accumulate(*inputs))
     trace("G B=1", lambda: cuda_features.moment_accumulate(*one))
-    for s, m, cost, loss in LM_SHAPES:
-        cfg, packed, pose0 = _lm_inputs(cs, dev, s, m, cost, loss)
+    for s, m, cost, loss in cs.LM_SHAPES:
+        cfg, packed, pose0 = _lm_inputs(cs, dev, (s, m, cost, loss))
         trace(f"F N={s * m} B=8",
               lambda: cuda_lm.lm_solve_fused(packed, pose0, cfg))
     return 0
@@ -257,8 +213,8 @@ class _Tee:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="*", help="source trees, in running order")
-    ap.add_argument("--sweep", action="store_true")
-    ap.add_argument("--by-kernel", action="store_true")
+    ap.add_argument("--mode", choices=("compare", "sweep", "by-kernel"),
+                    default="compare")
     ap.add_argument("--out", metavar="DIR", help="also write the records "
                     "and a log of the output there")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
@@ -268,9 +224,9 @@ def main() -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         sys.stdout = _Tee(os.path.join(args.out, "compare_torch_kernels.log"))
-    if args.sweep:
+    if args.mode == "sweep":
         return sweep(args.out)
-    if args.by_kernel:
+    if args.mode == "by-kernel":
         return by_kernel()
     if not args.roots:
         ap.error("name at least one source tree")
