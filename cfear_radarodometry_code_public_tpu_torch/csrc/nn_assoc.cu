@@ -30,17 +30,51 @@
 // argmins); +inf for invalid targets; targets scanned in index order with a
 // strict '<' so the lowest index wins ties, as argmin does; rows with no
 // valid (or no unskipped) target report (+inf, 0). A, B1 and B2 share one
-// per-chunk scan (`scan_keyframe`), C, D1, D2 and E one per-tile scan
-// (`scan_tile`), so each family gives the same bits.
+// per-chunk scan (`scan_keyframe`), D1, D2, E and C's first form one
+// per-tile scan (`scan_tile`), so each family gives the same bits; C's
+// split kernel gives them too (below).
 //
 // What bounds them on an H100: at the CFEAR-3 bench shape (B=8, S=4,
 // M=Msrc=1024) one call is ~34 M distance evaluations, microseconds of ALU
-// work spread over 256 (A) or 128 (C) blocks — fewer blocks than a full
-// wave of 132 SMs x several resident blocks. The calls are bound by launch
-// latency and by the short grid, not by bytes (~0.2 MB read) or FLOPs. The
-// design is the simple one: one source row per thread, the keyframe's
-// targets staged through shared memory in chunks so every thread reads the
-// same target (a broadcast, no bank conflicts).
+// work spread over 256 (A) or 128 (C's first form) blocks — fewer blocks
+// than a full wave of 132 SMs x several resident blocks. The calls are
+// bound by launch latency and by the short grid, not by bytes (~0.2 MB
+// read) or FLOPs. A, B1, B2, D1, D2 and E keep the simple design: one
+// source row per thread, the keyframe's targets staged through shared
+// memory in chunks so every thread reads the same target (a broadcast, no
+// bank conflicts).
+//
+// C has a design of its own (`nn_min_sparse_split_kernel`). The contract
+// fixes the arithmetic: five unfused operations a distance, so no FMA and
+// no tensor core, and the FMA-rate bound of 67 TFLOP/s is out of reach;
+// what bounds C is issue slots. The first form ran at ~18 of the card's
+// issue slots a distance (three shared loads, the validity test, the
+// compare and two selects, for one source row per thread) and tied its
+// grid to B*S*Msrc/256 blocks. Now:
+//  - 4 source rows a thread, so each staged target serves 4 distances;
+//    targets staged as float2 with invalid ones at (+inf, +inf), so no
+//    validity byte and no select, read as float4 (two targets) broadcasts;
+//  - a row's minimum over a group of 16 targets is one FMNMX a distance;
+//    its best moves to the group's minimum, remembering the group, only on
+//    a strict '<'; at the end the winning group is scanned once more for
+//    the first target at exactly that distance. The result is the lowest
+//    index at the minimum, as a strict '<' scan in index order gives;
+//  - each live 512-row tile is cut into 4 slices of 128 targets, one per
+//    pair of warps, and a cluster of up to 8 CTAs (ops/cuda_assoc.py:
+//    sparse_split, from the shape alone) cuts the keyframe's tiles, so the
+//    grid grows past B*S*Msrc/256 where that is short; slices, then ranks
+//    through distributed shared memory, are merged in a fixed order by
+//    lexicographic (d2, index), which equals the scan over any partition;
+//  - the bbox gap test and the live set are those of the first form: a
+//    dead tile is neither staged nor scanned, a CTA with no live tile only
+//    writes (+inf, 0).
+// The inner loop is 5 FP operations, one FMNMX, 1/8 LDS.128 and 3/16 of a
+// group update a distance: 6.39 SASS instructions. Measured on an NVIDIA
+// H100 80GB HBM3 at 700 W (tools/compare_torch_kernels.py, CUDA events):
+// 0.112 ms at B=8, S=50, M=1024 (0.208 for the first form), 67% of that
+// issue floor, with 46 registers holding 5 CTAs an SM; 0.0147 ms at B=8,
+// S=4 (0.039), where a call's fixed path (launch, the bounds then the
+// tiles from memory, two barriers, the merge) outweighs the loop.
 //
 // B1 and B2 exist on the TPU for the same reason as D1 and D2 below: the
 // grid runs in order on one core and every grid step has a fixed cost
@@ -84,8 +118,21 @@
 // row to C and saves the separate gather's launch and its (B, S, Msrc, D)
 // round trip through device memory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+namespace cg = cooperative_groups;
+
+// Kernel C's split (`nn_min_sparse_split_kernel`), from ops/cuda_assoc.py
+// (`SPLIT_SLICE`, `SPLIT_GROUP`, `SPLIT_MAX_TILES`; ops/_build.py passes
+// them): the targets of a 512-row tile one slice of threads scans, the
+// targets whose minimum is taken before a row's best is updated, and the
+// target tiles one CTA stages in shared memory.
+#if !defined(CFEAR_SPLIT_SLICE) || !defined(CFEAR_SPLIT_GROUP) || \
+    !defined(CFEAR_SPLIT_MAX_TILES)
+#error "build with -DCFEAR_SPLIT_SLICE, -DCFEAR_SPLIT_GROUP and -DCFEAR_SPLIT_MAX_TILES (ops/_build.py does)"
+#endif
 
 // The target tile counts (M / 512) kernel D2 is instantiated for, as a bit
 // mask: bit n set instantiates n tiles. The one list is `UNROLLED_M` in
@@ -302,7 +349,10 @@ __device__ __forceinline__ Keyframe keyframe(const float* tar,
           tar_bounds + static_cast<size_t>(bs) * (M / kTileT) * 4};
 }
 
-// Kernel C. grid (B*S, Msrc / kTileS), block kTileS. src_bounds
+// Kernel C's first form, one block per (keyframe, source tile) walking
+// every target tile (`split` 0: kept for the shapes
+// ops/cuda_assoc.py:sparse_split gives it). grid (B*S, Msrc / kTileS),
+// block kTileS. src_bounds
 // (B, Msrc/kTileS, 4), tar_bounds (B, S, M/kTileT, 4) as
 // [xmin, xmax, ymin, ymax] (empty tiles +inf/-inf, so they never pass);
 // radius (B,).
@@ -325,6 +375,185 @@ __global__ void nn_min_sparse_kernel(const float* __restrict__ src,
   const size_t o = static_cast<size_t>(bs) * Msrc + blockIdx.y * kTileS + threadIdx.x;
   nn[o] = barg;
   d2[o] = best;
+}
+
+// Kernel C, split. One CTA of kThreadsC threads per (lane * S + keyframe,
+// 256-row source tile, rank), a thread-block cluster of `C` ranks per
+// (keyframe, source tile); rank c takes target tiles [c * nt / C,
+// (c + 1) * nt / C) of the keyframe's nt = M / 512. Thread (slice q, l)
+// holds source rows l + 64 j (j < kRowsC) and scans targets [q * 128, q *
+// 128 + 128) of every live tile of its rank.
+constexpr int kRowsC = 4;                            // source rows per thread
+constexpr int kSliceC = CFEAR_SPLIT_SLICE;           // targets of a tile per slice
+constexpr int kGroupC = CFEAR_SPLIT_GROUP;           // targets per minimum group
+constexpr int kMaxTilesC = CFEAR_SPLIT_MAX_TILES;    // target tiles a CTA stages
+constexpr int kSlicesC = kTileT / kSliceC;
+constexpr int kRowThreadsC = kTileS / kRowsC;        // threads over a source tile
+constexpr int kThreadsC = kRowThreadsC * kSlicesC;
+static_assert(kTileT % kSliceC == 0 && kSliceC % kGroupC == 0 &&
+              kGroupC % 2 == 0 && kRowThreadsC % 32 == 0 &&
+              kThreadsC >= kTileS && kThreadsC <= 1024,
+              "kernel C's split does not tile its block");
+
+// (d, i) = the lexicographic minimum of (d, i) and (e, j): the smaller d,
+// the lower index on a tie. Every partial with no finite distance is
+// (+inf, 0), so a row with none anywhere stays (+inf, 0).
+__device__ __forceinline__ void lex_min(float& d, int& i, float e, int j) {
+  if (e < d || (e == d && j < i)) {
+    d = e;
+    i = j;
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsC) nn_min_sparse_split_kernel(
+    const float* __restrict__ src, const float* __restrict__ src_bounds,
+    const float* __restrict__ tar, const float* __restrict__ tar_bounds,
+    const unsigned char* __restrict__ valid, const float* __restrict__ radius,
+    int S, int Msrc, int M, int C, int* __restrict__ nn,
+    float* __restrict__ d2) {
+  // the rank's live target tiles, two targets a float4, invalid targets as
+  // (+inf, +inf): dist2 of a finite source to one is +inf, of a source at
+  // +-inf or NaN NaN; neither passes a '<' against a best that starts at
+  // +inf, as the +inf of the other kernels' validity test does not
+  extern __shared__ float4 stage[];
+  __shared__ float part_d[kSlicesC][kTileS];
+  __shared__ int part_i[kSlicesC][kTileS];
+  __shared__ float res_d[kTileS];
+  __shared__ int res_i[kTileS];
+  const int bs = blockIdx.x / C;
+  const int rank = blockIdx.x % C;
+  const int lane = bs / S;
+  const int tile = blockIdx.y;
+  const int nt = M / kTileT;
+  const int t0 = rank * nt / C;
+  const int n_loc = (rank + 1) * nt / C - t0;
+
+  // the bbox gap test of scan_tile, in the same arithmetic, for each tile
+  const float* sb = src_bounds + (static_cast<size_t>(lane) * (Msrc / kTileS) + tile) * 4;
+  const float* tb = tar_bounds + (static_cast<size_t>(bs) * nt + t0) * 4;
+  const float r = radius[lane];
+  const float r2 = __fmul_rn(r, r);
+  unsigned live = 0;
+  for (int jt = 0; jt < n_loc; ++jt) {
+    const float* b = tb + jt * 4;
+    const float gapx = fmaxf(fmaxf(__fsub_rn(b[0], sb[1]), __fsub_rn(sb[0], b[1])), 0.f);
+    const float gapy = fmaxf(fmaxf(__fsub_rn(b[2], sb[3]), __fsub_rn(sb[2], b[3])), 0.f);
+    if (__fadd_rn(__fmul_rn(gapx, gapx), __fmul_rn(gapy, gapy)) <= r2) live |= 1u << jt;
+  }
+
+  const int q = threadIdx.x / kRowThreadsC;
+  const int l = threadIdx.x % kRowThreadsC;
+  float bv[kRowsC];
+  int bi[kRowsC];
+#pragma unroll
+  for (int j = 0; j < kRowsC; ++j) {
+    bv[j] = CUDART_INF_F;
+    bi[j] = 0;
+  }
+  if (live) {   // uniform over the CTA
+    const float2* t2 = reinterpret_cast<const float2*>(tar) + static_cast<size_t>(bs) * M;
+    const unsigned char* v = valid + static_cast<size_t>(bs) * M;
+    float2* st2 = reinterpret_cast<float2*>(stage);
+    for (int jt = 0; jt < n_loc; ++jt) {
+      if (!((live >> jt) & 1u)) continue;
+      const int g0 = (t0 + jt) * kTileT;
+      for (int k = threadIdx.x; k < kTileT; k += kThreadsC)
+        st2[jt * kTileT + k] = v[g0 + k] ? t2[g0 + k]
+                                         : make_float2(CUDART_INF_F, CUDART_INF_F);
+    }
+    const float2* s2 = reinterpret_cast<const float2*>(src) +
+                       static_cast<size_t>(lane) * Msrc + tile * kTileS + l;
+    float sx[kRowsC], sy[kRowsC];
+    int bg[kRowsC];
+#pragma unroll
+    for (int j = 0; j < kRowsC; ++j) {
+      const float2 p = s2[j * kRowThreadsC];
+      sx[j] = p.x;
+      sy[j] = p.y;
+      bg[j] = 0;
+    }
+    __syncthreads();
+    // Each group of kGroupC targets: the minimum distance of each row by
+    // fminf alone (one FMNMX a distance, no index); the row's best moves,
+    // with the group's offset, only on a strict '<', so bg is the first
+    // group, in index order, that attains the row's final best.
+    for (int jt = 0; jt < n_loc; ++jt) {
+      if (!((live >> jt) & 1u)) continue;
+      const int base = jt * kTileT + q * kSliceC;
+      const float4* p = stage + base / 2;
+#pragma unroll 1
+      for (int g = 0; g < kSliceC / kGroupC; ++g) {
+        float gm[kRowsC];
+#pragma unroll
+        for (int j = 0; j < kRowsC; ++j) gm[j] = CUDART_INF_F;
+#pragma unroll
+        for (int k = 0; k < kGroupC / 2; ++k) {
+          const float4 t = p[g * (kGroupC / 2) + k];
+#pragma unroll
+          for (int j = 0; j < kRowsC; ++j)
+            gm[j] = fminf(gm[j], fminf(dist2(sx[j], sy[j], t.x, t.y),
+                                       dist2(sx[j], sy[j], t.z, t.w)));
+        }
+#pragma unroll
+        for (int j = 0; j < kRowsC; ++j) {
+          if (gm[j] < bv[j]) {
+            bv[j] = gm[j];
+            bg[j] = base + g * kGroupC;
+          }
+        }
+      }
+    }
+    // the lowest index of the winning group whose distance, in the same
+    // rounded arithmetic, equals the best: the slice's first minimum
+#pragma unroll
+    for (int j = 0; j < kRowsC; ++j) {
+      if (bv[j] < CUDART_INF_F) {
+        int k = 0;
+        while (k < kGroupC - 1 &&
+               dist2(sx[j], sy[j], st2[bg[j] + k].x, st2[bg[j] + k].y) != bv[j])
+          ++k;
+        bi[j] = t0 * kTileT + bg[j] + k;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRowsC; ++j) {
+    part_d[q][l + j * kRowThreadsC] = bv[j];
+    part_i[q][l + j * kRowThreadsC] = bi[j];
+  }
+  __syncthreads();
+  // slices, then ranks, merged in a fixed order by lexicographic minimum
+  const size_t out0 = static_cast<size_t>(bs) * Msrc + tile * kTileS;
+  if (threadIdx.x < kTileS) {
+    const int row = threadIdx.x;
+    float d = part_d[0][row];
+    int i = part_i[0][row];
+#pragma unroll
+    for (int s = 1; s < kSlicesC; ++s) lex_min(d, i, part_d[s][row], part_i[s][row]);
+    if (C == 1) {
+      nn[out0 + row] = i;
+      d2[out0 + row] = d;
+    } else {
+      res_d[row] = d;
+      res_i[row] = i;
+    }
+  }
+  if (C > 1) {   // uniform over the cluster
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int per = kTileS / C;
+    if (threadIdx.x < per) {
+      const int row = rank * per + threadIdx.x;
+      float d = cluster.map_shared_rank(res_d, 0)[row];
+      int i = cluster.map_shared_rank(res_i, 0)[row];
+      for (int c = 1; c < C; ++c)
+        lex_min(d, i, cluster.map_shared_rank(res_d, c)[row],
+                cluster.map_shared_rank(res_i, c)[row]);
+      nn[out0 + row] = i;
+      d2[out0 + row] = d;
+    }
+    cluster.sync();   // no CTA leaves while a peer reads its shared memory
+  }
 }
 
 // Kernels D1 and D2. grid (B, Msrc / kTileS), block kTileS: one block per
@@ -458,15 +687,45 @@ int cfear_nn_min_multi_unrolled(const float* src, const float* tar,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Kernel C. `split` is the cluster size of the split kernel (1, 2, 4 or 8
+// CTAs per keyframe and source tile, at most M / 512 and with at most
+// CFEAR_SPLIT_MAX_TILES target tiles a CTA), or 0 for the one-block-per-
+// tile-pair kernel `nn_min_sparse_kernel`; ops/cuda_assoc.py:sparse_split
+// picks it from the shape. Any other value returns cudaErrorInvalidValue
+// without launching.
 int cfear_nn_min_sparse(const float* src, const float* src_bounds,
                         const float* tar, const float* tar_bounds,
                         const unsigned char* valid, const float* radius,
-                        int B, int S, int Msrc, int M, int* nn, float* d2,
-                        void* stream) {
-  const dim3 grid(B * S, Msrc / kTileS);
-  nn_min_sparse_kernel<<<grid, kTileS, 0, static_cast<cudaStream_t>(stream)>>>(
-      src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, M, nn, d2);
-  return static_cast<int>(cudaGetLastError());
+                        int B, int S, int Msrc, int M, int split, int* nn,
+                        float* d2, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (split == 0) {
+    nn_min_sparse_kernel<<<dim3(B * S, Msrc / kTileS), kTileS, 0, st>>>(
+        src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, M, nn, d2);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int nt = M / kTileT;
+  const int tiles = (nt + split - 1) / split;   // the most any rank takes
+  if ((split != 1 && split != 2 && split != 4 && split != 8) ||
+      (split > 1 && split > nt) || tiles > kMaxTilesC)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(split * B * S, Msrc / kTileS);
+  config.blockDim = dim3(kThreadsC);
+  config.dynamicSmemBytes = static_cast<size_t>(tiles) * kTileT * sizeof(float2);
+  config.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = split > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, nn_min_sparse_split_kernel, src, src_bounds, tar, tar_bounds,
+      valid, radius, S, Msrc, M, split, nn, d2);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 int cfear_nn_min_sparse_multi(const float* src, const float* src_bounds,

@@ -5,12 +5,15 @@ per source, all started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -Xptxas -v -DCFEAR_UNROLLED_MASK=0x56
-         -DCFEAR_UNROLLED_S_MASK=0x12 -c
+         -DCFEAR_UNROLLED_S_MASK=0x12 -DCFEAR_SPLIT_SLICE=128
+         -DCFEAR_SPLIT_GROUP=16 -DCFEAR_SPLIT_MAX_TILES=8 -c
 
 (the first define is the set of target tile counts kernel D2 is
 instantiated for, bit n for n tiles, made from `cuda_assoc.UNROLLED_M`:
 512, 1024, 2048, 3072 -> 1, 2, 4, 6; the second the keyframe counts of
-kernel B2, bit n for S = n, from `cuda_assoc.UNROLLED_S`: 1, 4)
+kernel B2, bit n for S = n, from `cuda_assoc.UNROLLED_S`: 1, 4; the last
+three kernel C's split, `cuda_assoc.SPLIT_SLICE`, `SPLIT_GROUP` and
+`SPLIT_MAX_TILES`)
 
 and the objects are linked into one shared library in `<package>/_build/`
 (git-ignored), under a name that carries a hash of the sources and flags,
@@ -31,7 +34,8 @@ import threading
 import time
 
 from cfear_radarodometry_code_public_tpu_torch.ops.cuda_assoc import (
-    TT_SPARSE, UNROLLED_M, UNROLLED_S)
+    SPLIT_GROUP, SPLIT_MAX_TILES, SPLIT_SLICE, TT_SPARSE, UNROLLED_M,
+    UNROLLED_S)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
@@ -41,7 +45,8 @@ COMPILE_FLAGS = ARCH + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     f"-DCFEAR_UNROLLED_MASK={sum(1 << (m // TT_SPARSE) for m in UNROLLED_M):#x}",
     f"-DCFEAR_UNROLLED_S_MASK={sum(1 << s for s in UNROLLED_S):#x}",
-    "-c")
+    f"-DCFEAR_SPLIT_SLICE={SPLIT_SLICE}", f"-DCFEAR_SPLIT_GROUP={SPLIT_GROUP}",
+    f"-DCFEAR_SPLIT_MAX_TILES={SPLIT_MAX_TILES}", "-c")
 LINK_FLAGS = ARCH + ("-shared",)
 
 _lock = threading.Lock()
@@ -126,11 +131,12 @@ def library() -> ctypes.CDLL:
             getattr(lib, name).argtypes = [p, p, p, i, i, i, i, i, p, p, p]
             getattr(lib, name).restype = i
         lib.cfear_nn_min_sparse.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                            p, p, p]
+                                            i, p, p, p]
         lib.cfear_nn_min_sparse.restype = i
         for name in ("cfear_nn_min_sparse_multi",
                      "cfear_nn_min_sparse_unrolled"):
-            getattr(lib, name).argtypes = lib.cfear_nn_min_sparse.argtypes
+            getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, i, i, p, p,
+                                           p]
             getattr(lib, name).restype = i
         lib.cfear_nn_min_sparse_attrs.argtypes = [p, p, p, p, p, p, p, i, i,
                                                   i, i, i, p, p, p, p]

@@ -33,6 +33,14 @@ UNROLLED_M = (512, 1024, 2048, 3072)
 # keyframe counts kernel B2 is built for, the one list (`_build` passes it
 # to nvcc): 1 is the health check's reverse problem, 4 CFEAR-3's window
 UNROLLED_S = (1, 4)
+# Kernel C's split (`_build` passes these to nvcc): each 512-row target
+# tile is scanned in slices of SPLIT_SLICE targets by slices of threads, a
+# row's minimum is taken over groups of SPLIT_GROUP targets before its best
+# moves, and one CTA stages at most SPLIT_MAX_TILES target tiles. The
+# cluster grows until it gives SPLIT_MIN_CTAS CTAs, about one for each of
+# an H100's 132 SMs: past that a cluster's barriers and each CTA's own
+# staging cost more than the SMs it adds give back.
+SPLIT_SLICE, SPLIT_GROUP, SPLIT_MAX_TILES, SPLIT_MIN_CTAS = 128, 16, 8, 128
 
 launches = {"nn_min": 0, "nn_min_multi": 0, "nn_min_multi_unrolled": 0,
             "nn_min_sparse": 0, "nn_min_sparse_multi": 0,
@@ -63,6 +71,22 @@ def supported_multi(m_src: int, m_tar: int) -> bool:
 
 def supported_sparse(m_src: int, m_tar: int) -> bool:
     return m_src % TS_SPARSE == 0 and m_tar % TT_SPARSE == 0
+
+
+def sparse_split(b: int, s: int, m_src: int, m: int) -> int:
+    """CTAs per (lane x keyframe, source tile) of kernel C, from the shape
+    alone: the smallest power of two up to 8 and up to the M / 512 target
+    tiles that gives SPLIT_MIN_CTAS CTAs in all and at most SPLIT_MAX_TILES
+    tiles a CTA; 0, the one-block-per-tile-pair kernel, where no cluster of
+    8 keeps a CTA's tiles within that limit. Any split gives the same bits:
+    the partial minima are merged by lexicographic (d2, index)."""
+    nt = m // TT_SPARSE
+    pairs = b * s * (m_src // TS_SPARSE)
+    c = 1
+    while c < 8 and 2 * c <= nt and (pairs * c < SPLIT_MIN_CTAS
+                                     or -(-nt // c) > SPLIT_MAX_TILES):
+        c *= 2
+    return c if -(-nt // c) <= SPLIT_MAX_TILES else 0
 
 
 def tile_bounds(xy, valid, tile: int):
@@ -257,26 +281,34 @@ def nn_min_multi_unrolled(src, tar, valid):
                   src, tar, valid)
 
 
-def _sparse(name, entry, src, src_bounds, tar, tar_bounds, valid, radius):
-    """Launch one of C, D1, D2 (same arguments, same outputs)."""
+def _sparse(name, entry, src, src_bounds, tar, tar_bounds, valid, radius,
+            *extra):
+    """Launch one of C, D1, D2 (same arguments, same outputs; `extra` ints
+    follow M: C's split)."""
     b, s, m = valid.shape
     nn, d2 = _nn_out(valid, src.shape[1], src.device)
     if nn.numel():
         _launch(name, entry, src.device, src.data_ptr(), src_bounds.data_ptr(),
                 tar.data_ptr(), tar_bounds.data_ptr(), valid.data_ptr(),
-                radius.data_ptr(), b, s, src.shape[1], m, nn.data_ptr(),
-                d2.data_ptr())
+                radius.data_ptr(), b, s, src.shape[1], m, *extra,
+                nn.data_ptr(), d2.data_ptr())
     return nn, d2
 
 
 def nn_min_sparse(src, src_bounds, tar, tar_bounds, valid, radius):
     """Block-sparse exact 1-NN within `radius` (B,) per keyframe (kernel C
-    on CUDA, `nn_min_sparse_plain` on the CPU). src_bounds
-    (B, Msrc/256, 4), tar_bounds (B, S, M/512, 4) from `tile_bounds`."""
+    on CUDA, split over `sparse_split` CTAs per keyframe and source tile;
+    `nn_min_sparse_plain` on the CPU). src_bounds (B, Msrc/256, 4),
+    tar_bounds (B, S, M/512, 4) from `tile_bounds`."""
     args = (src, src_bounds, tar, tar_bounds, valid, radius)
     if _check_sparse("nn_min_sparse", *args).type == "cpu":
         return nn_min_sparse_plain(*args)
-    return _sparse("nn_min_sparse", "cfear_nn_min_sparse", *args)
+    if (src.data_ptr() | tar.data_ptr()) % 8:
+        raise ValueError("nn_min_sparse: src and tar must start on 8-byte "
+                         "boundaries (the kernel reads points as float2)")
+    return _sparse("nn_min_sparse", "cfear_nn_min_sparse", *args,
+                   sparse_split(*valid.shape[:2], src.shape[1],
+                                valid.shape[2]))
 
 
 def nn_min_sparse_multi(src, src_bounds, tar, tar_bounds, valid, radius):

@@ -4,7 +4,9 @@
 
 Builds the port's CUDA kernels from `cfear_radarodometry_code_public_tpu_torch/
 csrc/` with nvcc and checks each against its plain PyTorch twin on the card:
-the 1-NN kernels A and C, the fused LM solve F (both variants, three cost /
+the 1-NN kernels A and C (C also at every main-path shape of `C_SHAPES`,
+two launches bit-identical and a B=1 call equal to its lane of a B=8
+call), the fused LM solve F (both variants, three cost /
 loss pairs at S=4, and every width the main paths give it, `LM_SHAPES`: the
 long run's reverse and forward solves, 1 and 4 x 2048 cells, and the s50
 widths, S=16 and S=50 of 1024 cells and S=50 of 3072, so that every cluster
@@ -22,7 +24,8 @@ must agree bit for bit), and single-sequence with `feature.backend="pallas"`
 exact and with the K=16 gate (`s50`, `s50-k16`), batched x8
 (`s50-batched`), and the preset as users call it (`s50-preset`), after which
 C, D1, D2 and E are held against their twins on the window that path ends
-with (B=1, M=3072). The multi-keyframe kernels D1, D2 and the fused-lookup
+with (B=1, M=3072; C's time there, and on the `s50` window, joins C's
+entry on the kernels line). The multi-keyframe kernels D1, D2 and the fused-lookup
 kernel E run on the 50-keyframe window the `s50` path ends with, at B=1 and
 B=8, and are held bit for bit against kernel C, the flat gather and their
 twins (`s50-window`). Last, the long-run odometry path of
@@ -160,6 +163,14 @@ KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
 # tensor cores (NVIDIA H100 SXM data sheet; both assume the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# Kernel C's shapes on the main paths, (B, S, Msrc, M): CFEAR-3 single and
+# x8 (S=4), s50 single and x8 (S=50, 1024 cells), the s50 preset (3072
+# cells), and a source budget under the target budget. `phase_c_shapes`
+# (run by `phase_kernels`) holds C against its twin at each, on
+# `c_inputs`, and times it;
+# tools/compare_torch_kernels.py times two trees' C at the same shapes.
+C_SHAPES = ((1, 4, 1024, 1024), (8, 4, 1024, 1024), (1, 50, 1024, 1024),
+            (8, 50, 1024, 1024), (1, 50, 3072, 3072), (8, 4, 512, 1024))
 # operations counted per squared distance (2 subtractions, 2 products, a
 # sum; the compare is not counted), per LM row and pass (a cost-only pass,
 # and a cost/gradient/Hessian pass, from the twin's arithmetic for P2P), and
@@ -333,10 +344,11 @@ def _wall_world(rng):
 
 def _morton_cells(rng, b, s, m, dev):
     """Slice-shaped association inputs: per lane a wall world seen by S+1
-    scans of m cells (~900 valid, Morton-ordered by 3 m voxel, padding
-    last), keyframes a few metres apart. Lane 7's last keyframe is empty;
-    lane 0's first keyframe holds two identical targets in different
-    512-row tiles with a source point on them (an exact tie)."""
+    scans of m cells (~900 of 1024 valid, in proportion for other m,
+    Morton-ordered by 3 m voxel, padding last), keyframes a few metres
+    apart. The last lane's last keyframe is empty; lane 0's first keyframe
+    holds two identical targets in different 512-row tiles with a source
+    point on them (an exact tie)."""
     leaf = 3.0
     src = np.zeros((b, m, 2), np.float32)
     tar = np.zeros((b, s, m, 2), np.float32)
@@ -344,7 +356,7 @@ def _morton_cells(rng, b, s, m, dev):
     for i in range(b):
         world = _wall_world(rng)
         for k in range(s + 1):
-            n = int(rng.integers(850, 1000))
+            n = int(rng.integers(850, 1000)) * m // 1024
             pts = world[rng.choice(len(world), n, replace=False)]
             pts = pts + rng.normal(0, 0.3, pts.shape) + k * 1.5
             ij = np.floor(pts / leaf).astype(np.int64) + 64
@@ -356,7 +368,7 @@ def _morton_cells(rng, b, s, m, dev):
             rows = src[i] if k == 0 else tar[i, k - 1]
             rows[:n] = pts
             valid[i, k, :n] = True
-    valid[7, s] = False
+    valid[b - 1, s] = False
     tar[0, 0, 700] = tar[0, 0, 300]
     valid[0, 1, [300, 700]] = True
     src[0, 5] = tar[0, 0, 300]
@@ -364,8 +376,75 @@ def _morton_cells(rng, b, s, m, dev):
     return to(src), to(valid[:, 0]), to(tar), to(valid[:, 1:])
 
 
+def c_inputs(dev, b, s, m_src, m, radius=2.0, seed=0):
+    """Kernel C's arguments (src, src_bounds, tar, tar_bounds, valid,
+    radius) at a shape of C_SHAPES: `_morton_cells` of m cells, the first
+    m_src source rows, the association radius (2 m; 4 m in the first
+    iteration)."""
+    src, src_valid, tar, valid = _morton_cells(np.random.default_rng(seed),
+                                               b, s, m, dev)
+    src, src_valid = src[:, :m_src].contiguous(), src_valid[:, :m_src]
+    return (src, cuda_assoc.tile_bounds(src, src_valid, cuda_assoc.TS_SPARSE),
+            tar, cuda_assoc.tile_bounds(tar, valid, cuda_assoc.TT_SPARSE),
+            valid, torch.full((b,), radius, device=dev))
+
+
+def shape_key(b, s, m_src, m) -> str:
+    return f"B={b} S={s} Msrc={m_src} M={m}"
+
+
+def phase_c_shapes(dev, card):
+    """Kernel C at every shape of C_SHAPES: bit-equal to its twin, two
+    launches bit-identical, the first and last lane of a B=8 call equal to
+    their own B=1 calls; then timed beside its bound at the executed share
+    of tile pairs and `cdist + min`. Returns {shape_key: record}."""
+    res = {}
+    for shape in C_SHAPES:
+        b = shape[0]
+        args = c_inputs(dev, *shape)
+        nn_c, d2_c = cuda_assoc.nn_min_sparse(*args)
+        again = cuda_assoc.nn_min_sparse(*args)
+        alone = [cuda_assoc.nn_min_sparse(*(a[i:i + 1].contiguous()
+                                            for a in args))
+                 for i in sorted({0, b - 1})]
+        nn_q, d2_q = cuda_assoc.nn_min_sparse_plain(*args)
+        torch.cuda.synchronize()
+        key = shape_key(*shape)
+        if not (torch.equal(nn_c, nn_q) and torch.equal(d2_c, d2_q)):
+            raise AssertionError(f"kernel C at {key} disagrees with "
+                                 "nn_min_sparse_plain: "
+                                 f"{int((nn_c != nn_q).sum())} nn mismatches")
+        if not (torch.equal(again[0], nn_c) and torch.equal(again[1], d2_c)):
+            raise AssertionError(f"kernel C at {key}: two launches differ")
+        for i, (nn_1, d2_1) in zip(sorted({0, b - 1}), alone):
+            if not (torch.equal(nn_1[0], nn_c[i])
+                    and torch.equal(d2_1[0], d2_c[i])):
+                raise AssertionError(f"kernel C at {key}: lane {i} differs "
+                                     "from its B=1 call")
+        live = float(cuda_assoc.pair_live(args[1], args[3], args[5])
+                     .float().mean())
+        fin = torch.isfinite(d2_q)
+        res[key] = {
+            "max_abs_err": float((d2_c[fin] - d2_q[fin]).abs().max()),
+            "ms": _cuda_ms(lambda: cuda_assoc.nn_min_sparse(*args), 100),
+            **nn_bound(args[0], args[2], args[4], live,
+                       args[1].numel() * 4 + args[3].numel() * 4),
+            "library_ms": _cuda_ms(lambda: library_nn(args[0], args[2],
+                                                      args[4]), 5,
+                                   "cdist + min"),
+            "live_pairs": live}
+        r = res[key]
+        _say(f"kernel C {key}: bit-equal to its twin, repeat and lanes "
+             f"bit-identical; executed tile pairs {live:.4f}; kernel "
+             f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+             f"({r['bound_by']}), cdist + min {r['library_ms']:.4f} ms "
+             f"({card})")
+    return res
+
+
 def phase_kernels(dev, card):
-    """Kernels A and C against their plain twins at the slice's shapes."""
+    """Kernels A and C against their plain twins at the slice's shapes,
+    and C at every shape of C_SHAPES (`phase_c_shapes`)."""
     b, s, m = BATCH, 4, 1024
     src, src_valid, tar, valid = _morton_cells(np.random.default_rng(0),
                                                b, s, m, dev)
@@ -437,7 +516,8 @@ def phase_kernels(dev, card):
                             "bound_ms": float(np.mean(
                                 [x["bound_ms"] for x in bounds])),
                             "bound_by": bounds[0]["bound_by"],
-                            "library_ms": lib_ms}
+                            "library_ms": lib_ms,
+                            "by_shape": phase_c_shapes(dev, card)}
     _say(f"kernel A: nn equal, d2 bit-equal; kernel {res['nn_min']['ms']:.4f}"
          f" ms, plain {res['nn_min']['plain_ms']:.4f} ms, bound "
          f"{res['nn_min']['bound_ms']:.4f} ms, cdist + min {lib_ms:.4f} ms "
@@ -958,7 +1038,7 @@ def phase_window(win, outs, r, card, name="s50 window"):
     its g equals its twin's and the flat gather (`_gather_attrs`) on every
     row within the radius and is zero on +inf rows and in the padding.
     Times by CUDA events: C, D1, D2, E, the gather, C + gather, and the
-    twins. Returns {B: records of D1, D2 and E}; every check is bit for
+    twins. Returns {B: records of C, D1, D2 and E}; every check is bit for
     bit, so each max_abs_err is 0.0."""
     res = {}
     for b, (args, at, att) in win.items():
@@ -1023,8 +1103,8 @@ def phase_window(win, outs, r, card, name="s50 window"):
                       "library_ms": t["cdist + min + gather"
                                       if k.endswith("attrs")
                                       else "cdist + min"]}
-                  for k in ("nn_min_sparse_multi", "nn_min_sparse_unrolled",
-                            "nn_min_sparse_attrs")}
+                  for k in ("nn_min_sparse", "nn_min_sparse_multi",
+                            "nn_min_sparse_unrolled", "nn_min_sparse_attrs")}
     return res
 
 
@@ -1330,11 +1410,14 @@ def main() -> int:
     preset, state_p = drive("s50-preset", ("nn_min_sparse", "lm_solve_fused"),
                             lambda: phase_s50_preset(images50, gt50, dev, card))
     # kernel C at the preset's shapes (B=1, S=50, Msrc=M=3072) against its
-    # twin on the window that path ends with, and D1, D2, E beside it
+    # twin on the window that path ends with, and D1, D2, E beside it; C's
+    # records on the real windows join its entry on the kernels line
+    c_windows = kernels["nn_min_sparse"]["windows"] = {}
     win_p = window_inputs(state_p, preset, dev, "s50-preset window", (1,))
-    timed("window checks", lambda: phase_window(
-        win_p, drive_window(win_p), preset.registration.assoc_radius, card,
-        "s50-preset window"))
+    c_windows["s50-preset window B=1"] = timed(
+        "window checks", lambda: phase_window(
+            win_p, drive_window(win_p), preset.registration.assoc_radius,
+            card, "s50-preset window"))[1]["nn_min_sparse"]
     # D1, D2 and E on the window the s50 path ends with: the counted run is
     # one call of each; the checks against C and the twins, and the
     # timings, come after the counts are read
@@ -1343,9 +1426,12 @@ def main() -> int:
                                 "nn_min_sparse_unrolled",
                                 "nn_min_sparse_attrs"),
                  lambda: drive_window(win))
-    # the kernels line keeps the s50 window's B=8 times
-    kernels.update(timed("window checks", lambda: phase_window(
-        win, outs, s50.registration.assoc_radius, card))[BATCH])
+    # the kernels line keeps the s50 window's B=8 times of D1, D2 and E
+    recs = timed("window checks", lambda: phase_window(
+        win, outs, s50.registration.assoc_radius, card))
+    for b, rec in recs.items():
+        c_windows[f"s50 window B={b}"] = rec.pop("nn_min_sparse")
+    kernels.update(recs[BATCH])
 
     # the long-run path (`tools/run_longrun.py`, cut to 256 frames)
     lr = longrun_config()

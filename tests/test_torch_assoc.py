@@ -13,6 +13,8 @@ interpret-mode result: XLA's CPU backend contracts dx*dx + dy*dy into
 fma(dx, dx, dy*dy), one rounding fewer."""
 
 import math
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -22,6 +24,12 @@ from torch_port_helpers import jnp
 
 from cfear_radarodometry_code_public_tpu.ops import pallas_assoc as pa
 from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc as ca
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402
+
+sys.path.remove(REPO)
 
 
 def _dense_case(seed=3, s=3, m=512):
@@ -262,6 +270,113 @@ def test_unrolled_rejects_other_budgets():
         ca.nn_min_sparse_unrolled(*args)
     with pytest.raises(ValueError, match="D_pad"):
         ca.nn_min_sparse_attrs(*args[:5], torch.zeros(1, 3, 7, 1536), args[5])
+
+
+def _split_model(src, sb, tar, tb, valid, radius, split):
+    """Kernel C's split (csrc/nn_assoc.cu `nn_min_sparse_split_kernel`)
+    in the twin's arithmetic: rank c of `split` takes target tiles [c nt /
+    split, (c+1) nt / split); each slice of SPLIT_SLICE targets of a live
+    tile is scanned in groups of SPLIT_GROUP, a row's best moving to a
+    group's minimum only on a strict '<'; the winning group is rescanned
+    for the first target at that distance; slices, then ranks, are merged
+    by lexicographic (d2, index). Invalid targets are (+inf, +inf)."""
+    b, s, m = valid.shape
+    m_src, nt = src.shape[1], m // ca.TT_SPARSE
+    inf = torch.tensor(float("inf"))
+    t = torch.where(valid[..., None], tar, inf)
+    dx = src[:, None, :, None, 0] - t[:, :, None, :, 0]
+    dy = src[:, None, :, None, 1] - t[:, :, None, :, 1]
+    d2 = dx * dx + dy * dy
+    live = ca.pair_live(sb, tb, radius).repeat_interleave(ca.TS_SPARSE, 2)
+    g = ca.SPLIT_GROUP
+    n_slice, n_grp = ca.TT_SPARSE // ca.SPLIT_SLICE, ca.SPLIT_SLICE // g
+    out_d = torch.full((b, s, m_src), float("inf"))
+    out_i = torch.zeros((b, s, m_src), dtype=torch.int64)
+    for c in range(split):
+        t0, t1 = c * nt // split, (c + 1) * nt // split
+        for q in range(n_slice):
+            # (B, S, Msrc, tiles, groups, G): the slice's targets of each tile
+            d = d2[..., t0 * ca.TT_SPARSE:t1 * ca.TT_SPARSE].reshape(
+                b, s, m_src, t1 - t0, n_slice, n_grp, g)[..., q, :, :]
+            gm = torch.where(torch.isnan(d), inf, d).amin(-1)   # fminf
+            gm = torch.where(live[..., t0:t1, None], gm, inf).flatten(-2)
+            best, grp = gm.amin(-1), gm.argmin(-1)   # first group at the min
+            tile, k = grp // n_grp, grp % n_grp
+            first = (d.flatten(-3, -2).gather(
+                -2, grp[..., None, None].expand(*grp.shape, 1, g))[..., 0, :]
+                == best[..., None]).to(torch.int8).argmax(-1)
+            idx = ((t0 + tile) * ca.TT_SPARSE + q * ca.SPLIT_SLICE + k * g
+                   + first)
+            idx = torch.where(torch.isinf(best), 0, idx)
+            take = (best < out_d) | ((best == out_d) & (idx < out_i))
+            out_d = torch.where(take, best, out_d)
+            out_i = torch.where(take, idx, out_i)
+    return out_i.to(torch.int32), out_d
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_split_merge_equals_twin_and_pallas(split):
+    """Kernel C's split, modelled on the CPU (`_split_model`), equals
+    `nn_min_sparse_plain` and the reference kernel in interpret mode at
+    each cluster size the shape allows (S=4, Msrc=512, M=2048: four target
+    tiles; `sparse_split` takes 4), with exact ties across a group, a slice, a tile and each rank
+    boundary, an empty keyframe and Msrc != M."""
+    radius = 5.0
+    src, tar, valid = _sparse_case(seed=17, m=2048)
+    ties = ((0, 15, 16, 40), (0, 127, 128, 41), (1, 511, 512, 42),
+            (1, 1023, 1024, 43), (3, 1535, 1536, 44), (0, 300, 1700, 45))
+    for k, lo, hi, row in ties:
+        tar[k, hi] = tar[k, lo]
+        valid[k, [lo, hi]] = True
+        src[row] = tar[k, lo]
+    args = _lanes([(src, tar, valid)], radius)
+    nn_m, d2_m = _split_model(*args, split)
+    nn_p, d2_p = ca.nn_min_sparse_plain(*args)
+    assert torch.equal(nn_m, nn_p) and torch.equal(d2_m, d2_p)
+    for k, lo, _, row in ties:
+        if k != 2:
+            assert nn_m[0, k, row] == lo and d2_m[0, k, row] == 0
+    assert torch.isinf(d2_m[0, 2]).all() and (nn_m[0, 2] == 0).all()
+    nn_r, d2_r = _ref_sparse(pa.nn_min_sparse, (src, tar, valid), radius)
+    np.testing.assert_array_equal(nn_m[0].numpy(), nn_r)
+    _assert_d2(d2_m[0].numpy(), d2_r, nn_r, src, tar)
+
+
+@pytest.mark.parametrize("radius", [2.0, 4.0])
+def test_split_model_on_smoke_inputs(radius):
+    """`chip_smoke.c_inputs` (Morton-ordered wall cells, the inputs the
+    card check uses) on the CPU, cut to B=2, S=3, Msrc=512, M=1024: kernel
+    C's split at the cluster size the shape gets and at 1 equals the twin;
+    the tie across target tiles goes to the lower index, the last lane's
+    last keyframe is empty."""
+    args = chip_smoke.c_inputs(torch.device("cpu"), 2, 3, 512, 1024, radius)
+    nn_p, d2_p = ca.nn_min_sparse_plain(*args)
+    assert ca.sparse_split(2, 3, 512, 1024) == 2
+    for split in (1, 2):
+        nn_m, d2_m = _split_model(*args, split)
+        assert torch.equal(nn_m, nn_p) and torch.equal(d2_m, d2_p)
+    assert nn_p[0, 0, 5] == 300 and d2_p[0, 0, 5] == 0
+    assert torch.isinf(d2_p[1, 2]).all() and (nn_p[1, 2] == 0).all()
+    assert torch.isfinite(d2_p).float().mean() > 0.5
+
+
+def test_sparse_split_follows_the_shape():
+    """Kernel C's cluster size from the shape: grown to SPLIT_MIN_CTAS
+    CTAs, never past the target tiles or 8, 0 (the one-block form) where 8
+    CTAs cannot hold a keyframe's tiles; the kernel's limits hold."""
+    want = {(1, 4, 1024, 1024): 2, (8, 4, 1024, 1024): 1,
+            (1, 50, 1024, 1024): 1, (8, 50, 1024, 1024): 1,
+            (1, 50, 3072, 3072): 1, (8, 4, 512, 1024): 2,
+            (1, 1, 256, 4096): 8, (1, 1, 256, 512): 1,
+            (1, 1, 256, 8 * ca.SPLIT_MAX_TILES * 512): 8,
+            (1, 1, 256, (8 * ca.SPLIT_MAX_TILES + 1) * 512): 0}
+    for shape, c in want.items():
+        assert ca.sparse_split(*shape) == c, shape
+        nt = shape[3] // ca.TT_SPARSE
+        if c:
+            assert c <= max(nt, 1) and -(-nt // c) <= ca.SPLIT_MAX_TILES
+    assert ca.TT_SPARSE % ca.SPLIT_SLICE == 0
+    assert ca.SPLIT_SLICE % ca.SPLIT_GROUP == 0
 
 
 @pytest.mark.parametrize("cost", ["P2P", "P2D"])

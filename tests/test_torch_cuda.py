@@ -80,6 +80,100 @@ def test_kernel_c_bit_equal_to_plain(dev, radius):
     assert {k: v for k, v in ca.launches.items() if v} == {"nn_min_sparse": 1}
 
 
+@pytest.mark.parametrize("shape", chip_smoke.C_SHAPES,
+                         ids=lambda x: chip_smoke.shape_key(*x))
+def test_kernel_c_bit_equal_at_main_path_shapes(dev, shape):
+    """Kernel C at every main-path shape (`chip_smoke.C_SHAPES`, Morton
+    cells with an empty keyframe and a tie across target tiles), both
+    radii: bit-equal to its twin, one launch a call."""
+    for radius in (2.0, 4.0):
+        args = chip_smoke.c_inputs(dev, *shape, radius=radius)
+        ca.reset_launches()
+        nn_k, d2_k = ca.nn_min_sparse(*args)
+        nn_p, d2_p = ca.nn_min_sparse_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(nn_k, nn_p) and torch.equal(d2_k, d2_p), radius
+        assert {k: v for k, v in ca.launches.items() if v} == {"nn_min_sparse": 1}
+        assert torch.isinf(d2_k[-1, -1]).all() and (nn_k[-1, -1] == 0).all()
+        assert nn_k[0, 0, 5].item() == 300
+
+
+def _split_window(dev, b=2, s=3, m=4096):
+    """Sparse-kernel arguments with exact ties straddling every boundary
+    kernel C splits at, for any cluster size up to 8 at M=4096: groups of
+    16, slices of 128, tiles of 512, ranks at multiples of 512. Keyframe 1
+    of the last lane is empty. Returns (args, [(keyframe, lo, row)])."""
+    rng = np.random.default_rng(11)
+    src = (rng.normal(size=(b, 512, 2)) * 40).astype(np.float32)
+    src = np.take_along_axis(src, np.argsort(src[..., :1], 1, kind="stable"), 1)
+    tar = (rng.normal(size=(b, s, m, 2)) * 40).astype(np.float32)
+    valid = rng.random((b, s, m)) < 0.85
+    ties = [(0, 15, 16, 20), (0, 127, 128, 21), (1, 511, 512, 22),
+            (2, 1023, 1024, 23), (0, 2047, 2048, 24), (2, 3071, 3072, 25),
+            (1, 100, 4000, 26)]
+    ties = [t for t in ties if t[2] < m]
+    for k, lo, hi, row in ties:
+        tar[:, k, hi] = tar[:, k, lo]
+        valid[:, k, [lo, hi]] = True
+        src[:, row] = tar[:, k, lo]
+    valid[b - 1, 1] = False
+    src, tar, valid = (torch.as_tensor(a).to(dev) for a in (src, tar, valid))
+    sb = ca.tile_bounds(src, torch.ones_like(valid[:, 0, :512]), ca.TS_SPARSE)
+    tb = ca.tile_bounds(tar, valid, ca.TT_SPARSE)
+    return ((src, sb, tar, tb, valid, torch.full((b,), 3.0, device=dev)),
+            [(k, lo, row) for k, lo, _, row in ties])
+
+
+@pytest.mark.parametrize("split", [0, 1, 2, 4, 8])
+def test_kernel_c_ties_across_every_split(dev, monkeypatch, split):
+    """Kernel C with each cluster size forced (0: the one-block form):
+    bit-equal to its twin, the lowest index winning ties that straddle a
+    group, slice, tile or rank boundary, an empty keyframe (+inf, 0)."""
+    args, ties = _split_window(dev)
+    monkeypatch.setattr(ca, "sparse_split", lambda *shape: split)
+    nn_k, d2_k = ca.nn_min_sparse(*args)
+    nn_p, d2_p = ca.nn_min_sparse_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(nn_k, nn_p) and torch.equal(d2_k, d2_p)
+    for k, lo, row in ties:
+        assert (nn_k[0, k, row] == lo).item() and (d2_k[0, k, row] == 0).item()
+    assert torch.isinf(d2_k[-1, 1]).all() and (nn_k[-1, 1] == 0).all()
+
+
+def test_kernel_c_refuses_a_split_it_cannot_take(dev, monkeypatch):
+    """A cluster size the kernel does not take (3; 8 over two target
+    tiles; 1 over more tiles than a CTA stages) returns a CUDA error: the
+    wrapper raises and counts nothing."""
+    ca.reset_launches()
+    for split, m in ((3, 4096), (8, 1024),
+                     (1, (ca.SPLIT_MAX_TILES + 1) * ca.TT_SPARSE)):
+        args, _ = _split_window(dev, m=m)
+        monkeypatch.setattr(ca, "sparse_split", lambda *shape: split)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            ca.nn_min_sparse(*args)
+    assert ca.launches["nn_min_sparse"] == 0
+
+
+def test_kernel_c_k16_window_and_lanes(dev):
+    """The K16 case (S=50, keyframes 16-49 invalid, their tiles skipped):
+    bit-equal to the twin; each lane of a B=8 call equals its B=1 call
+    and two launches are bit-identical."""
+    args = list(chip_smoke.c_inputs(dev, 8, 50, 1024, 1024))
+    args[4] = args[4].clone()
+    args[4][:, 16:] = False
+    args[3] = ca.tile_bounds(args[2], args[4], ca.TT_SPARSE)
+    nn_k, d2_k = ca.nn_min_sparse(*args)
+    again = ca.nn_min_sparse(*args)
+    nn_p, d2_p = ca.nn_min_sparse_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(nn_k, nn_p) and torch.equal(d2_k, d2_p)
+    assert torch.equal(again[0], nn_k) and torch.equal(again[1], d2_k)
+    assert torch.isinf(d2_k[:, 16:]).all() and (nn_k[:, 16:] == 0).all()
+    for i in range(8):
+        nn_1, d2_1 = ca.nn_min_sparse(*(a[i:i + 1].contiguous() for a in args))
+        assert torch.equal(nn_1[0], nn_k[i]) and torch.equal(d2_1[0], d2_k[i])
+
+
 def _window(dev, b, s, m=1024, d_pad=8, seed=3):
     """Sparse-kernel arguments for an S-keyframe window on `dev`: lane
     b-1's last keyframe is empty, lane 0 has a tie across target tiles;

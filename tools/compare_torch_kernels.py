@@ -1,5 +1,6 @@
-"""Time the port's kernels F (fused LM solve) and G (feature moments) of
-several source trees on one CUDA card, in turns inside one call.
+"""Time the port's kernels F (fused LM solve), G (feature moments) and C
+(block-sparse 1-NN) of several source trees on one CUDA card, in turns
+inside one call.
 
     python tools/compare_torch_kernels.py [--out DIR] PARENT . . PARENT
     python tools/compare_torch_kernels.py --mode sweep [--out DIR]
@@ -15,7 +16,13 @@ hold each kernel against its plain twin (and fail if they disagree) and
 time it on the device alone (`chip_smoke._cuda_ms`: kernel F's early-exit
 and masked variants at B=8 and early exit at B=1 at every width of
 `chip_smoke.LM_SHAPES`, kernel G at B=8 and B=1 beside the `index_add_`
-yardstick). The one timer here, `_call_ms`, times the same calls back to
+yardstick); `phase_c_shapes` does the same for kernel C at every shape of
+`chip_smoke.C_SHAPES` beside its bound and `cdist + min`, and the inner
+loop of kernel C's split form, where the tree has one, is read from the
+built library with `cuobjdump -sass` (instructions a distance, hence the
+issue-slot floor: live distances x slots over SMs x 128 lanes at the
+card's top SM clock).
+The one timer here, `_call_ms`, times the same calls back to
 back: the slower of host and card, which is what a caller waits for. The
 table goes to stdout; with `--out DIR` the records also go to
 `DIR/compare_torch_kernels.json` (the sweep's to
@@ -35,6 +42,8 @@ import argparse
 import importlib.util
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -83,6 +92,81 @@ def _g_inputs(cs, dev):
     return images, inputs, one[0]
 
 
+# kernel C's __global__ functions: the split kernel and the one-block form
+C_FUNCTIONS = ("nn_min_sparse_split_kernel", "nn_min_sparse_kernel")
+
+
+def sass_loop(lib_path, function=C_FUNCTIONS[0]):
+    """The inner loop of `function` in the built library, by `cuobjdump
+    -sass`: the basic block (cut at every branch and branch target) with
+    the most FMUL, two a distance. In the split kernel that block is the
+    whole branch-free loop over a group of targets; in a loop with branches
+    inside (the one-block form's) it is only a part, so no other function
+    is read. Returns {instructions, fmul, fmnmx, slots_per_distance}, or
+    None where the library has no such function: every instruction takes
+    one issue slot of its SM sub-partition."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)([^;]*)")
+    for chunk in sass.split("Function : ")[1:]:
+        if function not in chunk.split(None, 1)[0]:
+            continue
+        code = [(int(m.group(1), 16), m.group(2), m.group(3))
+                for m in map(ins.search, chunk.splitlines()) if m]
+        cuts = {int(t, 16) for _, o, rest in code if o == "BRA"
+                for t in re.findall(r"0x([0-9a-f]+)", rest)}
+        cuts |= {a + 16 for a, o, _ in code if o in ("BRA", "EXIT")}
+        blocks = [[]]
+        for a, o, _ in code:
+            if a in cuts:
+                blocks.append([])
+            if o != "NOP":
+                blocks[-1].append(o)
+        body = max(blocks, key=lambda b: sum(o.startswith("FMUL") for o in b))
+        n_mul = sum(o.startswith("FMUL") for o in body)
+        return {"instructions": len(body), "fmul": n_mul,
+                "fmnmx": sum(o.startswith("FMNMX") for o in body),
+                "slots_per_distance": len(body) / max(n_mul / 2, 1)}
+    return None
+
+
+def _max_sm_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def _c_block(cs, dev, lib_path) -> dict:
+    """Kernel C at every shape of `chip_smoke.C_SHAPES`: the device records
+    of `phase_c_shapes` (checks included), back-to-back calls, and, where
+    the split kernel runs, the issue-slot floor from its SASS."""
+    import torch
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
+    sass = sass_loop(lib_path)
+    if sass:
+        print(f"{C_FUNCTIONS[0]} inner loop (cuobjdump -sass): "
+              f"{sass['instructions']} instructions, {sass['fmul']} FMUL, "
+              f"{sass['fmnmx']} FMNMX: {sass['slots_per_distance']:.3f} "
+              "issue slots a distance")
+    lanes_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * 128 * _max_sm_hz())
+    split = getattr(cuda_assoc, "sparse_split", None)
+    recs = cs.phase_c_shapes(dev, cs._card())
+    for shape in cs.C_SHAPES:
+        rec = recs[cs.shape_key(*shape)]
+        args = cs.c_inputs(dev, *shape)
+        rec["call_ms"] = _call_ms(lambda: cuda_assoc.nn_min_sparse(*args), 100)
+        rec["split"] = split(*shape) if split else None
+        if sass and rec["split"]:
+            b, s, m_src, m = shape
+            rec["floor_ms"] = (b * s * m_src * m * rec["live_pairs"]
+                               * sass["slots_per_distance"] / lanes_hz * 1e3)
+    return {"shapes": recs, "sass": sass}
+
+
 def worker(root) -> int:
     """Time one tree; the last line of stdout is its JSON record."""
     import torch
@@ -92,13 +176,13 @@ def worker(root) -> int:
     dev = torch.device("cuda", 0)
     card = cs._card()
     _build.library()
-    # ptxas's registers and shared memory of the two kernels' entry points
+    # ptxas's registers and shared memory of the kernels' entry points
     entry = None
     for line in _build.build_info["report"].splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
-        elif "Used" in line and entry and ("lm_solve" in entry
-                                           or "moment" in entry):
+        elif "Used" in line and entry and any(
+                k in entry for k in ("lm_solve", "moment") + C_FUNCTIONS):
             print(f"{entry}: {line.split(':', 1)[1].strip()}")
     f = cs.phase_lm(dev, card)["lm_solve_fused"]
     images, inputs, one = _g_inputs(cs, dev)
@@ -120,6 +204,7 @@ def worker(root) -> int:
         "b8_ms": g["ms"], "b1_ms": g["b1_ms"],
         # the smoke's yardstick: float atomics over ready columns
         "index_add_ms": g["library_ms"]}
+    rec["C"] = _c_block(cs, dev, _build.library()._name)
     print(json.dumps(rec))
     return 0
 
@@ -254,6 +339,16 @@ def main() -> int:
               f"{r['root']} {r['G']['call_ms']:.4f} | {r['G']['b8_ms']:.4f} / "
               f"{r['G']['b1_ms']:.4f} / {r['G']['index_add_ms']:.4f}"
               for r in recs))
+    print("kernel C, ms (back-to-back calls | on the device | bound / "
+          "issue-slot floor / cdist + min; split):")
+    for key, rec in recs[0]["C"]["shapes"].items():
+        print(f"  {key}, executed tile pairs {rec['live_pairs']:.4f}: "
+              + "; ".join(
+                  f"{r['root']} {c['call_ms']:.4f} | {c['ms']:.4f} | "
+                  f"{c['bound_ms']:.4f} / "
+                  + (f"{c['floor_ms']:.4f}" if "floor_ms" in c else "-")
+                  + f" / {c['library_ms']:.4f}; {c.get('split')}"
+                  for r in recs for c in (r["C"]["shapes"][key],)))
     if args.out:
         with open(os.path.join(args.out, "compare_torch_kernels.json"),
                   "w") as f:
