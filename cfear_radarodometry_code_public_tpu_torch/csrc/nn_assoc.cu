@@ -29,20 +29,19 @@
 // contracting into an FMA, which would move d2 by an ulp and flip near-tie
 // argmins); +inf for invalid targets; targets scanned in index order with a
 // strict '<' so the lowest index wins ties, as argmin does; rows with no
-// valid (or no unskipped) target report (+inf, 0). A, B1 and B2 share one
+// valid (or no unskipped) target report (+inf, 0). B1 and B2 share one
 // per-chunk scan (`scan_keyframe`), D1, D2, E and C's first form one
-// per-tile scan (`scan_tile`), so each family gives the same bits; C's
-// split kernel gives them too (below).
+// per-tile scan (`scan_tile`), so each family gives the same bits; A's and
+// C's split kernels give them too (below).
 //
 // What bounds them on an H100: at the CFEAR-3 bench shape (B=8, S=4,
 // M=Msrc=1024) one call is ~34 M distance evaluations, microseconds of ALU
-// work spread over 256 (A) or 128 (C's first form) blocks — fewer blocks
-// than a full wave of 132 SMs x several resident blocks. The calls are
-// bound by launch latency and by the short grid, not by bytes (~0.2 MB
-// read) or FLOPs. A, B1, B2, D1, D2 and E keep the simple design: one
-// source row per thread, the keyframe's targets staged through shared
-// memory in chunks so every thread reads the same target (a broadcast, no
-// bank conflicts).
+// work spread over 128 (C's first form) blocks — fewer blocks than a full
+// wave of 132 SMs x several resident blocks. The calls are bound by launch
+// latency and by the short grid, not by bytes (~0.2 MB read) or FLOPs.
+// B1, B2, D1, D2 and E keep the simple design: one source row per thread,
+// the keyframe's targets staged through shared memory in chunks so every
+// thread reads the same target (a broadcast, no bank conflicts).
 //
 // C has a design of its own (`nn_min_sparse_split_kernel`). The contract
 // fixes the arithmetic: five unfused operations a distance, so no FMA and
@@ -76,17 +75,44 @@
 // S=4 (0.039), where a call's fixed path (launch, the bounds then the
 // tiles from memory, two barriers, the merge) outweighs the loop.
 //
+// A has C's design without the live set (`nn_min_dense_kernel`). Its
+// first form (one source row per thread walking all M targets, a grid of
+// B*S*ceil(Msrc/128) blocks of 128 threads: 64 blocks at the long run's
+// B=1, S=4, 16 at the health check's S=1) ran at ~18 issue slots a
+// distance and left most SMs idle at B=1. Now every target is staged and
+// scanned, with no bounds: a keyframe's M targets are cut into chunks of
+// 256, the last padded with (+inf, +inf) (a padded target never equals a
+// finite best, so the rescan cannot land on it); a cluster of up to 8 CTAs
+// (ops/cuda_assoc.py:dense_split, from the shape alone) shares a
+// keyframe's chunks; a CTA stages its chunks 2,048 targets a pass, so any
+// M runs, and rescans a row's winning group in the pass where its best
+// moved; 4 source rows a thread over a 256-row source tile (rows past
+// Msrc computed, not written), 4 slices of 64 targets a chunk, groups of
+// 16 with one FMNMX a distance; slices, then ranks, merged by
+// lexicographic (d2, index). A source row at +-inf or NaN reports (+inf,
+// 0), as the first form and B1/B2 do: its distances are +inf or NaN, and
+// neither becomes a best (the plain twin, and the reference, report NaN
+// with an index for a NaN row instead; ROADMAP.md queue 3).
+// Its loop is C's: 6.41 SASS instructions a distance, 47 registers, 26 KB
+// of shared memory a CTA. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/compare_torch_kernels.py, CUDA events), first form -> this one:
+// 0.0780 -> 0.0136 ms at the long run's B=1, S=4, M=2048 (a cluster of 8),
+// 0.0768 -> 0.0085 at the health check's S=1, 0.0955 -> 0.0390 at B=8,
+// 0.262 -> 0.120 at sample_covariance's B=27 (72% of the issue floor), and
+// 0.0431 -> 0.0147 at B=8, S=4, M=1024 (a cluster of 2).
+//
 // B1 and B2 exist on the TPU for the same reason as D1 and D2 below: the
 // grid runs in order on one core and every grid step has a fixed cost
 // (~5 us), so the reference moved the keyframe axis of A's (S, Msrc/ts)
 // grid into the kernel, with fat source tiles (ts = 512 up to M = 2048,
 // else 256, `_ts_multi`). Hopper has no such cost. Moving the keyframe loop
-// into the block only shrinks the grid: from A's B*S*ceil(Msrc/128) blocks
-// of 128 threads to B*Msrc/ts blocks of ts threads, e.g. 512 -> 32 blocks at
-// B=8, S=4, M=2048 (4 -> 1 per lane and source tile at B=1), each thread
+// into the block only shrinks the grid: from A's first form's
+// B*S*ceil(Msrc/128) blocks of 128 threads to B*Msrc/ts blocks of ts
+// threads, e.g. 512 -> 32 blocks at B=8, S=4, M=2048 (4 -> 1 per lane and
+// source tile at B=1), each thread
 // walking S keyframes of M targets in turn. The work is the same and
 // operation-bound (5 flops and a compare per distance), so the shorter grid
-// leaves most of the 132 SMs idle: they are predicted to be slower than A
+// leaves most of the 132 SMs idle: they were predicted to be slower than A
 // (several times at B=8, where A fills the card), and the design keeps them
 // as the reference wrote them and measures that. B2 differs from B1 only
 // in what the compiler knows: one template, B1 with S read at runtime, B2
@@ -94,8 +120,9 @@
 // 1, the reverse problem of the health check, and 4, CFEAR-3's window) and
 // the keyframe loop unrolled. Measured on an NVIDIA H100 80GB HBM3 at
 // 700 W (chip_smoke.py, long-run window, CUDA events): at S=4, M=2048
-// B1 0.28 ms and B2 0.29 ms against A's 0.065 ms (B=1) and 0.079 ms (B=8);
-// at S=1 B1 0.073 ms and B2 0.077 ms against A's 0.064 ms at both B.
+// B1 0.28 ms and B2 0.29 ms against A's first form's 0.065 ms (B=1) and
+// 0.079 ms (B=8); at S=1 B1 0.073 ms and B2 0.077 ms against its 0.064 ms
+// at both B.
 //
 // D1 and D2 exist on the TPU because every grid step there has a fixed
 // cost (3,200 thin steps at B=8, S=50); a loop inside the kernel replaced
@@ -139,6 +166,18 @@ namespace cg = cooperative_groups;
 // ops/cuda_assoc.py; ops/_build.py passes it here (a mask, because nvcc
 // splits option values at commas). CFEAR_UNROLLED_S_MASK is the same for
 // the keyframe counts of kernel B2 (`UNROLLED_S`).
+// Kernel A (`nn_min_dense_kernel`), from ops/cuda_assoc.py (`DENSE_TILE`,
+// `DENSE_ROWS`, `DENSE_CHUNK`, `DENSE_SLICE`, `DENSE_GROUP`, `DENSE_STAGE`;
+// ops/_build.py passes them): the source rows of a CTA and of a thread, the
+// targets a cluster rank takes at a time, the targets of a chunk one slice
+// of threads scans, the targets whose minimum is taken before a row's best
+// is updated, and the targets a CTA stages in one pass.
+#if !defined(CFEAR_DENSE_TILE) || !defined(CFEAR_DENSE_ROWS) ||   \
+    !defined(CFEAR_DENSE_CHUNK) || !defined(CFEAR_DENSE_SLICE) || \
+    !defined(CFEAR_DENSE_GROUP) || !defined(CFEAR_DENSE_STAGE)
+#error "build with -DCFEAR_DENSE_TILE, _ROWS, _CHUNK, _SLICE, _GROUP and _STAGE (ops/_build.py does)"
+#endif
+
 #ifndef CFEAR_UNROLLED_MASK
 #error "build with -DCFEAR_UNROLLED_MASK=<tile-count bits> (ops/_build.py does)"
 #endif
@@ -148,7 +187,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreadsA = 128;   // source rows per block, kernel A
 constexpr int kChunkA = 1024;    // targets staged per shared-memory pass (12 KB)
 constexpr int kTileS = 256;      // source rows per block, kernels C/D1/D2/E
 constexpr int kTileT = 512;      // target rows per skip-test granule
@@ -192,33 +230,6 @@ __device__ __forceinline__ void scan_keyframe(bool active, float sx, float sy,
         }
       }
     }
-  }
-}
-
-// Kernel A. grid (B*S, ceil(Msrc / kThreadsA)), block kThreadsA.
-__global__ void nn_min_kernel(const float* __restrict__ src,
-                              const float* __restrict__ tar,
-                              const unsigned char* __restrict__ valid,
-                              int S, int Msrc, int M,
-                              int* __restrict__ nn, float* __restrict__ d2) {
-  __shared__ ChunkBuf sh;
-  const int bs = blockIdx.x;               // lane * S + keyframe
-  const int lane = bs / S;
-  const int row = blockIdx.y * blockDim.x + threadIdx.x;
-  const bool active = row < Msrc;
-  float sx = 0.f, sy = 0.f;
-  if (active) {
-    sx = src[(static_cast<size_t>(lane) * Msrc + row) * 2];
-    sy = src[(static_cast<size_t>(lane) * Msrc + row) * 2 + 1];
-  }
-  float best = CUDART_INF_F;
-  int barg = 0;
-  scan_keyframe(active, sx, sy, tar + static_cast<size_t>(bs) * M * 2,
-                valid + static_cast<size_t>(bs) * M, M, sh, best, barg);
-  if (active) {
-    const size_t o = static_cast<size_t>(bs) * Msrc + row;
-    nn[o] = barg;
-    d2[o] = best;
   }
 }
 
@@ -556,6 +567,165 @@ __global__ void __launch_bounds__(kThreadsC) nn_min_sparse_split_kernel(
   }
 }
 
+// Kernel A. One CTA of kDenseThreads threads per (lane * S + keyframe,
+// kDenseTile-row source tile, rank), a thread-block cluster of `C` ranks per
+// (keyframe, source tile); the keyframe's targets are cut into nc =
+// ceil(M / kDenseChunk) chunks, the last padded with (+inf, +inf), and rank
+// c takes chunks [c * nc / C, (c + 1) * nc / C), staged kDenseStage targets
+// a pass. Thread (slice q, l) holds source rows l + kDenseRowThreads * j (j <
+// kDenseRows; rows past Msrc are computed and not written) and scans targets
+// [q * kDenseSlice, (q + 1) * kDenseSlice) of every chunk of its rank.
+constexpr int kDenseTile = CFEAR_DENSE_TILE;     // source rows a CTA
+constexpr int kDenseRows = CFEAR_DENSE_ROWS;     // source rows a thread
+constexpr int kDenseChunk = CFEAR_DENSE_CHUNK;   // targets a rank takes at a time
+constexpr int kDenseSlice = CFEAR_DENSE_SLICE;   // targets of a chunk per slice
+constexpr int kDenseGroup = CFEAR_DENSE_GROUP;   // targets per minimum group
+constexpr int kDenseStage = CFEAR_DENSE_STAGE;   // targets staged per pass
+constexpr int kDenseSlices = kDenseChunk / kDenseSlice;
+constexpr int kDenseRowThreads = kDenseTile / kDenseRows;
+constexpr int kDenseThreads = kDenseRowThreads * kDenseSlices;
+static_assert(kDenseTile % kDenseRows == 0 && kDenseChunk % kDenseSlice == 0 &&
+              kDenseSlice % kDenseGroup == 0 && kDenseGroup % 2 == 0 &&
+              kDenseStage % kDenseChunk == 0 && kDenseRowThreads % 32 == 0 &&
+              kDenseThreads >= kDenseTile && kDenseThreads <= 1024 &&
+              kDenseRows <= 32,
+              "kernel A does not tile its block");
+
+__global__ void __launch_bounds__(kDenseThreads) nn_min_dense_kernel(
+    const float* __restrict__ src, const float* __restrict__ tar,
+    const unsigned char* __restrict__ valid, int S, int Msrc, int M, int C,
+    int* __restrict__ nn, float* __restrict__ d2) {
+  // one pass of the rank's targets, two a float4, invalid and padding
+  // targets as (+inf, +inf): dist2 of a finite source to one is +inf, of a
+  // source at +-inf or NaN NaN; fminf drops a NaN, so neither ever becomes
+  // a best, which starts at +inf. A source row at +-inf or NaN thus reports
+  // (+inf, 0), as the strict '<' scan of `scan_keyframe` (B1, B2) does.
+  __shared__ float4 stage[kDenseStage / 2];
+  __shared__ float part_d[kDenseSlices][kDenseTile];
+  __shared__ int part_i[kDenseSlices][kDenseTile];
+  __shared__ float res_d[kDenseTile];
+  __shared__ int res_i[kDenseTile];
+  const int bs = blockIdx.x / C;
+  const int rank = blockIdx.x % C;
+  const int lane = bs / S;
+  const int tile = blockIdx.y;
+  const int nc = (M + kDenseChunk - 1) / kDenseChunk;
+  const int lo = rank * nc / C * kDenseChunk;
+  const int hi = (rank + 1) * nc / C * kDenseChunk;
+  const int q = threadIdx.x / kDenseRowThreads;
+  const int l = threadIdx.x % kDenseRowThreads;
+  const float2 inf2 = make_float2(CUDART_INF_F, CUDART_INF_F);
+  const float2* s2 = reinterpret_cast<const float2*>(src) + static_cast<size_t>(lane) * Msrc;
+  const float2* t2 = reinterpret_cast<const float2*>(tar) + static_cast<size_t>(bs) * M;
+  const unsigned char* v = valid + static_cast<size_t>(bs) * M;
+  float2* st2 = reinterpret_cast<float2*>(stage);
+  float sx[kDenseRows], sy[kDenseRows], bv[kDenseRows];
+  int bg[kDenseRows], bi[kDenseRows];
+#pragma unroll
+  for (int j = 0; j < kDenseRows; ++j) {
+    const int row = tile * kDenseTile + l + j * kDenseRowThreads;
+    const float2 p = row < Msrc ? s2[row] : make_float2(0.f, 0.f);
+    sx[j] = p.x;
+    sy[j] = p.y;
+    bv[j] = CUDART_INF_F;
+    bg[j] = -1;
+    bi[j] = 0;
+  }
+  for (int base = lo; base < hi; base += kDenseStage) {
+    const int n = min(kDenseStage, hi - base);   // whole chunks
+    if (base != lo) __syncthreads();   // the last pass's rescans have read it
+#pragma unroll 4
+    for (int k = threadIdx.x; k < n; k += kDenseThreads) {
+      const int g = base + k;
+      const bool in = g < M;
+      const float2 t = in ? t2[g] : inf2;
+      st2[k] = in && v[g] ? t : inf2;
+    }
+    __syncthreads();
+    // Each group of kDenseGroup targets: the minimum distance of each row
+    // by fminf alone (one FMNMX a distance, no index); the row's best moves,
+    // with the group's first index, only on a strict '<', so bg is the
+    // first group, in index order, that attains the row's best so far.
+    for (int c = 0; c < n / kDenseChunk; ++c) {
+      const int off = c * kDenseChunk + q * kDenseSlice;
+      const float4* p = stage + off / 2;
+#pragma unroll 1
+      for (int g = 0; g < kDenseSlice / kDenseGroup; ++g) {
+        float gm[kDenseRows];
+#pragma unroll
+        for (int j = 0; j < kDenseRows; ++j) gm[j] = CUDART_INF_F;
+#pragma unroll
+        for (int k = 0; k < kDenseGroup / 2; ++k) {
+          const float4 t = p[g * (kDenseGroup / 2) + k];
+#pragma unroll
+          for (int j = 0; j < kDenseRows; ++j)
+            gm[j] = fminf(gm[j], fminf(dist2(sx[j], sy[j], t.x, t.y),
+                                       dist2(sx[j], sy[j], t.z, t.w)));
+        }
+#pragma unroll
+        for (int j = 0; j < kDenseRows; ++j) {
+          if (gm[j] < bv[j]) {
+            bv[j] = gm[j];
+            bg[j] = base + off + g * kDenseGroup;
+          }
+        }
+      }
+    }
+    // a row whose best moved in this pass (its group lies in the pass): the
+    // lowest index of the winning group whose distance, in the same rounded
+    // arithmetic, equals the best
+#pragma unroll
+    for (int j = 0; j < kDenseRows; ++j) {
+      if (bg[j] >= base) {
+        const float2* w = st2 + (bg[j] - base);
+        int k = 0;
+        while (k < kDenseGroup - 1 && dist2(sx[j], sy[j], w[k].x, w[k].y) != bv[j])
+          ++k;
+        bi[j] = bg[j] + k;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kDenseRows; ++j) {
+    part_d[q][l + j * kDenseRowThreads] = bv[j];
+    part_i[q][l + j * kDenseRowThreads] = bi[j];
+  }
+  __syncthreads();
+  // slices, then ranks, merged in a fixed order by lexicographic minimum
+  const size_t out0 = static_cast<size_t>(bs) * Msrc + tile * kDenseTile;
+  const int rows = min(kDenseTile, Msrc - tile * kDenseTile);
+  if (threadIdx.x < kDenseTile) {
+    const int row = threadIdx.x;
+    float d = part_d[0][row];
+    int i = part_i[0][row];
+#pragma unroll
+    for (int s = 1; s < kDenseSlices; ++s) lex_min(d, i, part_d[s][row], part_i[s][row]);
+    if (C > 1) {
+      res_d[row] = d;
+      res_i[row] = i;
+    } else if (row < rows) {
+      nn[out0 + row] = i;
+      d2[out0 + row] = d;
+    }
+  }
+  if (C > 1) {   // uniform over the cluster
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int per = kDenseTile / C;
+    const int row = rank * per + threadIdx.x;
+    if (threadIdx.x < per && row < rows) {
+      float d = cluster.map_shared_rank(res_d, 0)[row];
+      int i = cluster.map_shared_rank(res_i, 0)[row];
+      for (int c = 1; c < C; ++c)
+        lex_min(d, i, cluster.map_shared_rank(res_d, c)[row],
+                cluster.map_shared_rank(res_i, c)[row]);
+      nn[out0 + row] = i;
+      d2[out0 + row] = d;
+    }
+    cluster.sync();   // no CTA leaves while a peer reads its shared memory
+  }
+}
+
 // Kernels D1 and D2. grid (B, Msrc / kTileS), block kTileS: one block per
 // (lane, source tile) walks the lane's S keyframes. D1 is kNT = 0: the
 // number of target tiles M / kTileT is read at runtime. D2 is kNT > 0: M =
@@ -655,13 +825,32 @@ extern "C" {
 
 // Each entry point launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() (0 = launched).
+// Kernel A. `split` is the cluster size (1, 2, 4 or 8 CTAs per keyframe
+// and source tile, at most ceil(M / kDenseChunk) when above 1);
+// ops/cuda_assoc.py:dense_split picks it from the shape. Any other value
+// returns cudaErrorInvalidValue without launching. Any Msrc and M.
 int cfear_nn_min(const float* src, const float* tar, const unsigned char* valid,
-                 int B, int S, int Msrc, int M, int* nn, float* d2,
+                 int B, int S, int Msrc, int M, int split, int* nn, float* d2,
                  void* stream) {
-  const dim3 grid(B * S, (Msrc + kThreadsA - 1) / kThreadsA);
-  nn_min_kernel<<<grid, kThreadsA, 0, static_cast<cudaStream_t>(stream)>>>(
-      src, tar, valid, S, Msrc, M, nn, d2);
-  return static_cast<int>(cudaGetLastError());
+  const int nc = (M + kDenseChunk - 1) / kDenseChunk;
+  if ((split != 1 && split != 2 && split != 4 && split != 8) ||
+      (split > 1 && split > nc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(split * B * S, (Msrc + kDenseTile - 1) / kDenseTile);
+  config.blockDim = dim3(kDenseThreads);
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = split > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&config, nn_min_dense_kernel, src,
+                                             tar, valid, S, Msrc, M, split, nn, d2);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // ts is the source tile (512 or 256); Msrc % ts == 0 (the wrapper checks).

@@ -6,14 +6,19 @@ per source, all started together:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -Xptxas -v -DCFEAR_UNROLLED_MASK=0x56
          -DCFEAR_UNROLLED_S_MASK=0x12 -DCFEAR_SPLIT_SLICE=128
-         -DCFEAR_SPLIT_GROUP=16 -DCFEAR_SPLIT_MAX_TILES=8 -c
+         -DCFEAR_SPLIT_GROUP=16 -DCFEAR_SPLIT_MAX_TILES=8
+         -DCFEAR_DENSE_TILE=256 -DCFEAR_DENSE_ROWS=4 -DCFEAR_DENSE_CHUNK=256
+         -DCFEAR_DENSE_SLICE=64 -DCFEAR_DENSE_GROUP=16
+         -DCFEAR_DENSE_STAGE=2048 -c
 
 (the first define is the set of target tile counts kernel D2 is
 instantiated for, bit n for n tiles, made from `cuda_assoc.UNROLLED_M`:
 512, 1024, 2048, 3072 -> 1, 2, 4, 6; the second the keyframe counts of
-kernel B2, bit n for S = n, from `cuda_assoc.UNROLLED_S`: 1, 4; the last
+kernel B2, bit n for S = n, from `cuda_assoc.UNROLLED_S`: 1, 4; the next
 three kernel C's split, `cuda_assoc.SPLIT_SLICE`, `SPLIT_GROUP` and
-`SPLIT_MAX_TILES`)
+`SPLIT_MAX_TILES`; the last six kernel A's, `cuda_assoc.DENSE_TILE`,
+`DENSE_ROWS`, `DENSE_CHUNK`, `DENSE_SLICE`, `DENSE_GROUP` and
+`DENSE_STAGE`)
 
 and the objects are linked into one shared library in `<package>/_build/`
 (git-ignored), under a name that carries a hash of the sources and flags,
@@ -33,9 +38,7 @@ import subprocess
 import threading
 import time
 
-from cfear_radarodometry_code_public_tpu_torch.ops.cuda_assoc import (
-    SPLIT_GROUP, SPLIT_MAX_TILES, SPLIT_SLICE, TT_SPARSE, UNROLLED_M,
-    UNROLLED_S)
+from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc as ca
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
@@ -43,10 +46,17 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-    f"-DCFEAR_UNROLLED_MASK={sum(1 << (m // TT_SPARSE) for m in UNROLLED_M):#x}",
-    f"-DCFEAR_UNROLLED_S_MASK={sum(1 << s for s in UNROLLED_S):#x}",
-    f"-DCFEAR_SPLIT_SLICE={SPLIT_SLICE}", f"-DCFEAR_SPLIT_GROUP={SPLIT_GROUP}",
-    f"-DCFEAR_SPLIT_MAX_TILES={SPLIT_MAX_TILES}", "-c")
+    "-DCFEAR_UNROLLED_MASK="
+    f"{sum(1 << (m // ca.TT_SPARSE) for m in ca.UNROLLED_M):#x}",
+    f"-DCFEAR_UNROLLED_S_MASK={sum(1 << s for s in ca.UNROLLED_S):#x}",
+    f"-DCFEAR_SPLIT_SLICE={ca.SPLIT_SLICE}",
+    f"-DCFEAR_SPLIT_GROUP={ca.SPLIT_GROUP}",
+    f"-DCFEAR_SPLIT_MAX_TILES={ca.SPLIT_MAX_TILES}",
+    f"-DCFEAR_DENSE_TILE={ca.DENSE_TILE}", f"-DCFEAR_DENSE_ROWS={ca.DENSE_ROWS}",
+    f"-DCFEAR_DENSE_CHUNK={ca.DENSE_CHUNK}",
+    f"-DCFEAR_DENSE_SLICE={ca.DENSE_SLICE}",
+    f"-DCFEAR_DENSE_GROUP={ca.DENSE_GROUP}",
+    f"-DCFEAR_DENSE_STAGE={ca.DENSE_STAGE}", "-c")
 LINK_FLAGS = ARCH + ("-shared",)
 
 _lock = threading.Lock()
@@ -125,7 +135,7 @@ def library() -> ctypes.CDLL:
             build_info.update(cmd=None, seconds=0.0, report="cached: " + path)
         lib = ctypes.CDLL(path)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.cfear_nn_min.argtypes = [p, p, p, i, i, i, i, p, p, p]
+        lib.cfear_nn_min.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
         lib.cfear_nn_min.restype = i
         for name in ("cfear_nn_min_multi", "cfear_nn_min_multi_unrolled"):
             getattr(lib, name).argtypes = [p, p, p, i, i, i, i, i, p, p, p]

@@ -41,6 +41,18 @@ UNROLLED_S = (1, 4)
 # an H100's 132 SMs: past that a cluster's barriers and each CTA's own
 # staging cost more than the SMs it adds give back.
 SPLIT_SLICE, SPLIT_GROUP, SPLIT_MAX_TILES, SPLIT_MIN_CTAS = 128, 16, 8, 128
+# Kernel A (`_build` passes all but the last to nvcc): a CTA takes a tile of
+# DENSE_TILE source rows, DENSE_ROWS a thread; a keyframe's targets are cut
+# into chunks of DENSE_CHUNK, padded at the end, which a cluster's ranks
+# share; each chunk is scanned in slices of DENSE_SLICE targets by slices
+# of threads, a row's minimum taken over groups of DENSE_GROUP targets
+# before its best moves; a CTA stages its chunks DENSE_STAGE targets at a
+# time. The cluster grows until it gives DENSE_MIN_CTAS CTAs, about two for
+# each of an H100's 132 SMs: the fastest size at every shape of
+# chip_smoke.A_SHAPES but B=8 S=4 M=1024, where one CTA a keyframe is 3%
+# faster (tools/compare_torch_kernels.py --mode a-sweep).
+DENSE_TILE, DENSE_ROWS, DENSE_CHUNK, DENSE_SLICE = 256, 4, 256, 64
+DENSE_GROUP, DENSE_STAGE, DENSE_MIN_CTAS = 16, 2048, 256
 
 launches = {"nn_min": 0, "nn_min_multi": 0, "nn_min_multi_unrolled": 0,
             "nn_min_sparse": 0, "nn_min_sparse_multi": 0,
@@ -87,6 +99,21 @@ def sparse_split(b: int, s: int, m_src: int, m: int) -> int:
                                      or -(-nt // c) > SPLIT_MAX_TILES):
         c *= 2
     return c if -(-nt // c) <= SPLIT_MAX_TILES else 0
+
+
+def dense_split(b: int, s: int, m_src: int, m: int) -> int:
+    """CTAs per (lane x keyframe, source tile) of kernel A, from the shape
+    alone: the smallest power of two up to 8 and up to the keyframe's
+    ceil(M / DENSE_CHUNK) target chunks that gives DENSE_MIN_CTAS CTAs in
+    all. Any M runs (a CTA stages its chunks DENSE_STAGE targets at a
+    time), and any split gives the same bits: the partial minima are
+    merged by lexicographic (d2, index)."""
+    chunks = -(-m // DENSE_CHUNK)
+    pairs = b * s * -(-m_src // DENSE_TILE)
+    c = 1
+    while c < 8 and 2 * c <= chunks and pairs * c < DENSE_MIN_CTAS:
+        c *= 2
+    return c
 
 
 def tile_bounds(xy, valid, tile: int):
@@ -223,19 +250,28 @@ def _nn_out(valid, m_src, dev):
             torch.empty((b, s, m_src), dtype=torch.float32, device=dev))
 
 
+def _check_aligned(name, src, tar):
+    if (src.data_ptr() | tar.data_ptr()) % 8:
+        raise ValueError(f"{name}: src and tar must start on 8-byte "
+                         "boundaries (the kernel reads points as float2)")
+
+
 def nn_min(src, tar, valid):
     """Exact 1-NN of each source point among each keyframe's targets
-    (kernel A on CUDA, `nn_min_plain` on the CPU)."""
+    (kernel A on CUDA, split over `dense_split` CTAs per keyframe and
+    source tile; `nn_min_plain` on the CPU). Any Msrc and M."""
     dev = _check("nn_min", src=src, tar=tar, valid=valid)
     _check_shapes("nn_min", src, tar, valid)
     if dev.type == "cpu":
         return nn_min_plain(src, tar, valid)
+    _check_aligned("nn_min", src, tar)
     b, s, m = valid.shape
-    nn, d2 = _nn_out(valid, src.shape[1], dev)
+    m_src = src.shape[1]
+    nn, d2 = _nn_out(valid, m_src, dev)
     if nn.numel():
         _launch("nn_min", "cfear_nn_min", dev, src.data_ptr(), tar.data_ptr(),
-                valid.data_ptr(), b, s, src.shape[1], m, nn.data_ptr(),
-                d2.data_ptr())
+                valid.data_ptr(), b, s, m_src, m,
+                dense_split(b, s, m_src, m), nn.data_ptr(), d2.data_ptr())
     return nn, d2
 
 
@@ -303,9 +339,7 @@ def nn_min_sparse(src, src_bounds, tar, tar_bounds, valid, radius):
     args = (src, src_bounds, tar, tar_bounds, valid, radius)
     if _check_sparse("nn_min_sparse", *args).type == "cpu":
         return nn_min_sparse_plain(*args)
-    if (src.data_ptr() | tar.data_ptr()) % 8:
-        raise ValueError("nn_min_sparse: src and tar must start on 8-byte "
-                         "boundaries (the kernel reads points as float2)")
+    _check_aligned("nn_min_sparse", src, tar)
     return _sparse("nn_min_sparse", "cfear_nn_min_sparse", *args,
                    sparse_split(*valid.shape[:2], src.shape[1],
                                 valid.shape[2]))

@@ -4,9 +4,10 @@
 
 Builds the port's CUDA kernels from `cfear_radarodometry_code_public_tpu_torch/
 csrc/` with nvcc and checks each against its plain PyTorch twin on the card:
-the 1-NN kernels A and C (C also at every main-path shape of `C_SHAPES`,
-two launches bit-identical and a B=1 call equal to its lane of a B=8
-call), the fused LM solve F (both variants, three cost /
+the 1-NN kernels A and C (A also at every main-path shape of `A_SHAPES`
+and a ragged one, C at every main-path shape of `C_SHAPES`; two launches
+bit-identical and a B=1 call equal to its lane of a batched call), the
+fused LM solve F (both variants, three cost /
 loss pairs at S=4, and every width the main paths give it, `LM_SHAPES`: the
 long run's reverse and forward solves, 1 and 4 x 2048 cells, and the s50
 widths, S=16 and S=50 of 1024 cells and S=50 of 3072, so that every cluster
@@ -171,6 +172,17 @@ F32_FLOPS_PER_S = 67e12
 # tools/compare_torch_kernels.py times two trees' C at the same shapes.
 C_SHAPES = ((1, 4, 1024, 1024), (8, 4, 1024, 1024), (1, 50, 1024, 1024),
             (8, 50, 1024, 1024), (1, 50, 3072, 3072), (8, 4, 512, 1024))
+# Kernel A's shapes on the main paths, (B, S, Msrc, M): `phase_kernels`'
+# CFEAR-3 x8 shape, the long run's forward association (B=1, S=4 of 2048
+# cells), its window at B=8, the health check's reverse solve (S=1) and
+# `sample_covariance`'s 27 offsets folded into lanes (`longrun-cov`); last a
+# ragged shape, checked and not timed. `phase_a_shapes` (run by
+# `phase_kernels`) holds A against its twin at each, on `a_inputs`, and
+# times it; tools/compare_torch_kernels.py times two trees' A at the same
+# shapes.
+A_RAGGED = (3, 2, 1000, 1500)
+A_SHAPES = ((8, 4, 1024, 1024), (1, 4, 2048, 2048), (8, 4, 2048, 2048),
+            (1, 1, 2048, 2048), (27, 4, 2048, 2048), A_RAGGED)
 # operations counted per squared distance (2 subtractions, 2 products, a
 # sum; the compare is not counted), per LM row and pass (a cost-only pass,
 # and a cost/gradient/Hessian pass, from the twin's arithmetic for P2P), and
@@ -346,9 +358,9 @@ def _morton_cells(rng, b, s, m, dev):
     """Slice-shaped association inputs: per lane a wall world seen by S+1
     scans of m cells (~900 of 1024 valid, in proportion for other m,
     Morton-ordered by 3 m voxel, padding last), keyframes a few metres
-    apart. The last lane's last keyframe is empty; lane 0's first keyframe
-    holds two identical targets in different 512-row tiles with a source
-    point on them (an exact tie)."""
+    apart. The last lane's last keyframe is empty, unless it is the only
+    one; lane 0's first keyframe holds two identical targets in different
+    512-row tiles with a source point on them (an exact tie)."""
     leaf = 3.0
     src = np.zeros((b, m, 2), np.float32)
     tar = np.zeros((b, s, m, 2), np.float32)
@@ -368,7 +380,8 @@ def _morton_cells(rng, b, s, m, dev):
             rows = src[i] if k == 0 else tar[i, k - 1]
             rows[:n] = pts
             valid[i, k, :n] = True
-    valid[b - 1, s] = False
+    if b * s > 1:
+        valid[b - 1, s] = False
     tar[0, 0, 700] = tar[0, 0, 300]
     valid[0, 1, [300, 700]] = True
     src[0, 5] = tar[0, 0, 300]
@@ -389,8 +402,73 @@ def c_inputs(dev, b, s, m_src, m, radius=2.0, seed=0):
             valid, torch.full((b,), radius, device=dev))
 
 
+def a_inputs(dev, b, s, m_src, m, seed=0):
+    """Kernel A's arguments (src, tar, valid) at a shape of A_SHAPES:
+    `_morton_cells` of m cells, the first m_src source rows."""
+    src, _, tar, valid = _morton_cells(np.random.default_rng(seed), b, s, m,
+                                       dev)
+    return src[:, :m_src].contiguous(), tar, valid.contiguous()
+
+
 def shape_key(b, s, m_src, m) -> str:
     return f"B={b} S={s} Msrc={m_src} M={m}"
+
+
+def _hold(name, key, kernel, plain, args):
+    """1-NN kernel `name` against its twin on `args` at shape `key`:
+    bit-equal, two launches bit-identical, the first and last lane equal
+    to their own B=1 calls. Returns the kernel's and the twin's (nn, d2)."""
+    b = args[0].shape[0]
+    got, again = kernel(*args), kernel(*args)
+    alone = {i: kernel(*(a[i:i + 1].contiguous() for a in args))
+             for i in sorted({0, b - 1})}
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if not all(map(torch.equal, got, want)):
+        raise AssertionError(f"kernel {name} at {key} disagrees with its "
+                             f"twin: {int((got[0] != want[0]).sum())} nn "
+                             "mismatches")
+    if not all(map(torch.equal, again, got)):
+        raise AssertionError(f"kernel {name} at {key}: two launches differ")
+    for i, one in alone.items():
+        if not all(torch.equal(x[0], y[i]) for x, y in zip(one, got)):
+            raise AssertionError(f"kernel {name} at {key}: lane {i} differs "
+                                 "from its B=1 call")
+    return got, want
+
+
+def phase_a_shapes(dev, card):
+    """Kernel A at every shape of A_SHAPES: bit-equal to its twin, two
+    launches bit-identical, the first and last lane of a call equal to
+    their own B=1 calls; then, but for A_RAGGED, timed beside its bound
+    and `cdist + min`. Returns {shape_key: record}."""
+    res = {}
+    for shape in A_SHAPES:
+        args = a_inputs(dev, *shape)
+        key = shape_key(*shape)
+        (nn_a, d2_a), (_, d2_q) = _hold("A", key, cuda_assoc.nn_min,
+                                        cuda_assoc.nn_min_plain, args)
+        # `_morton_cells`' tie, and its empty keyframe where it has one
+        empty = shape[0] * shape[1] == 1 or torch.isinf(d2_a[-1, -1]).all()
+        if nn_a[0, 0, 5].item() != 300 or not empty:
+            raise AssertionError(f"kernel A at {key}: the tie or the empty "
+                                 "keyframe is wrong")
+        fin = torch.isfinite(d2_q)
+        res[key] = r = {"max_abs_err": float((d2_a[fin] - d2_q[fin]).abs()
+                                             .max())}
+        if shape == A_RAGGED:
+            _say(f"kernel A {key}: bit-equal to its twin, repeat and lanes "
+                 "bit-identical (not timed)")
+            continue
+        r.update(ms=_cuda_ms(lambda: cuda_assoc.nn_min(*args), 100),
+                 **nn_bound(*args),
+                 library_ms=_cuda_ms(lambda: library_nn(*args), 5,
+                                     "cdist + min"))
+        _say(f"kernel A {key}: bit-equal to its twin, repeat and lanes "
+             f"bit-identical; kernel {r['ms']:.4f} ms, bound "
+             f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cdist + min "
+             f"{r['library_ms']:.4f} ms ({card})")
+    return res
 
 
 def phase_c_shapes(dev, card):
@@ -400,27 +478,11 @@ def phase_c_shapes(dev, card):
     of tile pairs and `cdist + min`. Returns {shape_key: record}."""
     res = {}
     for shape in C_SHAPES:
-        b = shape[0]
         args = c_inputs(dev, *shape)
-        nn_c, d2_c = cuda_assoc.nn_min_sparse(*args)
-        again = cuda_assoc.nn_min_sparse(*args)
-        alone = [cuda_assoc.nn_min_sparse(*(a[i:i + 1].contiguous()
-                                            for a in args))
-                 for i in sorted({0, b - 1})]
-        nn_q, d2_q = cuda_assoc.nn_min_sparse_plain(*args)
-        torch.cuda.synchronize()
         key = shape_key(*shape)
-        if not (torch.equal(nn_c, nn_q) and torch.equal(d2_c, d2_q)):
-            raise AssertionError(f"kernel C at {key} disagrees with "
-                                 "nn_min_sparse_plain: "
-                                 f"{int((nn_c != nn_q).sum())} nn mismatches")
-        if not (torch.equal(again[0], nn_c) and torch.equal(again[1], d2_c)):
-            raise AssertionError(f"kernel C at {key}: two launches differ")
-        for i, (nn_1, d2_1) in zip(sorted({0, b - 1}), alone):
-            if not (torch.equal(nn_1[0], nn_c[i])
-                    and torch.equal(d2_1[0], d2_c[i])):
-                raise AssertionError(f"kernel C at {key}: lane {i} differs "
-                                     "from its B=1 call")
+        (nn_c, d2_c), (_, d2_q) = _hold(
+            "C", key, cuda_assoc.nn_min_sparse,
+            cuda_assoc.nn_min_sparse_plain, args)
         live = float(cuda_assoc.pair_live(args[1], args[3], args[5])
                      .float().mean())
         fin = torch.isfinite(d2_q)
@@ -444,7 +506,8 @@ def phase_c_shapes(dev, card):
 
 def phase_kernels(dev, card):
     """Kernels A and C against their plain twins at the slice's shapes,
-    and C at every shape of C_SHAPES (`phase_c_shapes`)."""
+    A at every shape of A_SHAPES (`phase_a_shapes`) and C at every shape of
+    C_SHAPES (`phase_c_shapes`)."""
     b, s, m = BATCH, 4, 1024
     src, src_valid, tar, valid = _morton_cells(np.random.default_rng(0),
                                                b, s, m, dev)
@@ -476,7 +539,8 @@ def phase_kernels(dev, card):
         "ms": _cuda_ms(lambda: cuda_assoc.nn_min(src, tar, valid), 200),
         "plain_ms": _cuda_ms(lambda: cuda_assoc.nn_min_plain(src, tar, valid),
                              20, "nn_min_plain"),
-        **nn_bound(src, tar, valid), "library_ms": lib_ms}
+        **nn_bound(src, tar, valid), "library_ms": lib_ms,
+        "by_shape": phase_a_shapes(dev, card)}
     sb = cuda_assoc.tile_bounds(src, src_valid, cuda_assoc.TS_SPARSE)
     tb = cuda_assoc.tile_bounds(tar, valid, cuda_assoc.TT_SPARSE)
     errs, times, ptimes, bounds = [], [], [], []

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_cuda import dense_ties
 from torch_port_helpers import jnp
 
 from cfear_radarodometry_code_public_tpu.ops import pallas_assoc as pa
@@ -377,6 +378,178 @@ def test_sparse_split_follows_the_shape():
             assert c <= max(nt, 1) and -(-nt // c) <= ca.SPLIT_MAX_TILES
     assert ca.TT_SPARSE % ca.SPLIT_SLICE == 0
     assert ca.SPLIT_SLICE % ca.SPLIT_GROUP == 0
+
+
+def _dense_model(src, tar, valid, split):
+    """Kernel A (csrc/nn_assoc.cu `nn_min_dense_kernel`) in the twin's
+    arithmetic: a keyframe's targets cut into chunks of DENSE_CHUNK, the
+    tail padded with (+inf, +inf) as invalid targets are; rank c of
+    `split` takes chunks [c nc / split, (c+1) nc / split) and stages them
+    DENSE_STAGE targets a pass; each slice of DENSE_SLICE targets of a
+    chunk is scanned in groups of DENSE_GROUP, a row's minimum over a group
+    by fminf (NaN dropped), its best moving to a group's minimum only on a
+    strict '<'; the winning group is rescanned, in the pass where the best
+    moved, for the first target at that distance; slices, then ranks, are
+    merged by lexicographic (d2, index)."""
+    b, s, m = valid.shape
+    m_src = src.shape[1]
+    ch, sl, g = ca.DENSE_CHUNK, ca.DENSE_SLICE, ca.DENSE_GROUP
+    nc, n_slice, n_grp = -(-m // ch), ch // sl, sl // g
+    inf = torch.tensor(float("inf"))
+    t = torch.where(valid[..., None], tar, inf)
+    t = torch.cat([t, t.new_full((b, s, nc * ch - m, 2), float("inf"))], 2)
+    dx = src[:, None, :, None, 0] - t[:, :, None, :, 0]
+    dy = src[:, None, :, None, 1] - t[:, :, None, :, 1]
+    d2 = dx * dx + dy * dy                               # (B, S, Msrc, nc*ch)
+
+    def lex(d, i, e, j):
+        take = (e < d) | ((e == d) & (j < i))
+        return torch.where(take, e, d), torch.where(take, j, i)
+
+    out_d = torch.full((b, s, m_src), float("inf"))
+    out_i = torch.zeros((b, s, m_src), dtype=torch.int64)
+    for c in range(split):
+        lo, hi = c * nc // split * ch, (c + 1) * nc // split * ch
+        rank_d, rank_i = out_d.new_full(out_d.shape, float("inf")), \
+            torch.zeros_like(out_i)
+        for q in range(n_slice):
+            best = out_d.new_full(out_d.shape, float("inf"))
+            bi = torch.zeros_like(out_i)
+            for base in range(lo, hi, ca.DENSE_STAGE):
+                n = min(ca.DENSE_STAGE, hi - base)
+                # (B, S, Msrc, groups, G): the slice's groups of the pass
+                d = d2[..., base:base + n].reshape(
+                    b, s, m_src, n // ch, n_slice, n_grp, g)[..., q, :, :]
+                d = d.flatten(-3, -2)
+                gm = torch.where(torch.isnan(d), inf, d).amin(-1)  # fminf
+                pm, grp = gm.amin(-1), gm.argmin(-1)   # first group at the min
+                moved = pm < best
+                first = (d.gather(-2, grp[..., None, None].expand(
+                    *grp.shape, 1, g))[..., 0, :] == pm[..., None]).to(
+                        torch.int8).argmax(-1)
+                idx = (base + grp // n_grp * ch + q * sl + grp % n_grp * g
+                       + first)
+                best = torch.where(moved, pm, best)
+                bi = torch.where(moved, idx, bi)
+            rank_d, rank_i = lex(rank_d, rank_i, best, bi)
+        out_d, out_i = lex(out_d, out_i, rank_d, rank_i)
+    return out_i.to(torch.int32), out_d
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_dense_model_equals_twin_and_pallas(split):
+    """Kernel A's split, modelled on the CPU (`_dense_model`), equals
+    `nn_min_plain` and the reference kernel in interpret mode at each
+    cluster size `dense_split` can pick (S=4, Msrc=512, M=4096: 16 chunks,
+    two staging passes at split 1), with exact ties across a group, a
+    slice, a chunk, each rank boundary and the pass boundary, and an empty
+    keyframe."""
+    (src, tar, valid), ties = dense_ties()
+    args = [torch.as_tensor(a) for a in (src, tar, valid)]
+    nn_m, d2_m = _dense_model(*args, split)
+    nn_p, d2_p = ca.nn_min_plain(*args)
+    assert torch.equal(nn_m, nn_p) and torch.equal(d2_m, d2_p)
+    for k, lo, row in ties:
+        assert nn_m[0, k, row] == lo and d2_m[0, k, row] == 0
+    assert torch.isinf(d2_m[0, 3]).all() and (nn_m[0, 3] == 0).all()
+    nn_r, d2_r = (np.asarray(a) for a in pa.nn_min(
+        jnp.asarray(src[0]), jnp.asarray(tar[0]), jnp.asarray(valid[0]),
+        interpret=True))
+    np.testing.assert_array_equal(nn_m[0].numpy(), nn_r)
+    _assert_d2(d2_m[0].numpy(), d2_r, nn_r, src[0], tar[0])
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_dense_model_takes_ragged_sizes(split):
+    """Msrc=1000, M=1500 (six chunks, the last padded; `dense_split` takes
+    4): the model equals the twin over B=2 lanes and the reference kernel
+    on the source padded to its tile (its rows are independent), with a
+    tie in the padded chunk."""
+    (src, tar, valid), ties = dense_ties(seed=29, b=2, s=3, m_src=1000,
+                                         m=1500)
+    tar[:, 0, 1499] = tar[:, 0, 1300]
+    valid[:, 0, [1300, 1499]] = True
+    src[:, 30] = tar[:, 0, 1300]
+    args = [torch.as_tensor(a) for a in (src, tar, valid)]
+    assert ca.dense_split(2, 3, 1000, 1500) == 4
+    nn_m, d2_m = _dense_model(*args, split)
+    nn_p, d2_p = ca.nn_min_plain(*args)
+    assert torch.equal(nn_m, nn_p) and torch.equal(d2_m, d2_p)
+    assert (nn_m[:, 0, 30] == 1300).all() and (d2_m[:, 0, 30] == 0).all()
+    for k, lo, row in ties:
+        assert (nn_m[:, k, row] == lo).all()
+    pad = np.zeros((1024, 2), np.float32)
+    pad[:1000] = src[1]
+    nn_r, d2_r = (np.asarray(a)[:, :1000] for a in pa.nn_min(
+        jnp.asarray(pad), jnp.asarray(tar[1]), jnp.asarray(valid[1]),
+        interpret=True))
+    np.testing.assert_array_equal(nn_m[1].numpy(), nn_r)
+    _assert_d2(d2_m[1].numpy(), d2_r, nn_r, src[1], tar[1])
+
+
+def test_dense_model_on_smoke_inputs():
+    """`chip_smoke.a_inputs` (Morton-ordered wall cells, the inputs the
+    card check uses) on the CPU, cut to B=2, S=4, Msrc=M=1024: kernel A's
+    split at the cluster size the shape gets and at 1 equals the twin; the
+    tie across chunks goes to the lower index, the last lane's last
+    keyframe is empty."""
+    args = chip_smoke.a_inputs(torch.device("cpu"), 2, 4, 1024, 1024)
+    nn_p, d2_p = ca.nn_min_plain(*args)
+    assert ca.dense_split(2, 4, 1024, 1024) == 4
+    for split in (1, 4):
+        nn_m, d2_m = _dense_model(*args, split)
+        assert torch.equal(nn_m, nn_p) and torch.equal(d2_m, d2_p)
+    assert nn_p[0, 0, 5] == 300 and d2_p[0, 0, 5] == 0
+    assert torch.isinf(d2_p[1, 3]).all() and (nn_p[1, 3] == 0).all()
+    assert torch.isfinite(d2_p).float().mean() > 0.7
+
+
+def test_dense_split_follows_the_shape():
+    """Kernel A's cluster size from the shape, at every shape of
+    `chip_smoke.A_SHAPES` and at the limits: grown to DENSE_MIN_CTAS CTAs,
+    never past the target chunks or 8; any M takes a split."""
+    want = {(8, 4, 1024, 1024): 2, (1, 4, 2048, 2048): 8,
+            (8, 4, 2048, 2048): 1, (1, 1, 2048, 2048): 8,
+            (27, 4, 2048, 2048): 1, (3, 2, 1000, 1500): 4,
+            (1, 1, 256, 256): 1, (1, 1, 256, 257): 2, (1, 1, 256, 100): 1,
+            (1, 1, 1, 10 ** 6): 8, (64, 1, 2048, 10 ** 6): 1}
+    assert set(chip_smoke.A_SHAPES) <= set(want)
+    for shape, c in want.items():
+        assert ca.dense_split(*shape) == c, shape
+        chunks = -(-shape[3] // ca.DENSE_CHUNK)
+        assert c in (1, 2, 4, 8) and (c == 1 or c <= chunks)
+    assert ca.DENSE_CHUNK % ca.DENSE_SLICE == 0
+    assert ca.DENSE_SLICE % ca.DENSE_GROUP == 0
+    assert ca.DENSE_STAGE % ca.DENSE_CHUNK == 0
+    assert ca.DENSE_TILE % ca.DENSE_ROWS == 0
+
+
+def test_dense_nonfinite_source_rows():
+    """Source rows at NaN and +-inf (ROADMAP queue 3): kernel A, as its
+    model shows, reports (+inf, 0) for each, as its first form and B1/B2
+    do; the twin reports NaN at the first valid target for a NaN row, the
+    reference kernel NaN at index 0; all three agree on the +-inf rows.
+    No answer passes the association gate d2 < r^2."""
+    src = torch.tensor([[[np.nan, 0.0], [np.inf, 0.0], [-np.inf, np.inf],
+                         [1.0, 1.0]]])
+    tar = torch.tensor([[[[0.0, 0.0], [1.0, 1.0], [2.0, 2.0]]]])
+    valid = torch.tensor([[[False, True, True]]])
+    nn_m, d2_m = _dense_model(src, tar, valid, 1)
+    assert nn_m.tolist() == [[[0, 0, 0, 1]]]
+    assert d2_m[0, 0, :3].isinf().all() and d2_m[0, 0, 3] == 0
+    nn_p, d2_p = ca.nn_min_plain(src, tar, valid)
+    assert nn_p.tolist() == [[[1, 0, 0, 1]]] and d2_p[0, 0, 0].isnan()
+    assert torch.equal(d2_p[0, 0, 1:], d2_m[0, 0, 1:])
+    pad = np.zeros((256, 2), np.float32)
+    pad[:4] = src[0].numpy()
+    nn_r, d2_r = (np.asarray(a)[0, :4] for a in pa.nn_min(
+        jnp.asarray(pad), jnp.asarray(np.pad(tar[0].numpy(),
+                                             ((0, 0), (0, 253), (0, 0)))),
+        jnp.asarray(np.pad(valid[0].numpy(), ((0, 0), (0, 253)))),
+        interpret=True))
+    assert nn_r.tolist() == [0, 0, 0, 1] and np.isnan(d2_r[0])
+    for d2 in (d2_m[0, 0, :3], d2_p[0, 0, :3], torch.tensor(d2_r[:3])):
+        assert not (d2 < 4.0).any()
 
 
 @pytest.mark.parametrize("cost", ["P2P", "P2D"])

@@ -62,6 +62,136 @@ def test_kernel_a_bit_equal_to_plain(dev):
     assert {k: v for k, v in ca.launches.items() if v} == {"nn_min": 1}
 
 
+@pytest.mark.parametrize("shape", chip_smoke.A_SHAPES,
+                         ids=lambda x: chip_smoke.shape_key(*x))
+def test_kernel_a_bit_equal_at_main_path_shapes(dev, shape):
+    """Kernel A at every shape of `chip_smoke.A_SHAPES` (Morton cells with
+    a tie across chunks): bit-equal to its twin, one launch a call."""
+    args = chip_smoke.a_inputs(dev, *shape)
+    ca.reset_launches()
+    nn_k, d2_k = ca.nn_min(*args)
+    nn_p, d2_p = ca.nn_min_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(nn_k, nn_p) and torch.equal(d2_k, d2_p)
+    assert {k: v for k, v in ca.launches.items() if v} == {"nn_min": 1}
+    assert nn_k[0, 0, 5].item() == 300
+
+
+def dense_ties(seed=23, b=1, s=4, m_src=512, m=4096):
+    """Kernel A's inputs (src, tar, valid) in numpy with exact ties
+    straddling every boundary kernel A splits at, for any cluster size up
+    to 8 at M=4096: groups of 16, slices of 64, chunks of 256 (also within
+    one slice), ranks at multiples of 512, the staging pass at 2048 (also
+    within one slice). The last keyframe is empty. Returns (case,
+    [(keyframe, lo, row)])."""
+    rng = np.random.default_rng(seed)
+    src = (rng.normal(size=(b, m_src, 2)) * 40).astype(np.float32)
+    tar = (rng.normal(size=(b, s, m, 2)) * 40).astype(np.float32)
+    valid = rng.random((b, s, m)) < 0.85
+    ties = [(0, 15, 16, 20), (0, 63, 64, 21), (1, 255, 256, 22),
+            (1, 511, 512, 23), (2, 1023, 1024, 24), (0, 2047, 2048, 25),
+            (2, 3071, 3072, 26), (1, 100, 4000, 27), (0, 50, 300, 28),
+            (2, 2000, 2250, 29)]
+    ties = [t for t in ties if t[2] < m and t[0] < s - 1]
+    for k, lo, hi, row in ties:
+        tar[:, k, hi] = tar[:, k, lo]
+        valid[:, k, [lo, hi]] = True
+        src[:, row] = tar[:, k, lo]
+    valid[:, s - 1] = False
+    return (src, tar, valid), [(k, lo, row) for k, lo, _, row in ties]
+
+
+def _dense_ties(dev, **shape):
+    """`dense_ties` on `dev`."""
+    case, ties = dense_ties(**shape)
+    return [torch.as_tensor(a).to(dev) for a in case], ties
+
+
+@pytest.mark.parametrize("split", [1, 2, 4, 8])
+def test_kernel_a_ties_across_every_split(dev, monkeypatch, split):
+    """Kernel A with each cluster size forced: bit-equal to its twin, the
+    lowest index winning ties that straddle a group, slice, chunk, rank or
+    pass boundary, an empty keyframe (+inf, 0)."""
+    args, ties = _dense_ties(dev, b=2)
+    monkeypatch.setattr(ca, "dense_split", lambda *shape: split)
+    nn_k, d2_k = ca.nn_min(*args)
+    nn_p, d2_p = ca.nn_min_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(nn_k, nn_p) and torch.equal(d2_k, d2_p)
+    for k, lo, row in ties:
+        assert (nn_k[:, k, row] == lo).all() and (d2_k[:, k, row] == 0).all()
+    assert torch.isinf(d2_k[:, -1]).all() and (nn_k[:, -1] == 0).all()
+
+
+def test_kernel_a_refuses_a_split_it_cannot_take(dev, monkeypatch):
+    """A cluster size the kernel does not take (3; 16; 8 over four target
+    chunks) returns a CUDA error: the wrapper raises and counts nothing."""
+    ca.reset_launches()
+    for split, m in ((3, 4096), (16, 4096), (8, 1024)):
+        args, _ = _dense_ties(dev, b=2, m=m)
+        monkeypatch.setattr(ca, "dense_split", lambda *shape: split)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            ca.nn_min(*args)
+    assert ca.launches["nn_min"] == 0
+
+
+def test_kernel_a_refuses_misaligned_points(dev):
+    """src or tar not on an 8-byte boundary (a view one float in): the
+    wrapper raises ValueError and launches nothing."""
+    src, tar, valid = _inputs(dev, b=1, s=2, m=1024)
+    flat = torch.zeros(src.numel() + 1, device=dev)
+    flat[1:] = src.reshape(-1)
+    odd = flat[1:].view(src.shape)
+    assert odd.is_contiguous() and odd.data_ptr() % 8
+    ca.reset_launches()
+    with pytest.raises(ValueError, match="8-byte"):
+        ca.nn_min(odd, tar, valid)
+    flat = torch.zeros(tar.numel() + 1, device=dev)
+    flat[1:] = tar.reshape(-1)
+    with pytest.raises(ValueError, match="8-byte"):
+        ca.nn_min(src, flat[1:].view(tar.shape), valid)
+    assert ca.launches["nn_min"] == 0
+
+
+def test_kernel_a_lanes_and_repeats(dev):
+    """Each lane of a B=8 call (forward window, M=2048) equals its own B=1
+    call, which runs at another cluster size; two launches are
+    bit-identical."""
+    args = chip_smoke.a_inputs(dev, 8, 4, 2048, 2048, seed=4)
+    assert ca.dense_split(8, 4, 2048, 2048) != ca.dense_split(1, 4, 2048,
+                                                              2048)
+    nn_k, d2_k = ca.nn_min(*args)
+    again = ca.nn_min(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(again[0], nn_k) and torch.equal(again[1], d2_k)
+    for i in range(8):
+        nn_1, d2_1 = ca.nn_min(*(a[i:i + 1].contiguous() for a in args))
+        assert torch.equal(nn_1[0], nn_k[i]) and torch.equal(d2_1[0], d2_k[i])
+
+
+def test_kernel_a_nonfinite_source_rows(dev):
+    """Source rows at NaN and +-inf report (+inf, 0), as B1 and B2 do; the
+    twin reports NaN at the first valid target for the NaN row (ROADMAP
+    queue 3)."""
+    src, tar, valid = _inputs(dev, b=1, s=1, m=1024)
+    valid[0, 0] = True
+    valid[0, 0, 0] = False
+    src[0, 3] = float("nan")
+    src[0, 4, 0] = float("inf")
+    src[0, 5, 0], src[0, 5, 1] = -float("inf"), float("inf")
+    nn_k, d2_k = ca.nn_min(src, tar, valid)
+    nn_b1, d2_b1 = ca.nn_min_multi(src, tar, valid)
+    nn_p, d2_p = ca.nn_min_plain(src, tar, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(nn_k, nn_b1) and torch.equal(d2_k, d2_b1)
+    assert torch.isinf(d2_k[0, 0, 3:6]).all() and (nn_k[0, 0, 3:6] == 0).all()
+    assert nn_p[0, 0, 3] == 1 and d2_p[0, 0, 3].isnan()
+    rest = torch.ones(1024, dtype=torch.bool, device=dev)
+    rest[3] = False
+    assert torch.equal(nn_k[0, 0, rest], nn_p[0, 0, rest])
+    assert torch.equal(d2_k[0, 0, rest], d2_p[0, 0, rest])
+
+
 @pytest.mark.parametrize("radius", [2.0, 4.0])
 def test_kernel_c_bit_equal_to_plain(dev, radius):
     src, tar, valid = _inputs(dev)

@@ -1,9 +1,10 @@
-"""Time the port's kernels F (fused LM solve), G (feature moments) and C
-(block-sparse 1-NN) of several source trees on one CUDA card, in turns
-inside one call.
+"""Time the port's kernels F (fused LM solve), G (feature moments), C
+(block-sparse 1-NN) and A (dense 1-NN) of several source trees on one CUDA
+card, in turns inside one call.
 
     python tools/compare_torch_kernels.py [--out DIR] PARENT . . PARENT
     python tools/compare_torch_kernels.py --mode sweep [--out DIR]
+    python tools/compare_torch_kernels.py --mode a-sweep [--out DIR]
     python tools/compare_torch_kernels.py --mode by-kernel
 
 Each tree named (a checkout of the repo: `git archive <commit> | tar -x -C
@@ -21,7 +22,9 @@ yardstick); `phase_c_shapes` does the same for kernel C at every shape of
 loop of kernel C's split form, where the tree has one, is read from the
 built library with `cuobjdump -sass` (instructions a distance, hence the
 issue-slot floor: live distances x slots over SMs x 128 lanes at the
-card's top SM clock).
+card's top SM clock); `phase_a_shapes` and the same SASS reading do it
+for kernel A at every timed shape of `chip_smoke.A_SHAPES` (all
+distances count: A has no live set).
 The one timer here, `_call_ms`, times the same calls back to
 back: the slower of host and card, which is what a caller waits for. The
 table goes to stdout; with `--out DIR` the records also go to
@@ -31,7 +34,11 @@ table goes to stdout; with `--out DIR` the records also go to
 
 `--mode sweep` times this tree's kernel F at every cluster size (1, 2, 4,
 8, 16) for each width and B in (1, 8): the basis of the rule that picks a
-lane's cluster size from N. `--mode by-kernel` traces this tree's wrappers
+lane's cluster size from N. `--mode a-sweep` times this tree's kernel A
+at every cluster size (1, 2, 4, 8) the kernel takes at each timed shape of
+`chip_smoke.A_SHAPES`, each held bit for bit against the size
+`dense_split` picks: the basis of `cuda_assoc.DENSE_MIN_CTAS`.
+`--mode by-kernel` traces this tree's wrappers
 with `torch.profiler` and prints the device time of each `__global__`
 function behind them (kernel G is two: fill and sum).
 """
@@ -94,6 +101,8 @@ def _g_inputs(cs, dev):
 
 # kernel C's __global__ functions: the split kernel and the one-block form
 C_FUNCTIONS = ("nn_min_sparse_split_kernel", "nn_min_sparse_kernel")
+# kernel A's: the split kernel and, in trees before it, the first form
+A_FUNCTIONS = ("nn_min_dense_kernel", "nn_min_kernel")
 
 
 def sass_loop(lib_path, function=C_FUNCTIONS[0]):
@@ -167,6 +176,42 @@ def _c_block(cs, dev, lib_path) -> dict:
     return {"shapes": recs, "sass": sass}
 
 
+def _a_block(cs, dev, lib_path) -> dict:
+    """Kernel A at every timed shape of `chip_smoke.A_SHAPES`: the device
+    records of `phase_a_shapes` (checks included), back-to-back calls, and
+    the issue-slot floor from the SASS of whichever form the tree has (the
+    first form's loop holds a branch, so its block may be only a part of
+    the loop)."""
+    import torch
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
+    sass = None
+    for function in A_FUNCTIONS:
+        sass = sass_loop(lib_path, function)
+        if sass:
+            sass["function"] = function
+            print(f"{function} inner loop (cuobjdump -sass): "
+                  f"{sass['instructions']} instructions, {sass['fmul']} FMUL, "
+                  f"{sass['fmnmx']} FMNMX: {sass['slots_per_distance']:.3f} "
+                  "issue slots a distance")
+            break
+    lanes_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * 128 * _max_sm_hz())
+    split = getattr(cuda_assoc, "dense_split", None)
+    recs = cs.phase_a_shapes(dev, cs._card())
+    for shape in cs.A_SHAPES:
+        if shape == cs.A_RAGGED:
+            continue
+        rec = recs[cs.shape_key(*shape)]
+        args = cs.a_inputs(dev, *shape)
+        rec["call_ms"] = _call_ms(lambda: cuda_assoc.nn_min(*args), 100)
+        rec["split"] = split(*shape) if split else None
+        if sass:
+            b, s, m_src, m = shape
+            rec["floor_ms"] = (b * s * m_src * m * sass["slots_per_distance"]
+                               / lanes_hz * 1e3)
+    return {"shapes": recs, "sass": sass}
+
+
 def worker(root) -> int:
     """Time one tree; the last line of stdout is its JSON record."""
     import torch
@@ -182,7 +227,8 @@ def worker(root) -> int:
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
         elif "Used" in line and entry and any(
-                k in entry for k in ("lm_solve", "moment") + C_FUNCTIONS):
+                k in entry for k in ("lm_solve", "moment") + C_FUNCTIONS
+                + A_FUNCTIONS):
             print(f"{entry}: {line.split(':', 1)[1].strip()}")
     f = cs.phase_lm(dev, card)["lm_solve_fused"]
     images, inputs, one = _g_inputs(cs, dev)
@@ -205,6 +251,7 @@ def worker(root) -> int:
         # the smoke's yardstick: float atomics over ready columns
         "index_add_ms": g["library_ms"]}
     rec["C"] = _c_block(cs, dev, _build.library()._name)
+    rec["A"] = _a_block(cs, dev, _build.library()._name)
     print(json.dumps(rec))
     return 0
 
@@ -239,6 +286,42 @@ def sweep(out_dir) -> int:
                   f"size) by cluster size {row}", flush=True)
     if out_dir:
         with open(os.path.join(out_dir, "sweep_torch_lm_clusters.json"),
+                  "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+def a_sweep(out_dir) -> int:
+    import torch
+    cs = _load(HERE)
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
+    dev = torch.device("cuda", 0)
+    print(cs._card())
+    pick = cuda_assoc.dense_split
+    out = {}
+    for shape in cs.A_SHAPES:
+        if shape == cs.A_RAGGED:
+            continue
+        args = cs.a_inputs(dev, *shape)
+        want = cuda_assoc.nn_min(*args)
+        row = {}
+        for c in (1, 2, 4, 8):
+            if c > 1 and c > -(-shape[3] // cuda_assoc.DENSE_CHUNK):
+                continue
+            cuda_assoc.dense_split = lambda *_, c=c: c
+            try:
+                got = cuda_assoc.nn_min(*args)
+                same = all(torch.equal(a, b) for a, b in zip(got, want))
+                row[c] = (round(cs._cuda_ms(
+                    lambda: cuda_assoc.nn_min(*args), 100), 5), same)
+            finally:
+                cuda_assoc.dense_split = pick
+        key = cs.shape_key(*shape)
+        out[key] = {"picked": pick(*shape), "by_split": row}
+        print(f"{key}: picked {pick(*shape)}; (ms, bit-equal to the picked "
+              f"size) by cluster size {row}", flush=True)
+    if out_dir:
+        with open(os.path.join(out_dir, "sweep_torch_a_clusters.json"),
                   "w") as f:
             json.dump(out, f, indent=1)
     return 0
@@ -298,7 +381,8 @@ class _Tee:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="*", help="source trees, in running order")
-    ap.add_argument("--mode", choices=("compare", "sweep", "by-kernel"),
+    ap.add_argument("--mode", choices=("compare", "sweep", "a-sweep",
+                                       "by-kernel"),
                     default="compare")
     ap.add_argument("--out", metavar="DIR", help="also write the records "
                     "and a log of the output there")
@@ -311,6 +395,8 @@ def main() -> int:
         sys.stdout = _Tee(os.path.join(args.out, "compare_torch_kernels.log"))
     if args.mode == "sweep":
         return sweep(args.out)
+    if args.mode == "a-sweep":
+        return a_sweep(args.out)
     if args.mode == "by-kernel":
         return by_kernel()
     if not args.roots:
@@ -349,6 +435,17 @@ def main() -> int:
                   + (f"{c['floor_ms']:.4f}" if "floor_ms" in c else "-")
                   + f" / {c['library_ms']:.4f}; {c.get('split')}"
                   for r in recs for c in (r["C"]["shapes"][key],)))
+    print("kernel A, ms (back-to-back calls | on the device | bound / "
+          "issue-slot floor / cdist + min; split):")
+    for key, rec in recs[0]["A"]["shapes"].items():
+        if "ms" not in rec:
+            continue
+        print(f"  {key}: " + "; ".join(
+            f"{r['root']} {a['call_ms']:.4f} | {a['ms']:.4f} | "
+            f"{a['bound_ms']:.4f} / "
+            + (f"{a['floor_ms']:.4f}" if "floor_ms" in a else "-")
+            + f" / {a['library_ms']:.4f}; {a.get('split')}"
+            for r in recs for a in (r["A"]["shapes"][key],)))
     if args.out:
         with open(os.path.join(args.out, "compare_torch_kernels.json"),
                   "w") as f:

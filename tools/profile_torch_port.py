@@ -3,6 +3,7 @@
     python tools/profile_torch_port.py [--frames 24] [--batch 8]
                                        [--feature-backends auto,pallas]
     python tools/profile_torch_port.py --preset CFEAR-3-s50 [--k-active 16]
+    python tools/profile_torch_port.py --preset longrun [--frames 64]
 
 Runs `chip_smoke.py`'s configuration (CFEAR-3, Oxford scale, bench
 settings) on synthetic frames, once per feature backend ("auto": the
@@ -10,12 +11,17 @@ scatter form; "pallas": kernel G), warms up, then traces a window of frames
 with `torch.profiler` for the single-sequence step and the batched step.
 With `--preset CFEAR-3-s50` it runs `chip_smoke.s50_config(k_active)` over
 the s50 sequence instead (128 frames by default, so the traced second half
-runs with the 50-keyframe window full).
+runs with the 50-keyframe window full). With `--preset longrun` it runs
+`chip_smoke.longrun_config()` (the long run of `tools/run_longrun.py`:
+max_cells 2048, the health check every 8 frames, `auto` -> kernel A) over
+the first `--frames` (64) frames of `chip_smoke.LONGRUN_SEQUENCE`, so the
+traced second half holds four health checks.
 Prints per window: wall ms per step (second of two unprofiled passes; the
 first beside it), device busy ms per step (sum of kernel
 times) and the idle share, kernel launches per step, the time under each
 stage range (`Filtering`, `compensate`, `build_normals`, `register`,
-`associate`, `lm_solve`) and the top kernels. Needs a CUDA card.
+`associate`, `lm_solve`, `sample_covariance`, `health_check`), the top
+kernels and the 1-NN kernels. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic  # noqa
 from cfear_radarodometry_code_public_tpu_torch.models import odometry  # noqa: E402
 
 STAGES = ("Filtering", "compensate", "build_normals", "register", "associate",
-          "lm_solve")
+          "lm_solve", "sample_covariance", "health_check")
 
 
 def _window(name, step, state, frames, card):
@@ -85,9 +91,12 @@ def _window(name, step, state, frames, card):
     for k in kernels:
         t, c = by_name.get(k.name, (0.0, 0))
         by_name[k.name] = (t + k.time_range.elapsed_us(), c + 1)
-    for kname, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"[{name}]   kernel {t / 1e3 / steps:8.4f} ms/step "
-              f"x{c / steps:7.1f}  {kname[:90]}")
+    # the ten longest kernels, and the 1-NN kernels wherever they rank
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for i, (kname, (t, c)) in enumerate(ranked):
+        if i < 10 or "nn_min" in kname:
+            print(f"[{name}]   kernel {t / 1e3 / steps:8.4f} ms/step "
+                  f"x{c / steps:7.1f}  {kname[:90]}")
 
 
 def _profile(cfg, tag, args, dev, card, sequence):
@@ -122,8 +131,8 @@ def _profile(cfg, tag, args, dev, card, sequence):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--preset", choices=("CFEAR-3", "CFEAR-3-s50"),
-                    default="CFEAR-3")
+    ap.add_argument("--preset", choices=("CFEAR-3", "CFEAR-3-s50",
+                                         "longrun"), default="CFEAR-3")
     ap.add_argument("--k-active", type=int, default=0)
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--batch", type=int, default=8)
@@ -131,7 +140,8 @@ def main() -> int:
     args = ap.parse_args()
     s50 = args.preset == "CFEAR-3-s50"
     if args.frames is None:
-        args.frames = chip_smoke.S50_SEQUENCE["n_frames"] if s50 else 24
+        args.frames = {"CFEAR-3-s50": chip_smoke.S50_SEQUENCE["n_frames"],
+                       "longrun": 64}.get(args.preset, 24)
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
@@ -139,6 +149,10 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     dev = torch.device("cuda", 0)
+    if args.preset == "longrun":
+        _profile(chip_smoke.longrun_config(), "longrun", args, dev, card,
+                 {**chip_smoke.LONGRUN_SEQUENCE, "n_frames": args.frames})
+        return 0
     if s50:
         tag = f"s50-k{args.k_active}" if args.k_active else "s50"
         _profile(chip_smoke.s50_config(args.k_active), tag, args, dev, card,
