@@ -1,8 +1,8 @@
-"""Keyframe odometry pipeline (port of `models/odometry.py`, host ingest).
+"""Keyframe odometry pipeline (port of `models/odometry.py`).
 
-The per-frame pipeline is a pure function of (state, host-filtered frame)
-written over a leading lane axis: `make_batched_step` runs B sequences in
-lockstep (the throughput path), `make_step` is the same function at B = 1
+The per-frame pipeline is a pure function of (state, frame) written over
+a leading lane axis: `make_batched_step` runs B sequences in lockstep (the
+throughput path), `make_step` is the same function at B = 1
 on unbatched tensors. Device poses are ANCHOR-RELATIVE: fusing a keyframe
 rebases the anchor to it, so f32 coordinates stay within the submap; the
 host composes the global f64 trajectory (`compose_trajectory`).
@@ -19,14 +19,20 @@ cost-sampling covariance (`odometry.estimate_cov_by_sampling`) and
 time-continuous registration (`registration.time_continuous`: the velocity
 warp at cell level instead of the cloud-level compensation).
 
-Ingest kinds: "compact" (`native_io.filter_frames_host_compact` rows, used
-when `feature.point_budget` is set) and "candidates"
-(`native_io.filter_frames_host`). Not ported yet (raise
-NotImplementedError): image ingest, `filter.method="cacfar"`,
-`feature.use_raw_pointcloud` and `registration.assoc_method="grid"`.
+Ingest kinds: "image" (raw uint8 sweeps, filtered on the device by
+`filtering.filter_polar_image`), "compact"
+(`native_io.filter_frames_host_compact` rows, the host ingest when
+`feature.point_budget` is set and the filter is k-strongest) and
+"candidates" (`native_io.filter_frames_host`, or
+`native_io.cfar_filter_frames_host` with `filter.method="cacfar"`). With
+`feature.use_raw_pointcloud` each filtered point is a cell
+(`features.compute_raw_cells`). Not ported (raises NotImplementedError):
+`registration.assoc_method="grid"`.
 
 `OdometryRunner` runs on the CUDA card unless it is given `device="cpu"`;
-without a card it raises.
+without a card it raises. Like the reference's, it takes raw sweeps to the
+device by default (`ingest="image"`); `ingest="host"` filters them on host
+threads first.
 """
 
 from __future__ import annotations
@@ -82,25 +88,28 @@ class FrameOutput(NamedTuple):
     health_rot: torch.Tensor       # rad
 
 
-INGEST_KINDS = ("compact", "candidates")
+INGEST_KINDS = ("image", "compact", "candidates")
 
 
 def check_supported(cfg, ingest: str) -> None:
-    """Raise for settings this slice of the port does not run yet."""
+    """Raise for an unknown ingest kind and for settings the port does not
+    run (`registration.check_supported`)."""
     if ingest not in INGEST_KINDS:
-        raise NotImplementedError(
-            f"ingest '{ingest}' is not ported yet; the port takes host-"
-            "filtered frames (ROADMAP queue 1, item 4: on-device image "
-            "filters)")
-    if cfg.filter.method == "cacfar":
-        raise NotImplementedError(
-            "filter.method='cacfar' is not ported yet (ROADMAP queue 1, "
-            "item 4)")
-    if cfg.feature.use_raw_pointcloud:
-        raise NotImplementedError(
-            "feature.use_raw_pointcloud is not ported yet (ROADMAP queue 1, "
-            "item 5)")
+        raise ValueError(f"unknown ingest kind '{ingest}'; one of "
+                         f"{INGEST_KINDS}")
     registration.check_supported(cfg)
+
+
+def resolve_device(device, who: str = "OdometryRunner") -> torch.device:
+    """The device an entry point runs on: the CUDA card by default, the CPU
+    only when the caller asks for it; raises when asked for a card and
+    there is none (nothing falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} runs on a CUDA card by default and found none; pass "
+            "device='cpu' to run on the CPU")
+    return device
 
 
 def _rebuild(like, items):
@@ -143,7 +152,9 @@ def state_from_numpy(leaves, device) -> OdometryState:
 def init_state(cfg, device, batch: int | None = None,
                dtype=torch.float32) -> OdometryState:
     """Empty state; with `batch`, every leaf gets a leading lane axis."""
-    s, m = cfg.odometry.submap_scan_size, cfg.feature.max_cells
+    s = cfg.odometry.submap_scan_size
+    m = cfg.feature.max_cells_raw if cfg.feature.use_raw_pointcloud \
+        else cfg.feature.max_cells
     lead = () if batch is None else (batch,)
 
     def z(*shape, dt=dtype):
@@ -171,14 +182,16 @@ def _push_keyframe(state: OdometryState, cells: CellMap, pose):
 
 
 def _extract_cells(states: OdometryState, inputs, cfg, ingest: str):
-    """Front half of the batched step: host-filtered rows -> points ->
-    motion compensation -> oriented surface points (B, M, ...). The
-    profiler ranges carry the reference's stage names."""
+    """Front half of the batched step: raw sweeps (B, A, R) or host-filtered
+    rows -> points -> motion compensation -> oriented surface points
+    (B, M, ...). The profiler ranges carry the reference's stage names."""
     with record_function("Filtering"):
         if ingest == "compact":
             pts = filtering.points_from_compact(inputs, cfg)
-        else:
+        elif ingest == "candidates":
             pts = filtering.points_from_candidates(inputs, cfg)
+        else:
+            pts = filtering.filter_polar_image(inputs, cfg)
     # with time-continuous registration the velocity warp moves to the
     # cells (`_fuse_frame`); both would compensate the distortion twice
     if cfg.odometry.compensate and not cfg.registration.time_continuous:
@@ -186,6 +199,8 @@ def _extract_cells(states: OdometryState, inputs, cfg, ingest: str):
             pts = pts._replace(xy=se2.compensate_points(pts.xy, states.tmot,
                                                         cfg.radar.ccw))
     with record_function("build_normals"):
+        if cfg.feature.use_raw_pointcloud:
+            return features.compute_raw_cells(pts, cfg)
         return features.compute_cells_batched(pts, cfg)
 
 
@@ -378,8 +393,12 @@ def compose_trajectory(outputs: FrameOutput) -> np.ndarray:
 
 def host_filter(images: np.ndarray, cfg, ingest: str):
     """Native host filter: (T, A, R) uint8 sweeps -> numpy candidate rows
-    (`CompactCandidates` or `Candidates` of arrays)."""
+    (`CompactCandidates` or `Candidates` of arrays; CA-CFAR detections with
+    `filter.method="cacfar"`, as the reference's `_prepare`)."""
     f = cfg.filter
+    if f.method == "cacfar":
+        b, i, p = native_io.cfar_filter_frames_host(images, cfg)
+        return filtering.Candidates(bins=b, intensity=i, peak=p)
     if ingest == "compact":
         min_bin = int(math.ceil(cfg.radar.min_distance / cfg.radar.range_res))
         b, a, i, p = native_io.filter_frames_host_compact(
@@ -399,31 +418,49 @@ def to_device(tree, device):
         device, non_blocking=True), tree)
 
 
-class OdometryRunner:
-    """Host-side sequence driver with host ingest: feed uint8 polar frames,
-    get a global f64 trajectory (the offline loop of
-    `offline_odometry.cpp:98-126`). A feeder thread runs the native host
-    filter on chunk i+1 and uploads it while the device runs chunk i."""
+def upload_images(images: np.ndarray, device) -> torch.Tensor:
+    """Raw uint8 sweeps -> a tensor on `device`; to a card through pinned
+    host memory without blocking (torch's caching host allocator reuses a
+    pinned block once the copy recorded on it has completed;
+    `tools/profile_torch_ingest.py` times it against a pageable copy)."""
+    t = torch.as_tensor(np.ascontiguousarray(images))
+    if torch.device(device).type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
-    def __init__(self, cfg, ingest: str = "host", device="cuda",
+
+def _ingest_kind(cfg, ingest: str) -> str:
+    """The step's ingest kind for a runner's `ingest` ("image" or "host"):
+    host ingest hands compact rows to the k-strongest path with a point
+    budget and (A, K) candidate sets otherwise (`odometry.py:396-402` of the
+    reference)."""
+    if ingest == "image":
+        return "image"
+    if ingest != "host":
+        raise ValueError(f"unknown ingest '{ingest}': 'image' or 'host'")
+    if cfg.filter.method != "cacfar" and cfg.feature.point_budget:
+        return "compact"
+    return "candidates"
+
+
+class OdometryRunner:
+    """Host-side sequence driver: feed uint8 polar frames, get a global f64
+    trajectory (the offline loop of `offline_odometry.cpp:98-126`). A
+    feeder thread prepares chunk i+1 while the device runs chunk i: with
+    `ingest="image"` (the default, as in the reference) it uploads the raw
+    sweeps, which the device filters; with `ingest="host"` it runs the
+    native host filter and uploads its rows."""
+
+    def __init__(self, cfg, ingest: str = "image", device="cuda",
                  chunk: int = 16, dtype=torch.float32):
         """`device`: the CUDA card by default; the CPU (the kernels' plain
         twins) only when asked for with `device="cpu"`."""
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "OdometryRunner runs on a CUDA card by default and found "
-                "none; pass device='cpu' to run on the CPU")
-        if ingest != "host":
-            raise NotImplementedError(
-                f"ingest '{ingest}' is not ported yet; OdometryRunner takes "
-                "ingest='host' (ROADMAP queue 1, item 4: on-device image "
-                "filters)")
+        device = resolve_device(device)
         self.cfg = cfg
         self.chunk = chunk
         self.device = device
         self.dtype = dtype
-        self.kind = "compact" if cfg.feature.point_budget else "candidates"
+        self.kind = _ingest_kind(cfg, ingest)
         self.step = make_step(cfg, self.kind)
         self.bootstrap = make_bootstrap(cfg, self.kind)
         self.state = init_state(cfg, self.device, dtype=dtype)
@@ -439,9 +476,12 @@ class OdometryRunner:
         def feeder():
             try:
                 for lo in range(0, t, self.chunk):
-                    q.put(to_device(host_filter(images[lo:lo + self.chunk],
-                                                self.cfg, self.kind),
-                                    self.device))
+                    part = images[lo:lo + self.chunk]
+                    if self.kind == "image":
+                        q.put(upload_images(part, self.device))
+                    else:
+                        q.put(to_device(host_filter(part, self.cfg,
+                                                    self.kind), self.device))
             except BaseException as e:   # re-raised on the caller's thread
                 failure.append(e)
             finally:
@@ -451,7 +491,9 @@ class OdometryRunner:
         th.start()
         try:
             while (part := q.get()) is not None:
-                for i in range(part.bins.shape[0]):
+                n = part.shape[0] if self.kind == "image" \
+                    else part.bins.shape[0]
+                for i in range(n):
                     frame = _map(lambda a: a[i], part)
                     if not bool(self.state.initialized):
                         self.state, out = self.bootstrap(self.state, frame)
@@ -495,7 +537,7 @@ class OdometryRunner:
 
     @classmethod
     def resume(cls, cfg, path: str, device="cuda", chunk: int = 16,
-               ingest: str = "host") -> "OdometryRunner":
+               ingest: str = "image") -> "OdometryRunner":
         runner = cls(cfg, ingest=ingest, device=device, chunk=chunk)
         with np.load(path) as z:
             ref = runner.state

@@ -143,10 +143,6 @@ def compute_cells_batched(points: PointCloud, cfg) -> CellMap:
     (`_compute_cells_batched_pallas`); "auto" is the scatter form here, as
     in the reference (`features.py:155-165`)."""
     feat = cfg.feature
-    if feat.use_raw_pointcloud:
-        raise NotImplementedError(
-            "feature.use_raw_pointcloud is not ported yet (ROADMAP queue 1, "
-            "item 5: compute_raw_cells)")
     p = feat.point_budget
     if p and p < points.xy.shape[1]:
         points = budget_points(points, p)
@@ -462,6 +458,29 @@ def _finalize_cells(mean, nvec, cxx, cxy, cyy, nsamp, planarity, cell_ok,
         planarity=torch.where(kept_valid, kept[..., 8], zero),
         valid=kept_valid,
     )
+
+
+def compute_raw_cells(points: PointCloud, cfg) -> CellMap:
+    """The `use_raw_pointcloud` ablation: one identity cell per filtered
+    point (`cell::GetIdentityCell`, `pointnormal.h:62,79-81`): mean = point,
+    cov = 0.1 I, normal (1, 0), planarity 1, nsamples 1. The fixed budget
+    keeps the first `max_cells_raw` valid points in point order; leaves
+    carry any leading lane axes, each lane compacted on its own."""
+    m = cfg.feature.max_cells_raw
+    order = torch.argsort((~points.valid).to(torch.int32), dim=-1,
+                          stable=True)[..., :m]
+    valid = torch.gather(points.valid, -1, order)
+    xy = torch.gather(points.xy, -2, order[..., None].expand(
+        order.shape + (2,)))
+    zero = xy.new_zeros(())
+    v2 = valid[..., None]
+    eye = 0.1 * torch.eye(2, dtype=xy.dtype, device=xy.device)
+    normal = torch.tensor([1.0, 0.0], dtype=xy.dtype, device=xy.device)
+    one = torch.where(valid, xy.new_ones(()), zero)
+    return CellMap(mean=torch.where(v2, xy, zero),
+                   normal=torch.where(v2, normal, zero),
+                   cov=torch.where(v2[..., None], eye, zero),
+                   nsamples=one, planarity=one, valid=valid)
 
 
 def transform_cells(cells: CellMap, pose) -> CellMap:

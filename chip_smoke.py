@@ -18,10 +18,16 @@ voxel holds 2,000 points).
 Then it drives the CFEAR-3 host-ingest odometry slice at Oxford sensor scale
 (400 x 3768 polar sweeps, k=40, point_budget 8192, max_cells 1024, S=4
 keyframes, Morton-ordered cells, block-sparse association) through the
-port's entry points: single-sequence (`OdometryRunner`), the preset as users
-call it (`auto`: kernel A), batched x8 (`make_batched_step`, two runs that
-must agree bit for bit), and single-sequence with `feature.backend="pallas"`
-(kernel G). Then CFEAR-3-s50, the 50-keyframe submap, over 128 frames:
+port's entry points: single-sequence (`OdometryRunner`, host ingest), the
+preset as users call it (`auto`: kernel A), the default image ingest
+(`image`: raw sweeps filtered on the card, held to the host-ingest run at
+1e-4 and repeated bit for bit; after its counts are read, its frames/s
+in turns with host ingest's), the offline CLI as users run it (`cli`:
+`offline_odometry.main` with the CFEAR-3 Oxford preset as --config-file,
+32 frames, image ingest, --save-graph, held to the reference CLI's
+golden), batched x8 (`make_batched_step`, two runs that must agree bit for
+bit), and single-sequence with `feature.backend="pallas"` (kernel G).
+Then CFEAR-3-s50, the 50-keyframe submap, over 128 frames:
 exact and with the K=16 gate (`s50`, `s50-k16`), batched x8
 (`s50-batched`), and the preset as users call it (`s50-preset`), after which
 C, D1, D2 and E are held against their twins on the window that path ends
@@ -62,10 +68,11 @@ import numpy as np
 import torch
 
 import cfear_radarodometry_code_public_tpu_torch as port
+from cfear_radarodometry_code_public_tpu_torch import offline_odometry
 from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
 from cfear_radarodometry_code_public_tpu_torch.eval import kitti
 from cfear_radarodometry_code_public_tpu_torch.eval.trajectory import ate_rmse
-from cfear_radarodometry_code_public_tpu_torch.models import odometry
+from cfear_radarodometry_code_public_tpu_torch.models import odometry, posegraph
 from cfear_radarodometry_code_public_tpu_torch.ops import (
     _build, cuda_assoc, cuda_features, cuda_lm, features, filtering,
     registration)
@@ -82,6 +89,13 @@ SEQUENCE = {"seed": 1, "n_frames": 64, "speed": 6.0}   # as bench.py renders it
 # CFEAR-3-s50: bench.py's default 128 frames; at 6 m/s nearly every frame
 # is a keyframe, so the 50-keyframe window is full for the last ~75 frames
 S50_SEQUENCE = {"seed": 1, "n_frames": 128, "speed": 6.0}
+# The offline CLI as users run it (`cli` path): the CFEAR-3 Oxford preset
+# as a --config-file, the synthetic world of SEQUENCE cut to 32 frames, the
+# default image ingest and --save-graph; its golden is the reference CLI
+# with the same arguments and --cpu (`make_torch_port_golden.py --preset
+# cli`)
+CLI_SEQUENCE = {"seed": 1, "n_frames": 32, "speed": 6.0}
+GOLDEN_CLI = os.path.join(_GOLDEN_DIR, "cfear3_cli_oxford_seed1_32.npz")
 GOLDEN_S50 = os.path.join(_GOLDEN_DIR, "cfear3s50_oxford_seed1_128.npz")
 GOLDEN_S50_K16 = os.path.join(_GOLDEN_DIR, "cfear3s50k16_oxford_seed1_128.npz")
 BATCH = 8
@@ -243,6 +257,38 @@ def longrun_golden(sequence) -> str:
     return os.path.join(
         _GOLDEN_DIR, f"cfear3_longrun{adv}_seed{sequence['seed']}_"
         f"{sequence['n_frames']}_{sequence['speed']:g}ms.npz")
+
+
+def cli_config():
+    """The configuration the `cli` path passes with --config-file: the
+    CFEAR-3 Oxford preset unmodified (`auto`, no spatial sort: kernel A on
+    a card)."""
+    return port.preset("CFEAR-3", dataset="oxford")
+
+
+def cli_args(config_path: str, out_dir: str) -> list:
+    """The offline CLI's arguments of the `cli` path (without --cpu)."""
+    seq = CLI_SEQUENCE
+    return ["--config-file", config_path, "--dataset", "synthetic",
+            "--seed", str(seq["seed"]), "--speed", str(seq["speed"]),
+            "--n-frames", str(seq["n_frames"]), "--output-dir", out_dir]
+
+
+def read_cli_run(out_dir: str, period: float) -> dict:
+    """What an offline CLI run wrote: poses (T, 3) from `est/00.txt`, the
+    keyframe flags (the frames whose stamps are the graph's nodes), and
+    the node and edge counts of `simple_graph.npz`, read back through the
+    port's `GraphBuilder.load`."""
+    rows = np.loadtxt(os.path.join(out_dir, "est", "00.txt")).reshape(-1, 12)
+    poses = np.stack([rows[:, 3], rows[:, 7],
+                      np.arctan2(rows[:, 4], rows[:, 0])], -1)
+    graph = posegraph.GraphBuilder.load(os.path.join(out_dir,
+                                                     "simple_graph.npz"))
+    fused = np.zeros(len(rows), bool)
+    fused[np.rint(np.asarray(graph.stamps) / period).astype(int)] = True
+    return {"poses": poses, "fused": fused, "n_nodes": len(graph.poses),
+            "n_edges": len(graph.edges),
+            "n_scans": sum(s is not None for s in graph.scans)}
 
 
 def _say(msg: str) -> None:
@@ -960,6 +1006,109 @@ def phase_auto(images, traj, out, dev, card):
          f"({card})")
 
 
+def phase_image(cfg, images, traj, out, dev, card):
+    """The slice with the default image ingest: raw sweeps uploaded by the
+    runner's feeder thread and filtered on the card. Held to the `single`
+    path's host-ingest trajectory (atol 1e-4, identical keyframe flags);
+    a second run must equal the first bit for bit. Returns the runner."""
+    runner = odometry.OdometryRunner(cfg, device=dev, chunk=16)
+    if runner.kind != "image":
+        raise AssertionError("the runner's default ingest is not 'image'")
+    runs = []
+    for rep in range(2):
+        if rep:
+            runner.reset()
+        runner.process(images)
+        runs.append((runner.trajectory(), runner.frame_outputs()))
+    (traj_i, out_i), (traj_2, _) = runs
+    if not out_i.success.all():
+        raise AssertionError("image ingest: failed frames "
+                             f"{np.flatnonzero(~out_i.success).tolist()}")
+    _check_traj("image ingest vs host ingest (single)", traj_i, traj,
+                out_i.fused, out.fused, (1e-4, 1e-4, 1e-4))
+    same_host = bool(np.array_equal(traj_i, traj))
+    repeat = bool(np.array_equal(traj_2, traj_i))
+    _say(f"image ingest: bit-identical to the host-ingest run: {same_host}; "
+         f"second run bit-identical to the first: {repeat}")
+    if not repeat:
+        raise AssertionError("two image-ingest runs of the same frames "
+                             "gave different trajectories")
+    return runner
+
+
+def phase_ingest_rates(cfg, images, runner, dev, card):
+    """Image ingest (`runner`, the `image` path's) and host ingest over the
+    same frames in turns (host, image, image, host): frames/s from one
+    call. Run outside the counted paths; `tools/profile_torch_ingest.py`
+    times the image filter and the upload apart."""
+    n = images.shape[0]
+    host = odometry.OdometryRunner(cfg, ingest="host", device=dev, chunk=16)
+    host.process(images[:16])
+    rates = []
+    for name, r in (("host", host), ("image", runner), ("image", runner),
+                    ("host", host)):
+        r.reset()
+        _sync(dev)
+        t0 = time.perf_counter()
+        r.process(images)
+        _sync(dev)
+        rates.append(f"{name} {n / (time.perf_counter() - t0):.2f}")
+    _say(f"image vs host ingest, the same {n} frames in turns: frames/s "
+         f"{', '.join(rates)} ({card})")
+
+
+def phase_cli(dev, card):
+    """The port's offline CLI as users run it (`cli_args`: default image
+    ingest, --save-graph) on the card, held to the reference CLI's golden
+    (`GOLDEN_CLI`): poses within TOL, identical keyframe decisions, no
+    failed frame, every frame in `est/00.txt`, and a graph with the
+    golden's node and edge counts and a payload on every node."""
+    with np.load(GOLDEN_CLI) as z:
+        g = {k: z[k] for k in z.files}
+    cfg = cli_config()
+    if json.loads(str(g["config"])) != cfg.to_dict() \
+            or json.loads(str(g["sequence"])) != CLI_SEQUENCE:
+        raise AssertionError("cli: golden was made for another configuration "
+                             "or sequence")
+    method = registration.resolve_assoc_method(
+        cfg, cfg.feature.max_cells, cfg.feature.max_cells,
+        cfg.odometry.submap_scan_size, dev)
+    if method != "pallas":
+        raise AssertionError(f"cli: auto resolved to {method}, expected "
+                             "kernel A")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cfear3_oxford.json")
+        cfg.save(path)
+        out_dir = os.path.join(tmp, "run")
+        t0 = time.perf_counter()
+        result = offline_odometry.main(cli_args(path, out_dir))
+        secs = time.perf_counter() - t0
+        got = read_cli_run(out_dir, cfg.radar.sensor_period)
+        for name in ("est/result.txt", "pars.txt", "est/00_tum.txt",
+                     "est/00_cov.txt"):
+            if not os.path.exists(os.path.join(out_dir, name)):
+                raise AssertionError(f"cli: {name} was not written")
+    n = CLI_SEQUENCE["n_frames"]
+    if got["poses"].shape != (n, 3) or result["frames"] != n:
+        raise AssertionError(f"cli: {got['poses'].shape[0]} rows in "
+                             f"est/00.txt, expected {n}")
+    if result["registration_failures"]:
+        raise AssertionError(f"cli: {result['registration_failures']} "
+                             "registration failures")
+    _check_traj("cli vs the reference CLI's golden", got["poses"],
+                g["poses"], got["fused"], g["fused"])
+    counts = (got["n_nodes"], got["n_edges"])
+    want = (int(g["n_nodes"]), int(g["n_edges"]))
+    if counts != want or got["n_scans"] != got["n_nodes"]:
+        raise AssertionError(f"cli: graph of {counts} nodes/edges and "
+                             f"{got['n_scans']} payloads, golden {want}")
+    _say(f"cli: {n} frames, {result['keyframes']} keyframes, ATE "
+         f"{result['ate_m']:.4f} m (golden {float(g['ate']):.4f}), graph "
+         f"{counts[0]} nodes / {counts[1]} edges as the golden; "
+         f"{secs:.1f} s for the whole CLI run, rendering and graph "
+         f"included ({card})")
+
+
 def phase_batched(cfg, images, traj, out, dev, card, batch=BATCH, tol=TOL):
     """make_batched_step over `batch` lanes fed the same frames, twice;
     every lane held against the single-sequence run."""
@@ -1450,6 +1599,11 @@ def main() -> int:
         lambda: phase_single(cfg, images, gt, dev, card, GOLDEN))
     drive("auto", ("nn_min", "lm_solve_fused"),
           lambda: phase_auto(images, traj, out, dev, card))
+    runner_i = drive("image", ("nn_min_sparse", "lm_solve_fused"),
+                     lambda: phase_image(cfg, images, traj, out, dev, card))
+    timed("image vs host", lambda: phase_ingest_rates(cfg, images, runner_i,
+                                                      dev, card))
+    drive("cli", ("nn_min", "lm_solve_fused"), lambda: phase_cli(dev, card))
     drive("batched", ("nn_min_sparse", "lm_solve_fused"),
           lambda: phase_batched(cfg, images, traj, out, dev, card))
     drive("pallas-features",

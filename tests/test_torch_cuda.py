@@ -666,3 +666,54 @@ def test_new_wrappers_raise_instead_of_falling_back(dev):
     inputs[1] = inputs[1].cpu()
     with pytest.raises(ValueError, match="is on"):
         cuda_features.moment_accumulate(*inputs)
+
+
+def _small_cfg(**filt):
+    import dataclasses
+    from cfear_radarodometry_code_public_tpu_torch import preset
+    cfg = preset("CFEAR-3", dataset="synthetic")
+    return cfg.replace(
+        feature=dataclasses.replace(cfg.feature, max_cells=512,
+                                    point_budget=2048),
+        filter=dataclasses.replace(cfg.filter, k_strongest=12, **filt))
+
+
+@pytest.mark.parametrize("filt", [{}, {"z_min_quantile": 0.98},
+                                  {"method": "cacfar"}])
+def test_image_filter_on_the_card_equals_the_cpu(dev, filt):
+    """`filter_polar_image` on the card gives the CPU's cloud on the same
+    sweeps (torch ops on both): masks, peaks and intensities exact, each
+    point within 1e-5 m plus 1e-6 of its range (CUDA's and the CPU's f32
+    sin/cos differ by an ulp)."""
+    from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
+    cfg = _small_cfg(**filt)
+    images, _ = synthetic.make_sequence(seed=3, n_frames=3, cfg=cfg)
+    cpu = filtering.filter_polar_image(torch.as_tensor(images), cfg)
+    card = filtering.filter_polar_image(torch.as_tensor(images).to(dev), cfg)
+    for name in ("valid", "peak", "intensity"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(cpu, name))
+    v = cpu.valid
+    assert v.any()
+    dist = (card.xy.cpu()[v] - cpu.xy[v]).norm(dim=-1)
+    assert (dist <= 1e-5 + 1e-6 * cpu.xy[v].norm(dim=-1)).all(), \
+        dist.max().item()
+
+
+def test_image_ingest_runner_equals_host_ingest_on_the_card(dev):
+    """The runner's default image ingest (raw sweeps through pinned host
+    memory, a ragged last chunk) against host ingest on the card: within
+    1e-4 with identical keyframe flags, and a second image run bit for
+    bit."""
+    from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
+    from cfear_radarodometry_code_public_tpu_torch.models import odometry
+    cfg = _small_cfg()
+    images, _ = synthetic.make_sequence(seed=3, n_frames=11, cfg=cfg)
+    runs = []
+    for ingest in ("image", "image", "host"):
+        r = odometry.OdometryRunner(cfg, ingest=ingest, device=dev, chunk=4)
+        r.process(images)
+        runs.append((r.trajectory(), r.frame_outputs()))
+    (a, oa), (b, _), (h, oh) = runs
+    assert np.array_equal(a, b)
+    assert np.array_equal(oa.fused, oh.fused) and oa.success.all()
+    assert np.abs(a - h).max() < 1e-4

@@ -156,13 +156,23 @@ def test_points_from_host_rows_match(kind):
 
 @pytest.mark.parametrize("field,value", [("use_raw_pointcloud", True)])
 def test_unported_feature_options_raise(field, value):
+    """No feature option raises any longer: `use_raw_pointcloud` is ported
+    (the odometry step takes `compute_raw_cells` for it), and
+    `compute_cells_batched` under it builds the moment cells as the
+    reference's does (the graph's scan payloads use them), equal to its
+    result without the option."""
     cfg_j, _ = slice_cfg()
-    cfg_t = both_cfgs(cfg_j.replace(feature=dataclasses.replace(
-        cfg_j.feature, **{field: value})))[1]
+    cfg_j_opt = cfg_j.replace(feature=dataclasses.replace(
+        cfg_j.feature, **{field: value}))
     leaves = _points(cfg_j)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.compute_cells_batched(
-            tfl.PointCloud(*(torch.as_tensor(a) for a in leaves)), cfg_t)
+    pts = tfl.PointCloud(*(torch.as_tensor(a) for a in leaves))
+    got = tf.compute_cells_batched(pts, both_cfgs(cfg_j_opt)[1])
+    plain = tf.compute_cells_batched(pts, both_cfgs(cfg_j)[1])
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    want = jf.compute_cells_batched(
+        jfl.PointCloud(*(jnp.asarray(a) for a in leaves)), cfg_j_opt)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
 
 
 def _pallas_cfgs(**feature):

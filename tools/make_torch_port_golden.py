@@ -28,6 +28,16 @@ the ATE against ground truth, and the configuration and sequence as JSON to
   resolves to kernel A on a card; the reference runs it as
   `assoc_method="pallas"` (kernel A in interpret mode), and the file also
   holds the health fields and the KITTI drift.
+- `--preset cli`: the reference's offline CLI itself, run as
+  `python -m cfear_radarodometry_code_public_tpu.offline_odometry
+  <chip_smoke.cli_args(config, out)> --cpu`, with `chip_smoke.cli_config()`
+  (the CFEAR-3 Oxford preset) written as the --config-file, over
+  `chip_smoke.CLI_SEQUENCE` (32 frames), the default image ingest and
+  --save-graph -> `cfear3_cli_oxford_seed1_32.npz`: the poses of
+  `est/00.txt`, the keyframe flags and node and edge counts of
+  `simple_graph.npz` (`chip_smoke.read_cli_run`) and the CLI's result.
+  `auto` is the dense association on the CPU; on a card the port resolves
+  it to kernel A.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --feature-backend pallas
@@ -35,6 +45,7 @@ the ATE against ground truth, and the configuration and sequence as JSON to
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset CFEAR-3-s50 --k-active 16
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset longrun
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset longrun --adversarial --speed 8
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset cli
 
 On one CPU process the first takes about 10 s and the second about a
 minute; the s50 exact golden took 39 s and the K16 golden 18 s (rendering
@@ -65,6 +76,8 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+import tempfile  # noqa: E402
+
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
@@ -74,6 +87,34 @@ from cfear_radarodometry_code_public_tpu.datasets import synthetic  # noqa: E402
 from cfear_radarodometry_code_public_tpu.eval.kitti import kitti_drift  # noqa: E402
 from cfear_radarodometry_code_public_tpu.eval.trajectory import ate_rmse  # noqa: E402
 from cfear_radarodometry_code_public_tpu.models.odometry import OdometryRunner  # noqa: E402
+from cfear_radarodometry_code_public_tpu import offline_odometry  # noqa: E402
+
+
+def cli_golden() -> None:
+    """`--preset cli`: the reference CLI on the CPU -> chip_smoke.GOLDEN_CLI."""
+    cfg_dict = chip_smoke.cli_config().to_dict()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cfear3_oxford.json")
+        CFEARConfig.from_dict(cfg_dict).save(path)
+        out_dir = os.path.join(tmp, "run")
+        argv = chip_smoke.cli_args(path, out_dir) + ["--cpu"]
+        result = offline_odometry.main(argv)
+        run = chip_smoke.read_cli_run(
+            out_dir, CFEARConfig.from_dict(cfg_dict).radar.sensor_period)
+    np.savez_compressed(
+        chip_smoke.GOLDEN_CLI, poses=run["poses"], fused=run["fused"],
+        n_nodes=run["n_nodes"], n_edges=run["n_edges"],
+        keyframes=result["keyframes"],
+        failures=result["registration_failures"],
+        ate=np.float64(result["ate_m"]), config=json.dumps(cfg_dict),
+        sequence=json.dumps(chip_smoke.CLI_SEQUENCE),
+        argv=json.dumps(argv[:argv.index("--output-dir")] + ["--cpu"]))
+    print(f"{chip_smoke.GOLDEN_CLI}: {result['frames']} frames, ATE "
+          f"{result['ate_m']:.4f} m, keyframes {result['keyframes']}, graph "
+          f"{run['n_nodes']} nodes / {run['n_edges']} edges, failures "
+          f"{result['registration_failures']}, "
+          f"{time.perf_counter() - t0:.1f} s on the CPU")
 
 
 def target(preset: str, feature_backend: str, k_active: int, args):
@@ -102,7 +143,8 @@ def target(preset: str, feature_backend: str, k_active: int, args):
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--preset", choices=("CFEAR-3", "CFEAR-3-s50", "longrun"),
+    ap.add_argument("--preset", choices=("CFEAR-3", "CFEAR-3-s50", "longrun",
+                                         "cli"),
                     default="CFEAR-3")
     ap.add_argument("--feature-backend", choices=("auto", "pallas"),
                     default="auto")
@@ -121,6 +163,9 @@ def main() -> None:
     ap.add_argument("--adversarial", action="store_true")
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
+    if args.preset == "cli":
+        cli_golden()
+        return
     port_cfg, sequence, path = target(args.preset, args.feature_backend,
                                       args.k_active, args)
     cfg_dict = port_cfg.to_dict()
