@@ -1,5 +1,5 @@
-"""Pose graph: construction and serialization (port of the graph-builder
-half of `models/posegraph.py`).
+"""Pose graph: construction, serialization and the robust Gauss-Newton
+optimizer (port of `models/posegraph.py`).
 
 The offline odometry run writes its keyframes as a pose graph
 (`simple_graph.npz`, the reference's `.sgh`): keyframe poses, chained
@@ -10,11 +10,17 @@ oriented-surface-point map, motion), recomputed from the raw sweeps on
 the device. The npz layout is the reference's, so a graph written here
 loads in the reference's `GraphBuilder.load` and the reverse.
 
-Not ported yet: the optimizer (`edge_residuals`, `robust_cost`,
-`hessian_diag_blocks`, `gn_step` with `_pcg`, `gnc_limit`,
-`adaptive_gnc_start`, `optimize`, `total_cost`; reference :113-452),
-ROADMAP queue 1 item 12. `GraphBuilder.to_arrays` already sets each loop
-edge's robust-limit scale for it, from the drift constants below.
+The optimizer (`optimize`) is the reference's matrix-free Gauss-Newton
+with graduated non-convexity on the loop edges' robust kernel, solved by
+block-Jacobi preconditioned conjugate gradients. Where the reference forms
+the Hessian-vector product from `jax.jvp`/`jax.vjp` of `edge_residuals`,
+the port builds each edge's two 3x3 Jacobians of `se2.relative` once per
+GN step (the IRLS weight a constant in the step, the derivative of
+`normalize_angle` 1): J x is then a gather and J^T y one deterministic
+`features.segment_sum`, and the same Jacobians give the preconditioner's
+blocks. The loops are Python loops that only queue work: nothing in a GN
+or CG iteration reads a value back to the host, and two runs on the card
+are bit-identical. The edge-sharded `parallel/pgo.py` is not ported.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 from cfear_radarodometry_code_public_tpu_torch.models.odometry import (
     resolve_device, upload_images)
 from cfear_radarodometry_code_public_tpu_torch.ops import (features,
-                                                           filtering)
+                                                           filtering, losses)
 from cfear_radarodometry_code_public_tpu_torch.ops.features import CellMap
 from cfear_radarodometry_code_public_tpu_torch.utils import se2
 
@@ -39,9 +45,14 @@ LOOP_APPEARANCE = 1
 MINI_LOOP = 2
 CANDIDATE = 3
 
-#: the optimizer's final robust limit of loop edges, in whitened units
-#: (reference `posegraph.py:34-48`, where the measurements behind it are)
+#: robust kernel of LOOP_APPEARANCE / MINI_LOOP edges and its final limit
+#: in whitened units; odometry edges stay quadratic (reference
+#: `posegraph.py:36-48`, where the measurements behind them are)
+DEFAULT_LOOP_LOSS = "DCS"
 DEFAULT_LOOP_LOSS_LIMIT = 4.0
+#: graduated non-convexity: the loop limit is annealed geometrically from
+#: limit * DEFAULT_GNC_START down to the limit (reference :49-56)
+DEFAULT_GNC_START = 100.0
 #: per-edge robust-limit drift model of loop edges (reference :57-92): the
 #: translation allowance DRIFT_FRACTION * chain distance + DRIFT_SLACK_M,
 #: capped at DRIFT_ALLOW_CAP_M; the yaw allowance DRIFT_YAW_SLACK_RAD +
@@ -71,6 +82,288 @@ class PoseGraph(NamedTuple):
     edge_valid: torch.Tensor  # (E,) bool
     #: (E,) f32 per-edge robust-limit multiplier (1 for odometry edges)
     loop_scale: torch.Tensor = None
+
+
+def _edge_scale(graph: PoseGraph):
+    # per-edge robust-limit multiplier (1.0 when the graph carries none)
+    if graph.loop_scale is None:
+        return 1.0
+    return graph.loop_scale
+
+
+def _active(graph: PoseGraph):
+    return graph.edge_valid & (graph.edge_type != CANDIDATE)
+
+
+def _is_loop(graph: PoseGraph):
+    return ((graph.edge_type == LOOP_APPEARANCE)
+            | (graph.edge_type == MINI_LOOP))
+
+
+def _edge_limit(graph: PoseGraph, loop_loss_limit, like):
+    """The per-edge robust limit as a tensor (so every division in the
+    kernel is a tensor division, as the reference's)."""
+    lim = torch.as_tensor(loop_loss_limit, dtype=like.dtype,
+                          device=like.device)
+    return lim * _edge_scale(graph)
+
+
+def _whitened(poses, graph: PoseGraph):
+    """(E, 3) sqrt_info @ [se2.relative(p_i, p_j) - t_ij, angle wrapped],
+    and the relative poses."""
+    pi = poses.index_select(0, graph.edge_i.long())
+    pj = poses.index_select(0, graph.edge_j.long())
+    rel = se2.relative(pi, pj)
+    d = rel - graph.t_ij
+    d = torch.cat([d[:, :2], se2.normalize_angle(d[:, 2:])], 1)
+    return (graph.sqrt_info * d[:, None, :]).sum(-1), rel, pi
+
+
+def _irls_weight(r, graph: PoseGraph, loop_loss, loop_loss_limit):
+    """rho'(s) of loop edges (1 for the others), s = |r|^2, as a constant."""
+    s = (r.detach() ** 2).sum(-1)
+    _, drho = losses.rho(s, loop_loss,
+                         _edge_limit(graph, loop_loss_limit, s))
+    return torch.where(_is_loop(graph), torch.clamp(drho, min=0.0),
+                       torch.ones_like(s))
+
+
+def edge_residuals(poses, graph: PoseGraph,
+                   loop_loss: str = DEFAULT_LOOP_LOSS,
+                   loop_loss_limit: float = DEFAULT_LOOP_LOSS_LIMIT):
+    """(E, 3) weighted residuals (zeros for invalid and CANDIDATE edges):
+    loop edges scaled by the IRLS weight sqrt(rho'(|r|^2)), detached."""
+    r, _, _ = _whitened(poses, graph)
+    if loop_loss != "None":
+        w = torch.sqrt(_irls_weight(r, graph, loop_loss, loop_loss_limit))
+        r = r * w.detach()[:, None]
+    return torch.where(_active(graph)[:, None], r, torch.zeros_like(r))
+
+
+def robust_cost(poses, graph: PoseGraph,
+                loop_loss: str = DEFAULT_LOOP_LOSS,
+                loop_loss_limit: float = DEFAULT_LOOP_LOSS_LIMIT):
+    """The true robust objective: 0.5 * s for odometry edges and
+    0.5 * rho(s) for loop edges (s the squared whitened residual); step
+    acceptance compares this, not the IRLS-weighted norm (reference
+    :159-187)."""
+    r, _, _ = _whitened(poses, graph)
+    s = (r * r).sum(-1)
+    if loop_loss != "None":
+        rho, _ = losses.rho(s, loop_loss,
+                            _edge_limit(graph, loop_loss_limit, s))
+        s = torch.where(_is_loop(graph), rho, s)
+    return 0.5 * torch.where(_active(graph), s, torch.zeros_like(s)).sum()
+
+
+def _gauge_fix(x):
+    return torch.cat([torch.zeros_like(x[:1]), x[1:]])
+
+
+def _linearize(poses, graph: PoseGraph, loop_loss, loop_loss_limit):
+    """Weighted residuals r (E, 3) and their Jacobians J (E, 3, 6) in the
+    poses of (node i, node j), each scaled by the edge's IRLS weight
+    sqrt(rho'(s)) and zero for inactive edges."""
+    r, rel, pi = _whitened(poses, graph)
+    c, s = torch.cos(pi[:, 2]), torch.sin(pi[:, 2])
+    z, one = torch.zeros_like(c), torch.ones_like(c)
+    # d relative / d p_i and d p_j; d wrap(t) / dt = 1
+    ja = torch.stack([torch.stack([-c, -s, rel[:, 1]], -1),
+                      torch.stack([s, -c, -rel[:, 0]], -1),
+                      torch.stack([z, z, -one], -1)], 1)
+    jb = torch.stack([torch.stack([c, s, z], -1),
+                      torch.stack([-s, c, z], -1),
+                      torch.stack([z, z, one], -1)], 1)
+    jrel = torch.cat([ja, jb], 2)                           # (E, 3, 6)
+    jac = (graph.sqrt_info[:, :, :, None] * jrel[:, None]).sum(2)
+    w = (torch.sqrt(_irls_weight(r, graph, loop_loss, loop_loss_limit))
+         if loop_loss != "None" else torch.ones_like(c))
+    w = torch.where(_active(graph), w, torch.zeros_like(w))
+    r = torch.where(_active(graph)[:, None], r * w[:, None],
+                    torch.zeros_like(r))
+    return r, jac * w[:, None, None]
+
+
+def _node_ids(graph: PoseGraph):
+    """(2E,) the node of each row of a (E, 6) -> (2E, 3) reshape."""
+    return torch.stack([graph.edge_i, graph.edge_j], 1).reshape(-1).long()
+
+
+def _blocks(jac, graph: PoseGraph, n: int):
+    """(N, 3, 3) sum over incident edges of J_k^T J_k, two segment sums."""
+    ji, jj = jac[..., :3], jac[..., 3:]
+    bi = (ji[:, :, :, None] * ji[:, :, None, :]).sum(1).reshape(-1, 9)
+    bj = (jj[:, :, :, None] * jj[:, :, None, :]).sum(1).reshape(-1, 9)
+    return (features.segment_sum(bi, graph.edge_i.long(), n)
+            + features.segment_sum(bj, graph.edge_j.long(), n)
+            ).reshape(n, 3, 3)
+
+
+def hessian_diag_blocks(poses, graph: PoseGraph,
+                        loop_loss: str = DEFAULT_LOOP_LOSS,
+                        loop_loss_limit: float = DEFAULT_LOOP_LOSS_LIMIT,
+                        num_nodes: int | None = None):
+    """(N, 3, 3) diagonal blocks of the GN Hessian J^T J with the IRLS
+    weights of `edge_residuals`: the block-Jacobi preconditioner."""
+    _, jac = _linearize(poses, graph, loop_loss, loop_loss_limit)
+    return _blocks(jac, graph, num_nodes or poses.shape[0])
+
+
+def _block_jacobi_apply(blocks, damping: float):
+    """x -> M^{-1} x for M = blockdiag(H) + damping I, node 0 the identity
+    (the gauge)."""
+    eye = torch.eye(3, dtype=blocks.dtype, device=blocks.device)
+    m = torch.cat([eye[None], (blocks + damping * eye)[1:]])
+    minv = torch.linalg.inv_ex(m)[0]      # no error check: no host sync
+
+    def apply(x):
+        return (minv * x[:, None, :]).sum(-1)
+
+    return apply
+
+
+def _where_pos(cond, x):
+    return torch.where(cond, x, torch.ones_like(x))
+
+
+def _cg(matvec, b, iters: int):
+    """Plain conjugate gradients (fixed iteration count)."""
+    x, r, p, rs = torch.zeros_like(b), b, b, (b * b).sum()
+    for _ in range(iters):
+        ap = matvec(p)
+        denom = (p * ap).sum()
+        alpha = rs / _where_pos(denom > 0, denom)
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = (r * r).sum()
+        beta = rs_new / _where_pos(rs > 0, rs)
+        p = r + beta * p
+        rs = rs_new
+    return x
+
+
+def _pcg(matvec, b, precond, iters: int):
+    """Preconditioned conjugate gradients (fixed iteration count)."""
+    z = precond(b)
+    x, r, p, rz = torch.zeros_like(b), b, z, (b * z).sum()
+    for _ in range(iters):
+        ap = matvec(p)
+        denom = (p * ap).sum()
+        alpha = rz / _where_pos(denom > 0, denom)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = precond(r)
+        rz_new = (r * z).sum()
+        beta = rz_new / _where_pos(rz.abs() > 0, rz)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
+#: the damped step ladder of `gn_step` (reference :276-289), ending in 0
+STEP_LADDER = (1.0, 0.5, 0.25, 0.1, 0.04, 0.01)
+
+
+def gn_step(poses, graph: PoseGraph, cg_iters: int = 50, damping: float = 1e-6,
+            loop_loss: str = DEFAULT_LOOP_LOSS,
+            loop_loss_limit: float = DEFAULT_LOOP_LOSS_LIMIT):
+    """One Gauss-Newton step: (J^T J + damping I) dx = -J^T r by
+    block-Jacobi PCG, then the best of the step ladder on the true robust
+    cost (the zero step included). Returns (poses, 0.5 |r|^2, |J^T r|)."""
+    n = poses.shape[0]
+    r, jac = _linearize(poses, graph, loop_loss, loop_loss_limit)
+    ei, ej, ids = graph.edge_i.long(), graph.edge_j.long(), _node_ids(graph)
+
+    def jt(y):     # (E, 3) -> (N, 3)
+        rows = (jac * y[:, :, None]).sum(1).reshape(-1, 3)
+        return features.segment_sum(rows, ids, n)
+
+    def hvp(x):
+        x = _gauge_fix(x)
+        xe = torch.cat([x.index_select(0, ei), x.index_select(0, ej)], 1)
+        return _gauge_fix(jt((jac * xe[:, None, :]).sum(-1))) + damping * x
+
+    grad = _gauge_fix(jt(r))
+    precond = _block_jacobi_apply(_blocks(jac, graph, n), damping)
+    dx = _gauge_fix(_pcg(hvp, -grad, precond, cg_iters))
+    cost = 0.5 * (r * r).sum()
+    alphas = torch.tensor(STEP_LADDER + (0.0,), dtype=poses.dtype,
+                          device=poses.device)
+    costs = torch.stack(
+        [robust_cost(poses + a * dx, graph, loop_loss, loop_loss_limit)
+         for a in STEP_LADDER]
+        + [robust_cost(poses, graph, loop_loss, loop_loss_limit)])
+    best = torch.argmin(costs).reshape(1)
+    new_poses = poses + alphas.index_select(0, best) * dx
+    return new_poses, cost, torch.linalg.vector_norm(grad)
+
+
+def gnc_limit(k, iters: int, limit: float,
+              gnc_start=DEFAULT_GNC_START, anneal_len: int = 16):
+    """Annealed robust limit at GN iteration k (float32): geometric from
+    limit * gnc_start (k = 0) down to limit over the first
+    min(iters // 2, anneal_len) iterations, then held; fewer than 4
+    iterations run every iteration at the final limit (reference
+    :336-366)."""
+    dev = gnc_start.device if torch.is_tensor(gnc_start) else None
+    f32 = dict(dtype=torch.float32, device=dev)
+    n_anneal = min(iters // 2, anneal_len)
+    if n_anneal <= 1:
+        return torch.tensor(limit, **f32)
+    kk = torch.clamp(torch.as_tensor(k, **f32), max=float(n_anneal - 1))
+    frac = 1.0 - torch.div(kk, torch.tensor(float(n_anneal - 1), **f32))
+    start = torch.clamp(torch.as_tensor(gnc_start, **f32), min=1.0)
+    return limit * start ** frac
+
+
+def adaptive_gnc_start(poses, graph: PoseGraph, loop_loss_limit: float,
+                       gnc_start: float = DEFAULT_GNC_START):
+    """max(gnc_start, 2 * q90(s_loop) / limit), s_loop the initial squared
+    whitened loop residuals over their drift scales, so the first iteration
+    is near-quadratic for >= 90% of the loop edges (reference :369-393)."""
+    r0 = edge_residuals(poses, graph, loop_loss="None")
+    s0 = (r0 ** 2).sum(-1)
+    if graph.loop_scale is not None:
+        s0 = s0 / graph.loop_scale
+    is_loop = _is_loop(graph) & graph.edge_valid
+    q90 = torch.nanquantile(
+        torch.where(is_loop, s0, torch.full_like(s0, float("nan"))), 0.9)
+    g = torch.tensor(gnc_start, dtype=torch.float32, device=s0.device)
+    lim = torch.tensor(loop_loss_limit, dtype=s0.dtype, device=s0.device)
+    return torch.where(torch.isnan(q90), g,
+                       torch.maximum(g, 2.0 * q90 / lim)).to(torch.float32)
+
+
+def optimize(graph: PoseGraph, iters: int = 10, cg_iters: int = 50,
+             loop_loss: str = DEFAULT_LOOP_LOSS,
+             loop_loss_limit: float = DEFAULT_LOOP_LOSS_LIMIT,
+             gnc_start: float = DEFAULT_GNC_START):
+    """Gauss-Newton pose-graph optimization on the graph's device with
+    graduated non-convexity on the loop edges' robust kernel: no anneal
+    with per-edge drift scales (`loop_scale`), the residual-quantile start
+    without them (reference :396-433). Returns (graph with optimized poses,
+    the last step's 0.5 |r|^2)."""
+    f32 = dict(dtype=torch.float32, device=graph.poses.device)
+    if loop_loss == "None":
+        start = torch.tensor(gnc_start, **f32)
+    elif graph.loop_scale is not None:
+        start = torch.tensor(1.0, **f32)
+    else:
+        start = adaptive_gnc_start(graph.poses, graph, loop_loss_limit,
+                                   gnc_start)
+    poses = graph.poses
+    cost = torch.zeros((), dtype=poses.dtype, device=poses.device)
+    for k in range(iters):
+        poses, cost, _ = gn_step(poses, graph, cg_iters, loop_loss=loop_loss,
+                                 loop_loss_limit=gnc_limit(
+                                     k, iters, loop_loss_limit, start))
+    return graph._replace(poses=poses), cost
+
+
+def total_cost(graph: PoseGraph, loop_loss: str = DEFAULT_LOOP_LOSS,
+               loop_loss_limit: float = DEFAULT_LOOP_LOSS_LIMIT):
+    r = edge_residuals(graph.poses, graph, loop_loss, loop_loss_limit)
+    return 0.5 * (r * r).sum()
 
 
 #: per-node scan payload fields (the information content of the reference's

@@ -11,9 +11,10 @@ from __future__ import annotations
 import torch
 
 
-def _rdiv(c: float, t):
-    """c / t as an IEEE division (see the module docstring)."""
-    return torch.div(t.new_full((), c), t)
+def _rdiv(c, t):
+    """c / t as an IEEE division (see the module docstring); `c` is a
+    number or a tensor (a per-edge limit)."""
+    return torch.div(c if torch.is_tensor(c) else t.new_full((), c), t)
 
 
 def _huber(s, a):

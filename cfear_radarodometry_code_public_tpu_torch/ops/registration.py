@@ -20,7 +20,11 @@ packed once, so one association pass serves all of them. Also ported:
 `register_time_continuous`, `is_consistent`, `register_scans_service`.
 `assoc_method="grid"` is not ported (raises NotImplementedError): a parity
 ablation that the reference's config calls ~400x slower than the kernels.
-`refine_many_to_many` belongs with the pose-graph slice.
+`refine_many_to_many`, the joint refinement of all scan poses, is ported
+with the SLAM slice: its inline dense 1-NN is the reference's matmul form
+(outside any kernel, as there), and its Gauss-Newton normal equations are
+solved matrix-free through `torch.func.jvp`/`vjp` with the IRLS weight
+detached.
 """
 
 from __future__ import annotations
@@ -668,3 +672,112 @@ def cost_surface(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, pose,
     costs, _ = _cost_at_offsets(kf_cells, kf_poses, kf_valid, src, pose,
                                 grid, cfg, max_lanes)
     return costs.reshape(pose.shape[0], p, p), (-width, width, -width, width)
+
+
+def refine_many_to_many(cells: CellMap, poses, valid, cfg, fixed_mask=None,
+                        outer_iters: int = 4, gn_iters: int = 8,
+                        cg_iters: int = 24, pairs_per_scan: int | None = None):
+    """Joint refinement of all scan poses ("many_to_many_refinement",
+    `registration.h:48`): cells (S, M, ...), poses (S, 3), valid (S,).
+    Each source scan j is paired with its `pairs_per_scan` (default
+    min(S-1, 8)) nearest valid targets i by initial pose-origin distance
+    (a stable sort, as the reference's); each pair's residuals depend on
+    both poses. Per outer iteration: exact dense 1-NN of every pair, then
+    `gn_iters` Gauss-Newton steps, each solved by `cg_iters` CG iterations
+    over the normal equations, the first pose (or `fixed_mask`) fixed.
+    Returns the refined (S, 3) poses."""
+    reg = cfg.registration
+    s = poses.shape[0]
+    dev = poses.device
+    if fixed_mask is None:
+        fixed_mask = torch.arange(s, device=dev) == 0
+    free = ~fixed_mask
+    k = pairs_per_scan if pairs_per_scan else min(s - 1, 8)
+    inf = float("inf")
+
+    # static pair selection from the initial poses
+    dxy = poses[None, :, :2] - poses[:, None, :2]
+    d0 = torch.sqrt((dxy * dxy).sum(-1))
+    d0 = torch.where(valid[:, None] & valid[None, :], d0,
+                     d0.new_full((), inf))
+    d0 = torch.where(torch.eye(s, dtype=torch.bool, device=dev),
+                     d0.new_full((), inf), d0)
+    order = torch.argsort(d0, dim=0, stable=True)            # per source j
+    ii = order[:k, :].T.reshape(-1)                           # targets
+    jj = torch.arange(s, device=dev).repeat_interleave(k)     # sources
+    pair_ok = torch.isfinite(d0[ii, jj]) & valid[ii] & valid[jj]
+    cos_gate = math.cos(math.radians(reg.angle_outlier_deg))
+
+    def take(a, idx):    # a (P, M, ...), idx (P, M) -> (P, M, ...)
+        flat = idx.reshape(idx.shape + (1,) * (a.dim() - 2)).expand(
+            idx.shape + a.shape[2:])
+        return torch.gather(a, 1, flat)
+
+    def pair_assoc(cur):
+        """Exact dense 1-NN of each source's cells into its target's frame."""
+        t_rel = se2.relative(cur[ii], cur[jj])                 # (P, 3)
+        src_t = se2.transform(t_rel, cells.mean[jj])           # (P, M, 2)
+        src_n = se2.rotate(t_rel, cells.normal[jj])
+        tar = cells.mean[ii]
+        d2 = ((src_t ** 2).sum(-1)[:, :, None] + (tar ** 2).sum(-1)[:, None]
+              - 2.0 * torch.matmul(src_t, tar.transpose(1, 2)))
+        d2 = torch.where(cells.valid[ii][:, None, :], d2, d2.new_full((), inf))
+        nn = torch.argmin(d2, dim=2)
+        nn_d2 = torch.gather(d2, 2, nn[..., None])[..., 0]
+        sim_dir = torch.clamp((src_n * take(cells.normal[ii], nn)).sum(-1),
+                              min=0.0)
+        ok = (cells.valid[jj] & pair_ok[:, None]
+              & (nn_d2 < reg.assoc_radius ** 2) & (sim_dir > cos_gate))
+        w = losses.association_weight(
+            reg.weight_opt, cells.nsamples[jj], take(cells.nsamples[ii], nn),
+            sim_dir, cells.planarity[jj], take(cells.planarity[ii], nn))
+        return nn, torch.where(ok, w, torch.zeros_like(w))
+
+    def residuals(p, tar_idx, w_a):
+        src_w = se2.transform(p[jj], cells.mean[jj])           # (P, M, 2)
+        tar_w = se2.transform(p[ii], take(cells.mean[ii], tar_idx))
+        d = src_w - tar_w
+        if reg.cost == "P2L":
+            n_w = se2.rotate(p[ii], take(cells.normal[ii], tar_idx))
+            e = (d * n_w).sum(-1, keepdim=True)
+        else:
+            e = d
+        _, drho = losses.rho((e * e).sum(-1), reg.loss, reg.loss_limit)
+        # IRLS: the robust weight is a constant within a GN step
+        return e * torch.sqrt(w_a * drho).detach()[..., None]
+
+    def proj(x):
+        return torch.where(free[:, None], x, torch.zeros_like(x))
+
+    def gn_step(p, tar_idx, w_a):
+        def f(q):
+            return residuals(q, tar_idx, w_a)
+
+        r, vjp_fn = torch.func.vjp(f, p)
+        (grad,) = vjp_fn(r)
+
+        def hvp(x):
+            x = proj(x)
+            _, jv = torch.func.jvp(f, (p,), (x,))
+            return proj(vjp_fn(jv)[0]) + 1e-6 * x
+
+        b = -proj(grad)
+        x, rr, pp, rs = torch.zeros_like(b), b, b, (b * b).sum()
+        for _ in range(cg_iters):
+            ap = hvp(pp)
+            denom = (pp * ap).sum()
+            alpha = rs / torch.where(denom > 0, denom, torch.ones_like(denom))
+            x = x + alpha * pp
+            rr = rr - alpha * ap
+            rs_new = (rr * rr).sum()
+            pp = rr + (rs_new / torch.where(rs > 0, rs, torch.ones_like(rs))
+                       ) * pp
+            rs = rs_new
+        return p + proj(x)
+
+    cur = poses
+    for _ in range(outer_iters):
+        tar_idx, w_a = pair_assoc(cur)
+        for _ in range(gn_iters):
+            cur = gn_step(cur, tar_idx, w_a)
+    return cur

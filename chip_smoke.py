@@ -43,7 +43,15 @@ extent-1000 world at 12 m/s (`longrun`), split through a checkpoint
 (`longrun-cov`), and in the adversarial world at 8 m/s (`longrun-adv8`);
 kernels B1 and B2 run on the window `longrun` ends with (the forward S=4
 and the reverse S=1 problem, B=1 and B=8) and are held bit for bit against
-kernel A and their twin (`longrun-window`). Each path is held against a JAX
+kernel A and their twin (`longrun-window`). Then the SLAM pass of `tools/run_slam_scale.py`
+(`slam`: CFEAR-3 at Oxford width, max_cells 1024, two laps of 256 frames
+of the seed-9 world): odometry, the graph with scan payloads on the card,
+`close_from_graph` (loop verification in chunks of 512 lanes: kernels A at
+B=512 S=1 and F at B=512 N=1024, both also held against their twins at
+that shape), `to_arrays` and `optimize` (40 GN x 400 PCG); the keyframe
+count, the accepted loop edges and the keyframe ATE before and after are
+held to the golden's, and `optimize` on the golden's own graph arrays must
+repeat bit for bit and equal JAX's. Each path is held against a JAX
 golden (`tools/make_torch_port_golden.py`) or another run, and must launch
 the kernels it runs (launch counts zeroed just before each path, read just
 after). Exits non-zero, printing no result, when there is no CUDA card or
@@ -70,9 +78,10 @@ import torch
 import cfear_radarodometry_code_public_tpu_torch as port
 from cfear_radarodometry_code_public_tpu_torch import offline_odometry
 from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
-from cfear_radarodometry_code_public_tpu_torch.eval import kitti
+from cfear_radarodometry_code_public_tpu_torch.eval import kitti, slam_scale
 from cfear_radarodometry_code_public_tpu_torch.eval.trajectory import ate_rmse
-from cfear_radarodometry_code_public_tpu_torch.models import odometry, posegraph
+from cfear_radarodometry_code_public_tpu_torch.models import (
+    loopclosure, odometry, posegraph)
 from cfear_radarodometry_code_public_tpu_torch.ops import (
     _build, cuda_assoc, cuda_features, cuda_lm, features, filtering,
     registration)
@@ -96,6 +105,28 @@ S50_SEQUENCE = {"seed": 1, "n_frames": 128, "speed": 6.0}
 # cli`)
 CLI_SEQUENCE = {"seed": 1, "n_frames": 32, "speed": 6.0}
 GOLDEN_CLI = os.path.join(_GOLDEN_DIR, "cfear3_cli_oxford_seed1_32.npz")
+# The SLAM pass (`slam` path) of `tools/run_slam_scale.py`: its configuration
+# (`slam_config`) and multi-lap world of seed 9, cut in depth from 4,096
+# frames (4 laps of 1,024) to 2 laps of 256 at 2.5 m/s, where loops close
+# (the golden, `make_torch_port_golden.py --preset slam`: JAX on the CPU,
+# kernel A in interpret mode); 40 GN x 400 PCG iterations as the tool runs
+SLAM_SEQUENCE = {"n_frames": 512, "lap_frames": 256, "speed": 2.5,
+                 "extent": 300.0}
+SLAM_ITERS = {"iters": 40, "cg_iters": 400}
+GOLDEN_SLAM = os.path.join(_GOLDEN_DIR, "cfear3_slam_seed9_512.npz")
+# Its limits. The reference's own spread between its dense association and
+# kernel A on this sequence (`make_torch_port_golden.py --preset slam
+# --assoc-method dense`, JAX on the CPU): the same 171 keyframes, 74
+# against 72 accepted loop edges with 65 pairs in both, closed keyframe ATE
+# 0.131 against 0.114 m. The keyframe count must be identical, the accepted
+# loop edges within 10% of the golden's count (about 3x the 2.8% spread)
+# with at least 70% of its pairs (3x the 10% it missed), and closure must
+# lower the keyframe ATE. The port's `optimize` on the golden's own graph
+# arrays is held to JAX's optimized poses within SLAM_OPT_TOL (position m,
+# yaw rad), the bound of tests/test_torch_posegraph.py's
+# `test_optimize_on_the_slam_golden_graph` (1.1e-5 m on the CPU).
+SLAM_LOOP_SHARE, SLAM_PAIR_SHARE = 0.10, 0.70
+SLAM_OPT_TOL = (1e-3, 1e-4)
 GOLDEN_S50 = os.path.join(_GOLDEN_DIR, "cfear3s50_oxford_seed1_128.npz")
 GOLDEN_S50_K16 = os.path.join(_GOLDEN_DIR, "cfear3s50k16_oxford_seed1_128.npz")
 BATCH = 8
@@ -151,6 +182,9 @@ LM_CASES = (("P2P", "Huber"), ("P2L", "Huber"), ("P2D", "Cauchy"))
 LM_SHAPES = ((1, 2048, "P2P", "Huber"), (4, 1024, "P2P", "Huber"),
              (4, 2048, "P2P", "Huber"), (16, 1024, "P2P", "Cauchy"),
              (50, 1024, "P2P", "Cauchy"), (50, 3072, "P2P", "Cauchy"))
+# ...and the SLAM pass's loop verification: 512 lanes of one keyframe of
+# 1024 cells (N=1,024), the path's own cost (CFEAR-3: P2P/Huber) and P2L
+LM_VERIFY = (512, ((1, 1024, "P2P", "Huber"), (1, 1024, "P2L", "Huber")))
 # Kernel G against its twin on the card: rows 0-8 bit-equal (both sum each
 # cell in (point, offset) order with unfused f32 operations), rows 9-15
 # zero. MOMENT_RTOL, 1e-4 of each row's largest value, is the limit where
@@ -189,14 +223,16 @@ C_SHAPES = ((1, 4, 1024, 1024), (8, 4, 1024, 1024), (1, 50, 1024, 1024),
 # Kernel A's shapes on the main paths, (B, S, Msrc, M): `phase_kernels`'
 # CFEAR-3 x8 shape, the long run's forward association (B=1, S=4 of 2048
 # cells), its window at B=8, the health check's reverse solve (S=1) and
-# `sample_covariance`'s 27 offsets folded into lanes (`longrun-cov`); last a
-# ragged shape, checked and not timed. `phase_a_shapes` (run by
+# `sample_covariance`'s 27 offsets folded into lanes (`longrun-cov`), the
+# SLAM pass's loop verification (512 lanes of one keyframe each, `slam`);
+# last a ragged shape, checked and not timed. `phase_a_shapes` (run by
 # `phase_kernels`) holds A against its twin at each, on `a_inputs`, and
 # times it; tools/compare_torch_kernels.py times two trees' A at the same
 # shapes.
 A_RAGGED = (3, 2, 1000, 1500)
+A_VERIFY = (512, 1, 1024, 1024)
 A_SHAPES = ((8, 4, 1024, 1024), (1, 4, 2048, 2048), (8, 4, 2048, 2048),
-            (1, 1, 2048, 2048), (27, 4, 2048, 2048), A_RAGGED)
+            (1, 1, 2048, 2048), (27, 4, 2048, 2048), A_VERIFY, A_RAGGED)
 # operations counted per squared distance (2 subtractions, 2 products, a
 # sum; the compare is not counted), per LM row and pass (a cost-only pass,
 # and a cost/gradient/Hessian pass, from the twin's arithmetic for P2P), and
@@ -221,6 +257,15 @@ def slice_config(assoc_method: str = "pallas_sparse", spatial_sort=True,
         feature=feat,
         registration=dataclasses.replace(cfg.registration,
                                          assoc_method=assoc_method))
+
+
+def slam_config():
+    """CFEAR-3 at Oxford scale with `tools/run_slam_scale.py:60-63`'s
+    settings: max_cells 1024, point_budget 8192, Morton-ordered cells;
+    `auto` association (S=4 odometry and S=1 verification: kernel A)."""
+    cfg = port.preset("CFEAR-3", dataset="oxford")
+    return cfg.replace(feature=dataclasses.replace(
+        cfg.feature, max_cells=1024, point_budget=8192, spatial_sort=True))
 
 
 def s50_config(k_active: int = 0):
@@ -692,33 +737,34 @@ def lm_bound(packed, steps) -> dict:
     return bound(packed.numel() * 4 + b * 9 * 4, flops)
 
 
-def lm_inputs(rng, dev, s, m, cost, loss):
-    """`lm_problem` at B=BATCH on the card: (cfg, packed, pose0, true)."""
-    cfg, packed, pose0, true = lm_problem(rng, BATCH, s, m, cost, loss)
+def lm_inputs(rng, dev, s, m, cost, loss, b=BATCH):
+    """`lm_problem` at B=b lanes on the card: (cfg, packed, pose0, true)."""
+    cfg, packed, pose0, true = lm_problem(rng, b, s, m, cost, loss)
     return (cfg, *(torch.as_tensor(a).to(dev) for a in (packed, pose0, true)))
 
 
-def _lm_case(rng, dev, card, s, m, cost, loss):
-    """Kernel F, both variants, on `lm_problem(rng, BATCH, s, m, cost,
-    loss)` against its plain twin, and each lane solved alone (B=1) against
-    the same lane of the B=8 call. Returns a record: |dpose|, the device ms
-    of the early-exit and masked variants at B=8 and of lane 0 alone, the
-    twin's ms, the bound and N."""
-    cfg, packed, pose0, true = lm_inputs(rng, dev, s, m, cost, loss)
+def _lm_case(rng, dev, card, s, m, cost, loss, b=BATCH):
+    """Kernel F, both variants, on `lm_problem(rng, b, s, m, cost, loss)`
+    against its plain twin, and each lane (the first and last when b >
+    BATCH) solved alone (B=1) against the same lane of the batched call.
+    Returns a record: |dpose|, the device ms of the early-exit and masked
+    variants at B=b and of lane 0 alone, the twin's ms, the bound and N."""
+    cfg, packed, pose0, true = lm_inputs(rng, dev, s, m, cost, loss, b)
     ee = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=True)
     masked = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=False)
-    alone = [cuda_lm.lm_solve_fused(packed[i:i + 1].contiguous(),
-                                    pose0[i:i + 1].contiguous(), cfg)
-             for i in range(BATCH)]
+    lanes = range(b) if b <= BATCH else sorted({0, b - 1})
+    alone = {i: cuda_lm.lm_solve_fused(packed[i:i + 1].contiguous(),
+                                       pose0[i:i + 1].contiguous(), cfg)
+             for i in lanes}
     plain = cuda_lm.lm_solve_fused_plain(packed, pose0, cfg)
     torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(ee, masked)):
+    if not all(torch.equal(x, y) for x, y in zip(ee, masked)):
         raise AssertionError(f"kernel F {cost}/{loss}: early exit and "
                              "masked variants differ")
-    for i, one in enumerate(alone):
-        if not all(torch.equal(a[i], b[0]) for a, b in zip(ee, one)):
+    for i, one in alone.items():
+        if not all(torch.equal(x[i], y[0]) for x, y in zip(ee, one)):
             raise AssertionError(f"kernel F {cost}/{loss}: lane {i} of the "
-                                 f"B={BATCH} call differs from its B=1 call")
+                                 f"B={b} call differs from its B=1 call")
     dpose = float((ee[0] - plain[0]).abs().max())
     dcost = float(((ee[1] - plain[1]).abs() / plain[1].abs()).max())
     if not (np.isfinite(dpose) and dpose <= LM_POSE_TOL
@@ -729,8 +775,8 @@ def _lm_case(rng, dev, card, s, m, cost, loss):
             f"(tol {LM_COST_RTOL})")
     if not torch.equal(ee[2], plain[2]):
         raise AssertionError(
-            f"kernel F {cost}/{loss}: accepted steps {ee[2].tolist()} differ "
-            f"from the twin's {plain[2].tolist()}")
+            f"kernel F {cost}/{loss}: accepted steps differ from the twin's "
+            f"in lanes {torch.nonzero(ee[2] != plain[2]).flatten().tolist()}")
     off = float((ee[0] - true).abs().max())
     n = 100 if s * m <= 16384 else 30
     t_ee = _cuda_ms(lambda: cuda_lm.lm_solve_fused(packed, pose0, cfg), n)
@@ -740,11 +786,13 @@ def _lm_case(rng, dev, card, s, m, cost, loss):
         packed[:1], pose0[:1], cfg), n)
     t_p = _cuda_ms(lambda: cuda_lm.lm_solve_fused_plain(packed, pose0, cfg),
                    5, "lm_solve_fused_plain")
+    steps = ee[2].tolist() if b <= BATCH else (
+        f"{float(ee[2].float().mean()):.2f} a lane on average")
     _say(f"kernel F {cost}/{loss}: early exit == masked and B=1 == lane of "
-         f"B={BATCH} bit for bit; vs twin |dpose| {dpose:.3e}, cost rel "
-         f"{dcost:.3e}; steps {ee[2].tolist()} (equal to the twin's); max "
+         f"B={b} bit for bit; vs twin |dpose| {dpose:.3e}, cost rel "
+         f"{dcost:.3e}; steps {steps} (equal to the twin's); max "
          f"|pose - true| {off:.4f}; early exit {t_ee:.4f} ms, masked "
-         f"{t_m:.4f} ms, B=1 {t_1:.4f} ms, plain {t_p:.4f} ms at B={BATCH} "
+         f"{t_m:.4f} ms, B=1 {t_1:.4f} ms, plain {t_p:.4f} ms at B={b} "
          f"N={packed.shape[2]} ({card})")
     return {"dpose": dpose, "ms": t_ee, "masked_ms": t_m, "b1_ms": t_1,
             "plain_ms": t_p, "bound": lm_bound(packed, ee[2]),
@@ -756,8 +804,10 @@ def phase_lm(dev, card):
     (B=8 lanes, N = 4 keyframes x 1024 cells, three cost/loss pairs) and at
     every other width of `LM_SHAPES`, so that every cluster size the main
     paths reach (1, 8 and 16 CTAs a lane) is held against the twin, early
-    exit against masked, and B=1 against B=8. `ms` is the slice's
-    (P2P/Huber); `ms_by_n` lists the early-exit time at every width, B=8."""
+    exit against masked, and B=1 against B=8; then at the SLAM pass's loop
+    verification shape (`LM_VERIFY`: B=512, N=1,024). `ms` is the slice's
+    (P2P/Huber); `ms_by_n` lists the early-exit time at every width, B=8;
+    `verify` the verification shape's records."""
     rng = np.random.default_rng(1)
     rows = [_lm_case(rng, dev, card, 4, 1024, cost, loss)
             for cost, loss in LM_CASES]
@@ -765,12 +815,19 @@ def phase_lm(dev, card):
     rows += [_lm_case(rng, dev, card, *shape) for shape in LM_SHAPES
              if shape != (4, 1024) + LM_CASES[0]]
     by_n = sorted(rows[:1] + rows[len(LM_CASES):], key=lambda r: r["n"])
+    b, shapes = LM_VERIFY
+    verify = {f"B={b} N={sh[0] * sh[1]} {sh[2]}/{sh[3]}":
+              _lm_case(rng, dev, card, *sh, b=b) for sh in shapes}
     # no single PyTorch call solves a trust-region LM: no library route
     return {"lm_solve_fused": {
-        "max_abs_err": max(r["dpose"] for r in rows), "ms": first["ms"],
-        "plain_ms": first["plain_ms"], **first["bound"], "library_ms": None,
+        "max_abs_err": max(r["dpose"] for r in rows + list(verify.values())),
+        "ms": first["ms"], "plain_ms": first["plain_ms"], **first["bound"],
+        "library_ms": None,
         **{f"{k}_by_n": {str(r["n"]): r[k] for r in by_n}
-           for k in ("ms", "masked_ms", "b1_ms")}}}
+           for k in ("ms", "masked_ms", "b1_ms")},
+        "verify": {k: {"dpose": r["dpose"], "ms": r["ms"],
+                       "plain_ms": r["plain_ms"], **r["bound"]}
+                   for k, r in verify.items()}}}
 
 
 def crowded_cloud(rng, b, n, cfg, crowd=CROWD):
@@ -1538,6 +1595,133 @@ def phase_longrun_window(win, outs, card):
     return res
 
 
+def drive_slam(cfg, images, dev):
+    """The SLAM pass on the card as `tools/run_slam_scale_torch.py` runs
+    it: host-ingest odometry, the graph with scan payloads on the card,
+    `close_from_graph` (verification in chunks of 512 lanes: kernels A and
+    F), `to_arrays`, `optimize` (SLAM_ITERS). Returns its results, the wall
+    seconds of each stage and the launches of the verification alone."""
+    secs, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        _sync(dev)
+        secs[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    runner = odometry.OdometryRunner(cfg, chunk=32, ingest="host", device=dev)
+    runner.process(images)
+    traj, out = runner.trajectory(), runner.frame_outputs()
+    lap("odometry")
+    gb = posegraph.build_graph_from_odometry(out, traj, images=images,
+                                             cfg=cfg, device=dev)
+    lap("graph + payloads")
+    before = _launches()
+    accepted = loopclosure.LoopCloser(cfg, device=dev).close_from_graph(gb)
+    verify = {k: v - before[k] for k, v in _launches().items()
+              if v != before[k]}
+    lap("close_from_graph")
+    opt, _ = posegraph.optimize(gb.to_arrays(device=dev), **SLAM_ITERS)
+    opt = opt.poses.cpu().numpy()
+    lap("to_arrays + optimize")
+    return {"traj": traj, "out": out, "gb": gb, "accepted": accepted,
+            "opt": opt, "secs": secs, "verify": verify}
+
+
+def golden_graph(z, dev) -> posegraph.PoseGraph:
+    """The graph arrays the reference's `to_arrays` wrote into a golden."""
+    return posegraph.PoseGraph(*(torch.as_tensor(z["g_" + f]).to(dev)
+                                 for f in posegraph.PoseGraph._fields))
+
+
+def phase_slam(cfg, res, gt, dev, card):
+    """The `slam` path against its golden (`GOLDEN_SLAM`): every frame
+    successful, the keyframe count identical, accepted loop edges within
+    SLAM_LOOP_SHARE of the golden's count and SLAM_PAIR_SHARE of its pairs,
+    closure lowering the keyframe ATE (both printed beside the golden's).
+    Then the port's `optimize` on the golden's own graph arrays, twice:
+    bit-identical, and within SLAM_OPT_TOL of JAX's optimized poses."""
+    for s_act in (cfg.odometry.submap_scan_size, 1):
+        m = cfg.feature.max_cells
+        method = registration.resolve_assoc_method(cfg, m, m, s_act, dev)
+        if method != "pallas":
+            raise AssertionError(f"slam: auto resolved to {method} at "
+                                 f"S={s_act}, expected kernel A")
+    with np.load(GOLDEN_SLAM) as z:
+        g = {k: z[k] for k in z.files}
+    if json.loads(str(g["config"])) != cfg.to_dict() \
+            or json.loads(str(g["sequence"])) != SLAM_SEQUENCE \
+            or json.loads(str(g["iters"])) != SLAM_ITERS:
+        raise AssertionError("slam: golden was made for another "
+                             "configuration or sequence")
+    traj, out = res["traj"], res["out"]
+    n = traj.shape[0]
+    if not np.isfinite(traj).all() or traj.shape != (len(gt), 3):
+        raise AssertionError("slam: trajectory not finite or of the wrong "
+                             "shape")
+    if not out.success.all():
+        raise AssertionError(f"slam: failed frames "
+                             f"{np.flatnonzero(~out.success).tolist()}")
+    dpos, dyaw, dmot = traj_spread(traj, g["poses"])
+    kf = np.flatnonzero(out.fused)
+    g_kf = int(g["fused"].sum())
+    _say(f"slam: odometry vs JAX golden: max |dpos| {dpos:.6f} m, |dyaw| "
+         f"{dyaw:.3e} rad, |dmotion| {dmot:.6f} m; keyframes {len(kf)} "
+         f"(golden {g_kf}); keyframe flags equal "
+         f"{bool(np.array_equal(out.fused, g['fused']))}")
+    if len(kf) != g_kf:
+        raise AssertionError(f"slam: {len(kf)} keyframes, golden {g_kf}")
+    acc = set(res["accepted"])
+    g_acc = set(map(tuple, g["accepted"].tolist()))
+    both = len(acc & g_acc)
+    n_cand = res["gb"].n_constraints(posegraph.CANDIDATE)
+    ate_odo = slam_scale.keyframe_ate(traj[kf], gt[kf])
+    ate_slam = slam_scale.keyframe_ate(res["opt"], gt[kf])
+    lr0 = slam_scale.loop_residuals(res["gb"].edges, traj[kf],
+                                    posegraph.LOOP_APPEARANCE)
+    lr1 = slam_scale.loop_residuals(res["gb"].edges, res["opt"],
+                                    posegraph.LOOP_APPEARANCE)
+    _say(f"slam: accepted loop edges {len(acc)} (golden {len(g_acc)}, "
+         f"{both} pairs in both), candidates {n_cand} (golden "
+         f"{int(g['n_candidates'])}); loop residual median "
+         f"{np.median(lr0):.4f} -> {np.median(lr1):.4f} m (golden "
+         f"{float(g['loop_res_before']):.4f} -> "
+         f"{float(g['loop_res_after']):.4f}); keyframe ATE {ate_odo:.4f} -> "
+         f"{ate_slam:.4f} m (golden {float(g['ate_odo']):.4f} -> "
+         f"{float(g['ate_slam']):.4f})")
+    _say(f"slam: {n} frames; wall s by stage " + json.dumps(
+        {k: round(v, 2) for k, v in res["secs"].items()})
+        + f"; verification launches {json.dumps(res['verify'])} ({card})")
+    if abs(len(acc) - len(g_acc)) > SLAM_LOOP_SHARE * len(g_acc) \
+            or both < SLAM_PAIR_SHARE * len(g_acc):
+        raise AssertionError("slam: accepted loop edges outside "
+                             f"{SLAM_LOOP_SHARE:.0%} of the golden's count "
+                             f"or under {SLAM_PAIR_SHARE:.0%} of its pairs")
+    if not ate_slam < ate_odo:
+        raise AssertionError(f"slam: closure did not lower the keyframe ATE "
+                             f"({ate_odo:.4f} -> {ate_slam:.4f} m)")
+    graph = golden_graph(g, dev)
+    t0 = time.perf_counter()
+    first, _ = posegraph.optimize(graph, **SLAM_ITERS)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    again, _ = posegraph.optimize(graph, **SLAM_ITERS)
+    same = torch.equal(first.poses, again.poses)
+    got = first.poses.cpu().numpy()
+    want = g["opt_poses"]
+    dxy = float(np.abs(got[:, :2] - want[:, :2]).max())
+    dth = float(np.abs(got[:, 2] - want[:, 2]).max())
+    _say(f"slam: optimize on the golden's graph ({graph.poses.shape[0]} "
+         f"nodes, {int(graph.edge_valid.sum())} edges) vs JAX: max |dxy| "
+         f"{dxy:.3e} m, |dyaw| {dth:.3e} rad; a second run bit-identical: "
+         f"{same}; {secs:.2f} s wall ({card})")
+    if not same:
+        raise AssertionError("slam: two optimize runs on the card differ")
+    if dxy > SLAM_OPT_TOL[0] or dth > SLAM_OPT_TOL[1]:
+        raise AssertionError(f"slam: optimize outside {SLAM_OPT_TOL} of "
+                             "JAX's on the golden's graph")
+
+
 def _reset_launches() -> None:
     for mod in (cuda_assoc, cuda_lm, cuda_features):
         mod.reset_launches()
@@ -1676,6 +1860,17 @@ def main() -> int:
     drive("longrun-adv8", ("nn_min", "lm_solve_fused"),
           lambda: phase_longrun("longrun-adv8", lr, images_a, gt_a,
                                 LONGRUN_ADV8_SEQUENCE, dev, card))
+    del images_a
+
+    # the SLAM pass (`tools/run_slam_scale_torch.py`, cut to 2 laps of 256)
+    slam = slam_config()
+    images_s, gt_s = timed("render", lambda: slam_scale.make_lap_sequence(
+        slam, **SLAM_SEQUENCE))
+    _say(f"rendered {images_s.shape}; {took['render']:.1f} s of rendering "
+         "so far")
+    res = drive("slam", ("nn_min", "lm_solve_fused"),
+                lambda: drive_slam(slam, images_s, dev))
+    timed("slam checks", lambda: phase_slam(slam, res, gt_s, dev, card))
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     _say(f"kernel launches in the main-path runs: {launches}")
     _say("wall seconds by part: " + json.dumps(

@@ -717,3 +717,64 @@ def test_image_ingest_runner_equals_host_ingest_on_the_card(dev):
     assert np.array_equal(a, b)
     assert np.array_equal(oa.fused, oh.fused) and oa.success.all()
     assert np.abs(a - h).max() < 1e-4
+
+
+def test_optimize_on_the_card_equals_the_cpu_and_repeats(dev):
+    """The port's `optimize` at the SLAM pass's 40 GN x 400 PCG on the
+    `slam` golden's graph: two card runs bit-identical, and the card's
+    poses within chip_smoke.SLAM_OPT_TOL of the CPU's and of JAX's."""
+    from cfear_radarodometry_code_public_tpu_torch.models import posegraph
+    with np.load(chip_smoke.GOLDEN_SLAM) as z:
+        g = {k: z[k] for k in z.files}
+    tol = chip_smoke.SLAM_OPT_TOL
+    runs = [posegraph.optimize(chip_smoke.golden_graph(g, d),
+                               **chip_smoke.SLAM_ITERS)[0].poses
+            for d in (dev, dev, torch.device("cpu"))]
+    assert torch.equal(runs[0], runs[1])
+    card = runs[0].cpu().numpy()
+    for want in (runs[2].numpy(), g["opt_poses"]):
+        assert np.abs(card[:, :2] - want[:, :2]).max() <= tol[0]
+        assert np.abs(card[:, 2] - want[:, 2]).max() <= tol[1]
+
+
+def test_loop_verification_on_the_card_equals_the_cpu(dev):
+    """One verification chunk of the `slam` golden's graph nodes: the same
+    pairs registered on the card (kernels A and F) and on the CPU (dense
+    association, plain LM): poses within 1e-3 where both succeed, success
+    flags and association counts equal in at least 95% of the lanes."""
+    from cfear_radarodometry_code_public_tpu_torch.models import loopclosure
+    cfg = chip_smoke.slam_config()
+    rng = np.random.default_rng(0)
+    k, m = 16, cfg.feature.max_cells
+    base = rng.uniform(-60, 60, (1000, 2))
+    scans = []
+    for i in range(k):
+        n = int(rng.integers(700, 1000))
+        mean = (base[:n] + rng.normal(0, 0.05, (n, 2)) + i * 0.3
+                ).astype(np.float32)
+        nrm = rng.normal(size=(n, 2)).astype(np.float32)
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        scans.append({"cell_mean": mean, "cell_normal": nrm,
+                      "cell_cov": np.tile(np.eye(2, dtype=np.float32) * 0.1,
+                                          (n, 1, 1)),
+                      "cell_nsamples": np.full(n, 8, np.float32),
+                      "cell_planarity": np.ones(n, np.float32)})
+    ii, jj = rng.integers(0, k, (2, 40))
+    true = np.stack([(jj - ii) * 0.3, (jj - ii) * 0.3, 0 * ii], -1)
+    guesses = (true + rng.normal(size=(40, 3)) * [0.3, 0.3, 0.02]
+               ).astype(np.float32)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        closer = loopclosure.LoopCloser(cfg, device=d)
+        stacked = loopclosure.stack_payloads(scans, m, d)
+        ca.reset_launches()
+        out.append(closer._verify(stacked, stacked, jj, ii, guesses))
+        if d.type == "cuda":
+            assert ca.launches["nn_min"] > 0
+    card, cpu = out
+    same = (card["success"] == cpu["success"]) & \
+        (card["num_assoc"] == cpu["num_assoc"])
+    assert same.mean() >= 0.95
+    ok = same & card["success"]
+    assert ok.sum() >= 20
+    assert np.abs(card["pose"][ok] - cpu["pose"][ok]).max() <= 1e-3

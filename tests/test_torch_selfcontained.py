@@ -3,8 +3,8 @@ modules (`config.py`, `datasets/synthetic.py`, `datasets/oxford.py`,
 `utils/native_io.py` over `csrc/cfear_io.cpp`, `utils/stats.py`,
 `eval/kitti.py`, `eval/trajectory.py`, the two functions of `eval/viz.py`
 that its CLIs call) are held equal to the reference's, and the port, its
-offline CLI included, runs in a process where JAX and every file of the
-reference package are out of reach.
+offline CLI and its SLAM-scale runner included, runs in a process where JAX
+and every file of the reference package are out of reach.
 
 Tolerances: configs, rendered sequences, host-filter rows, loaded frames
 and ground truth, timing reports, written trajectory files and figures are
@@ -166,6 +166,92 @@ def test_port_cli_runs_without_the_reference_package(tmp_path):
         g = posegraph.GraphBuilder.load(
             os.path.join(out, "run", "simple_graph.npz"))
         assert len(g.poses) == res["keyframes"]
+    """) + _NONE_LOADED
+    _run_guarded(script, str(tmp_path))
+
+
+def test_lap_sequence_and_slam_metrics_equal_the_reference_tool():
+    """`eval/slam_scale.py` against the lines of `tools/run_slam_scale.py`
+    it stands for (:81-106 the world and render, :170-201 the loop
+    residuals and the keyframe ATE), restated here with the reference's
+    synthetic module and float32 `se2.relative`: images and ground truth
+    exactly, metrics to 1e-12."""
+    import jax.numpy as jnp
+
+    from cfear_radarodometry_code_public_tpu.utils import se2 as jse2
+    from cfear_radarodometry_code_public_tpu_torch.eval import slam_scale
+
+    cfg_j, cfg_t = slice_cfg()
+    frames, lap_frames, speed, extent, dropout = 5, 3, 2.5, 200.0, 0.3
+    rng = np.random.default_rng(9)
+    scale = (extent / 160.0) ** 2
+    world = jsyn.make_world(rng, extent=extent,
+                            n_walls=max(18, int(18 * scale)),
+                            n_scatterers=max(250, int(250 * scale)))
+    lap = jsyn.make_loop_trajectory(lap_frames, dt=cfg_j.radar.sensor_period,
+                                    speed=speed)
+    gt = np.concatenate([lap] * -(-frames // lap_frames))[:frames]
+    images = np.zeros((frames, cfg_j.radar.n_azimuths, cfg_j.radar.n_bins),
+                      np.uint8)
+    for i in range(frames):
+        motion = None
+        if i > 0:
+            prev, cur = gt[i - 1], gt[i]
+            c, s = np.cos(prev[2]), np.sin(prev[2])
+            motion = np.array([c * (cur[0] - prev[0]) + s * (cur[1] - prev[1]),
+                               -s * (cur[0] - prev[0]) + c * (cur[1] - prev[1]),
+                               np.angle(np.exp(1j * (cur[2] - prev[2])))])
+        images[i] = jsyn.render_polar(world, gt[i], cfg_j, rng, motion=motion,
+                                      t=i * cfg_j.radar.sensor_period,
+                                      dropout_prob=dropout)
+    got_images, got_gt = slam_scale.make_lap_sequence(
+        cfg_t, frames, lap_frames, speed, extent, dropout)
+    assert got_images.any()
+    np.testing.assert_array_equal(got_images, images)
+    np.testing.assert_array_equal(got_gt, gt)
+
+    est = gt + np.random.default_rng(1).normal(0, 0.5, gt.shape)
+    e = est[:, :2] - est[:, :2].mean(0)
+    g = gt[:, :2] - gt[:, :2].mean(0)
+    th = np.arctan2(np.sum(e[:, 0] * g[:, 1] - e[:, 1] * g[:, 0]),
+                    np.sum(e[:, 0] * g[:, 0] + e[:, 1] * g[:, 1]))
+    c, s = np.cos(th), np.sin(th)
+    er = np.stack([c * e[:, 0] - s * e[:, 1], s * e[:, 0] + c * e[:, 1]], -1)
+    want_ate = float(np.sqrt(np.mean(np.sum((er - g) ** 2, -1))))
+    assert abs(slam_scale.keyframe_ate(est, gt) - want_ate) <= 1e-12
+    edges = [(0, 3, np.array([0.1, 0.2, 0.0]), np.eye(3), 1),
+             (1, 4, np.array([-0.3, 0.0, 0.1]), np.eye(3), 1),
+             (2, 3, np.zeros(3), np.eye(3), 0)]
+    want = [np.linalg.norm((np.asarray(jse2.relative(
+        jnp.asarray(est[i], jnp.float32), jnp.asarray(est[j], jnp.float32)))
+        - t)[:2]) for i, j, t, _, k in edges if k == 1]
+    np.testing.assert_allclose(slam_scale.loop_residuals(edges, est, 1), want,
+                               rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(slam_scale.loop_residuals(edges, est, 2),
+                                  np.zeros(1))
+
+
+def test_slam_pass_runs_without_the_reference_package(tmp_path):
+    """The SLAM pass as users run it, `tools/run_slam_scale_torch.py`
+    (odometry, the graph with payloads, loop closure, the optimizer), runs
+    on the CPU in the guarded process and writes its report; the
+    loop-closure and pose-graph modules import nothing of the reference."""
+    script = _GUARD + textwrap.dedent(r"""
+        import importlib.util
+        from cfear_radarodometry_code_public_tpu_torch.models import (
+            loopclosure, posegraph)
+        spec = importlib.util.spec_from_file_location(
+            "run_slam_scale_torch",
+            os.path.join(sys.argv[1], "tools", "run_slam_scale_torch.py"))
+        tool = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(tool)
+        out = os.path.join(sys.argv[2], "slam.txt")
+        res = tool.main(["--cpu", "--frames", "16", "--lap-frames", "16",
+                         "--max-cells", "256", "--iters", "2",
+                         "--cg-iters", "5", "--out", out])
+        assert res["n_kf"] >= 3, res
+        with open(out) as f:
+            assert "keyframe ATE" in f.read()
     """) + _NONE_LOADED
     _run_guarded(script, str(tmp_path))
 

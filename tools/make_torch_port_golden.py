@@ -38,6 +38,15 @@ the ATE against ground truth, and the configuration and sequence as JSON to
   `simple_graph.npz` (`chip_smoke.read_cli_run`) and the CLI's result.
   `auto` is the dense association on the CPU; on a card the port resolves
   it to kernel A.
+- `--preset slam`: the reference's SLAM pass as `tools/run_slam_scale.py`
+  runs it, with `chip_smoke.slam_config()` over `chip_smoke.SLAM_SEQUENCE`
+  (512 frames, 2 laps of the seed-9 world) and `chip_smoke.SLAM_ITERS`:
+  host-ingest odometry, the graph with scan payloads, `close_from_graph`,
+  `to_arrays`, `optimize` -> `cfear3_slam_seed9_512.npz`: the odometry
+  poses and keyframe flags, the graph arrays `to_arrays` wrote (`g_*`), the
+  optimized poses, loop and candidate counts, loop residuals and keyframe
+  ATE before and after. The association runs as `assoc_method="pallas"`
+  (kernel A in interpret mode, what `auto` resolves to on a card).
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --feature-backend pallas
@@ -46,6 +55,7 @@ the ATE against ground truth, and the configuration and sequence as JSON to
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset longrun
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset longrun --adversarial --speed 8
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset cli
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset slam
 
 On one CPU process the first takes about 10 s and the second about a
 minute; the s50 exact golden took 39 s and the K16 golden 18 s (rendering
@@ -117,6 +127,82 @@ def cli_golden() -> None:
           f"{time.perf_counter() - t0:.1f} s on the CPU")
 
 
+def slam_golden(method: str) -> None:
+    """`--preset slam`: the reference's SLAM pass on the CPU ->
+    chip_smoke.GOLDEN_SLAM; with `method` "dense", the same pass with the
+    dense association, printed beside the golden and not written."""
+    from cfear_radarodometry_code_public_tpu.models import (loopclosure,
+                                                            posegraph)
+    from cfear_radarodometry_code_public_tpu_torch.eval import slam_scale
+
+    cfg_dict = chip_smoke.slam_config().to_dict()
+    cfg = CFEARConfig.from_dict(cfg_dict)
+    method = "pallas" if method == "pallas_sparse" else method
+    cfg = cfg.replace(registration=dataclasses.replace(
+        cfg.registration, assoc_method=method))
+    images, gt = slam_scale.make_lap_sequence(cfg, **chip_smoke.SLAM_SEQUENCE)
+    times = {}
+    t0 = time.perf_counter()
+    runner = OdometryRunner(cfg, chunk=32, ingest="host")
+    runner.process(images)
+    traj, out = np.asarray(runner.trajectory()), runner.frame_outputs()
+    kf = np.flatnonzero(np.asarray(out.fused))
+    times["odometry"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gb = posegraph.build_graph_from_odometry(out, traj, images=images,
+                                             cfg=cfg)
+    times["graph"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    accepted = loopclosure.LoopCloser(cfg).close_from_graph(gb)
+    times["close"] = time.perf_counter() - t0
+    graph = gb.to_arrays()
+    t0 = time.perf_counter()
+    opt, _ = posegraph.optimize(graph, **chip_smoke.SLAM_ITERS)
+    opt = np.asarray(opt.poses)
+    times["optimize"] = time.perf_counter() - t0
+    lr0 = slam_scale.loop_residuals(gb.edges, traj[kf],
+                                    posegraph.LOOP_APPEARANCE)
+    lr1 = slam_scale.loop_residuals(gb.edges, opt, posegraph.LOOP_APPEARANCE)
+    ate_odo = slam_scale.keyframe_ate(traj[kf], gt[kf])
+    ate_slam = slam_scale.keyframe_ate(opt, gt[kf])
+    if method == "dense":
+        with np.load(chip_smoke.GOLDEN_SLAM) as z:
+            g = dict(z)
+        dpos, dyaw, dmot = chip_smoke.traj_spread(traj, g["poses"])
+        both = set(map(tuple, g["accepted"])) & set(accepted)
+        print(f"dense vs {os.path.basename(chip_smoke.GOLDEN_SLAM)}: odometry "
+              f"max |dpos| {dpos:.6f} m, |dyaw| {dyaw:.3e} rad, |dmotion| "
+              f"{dmot:.6f} m; keyframe flags equal "
+              f"{bool(np.array_equal(out.fused, g['fused']))}, keyframes "
+              f"{len(kf)} (golden {int(g['fused'].sum())}); accepted loop "
+              f"edges {len(accepted)} (golden {len(g['accepted'])}, "
+              f"{len(both)} pairs in both); candidates "
+              f"{gb.n_constraints(posegraph.CANDIDATE)} (golden "
+              f"{int(g['n_candidates'])}); keyframe ATE {ate_odo:.4f} -> "
+              f"{ate_slam:.4f} m (golden {float(g['ate_odo']):.4f} -> "
+              f"{float(g['ate_slam']):.4f}); seconds on the CPU "
+              + json.dumps({k: round(v, 1) for k, v in times.items()}))
+        return
+    np.savez_compressed(
+        chip_smoke.GOLDEN_SLAM, poses=traj, gt=gt, fused=out.fused,
+        success=out.success, opt_poses=opt,
+        **{"g_" + k: np.asarray(v) for k, v in graph._asdict().items()},
+        accepted=np.asarray(accepted, np.int64).reshape(-1, 2),
+        n_candidates=gb.n_constraints(posegraph.CANDIDATE),
+        loop_res_before=np.median(lr0), loop_res_after=np.median(lr1),
+        ate_odo=np.float64(ate_odo), ate_slam=np.float64(ate_slam),
+        assoc_method=method, config=json.dumps(cfg_dict),
+        sequence=json.dumps(chip_smoke.SLAM_SEQUENCE),
+        iters=json.dumps(chip_smoke.SLAM_ITERS))
+    print(f"{chip_smoke.GOLDEN_SLAM}: {len(traj)} frames, {len(kf)} "
+          f"keyframes, {len(accepted)} accepted loop edges, "
+          f"{gb.n_constraints(posegraph.CANDIDATE)} candidates; loop "
+          f"residual median {np.median(lr0):.3f} -> {np.median(lr1):.3f} m; "
+          f"keyframe ATE {ate_odo:.4f} -> {ate_slam:.4f} m; all successful "
+          f"{bool(np.asarray(out.success).all())}; seconds on the CPU "
+          + json.dumps({k: round(v, 1) for k, v in times.items()}))
+
+
 def target(preset: str, feature_backend: str, k_active: int, args):
     """(configuration, sequence, output path) of one golden."""
     if preset == "longrun":
@@ -144,7 +230,7 @@ def target(preset: str, feature_backend: str, k_active: int, args):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=("CFEAR-3", "CFEAR-3-s50", "longrun",
-                                         "cli"),
+                                         "cli", "slam"),
                     default="CFEAR-3")
     ap.add_argument("--feature-backend", choices=("auto", "pallas"),
                     default="auto")
@@ -165,6 +251,9 @@ def main() -> None:
     jax.config.update("jax_platforms", "cpu")
     if args.preset == "cli":
         cli_golden()
+        return
+    if args.preset == "slam":
+        slam_golden(args.assoc_method)
         return
     port_cfg, sequence, path = target(args.preset, args.feature_backend,
                                       args.k_active, args)
