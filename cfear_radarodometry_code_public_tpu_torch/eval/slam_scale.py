@@ -2,7 +2,9 @@
 `tools/run_slam_scale.py:81-106` and :164-201, as functions).
 
 A multi-lap circuit: laps of one closed circular loop in one synthetic
-world, so every lap after the first is loop-rich against the earlier ones.
+world, so every lap after the first is loop-rich against the earlier ones;
+and a second drive along a stretch of that route with its own speckle (a
+session to merge into the first's map).
 Metrics: keyframe ATE after a yaw-only rigid alignment of the estimate to
 ground truth (map consistency, not the global gauge), and the translation
 residuals of the graph's LOOP_APPEARANCE edges at given node poses.
@@ -20,6 +22,44 @@ from cfear_radarodometry_code_public_tpu_torch.utils import se2
 WORLD_SEED = 9
 
 
+def _lap_world(cfg, lap_frames: int, speed: float, extent: float,
+               seed: int):
+    """(rng, world, lap): the world of `seed` (walls and scatterers scaled
+    to `extent`), drawn first from the rng, and one lap of
+    `make_loop_trajectory(lap_frames)`."""
+    rng = np.random.default_rng(seed)
+    scale = (extent / 160.0) ** 2
+    world = synthetic.make_world(
+        rng, extent=extent, n_walls=max(18, int(18 * scale)),
+        n_scatterers=max(250, int(250 * scale)))
+    lap = synthetic.make_loop_trajectory(lap_frames, dt=cfg.radar.sensor_period,
+                                         speed=speed)
+    return rng, world, lap
+
+
+def _render_route(world, route, cfg, rng, dropout_prob, prev=None):
+    """Render each pose of `route` (N, 3) with the motion since the pose
+    before it (`prev` before the first; none when `prev` is None) and the
+    frame's time i * sensor period."""
+    dt = cfg.radar.sensor_period
+    images = np.zeros((len(route), cfg.radar.n_azimuths, cfg.radar.n_bins),
+                      np.uint8)
+    for i in range(len(route)):
+        before = route[i - 1] if i > 0 else prev
+        motion = None
+        if before is not None:
+            cur = route[i]
+            c, s = np.cos(before[2]), np.sin(before[2])
+            motion = np.array([
+                c * (cur[0] - before[0]) + s * (cur[1] - before[1]),
+                -s * (cur[0] - before[0]) + c * (cur[1] - before[1]),
+                np.angle(np.exp(1j * (cur[2] - before[2])))])
+        images[i] = synthetic.render_polar(world, route[i], cfg, rng,
+                                           motion=motion, t=i * dt,
+                                           dropout_prob=dropout_prob)
+    return images
+
+
 def make_lap_sequence(cfg, n_frames: int, lap_frames: int,
                       speed: float = 2.5, extent: float = 300.0,
                       dropout_prob: float = 0.0, seed: int = WORLD_SEED):
@@ -28,28 +68,28 @@ def make_lap_sequence(cfg, n_frames: int, lap_frames: int,
     scatterers scaled to `extent`, rendered frame by frame with the
     motion since the previous frame (its motion distortion) and
     azimuth-wedge dropout `dropout_prob`."""
-    rng = np.random.default_rng(seed)
-    scale = (extent / 160.0) ** 2
-    world = synthetic.make_world(
-        rng, extent=extent, n_walls=max(18, int(18 * scale)),
-        n_scatterers=max(250, int(250 * scale)))
-    dt = cfg.radar.sensor_period
-    lap = synthetic.make_loop_trajectory(lap_frames, dt=dt, speed=speed)
+    rng, world, lap = _lap_world(cfg, lap_frames, speed, extent, seed)
     laps = -(-n_frames // lap_frames)
     gt = np.concatenate([lap] * laps)[:n_frames]
-    images = np.zeros((n_frames, cfg.radar.n_azimuths, cfg.radar.n_bins),
-                      np.uint8)
-    for i in range(n_frames):
-        motion = None
-        if i > 0:
-            prev, cur = gt[i - 1], gt[i]
-            c, s = np.cos(prev[2]), np.sin(prev[2])
-            motion = np.array([c * (cur[0] - prev[0]) + s * (cur[1] - prev[1]),
-                               -s * (cur[0] - prev[0]) + c * (cur[1] - prev[1]),
-                               np.angle(np.exp(1j * (cur[2] - prev[2])))])
-        images[i] = synthetic.render_polar(world, gt[i], cfg, rng,
-                                           motion=motion, t=i * dt,
-                                           dropout_prob=dropout_prob)
+    return _render_route(world, gt, cfg, rng, dropout_prob), gt
+
+
+def make_route_slice(cfg, start: int, n_frames: int, lap_frames: int,
+                     render_seed: int, speed: float = 2.5,
+                     extent: float = 300.0, dropout_prob: float = 0.0,
+                     seed: int = WORLD_SEED):
+    """(images (n_frames, A, R) uint8, gt (n_frames, 3)): another drive
+    through the world of `make_lap_sequence` (the same `seed`, `extent`,
+    laps), along its route from frame `start` for `n_frames` frames, with
+    fresh speckle from `render_seed`; its first frame carries the motion
+    from the route's frame before it."""
+    _, world, lap = _lap_world(cfg, lap_frames, speed, extent, seed)
+    laps = -(-(start + n_frames) // lap_frames)
+    route = np.concatenate([lap] * laps)
+    gt = route[start:start + n_frames]
+    prev = route[start - 1] if start > 0 else None
+    images = _render_route(world, gt, cfg, np.random.default_rng(render_seed),
+                           dropout_prob, prev)
     return images, gt
 
 

@@ -21,8 +21,7 @@
 
 The pass reads only the graph's stored scan payloads. The entry points run
 on the CUDA card unless the caller passes `device="cpu"`.
-`close_and_optimize` with a `mesh` (the edge-sharded optimizer of
-`parallel/pgo.py`) is not ported.
+`close_and_optimize` with a `mesh` solves edge-sharded (`parallel/pgo.py`).
 """
 
 from __future__ import annotations
@@ -39,6 +38,7 @@ from cfear_radarodometry_code_public_tpu_torch.models.odometry import (
     resolve_device)
 from cfear_radarodometry_code_public_tpu_torch.ops import features, registration
 from cfear_radarodometry_code_public_tpu_torch.ops.features import CellMap
+from cfear_radarodometry_code_public_tpu_torch.parallel import pgo
 
 
 @dataclasses.dataclass
@@ -339,13 +339,10 @@ def close_and_optimize(images: np.ndarray, outputs, trajectory: np.ndarray,
                        iters: int = 15, mesh=None, mini_loops: bool = False,
                        device="cuda"):
     """Full SLAM pass on `device`: the graph from odometry (payloads on the
-    device), loop closure, optimization. Returns (optimized node poses
-    (K, 3), graph builder, accepted pairs)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "close_and_optimize(mesh=...) needs the edge-sharded optimizer "
-            "(parallel/pgo.distributed_optimize), not ported yet (ROADMAP "
-            "queue 1, item 15)")
+    device), loop closure, optimization; with a `mesh`
+    (`parallel.mesh.Mesh`), the solve runs edge-sharded over its group on
+    its device (`parallel/pgo.distributed_optimize`). Returns (optimized
+    node poses (K, 3), graph builder, accepted pairs)."""
     device = resolve_device(device, "close_and_optimize")
     gb = posegraph.build_graph_from_odometry(outputs, trajectory, stamps,
                                              images=images, cfg=cfg,
@@ -354,5 +351,4 @@ def close_and_optimize(images: np.ndarray, outputs, trajectory: np.ndarray,
     accepted = closer.close_from_graph(gb)
     if mini_loops:
         closer.add_mini_loops(gb)
-    opt, _ = posegraph.optimize(gb.to_arrays(device=device), iters=iters)
-    return opt.poses.cpu().numpy(), gb, accepted
+    return pgo.optimize_graph(gb, iters, mesh, device), gb, accepted

@@ -20,7 +20,8 @@ GN step (the IRLS weight a constant in the step, the derivative of
 `features.segment_sum`, and the same Jacobians give the preconditioner's
 blocks. The loops are Python loops that only queue work: nothing in a GN
 or CG iteration reads a value back to the host, and two runs on the card
-are bit-identical. The edge-sharded `parallel/pgo.py` is not ported.
+are bit-identical. `gn_step` takes the all-reduce of the edge-sharded
+optimizer (`parallel/pgo.py`) as a hook, the identity here.
 """
 
 from __future__ import annotations
@@ -264,19 +265,29 @@ def _pcg(matvec, b, precond, iters: int):
 STEP_LADDER = (1.0, 0.5, 0.25, 0.1, 0.04, 0.01)
 
 
+def _identity(t):
+    return t
+
+
 def gn_step(poses, graph: PoseGraph, cg_iters: int = 50, damping: float = 1e-6,
             loop_loss: str = DEFAULT_LOOP_LOSS,
-            loop_loss_limit: float = DEFAULT_LOOP_LOSS_LIMIT):
+            loop_loss_limit: float = DEFAULT_LOOP_LOSS_LIMIT,
+            reduce=_identity):
     """One Gauss-Newton step: (J^T J + damping I) dx = -J^T r by
     block-Jacobi PCG, then the best of the step ladder on the true robust
-    cost (the zero step included). Returns (poses, 0.5 |r|^2, |J^T r|)."""
+    cost (the zero step included). Returns (poses, 0.5 |r|^2, |J^T r|).
+
+    `reduce` sums a tensor over the shards of an edge-sharded graph (the
+    all-reduce of `parallel/pgo.py`; the identity for a whole graph): it is
+    applied to every edge sum, the gradient, each Hessian-vector product,
+    the preconditioner's blocks, the cost and the costs of the ladder."""
     n = poses.shape[0]
     r, jac = _linearize(poses, graph, loop_loss, loop_loss_limit)
     ei, ej, ids = graph.edge_i.long(), graph.edge_j.long(), _node_ids(graph)
 
     def jt(y):     # (E, 3) -> (N, 3)
         rows = (jac * y[:, :, None]).sum(1).reshape(-1, 3)
-        return features.segment_sum(rows, ids, n)
+        return reduce(features.segment_sum(rows, ids, n))
 
     def hvp(x):
         x = _gauge_fix(x)
@@ -284,15 +295,15 @@ def gn_step(poses, graph: PoseGraph, cg_iters: int = 50, damping: float = 1e-6,
         return _gauge_fix(jt((jac * xe[:, None, :]).sum(-1))) + damping * x
 
     grad = _gauge_fix(jt(r))
-    precond = _block_jacobi_apply(_blocks(jac, graph, n), damping)
+    precond = _block_jacobi_apply(reduce(_blocks(jac, graph, n)), damping)
     dx = _gauge_fix(_pcg(hvp, -grad, precond, cg_iters))
-    cost = 0.5 * (r * r).sum()
+    cost = 0.5 * reduce((r * r).sum())
     alphas = torch.tensor(STEP_LADDER + (0.0,), dtype=poses.dtype,
                           device=poses.device)
-    costs = torch.stack(
+    costs = reduce(torch.stack(
         [robust_cost(poses + a * dx, graph, loop_loss, loop_loss_limit)
          for a in STEP_LADDER]
-        + [robust_cost(poses, graph, loop_loss, loop_loss_limit)])
+        + [robust_cost(poses, graph, loop_loss, loop_loss_limit)]))
     best = torch.argmin(costs).reshape(1)
     new_poses = poses + alphas.index_select(0, best) * dx
     return new_poses, cost, torch.linalg.vector_norm(grad)
@@ -334,29 +345,44 @@ def adaptive_gnc_start(poses, graph: PoseGraph, loop_loss_limit: float,
                        torch.maximum(g, 2.0 * q90 / lim)).to(torch.float32)
 
 
+def anneal_start(graph: PoseGraph, loop_loss: str, loop_loss_limit: float,
+                 gnc_start: float):
+    """The anneal start of `optimize` (float32): no anneal with per-edge
+    drift scales (`loop_scale`), the residual-quantile start without them
+    (reference :405-421)."""
+    f32 = dict(dtype=torch.float32, device=graph.poses.device)
+    if loop_loss == "None":
+        return torch.tensor(gnc_start, **f32)
+    if graph.loop_scale is not None:
+        return torch.tensor(1.0, **f32)
+    return adaptive_gnc_start(graph.poses, graph, loop_loss_limit, gnc_start)
+
+
+def gn_iterations(graph: PoseGraph, start, iters: int, cg_iters: int,
+                  damping: float, loop_loss: str, loop_loss_limit: float,
+                  reduce=_identity):
+    """`iters` GN steps from the graph's poses at the annealed limits.
+    Returns (poses, the last step's 0.5 |r|^2)."""
+    poses = graph.poses
+    cost = torch.zeros((), dtype=poses.dtype, device=poses.device)
+    for k in range(iters):
+        poses, cost, _ = gn_step(poses, graph, cg_iters, damping, loop_loss,
+                                 gnc_limit(k, iters, loop_loss_limit, start),
+                                 reduce)
+    return poses, cost
+
+
 def optimize(graph: PoseGraph, iters: int = 10, cg_iters: int = 50,
              loop_loss: str = DEFAULT_LOOP_LOSS,
              loop_loss_limit: float = DEFAULT_LOOP_LOSS_LIMIT,
              gnc_start: float = DEFAULT_GNC_START):
     """Gauss-Newton pose-graph optimization on the graph's device with
-    graduated non-convexity on the loop edges' robust kernel: no anneal
-    with per-edge drift scales (`loop_scale`), the residual-quantile start
-    without them (reference :396-433). Returns (graph with optimized poses,
-    the last step's 0.5 |r|^2)."""
-    f32 = dict(dtype=torch.float32, device=graph.poses.device)
-    if loop_loss == "None":
-        start = torch.tensor(gnc_start, **f32)
-    elif graph.loop_scale is not None:
-        start = torch.tensor(1.0, **f32)
-    else:
-        start = adaptive_gnc_start(graph.poses, graph, loop_loss_limit,
-                                   gnc_start)
-    poses = graph.poses
-    cost = torch.zeros((), dtype=poses.dtype, device=poses.device)
-    for k in range(iters):
-        poses, cost, _ = gn_step(poses, graph, cg_iters, loop_loss=loop_loss,
-                                 loop_loss_limit=gnc_limit(
-                                     k, iters, loop_loss_limit, start))
+    graduated non-convexity on the loop edges' robust kernel
+    (`anneal_start`; reference :396-433). Returns (graph with optimized
+    poses, the last step's 0.5 |r|^2)."""
+    start = anneal_start(graph, loop_loss, loop_loss_limit, gnc_start)
+    poses, cost = gn_iterations(graph, start, iters, cg_iters, 1e-6,
+                                loop_loss, loop_loss_limit)
     return graph._replace(poses=poses), cost
 
 

@@ -778,3 +778,77 @@ def test_loop_verification_on_the_card_equals_the_cpu(dev):
     ok = same & card["success"]
     assert ok.sum() >= 20
     assert np.abs(card["pose"][ok] - cpu["pose"][ok]).max() <= 1e-3
+
+
+def test_distributed_optimize_on_one_card_is_optimize(dev):
+    """The edge-sharded optimizer on a NCCL group of one process (a local
+    TCP rendezvous) equals `optimize` bit for bit on the `slam` golden's
+    graph: the all-reduce of one rank is the identity."""
+    import socket
+    from cfear_radarodometry_code_public_tpu_torch.models import posegraph
+    from cfear_radarodometry_code_public_tpu_torch.parallel import (
+        distributed, mesh, pgo)
+    with np.load(chip_smoke.GOLDEN_SLAM) as z:
+        graph = chip_smoke.golden_graph({k: z[k] for k in z.files}, dev)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    distributed.initialize(coord, 1, 0, device=dev)
+    try:
+        m = mesh.make_mesh(device=dev)
+        assert m.group is not None and torch.distributed.get_backend() == \
+            "nccl"
+        got, cost = pgo.distributed_optimize(graph, m, iters=6, cg_iters=60)
+    finally:
+        torch.distributed.destroy_process_group()
+    want, cost_w = posegraph.optimize(graph, iters=6, cg_iters=60)
+    assert torch.equal(got.poses, want.poses) and torch.equal(cost, cost_w)
+
+
+def test_merge_sessions_on_the_card_launches_a_and_f(dev):
+    """Two sessions of `tests/test_multisession.py`'s world (A 48 frames,
+    B A's frames 16-44 with fresh speckle), odometry and graphs on the
+    card, then `merge_sessions` on the card: the verification launches
+    kernels A and F, and the merge agrees with the same graphs merged on
+    the CPU (t_ab within 2e-3, poses within 1 cm and 2e-4 rad, the bound
+    of tests/test_torch_multisession.py's MERGE_TOL)."""
+    import dataclasses
+    import cfear_radarodometry_code_public_tpu_torch as port
+    from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
+    from cfear_radarodometry_code_public_tpu_torch.models import (
+        multisession, odometry, posegraph)
+    cfg = port.preset("CFEAR-3", dataset="synthetic")
+    cfg = cfg.replace(
+        feature=dataclasses.replace(cfg.feature, max_cells=256),
+        filter=dataclasses.replace(cfg.filter, k_strongest=8))
+    world = synthetic.make_world(np.random.default_rng(42))
+    traj = synthetic.make_trajectory(np.random.default_rng(43), 48,
+                                     dt=cfg.radar.sensor_period, speed=8.0)
+    graphs = []
+    for route, seed in ((traj, 100), (traj[16:44], 900)):
+        images = []
+        for i in range(len(route)):
+            prev = route[i - 1] if i > 0 else route[i]
+            c, s = np.cos(prev[2]), np.sin(prev[2])
+            dx, dy = route[i, 0] - prev[0], route[i, 1] - prev[1]
+            images.append(synthetic.render_polar(
+                world, route[i], cfg, np.random.default_rng(seed + i),
+                motion=np.array([c * dx + s * dy, -s * dx + c * dy,
+                                 route[i, 2] - prev[2]])))
+        images = np.stack(images)
+        r = odometry.OdometryRunner(cfg, device=dev, chunk=8)
+        r.process(images)
+        graphs.append(posegraph.build_graph_from_odometry(
+            r.frame_outputs(), r.trajectory(), images=images, cfg=cfg,
+            device=dev))
+    ca.reset_launches()
+    cuda_lm.reset_launches()
+    opt, _, inliers, t_ab = multisession.merge_sessions(*graphs, cfg,
+                                                        device=dev)
+    assert ca.launches["nn_min"] > 0 and cuda_lm.launches["lm_solve_fused"] > 0
+    opt_c, _, inl_c, t_ab_c = multisession.merge_sessions(*graphs, cfg,
+                                                          device="cpu")
+    assert len(inliers) >= 2 and len(inl_c) >= 2
+    assert np.abs(t_ab - t_ab_c).max() <= 2e-3
+    assert np.abs(opt[:, :2] - opt_c[:, :2]).max() <= 1e-2
+    assert np.abs(opt[:, 2] - opt_c[:, 2]).max() <= 2e-4

@@ -33,6 +33,7 @@ from cfear_radarodometry_code_public_tpu.models import odometry as jodo
 from cfear_radarodometry_code_public_tpu.models import posegraph as jpg
 from cfear_radarodometry_code_public_tpu_torch.models import loopclosure as tlc
 from cfear_radarodometry_code_public_tpu_torch.models import posegraph as tpg
+from cfear_radarodometry_code_public_tpu_torch.parallel import mesh as tmesh
 
 
 def _cfg():
@@ -157,7 +158,7 @@ def test_close_and_optimize_equals_the_reference(loop):
     recomputed by each package, closure, optimization (15 GN iterations).
     Accepted pairs identical; optimized keyframe poses within 2 mm and 1e-4
     rad, the bound `test_torch_posegraph.OPT_TOL` gives DCS with drift
-    scales (1.2 mm seen)."""
+    scales (1.2 mm seen). With a mesh the solve runs edge-sharded."""
     images, out, traj, _ = loop
     cfg_j, cfg_t = both_cfgs(_cfg())
     opt_j, _, acc_j = jlc.close_and_optimize(images, out, traj, cfg_j,
@@ -168,9 +169,13 @@ def test_close_and_optimize_equals_the_reference(loop):
     opt_j = np.asarray(opt_j)
     assert np.abs(opt_t[:, :2] - opt_j[:, :2]).max() <= 2e-3
     assert np.abs(opt_t[:, 2] - opt_j[:, 2]).max() <= 1e-4
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tlc.close_and_optimize(images, out, traj, cfg_t, mesh=object(),
-                               device="cpu")
+    # the solve edge-sharded over a mesh of one process: `optimize` bit for
+    # bit (tests/test_torch_parallel.py holds two processes)
+    opt_m, gb_m, acc_m = tlc.close_and_optimize(
+        images, out, traj, cfg_t, iters=15, device="cpu",
+        mesh=tmesh.make_mesh(device="cpu"))
+    assert acc_m == acc_t and len(gb_m.edges) == len(gb.edges)
+    np.testing.assert_array_equal(opt_m, opt_t)
 
 
 def test_close_computes_missing_payloads_as_the_reference(loop):

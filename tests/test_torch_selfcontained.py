@@ -3,8 +3,10 @@ modules (`config.py`, `datasets/synthetic.py`, `datasets/oxford.py`,
 `utils/native_io.py` over `csrc/cfear_io.cpp`, `utils/stats.py`,
 `eval/kitti.py`, `eval/trajectory.py`, the two functions of `eval/viz.py`
 that its CLIs call) are held equal to the reference's, and the port, its
-offline CLI and its SLAM-scale runner included, runs in a process where JAX
-and every file of the reference package are out of reach.
+offline CLI, its SLAM-scale runner, the merge CLI and the parallel layer
+included, runs in a process where JAX and every file of the reference
+package are out of reach; `parallel/sweep.py` is the reference's file but
+for the CLI it runs.
 
 Tolerances: configs, rendered sequences, host-filter rows, loaded frames
 and ground truth, timing reports, written trajectory files and figures are
@@ -252,6 +254,94 @@ def test_slam_pass_runs_without_the_reference_package(tmp_path):
         assert res["n_kf"] >= 3, res
         with open(out) as f:
             assert "keyframe ATE" in f.read()
+    """) + _NONE_LOADED
+    _run_guarded(script, str(tmp_path))
+
+
+def test_sweep_equals_the_reference(tmp_path):
+    """`parallel/sweep.py` is the reference's file but for the CLI it runs:
+    the same ablation grids and grid expansion, the same job directories,
+    and the same merged CSV, byte for byte."""
+    from cfear_radarodometry_code_public_tpu.parallel import sweep as jsweep
+    from cfear_radarodometry_code_public_tpu_torch.parallel import (
+        sweep as tsweep)
+
+    def lines(mod):
+        with open(mod.__file__) as f:
+            return f.read().splitlines()
+
+    diff = [(a, b) for a, b in zip(lines(tsweep), lines(jsweep)) if a != b]
+    assert len(lines(tsweep)) == len(lines(jsweep))
+    assert diff == [(
+        "    from cfear_radarodometry_code_public_tpu_torch import "
+        "offline_odometry",
+        "    from cfear_radarodometry_code_public_tpu import offline_odometry")]
+    assert tsweep.ABLATIONS == jsweep.ABLATIONS
+    for grid in tsweep.ABLATIONS.values():
+        assert tsweep.expand_grid(grid) == jsweep.expand_grid(grid)
+    grid = tsweep.ABLATIONS["filter"]
+    # a worker that owns none of the 12 jobs runs none and lists them all
+    assert tsweep.run_sweep(str(tmp_path), grid, [], 13, 12) == \
+        jsweep.run_sweep(str(tmp_path), grid, [], 13, 12)
+    for k in (0, 1, 3):
+        job = tmp_path / "grid" / f"job_{k}"
+        (job / "est").mkdir(parents=True)
+        (job / "pars.txt").write_text(f"k_strongest, {12 + k}\nz_min, 60\n")
+        if k != 1:
+            (job / "est" / "result.txt").write_text(f"ate_m: 0.{k}1\n")
+    paths = [str(tmp_path / f"{w}.csv") for w in ("port", "reference")]
+    assert tsweep.merge(str(tmp_path), paths[0]) == \
+        jsweep.merge(str(tmp_path), paths[1]) == 3
+    with open(paths[0], "rb") as a, open(paths[1], "rb") as b:
+        assert a.read() == b.read()
+
+
+def test_merge_and_parallel_run_without_the_reference_package(tmp_path):
+    """In the guarded process: the offline CLI writes a session graph, the
+    merge CLI folds it into a copy of itself (every node matches its twin
+    and its neighbours, so the alignment is near the identity), `close_and_optimize`'s edge-sharded
+    solve on a mesh of one process, the segment runner, `shard_jobs` and
+    the sweep's grid."""
+    script = _GUARD + textwrap.dedent(r"""
+        import dataclasses
+        import numpy as np
+        import cfear_radarodometry_code_public_tpu_torch as port
+        from cfear_radarodometry_code_public_tpu_torch import (
+            merge_sessions, offline_odometry)
+        from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
+        from cfear_radarodometry_code_public_tpu_torch.models import (
+            multisession, posegraph)
+        from cfear_radarodometry_code_public_tpu_torch.parallel import (
+            distributed, mesh, pgo, segments, sweep)
+        out = sys.argv[2]
+        cfg = port.preset("CFEAR-3", dataset="synthetic")
+        cfg = cfg.replace(
+            feature=dataclasses.replace(cfg.feature, max_cells=512,
+                                        point_budget=2048),
+            filter=dataclasses.replace(cfg.filter, k_strongest=12))
+        cfg.save(os.path.join(out, "cfg.json"))
+        offline_odometry.main([
+            "--config-file", os.path.join(out, "cfg.json"), "--dataset",
+            "synthetic", "--seed", "3", "--n-frames", "6", "--cpu",
+            "--output-dir", os.path.join(out, "run")])
+        g = os.path.join(out, "run", "simple_graph.npz")
+        k = len(posegraph.GraphBuilder.load(g).poses)
+        res = merge_sessions.main([g, g, "--out", os.path.join(out, "m.npz"),
+                                   "--max-cells", "512", "--cpu"])
+        assert res["n_nodes"] == 2 * k and res["n_cross"] >= 2, res
+        assert np.abs(res["t_ab"]).max() < 0.5, res
+        m = mesh.make_mesh(device="cpu")
+        graph = posegraph.GraphBuilder.load(os.path.join(out, "m.npz")
+                                            ).to_arrays(device="cpu")
+        got, _ = pgo.distributed_optimize(graph, m, iters=2)
+        want, _ = posegraph.optimize(graph, iters=2)
+        assert bool((got.poses == want.poses).all())
+        images, _ = synthetic.make_sequence(seed=3, n_frames=8, cfg=cfg)
+        traj = segments.run_segmented(images, cfg, 2, 2, chunk=4,
+                                      device="cpu")
+        assert traj.shape == (8, 3) and np.isfinite(traj).all()
+        assert distributed.shard_jobs(list(range(5)), 2, 1) == [1, 3]
+        assert len(sweep.expand_grid(sweep.ABLATIONS["filter"])) == 12
     """) + _NONE_LOADED
     _run_guarded(script, str(tmp_path))
 

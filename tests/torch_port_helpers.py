@@ -66,3 +66,37 @@ def to_torch(tree, cls=None):
 
 def np_tree(tree):
     return [np.asarray(a) for a in tree]
+
+
+def run_ranks(script: str, n: int, *args, timeout: float = 240.0):
+    """Run `script` (Python source) in `n` fresh processes that import the
+    port only, as the ranks of one gloo group: each gets argv [rank, n,
+    coordinator host:port, *args]. Each rank has `timeout` seconds; on
+    expiry every rank is killed and the call fails, so a hung collective
+    fails fast. Returns the ranks' outputs (stdout and stderr)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", script, str(r), str(n), coord, *map(str, args)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+        cwd=repo) for r in range(n)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            tails = [q.communicate()[0][-2000:] for q in procs[len(outs):]]
+            raise AssertionError(f"a rank outlived {timeout} s:\n"
+                                 + "\n".join(tails))
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out[-3000:]}"
+    return outs

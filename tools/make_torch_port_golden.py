@@ -47,6 +47,15 @@ the ATE against ground truth, and the configuration and sequence as JSON to
   optimized poses, loop and candidate counts, loop residuals and keyframe
   ATE before and after. The association runs as `assoc_method="pallas"`
   (kernel A in interpret mode, what `auto` resolves to on a card).
+- `--preset merge`: the reference's multi-session merge. Session A is the
+  `slam` preset's pass up to `close_from_graph`; session B drives the same
+  world along the route from frame `chip_smoke.MERGE_SEQUENCE["start"]`
+  for its `n_frames` with its own speckle
+  (`slam_scale.make_route_slice`); then `merge_many([A, B],
+  iters=chip_smoke.MERGE_ITERS)` -> `cfear3_merge_seed9_512_128.npz`: the
+  verified and inlier (A node, B node) pairs, the candidate count, `t_ab`,
+  B's keyframe flags, poses and ground truth, the merged optimized poses,
+  and B's keyframe error after the merge and with the identity alignment.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --feature-backend pallas
@@ -56,6 +65,7 @@ the ATE against ground truth, and the configuration and sequence as JSON to
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset longrun --adversarial --speed 8
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset cli
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset slam
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset merge
 
 On one CPU process the first takes about 10 s and the second about a
 minute; the s50 exact golden took 39 s and the K16 golden 18 s (rendering
@@ -203,6 +213,92 @@ def slam_golden(method: str) -> None:
           + json.dumps({k: round(v, 1) for k, v in times.items()}))
 
 
+def merge_golden(method: str) -> None:
+    """`--preset merge`: session A as the `slam` golden makes it (odometry,
+    the graph with payloads, `close_from_graph`), session B over
+    `chip_smoke.MERGE_SEQUENCE` (host-ingest odometry, its graph with
+    payloads), then `merge_many([A, B], iters=chip_smoke.MERGE_ITERS)`, on
+    the CPU -> chip_smoke.GOLDEN_MERGE; with `method` "dense", the same with
+    the dense association, printed beside the golden and not written."""
+    from cfear_radarodometry_code_public_tpu.models import (
+        loopclosure, multisession, posegraph)
+    from cfear_radarodometry_code_public_tpu_torch.eval import slam_scale
+
+    cfg_dict = chip_smoke.slam_config().to_dict()
+    cfg = CFEARConfig.from_dict(cfg_dict)
+    method = "pallas" if method == "pallas_sparse" else method
+    cfg = cfg.replace(registration=dataclasses.replace(
+        cfg.registration, assoc_method=method))
+    seq = chip_smoke.SLAM_SEQUENCE
+    times, t0 = {}, time.perf_counter()
+    graphs = []
+    for make in (lambda: slam_scale.make_lap_sequence(cfg, **seq),
+                 lambda: slam_scale.make_route_slice(
+                     cfg, lap_frames=seq["lap_frames"], speed=seq["speed"],
+                     extent=seq["extent"], **chip_smoke.MERGE_SEQUENCE)):
+        images, gt_b = make()
+        runner = OdometryRunner(cfg, chunk=32, ingest="host")
+        runner.process(images)
+        traj, out = np.asarray(runner.trajectory()), runner.frame_outputs()
+        graphs.append(posegraph.build_graph_from_odometry(
+            out, traj, images=images, cfg=cfg))
+        del images
+    gb_a, gb_b = graphs      # traj, out and gt_b are session B's
+    kf_b = np.flatnonzero(np.asarray(out.fused))
+    times["odometry + graphs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loopclosure.LoopCloser(cfg).close_from_graph(gb_a)
+    times["close A"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with chip_smoke.recorded(multisession, "cross_session_matches") as found, \
+            chip_smoke.recorded(loopclosure.LoopCloser, "_verify") as lanes:
+        opt, _, merges, _ = multisession.merge_many(
+            [gb_a, gb_b], cfg, iters=chip_smoke.MERGE_ITERS)
+    times["merge_many"] = time.perf_counter() - t0
+    opt = np.asarray(opt)
+    ka = len(gb_a.poses)
+    verified = np.asarray([(m["i_a"], m["j_b"]) for m in found[0][1]],
+                          np.int64).reshape(-1, 2)
+    inliers = np.asarray([(m["i_a"], m["j_b"]) for m in merges[0]["inliers"]],
+                         np.int64).reshape(-1, 2)
+    t_ab = np.asarray(merges[0]["t_ab"])
+    err, err_id = chip_smoke.merge_errors(opt[ka:], np.stack(gb_b.poses),
+                                          gt_b[kf_b])
+    summary = (f"session A {ka} nodes, session B {len(gb_b.poses)} nodes; "
+               f"{len(lanes[0][0]["src_idx"])} candidate pairs; {len(verified)} "
+               f"verified, {len(inliers)} inliers; t_ab {t_ab.tolist()} "
+               f"(B's true start {gt_b[0].tolist()}); B's keyframe error "
+               f"{err:.4f} m merged, {err_id:.4f} m with the identity "
+               "alignment; seconds on the CPU "
+               + json.dumps({k: round(v, 1) for k, v in times.items()}))
+    if method == "dense":
+        with np.load(chip_smoke.GOLDEN_MERGE) as z:
+            g = dict(z)
+        got = set(map(tuple, inliers.tolist()))
+        want = set(map(tuple, g["inliers"].tolist()))
+        print(f"dense vs {os.path.basename(chip_smoke.GOLDEN_MERGE)}: "
+              f"inliers {len(got)} (golden {len(want)}, {len(got & want)} "
+              f"in both); verified {len(verified)} (golden "
+              f"{len(g['verified'])}); |d t_ab| "
+              f"{np.abs(t_ab[:2] - g['t_ab'][:2]).max():.6f} m, "
+              f"{abs(t_ab[2] - g['t_ab'][2]):.3e} rad; B's merged keyframe "
+              f"error {err:.4f} m (golden {float(g['err_merged']):.4f}); "
+              f"merged poses max |dxy| "
+              f"{np.abs(opt[:, :2] - g['opt_poses'][:, :2]).max():.6f} m; "
+              + summary)
+        return
+    np.savez_compressed(
+        chip_smoke.GOLDEN_MERGE, opt_poses=opt, verified=verified,
+        inliers=inliers, t_ab=t_ab, n_candidates=len(lanes[0][0][3]),
+        a_nodes=ka, b_fused=np.asarray(out.fused), b_poses=traj,
+        b_gt=gt_b, err_merged=np.float64(err),
+        err_identity=np.float64(err_id), assoc_method=method,
+        config=json.dumps(cfg_dict), sequence=json.dumps(seq),
+        merge_sequence=json.dumps(chip_smoke.MERGE_SEQUENCE),
+        iters=json.dumps(chip_smoke.MERGE_ITERS))
+    print(f"{chip_smoke.GOLDEN_MERGE}: " + summary)
+
+
 def target(preset: str, feature_backend: str, k_active: int, args):
     """(configuration, sequence, output path) of one golden."""
     if preset == "longrun":
@@ -230,7 +326,7 @@ def target(preset: str, feature_backend: str, k_active: int, args):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=("CFEAR-3", "CFEAR-3-s50", "longrun",
-                                         "cli", "slam"),
+                                         "cli", "slam", "merge"),
                     default="CFEAR-3")
     ap.add_argument("--feature-backend", choices=("auto", "pallas"),
                     default="auto")
@@ -254,6 +350,9 @@ def main() -> None:
         return
     if args.preset == "slam":
         slam_golden(args.assoc_method)
+        return
+    if args.preset == "merge":
+        merge_golden(args.assoc_method)
         return
     port_cfg, sequence, path = target(args.preset, args.feature_backend,
                                       args.k_active, args)
