@@ -6,14 +6,15 @@ matplotlib renderings of the same artifacts:
 
 - `plot_scan`: polar sweep + filtered points + oriented surface points
   (cell means with normal arrows, covariance ellipses)
+- `plot_associations`: source and target cells with association lines
 - `plot_trajectory`: est vs GT paths with keyframe marks
+- `plot_cost_surface`: a registration cost surface
+  (`registration.cost_surface`)
 
-The port's own copy of the two functions of the reference's
-`cfear_radarodometry_code_public_tpu/eval/viz.py` that its CLIs call
-(`radar_filter --plot`, `eval_trajectories --plot`); numpy and matplotlib
-only, matplotlib imported inside the functions. The reference's
-`plot_associations` and `plot_cost_surface` have no caller in the port.
-The port imports nothing of the reference package.
+The port's own copy of the reference's
+`cfear_radarodometry_code_public_tpu/eval/viz.py`; numpy and matplotlib
+only, matplotlib imported inside the functions. The port imports nothing of
+the reference package.
 """
 
 from __future__ import annotations
@@ -55,6 +56,24 @@ def plot_scan(path, image, points_xy=None, cells=None, max_range=None):
     plt.close(fig)
 
 
+def plot_associations(path, src_means, tar_means, tar_idx, valid):
+    plt = _mpl()
+    fig, ax = plt.subplots(figsize=(9, 9))
+    src = np.asarray(src_means)
+    tar = np.asarray(tar_means)
+    ok = np.asarray(valid)
+    ax.plot(tar[:, 0], tar[:, 1], "b.", ms=3, label="target cells")
+    ax.plot(src[:, 0], src[:, 1], "r.", ms=3, label="source cells")
+    for i in np.where(ok)[0]:
+        j = int(np.asarray(tar_idx)[i])
+        ax.plot([src[i, 0], tar[j, 0]], [src[i, 1], tar[j, 1]],
+                "g-", lw=0.4, alpha=0.6)
+    ax.set_aspect("equal")
+    ax.legend()
+    fig.savefig(path, dpi=110, bbox_inches="tight")
+    plt.close(fig)
+
+
 def plot_trajectory(path, est_xyt, gt_xyt=None, fused=None):
     plt = _mpl()
     fig, ax = plt.subplots(figsize=(9, 9))
@@ -70,5 +89,17 @@ def plot_trajectory(path, est_xyt, gt_xyt=None, fused=None):
     ax.set_xlabel("x [m]")
     ax.set_ylabel("y [m]")
     ax.legend()
+    fig.savefig(path, dpi=110, bbox_inches="tight")
+    plt.close(fig)
+
+
+def plot_cost_surface(path, surface, extent):
+    plt = _mpl()
+    fig, ax = plt.subplots(figsize=(7, 6))
+    im = ax.imshow(np.asarray(surface), origin="lower", extent=extent,
+                   cmap="magma")
+    fig.colorbar(im, ax=ax, label="cost")
+    ax.set_xlabel("x offset [m]")
+    ax.set_ylabel("y offset [m]")
     fig.savefig(path, dpi=110, bbox_inches="tight")
     plt.close(fig)

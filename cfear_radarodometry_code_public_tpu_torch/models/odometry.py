@@ -26,8 +26,8 @@ Ingest kinds: "image" (raw uint8 sweeps, filtered on the device by
 "candidates" (`native_io.filter_frames_host`, or
 `native_io.cfar_filter_frames_host` with `filter.method="cacfar"`). With
 `feature.use_raw_pointcloud` each filtered point is a cell
-(`features.compute_raw_cells`). Not ported (raises NotImplementedError):
-`registration.assoc_method="grid"`.
+(`features.compute_raw_cells`). `make_chunk_runner` is the reference's
+chunk scan of the step, a plain loop here.
 
 `OdometryRunner` runs on the CUDA card unless it is given `device="cpu"`;
 without a card it raises. Like the reference's, it takes raw sweeps to the
@@ -367,6 +367,26 @@ def make_batched_step(cfg, ingest: str = "compact"):
 def make_step(cfg, ingest: str = "compact"):
     """Per-frame step of one sequence (unbatched state and input)."""
     return _unbatched(make_batched_step(cfg, ingest))
+
+
+def make_chunk_runner(cfg, ingest: str = "image"):
+    """The reference's jitted `lax.scan` of `make_step` over a chunk of
+    frames: `run_chunk(state, inputs)` with a leading T axis on the inputs
+    ((T, A, R) sweeps for "image", stacked host rows otherwise) returns
+    (state, FrameOutput with every leaf stacked over T). A plain loop of
+    the step, so it is bit for bit stepping frame by frame. The state must
+    be initialised (`make_bootstrap`)."""
+    step = make_step(cfg, ingest)
+
+    def run_chunk(state: OdometryState, inputs):
+        n = inputs.shape[0] if ingest == "image" else inputs.bins.shape[0]
+        outs = []
+        for i in range(n):
+            state, out = step(state, _map(lambda a: a[i], inputs))
+            outs.append(out)
+        return state, FrameOutput(*(torch.stack(xs) for xs in zip(*outs)))
+
+    return run_chunk
 
 
 def compose_trajectory(outputs: FrameOutput) -> np.ndarray:

@@ -8,8 +8,9 @@ est/gt trajectories (KITTI + TUM + covariance), the pose graph
 (`offline_odometry.cpp:290-302`), and an in-repo KITTI drift / ATE
 `est/result.txt`. The flags are the reference CLI's; `--cpu` runs on the
 CPU instead of the card (without it and without a card the CLI raises),
-and `--trace DIR` writes a `torch.profiler` trace. `--profile-stages`
-(the reference's TPU stage profiler) is not ported.
+`--trace DIR` writes a `torch.profiler` trace, and `--profile-stages`
+times each stage of the real pipeline on the first 8 frames
+(`_profile_stages`) into `pars.txt`'s timing table.
 
 Usage:
   python -m cfear_radarodometry_code_public_tpu_torch.offline_odometry \
@@ -145,6 +146,77 @@ def write_pars(path, cfg, args, timing, extra):
         f.write(timing.csv() + "\n")
 
 
+def _profile_stages(cfg, images, timing, device):
+    """IN-PIPELINE per-stage timings with the reference's stage names
+    ("Filtering" `radar_driver.cpp:87`, "compensate" / "build_normals" /
+    "register" `odometrykeyframefuser.cpp:253-256`).
+
+    Runs the REAL sequential pipeline — bootstrap, then per-frame steps
+    carrying the true scan state, with the default image ingest — but as
+    one function a stage with a device sync after each, so every number is
+    the stage's time on the production state (the reference's timing table
+    comes from this instrumentation point, `statistics.cpp:31-51`). The
+    syncs add a wait the fused step does not pay, which is why this is a
+    flag and not always on; `--trace` records the step unsynchronised,
+    with the same stage names as `record_function` ranges. "Surface
+    points" (cells a frame) and "itrs" (outer registration iterations)
+    are documented beside the times."""
+    import torch
+
+    from cfear_radarodometry_code_public_tpu_torch.models import odometry
+    from cfear_radarodometry_code_public_tpu_torch.ops import (features,
+                                                               filtering)
+    from cfear_radarodometry_code_public_tpu_torch.utils import se2
+
+    dev = torch.device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def f_filter(img):
+        return filtering.filter_polar_image(
+            odometry.upload_images(img[None], dev), cfg)
+
+    def f_comp(xy, tmot):
+        return se2.compensate_points(xy, tmot, cfg.radar.ccw)
+
+    def f_cells(pts):
+        return features.compute_cells_batched(pts, cfg)
+
+    def f_fuse(state, cells):
+        return odometry._fuse_frame(state, cells, cfg)
+
+    # the pipeline's own rule: with time-continuous registration the warp
+    # is applied to the cells inside the registration stage
+    compensate = cfg.odometry.compensate \
+        and not cfg.registration.time_continuous
+    bootstrap = odometry.make_bootstrap(cfg, "image", batched=True)
+    state, _ = bootstrap(odometry.init_state(cfg, dev, batch=1),
+                         odometry.upload_images(images[0][None], dev))
+    # warm every stage so one-time costs stay out of the table
+    pts_w = f_filter(images[0])
+    pts_w = pts_w._replace(xy=f_comp(pts_w.xy, state.tmot))
+    f_fuse(state, f_cells(pts_w))[1].pose.cpu()
+
+    for img in images[1:]:
+        with timing.timer("Filtering"):
+            pts = f_filter(img)
+            sync()
+        if compensate:
+            with timing.timer("compensate"):
+                pts = pts._replace(xy=f_comp(pts.xy, state.tmot))
+                sync()
+        with timing.timer("build_normals"):
+            cells = f_cells(pts)
+            sync()
+        with timing.timer("register"):
+            state, out = f_fuse(state, cells)
+            sync()
+        timing.document("Surface points", float(cells.n[0]))
+        timing.document("itrs", float(out.reg_iterations[0]))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--dataset", default="synthetic",
@@ -253,8 +325,9 @@ def main(argv=None):
                          "association kernel on the card for windows >= 8 "
                          "keyframes via assoc_method=auto)")
     ap.add_argument("--profile-stages", action="store_true", default=False,
-                    help="the reference's TPU stage profiler; not ported "
-                         "(raises): use --trace")
+                    help="in-pipeline per-stage timings (Filtering, "
+                         "compensate, build_normals, register) on the "
+                         "first 8 frames, a device sync after each stage")
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the odometry run "
                          "to DIR/trace.json (Chrome trace format); stage "
@@ -269,11 +342,6 @@ def main(argv=None):
     if args.job_nr is not None:
         args.output_dir = os.path.join(args.output_dir, f"job_{args.job_nr}")
 
-    if args.profile_stages:
-        raise NotImplementedError(
-            "--profile-stages drives the reference's TPU stage profiler and "
-            "is not ported (ROADMAP queue 1, item 16); --trace DIR writes a "
-            "torch.profiler trace with the same stage names")
     device = "cpu" if args.cpu else "cuda"
 
     from cfear_radarodometry_code_public_tpu_torch.eval.kitti import kitti_drift
@@ -347,6 +415,9 @@ def main(argv=None):
         if gt is not None:
             gb.attach_ground_truth(stamps, gt, tol=1e-3)
         gb.save(os.path.join(args.output_dir, "simple_graph.npz"))
+
+    if args.profile_stages:
+        _profile_stages(cfg, images[:min(len(images), 8)], timing, device)
 
     result = {"frames": len(images), "fps": round(fps, 2),
               "keyframes": int(out.fused.sum()),

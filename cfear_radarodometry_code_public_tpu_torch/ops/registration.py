@@ -18,8 +18,10 @@ The cost-evaluation entry points (`get_cost`, `sample_covariance`,
 evaluate are folded into the lane axis, with the keyframe window gated and
 packed once, so one association pass serves all of them. Also ported:
 `register_time_continuous`, `is_consistent`, `register_scans_service`.
-`assoc_method="grid"` is not ported (raises NotImplementedError): a parity
-ablation that the reference's config calls ~400x slower than the kernels.
+`assoc_method="grid"` (`build_buckets`, `associate`): the reference's
+bucket-grid exact 1-NN, a parity ablation that the reference's config calls
+~400x slower than the kernels, runs as torch ops on either device (no
+kernel, as the reference runs it as XLA).
 `refine_many_to_many`, the joint refinement of all scan poses, is ported
 with the SLAM slice: its inline dense 1-NN is the reference's matmul form
 (outside any kernel, as there), and its Gauss-Newton normal equations are
@@ -63,13 +65,9 @@ _FAST_DENSE = ("dense", "pallas", "pallas_sparse")
 
 
 def check_supported(cfg) -> None:
-    """Raise for registration settings the port does not run yet."""
+    """Raise for an unknown association method."""
     reg = cfg.registration
-    if reg.assoc_method == "grid":
-        raise NotImplementedError(
-            "registration.assoc_method='grid' is not ported (ROADMAP queue 1, "
-            "item 11: a parity ablation ~400x slower than the kernels)")
-    if reg.assoc_method not in ("auto",) + _FAST_DENSE:
+    if reg.assoc_method not in ("auto", "grid") + _FAST_DENSE:
         raise ValueError(f"unknown assoc_method '{reg.assoc_method}'")
 
 
@@ -165,6 +163,148 @@ def _associate_world(attrs, src: CellMap, src_pose, kf_valid, radius, cfg,
         src.planarity[:, None], g[..., 5])
     return (Associations(nn_all, torch.where(ok, w, w.new_zeros(())), ok),
             _tgt_from_attrs(g, cfg))
+
+
+def _take(a, idx):
+    """Rows of per-keyframe cell leaves a (B, S, M, ...) at idx (B, S, ...)
+    -> (B, S, ..., leaf tail)."""
+    b, s, m = a.shape[:3]
+    tail = a.shape[3:]
+    width = math.prod(tail)
+    flat = idx.reshape(b, s, -1, 1).to(torch.int64).expand(-1, -1, -1, width)
+    out = torch.gather(a.reshape(b, s, m, width), 2, flat)
+    return out.reshape(idx.shape + tail)
+
+
+def _bucket_geometry(cfg):
+    """Static bucket grid: bin size = the largest search radius (the
+    coarse-to-fine first iteration uses 2 * assoc_radius), so the exact 1-NN
+    within radius is always inside the 3x3 bucket neighborhood."""
+    bin_size = 2.0 * cfg.registration.assoc_radius
+    half = int(math.ceil(cfg.radar.max_usable_range / bin_size)) + 2
+    return bin_size, 2 * half
+
+
+def build_buckets(cells: CellMap, cfg) -> torch.Tensor:
+    """Bucket tables over scans' cell means: leaves (..., M, ...) ->
+    (..., G*G*C + 1) int32 of cell indices, -1 where empty (C =
+    `bucket_capacity`; the last slot is the overflow sink). A stable sort by
+    bucket id ranks the cells of a bucket by index, as the reference's
+    `jnp.argsort`. The reference writes every cell that has no slot (outside
+    the grid, invalid, or beyond a full bucket) to the sink, last writer
+    winning; here the sink is left at -1. A lookup reads the sink only for
+    a neighbour bucket outside the grid, and there the reference's sink
+    holds an invalid cell (invalid cells sort last) whenever the scan has
+    one, which the validity gate drops: no candidate either way."""
+    bin_size, g = _bucket_geometry(cfg)
+    cap = cfg.registration.bucket_capacity
+    lead, m = cells.valid.shape[:-1], cells.valid.shape[-1]
+    mean = cells.mean.reshape(-1, m, 2)
+    valid = cells.valid.reshape(-1, m)
+    bi = torch.floor(mean / mean.new_tensor(bin_size)).to(torch.int32) \
+        + g // 2
+    in_grid = valid & ((bi >= 0) & (bi < g)).all(-1)
+    bid = torch.where(in_grid, bi[..., 0] * g + bi[..., 1],
+                      bi.new_full((), g * g))
+    order = torch.argsort(bid, dim=-1, stable=True)
+    sorted_bid = torch.gather(bid, 1, order).contiguous()
+    # rank within each run of equal bucket ids
+    first = torch.searchsorted(sorted_bid, sorted_bid, side="left")
+    rank = torch.arange(m, device=bid.device) - first
+    sink = g * g * cap
+    slot = torch.where((rank < cap) & (sorted_bid < g * g),
+                       sorted_bid.to(torch.int64) * cap + rank, sink + 1)
+    # every slot below the sink is written once; the rest go to a dump slot
+    # past the sink, cut off afterwards
+    table = torch.full((mean.shape[0], sink + 2), -1, dtype=torch.int32,
+                       device=bid.device)
+    table.scatter_(1, slot, order.to(torch.int32))
+    return table[:, :sink + 1].reshape(lead + (sink + 1,))
+
+
+def _nn_grid(kf_cells: CellMap, table, src_mean_t, cfg):
+    """Exact 1-NN via 3x3 bucket lookup: kf_cells leaves (B, S, M, ...),
+    table (B, S, G*G*C + 1), src_mean_t (B, S, Msrc, 2) the source means in
+    each keyframe's frame. Candidates in the reference's order (neighbour
+    bucket, then slot), the first at the least distance winning; +inf where
+    no valid candidate. Returns (nn, d2), each (B, S, Msrc)."""
+    bin_size, g = _bucket_geometry(cfg)
+    cap = cfg.registration.bucket_capacity
+    sink = g * g * cap
+    bi = torch.floor(src_mean_t / src_mean_t.new_tensor(bin_size)).to(
+        torch.int32) + g // 2
+    slots = torch.arange(cap, device=bi.device)
+    cand = []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            tx, ty = bi[..., 0] + dx, bi[..., 1] + dy
+            ok = (tx >= 0) & (tx < g) & (ty >= 0) & (ty < g)
+            base = torch.where(ok, (tx * g + ty).to(torch.int64) * cap, sink)
+            cand.append(base[..., None] + slots)
+    cand = torch.clamp(torch.cat(cand, -1), max=sink)          # (B, S, Msrc, 9C)
+    b, s = cand.shape[:2]
+    idx = torch.gather(table.to(torch.int64), 2,
+                       cand.reshape(b, s, -1)).reshape(cand.shape)
+    idx_safe = torch.clamp(idx, min=0)
+    diff = src_mean_t[..., None, :] - _take(kf_cells.mean, idx_safe)
+    d2 = (diff ** 2).sum(-1)
+    d2 = torch.where((idx >= 0) & _take(kf_cells.valid, idx_safe), d2,
+                     d2.new_full((), float("inf")))
+    j = torch.argmin(d2, dim=-1, keepdim=True)
+    return (torch.gather(idx_safe, -1, j)[..., 0],
+            torch.gather(d2, -1, j)[..., 0])
+
+
+def _nn_dense_local(kf_cells: CellMap, src_mean_t):
+    """Exact 1-NN in each keyframe's frame by the dense (Msrc, M) matrix in
+    the |s|^2 + |t|^2 - 2 s.t form, +inf at invalid targets. Returns (nn,
+    d2), each (B, S, Msrc)."""
+    tar = kf_cells.mean
+    d2 = ((src_mean_t ** 2).sum(-1)[..., None] + (tar ** 2).sum(-1)[:, :, None]
+          - 2.0 * torch.matmul(src_mean_t, tar.transpose(-1, -2)))
+    d2 = torch.where(kf_cells.valid[:, :, None], d2,
+                     d2.new_full((), float("inf")))
+    nn = torch.argmin(d2, dim=-1)
+    return nn, torch.gather(d2, -1, nn[..., None])[..., 0]
+
+
+def associate(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, src_pose,
+              radius, cfg, buckets=None) -> Associations:
+    """1-NN association of each lane's source cells to each of its
+    keyframes' cells (`AddScanPairCost`, `n_scan_normal.cpp:215-263`):
+    source means moved into each keyframe's local frame with
+    T_tar^-1 T_src, matched to the exact nearest target cell, gated by
+    `radius` (a float or (B,)) and by normal agreement
+    dot(R_rel n_src, n_tar) > cos(angle_outlier_deg); weights per the
+    configured option. kf_cells leaves (B, S, M, ...), kf_poses (B, S, 3),
+    kf_valid (B, S), src leaves (B, Msrc, ...), src_pose (B, 3).
+
+    With `assoc_method="grid"` the 3x3 neighbourhood of a per-keyframe
+    bucket table (`build_buckets`, or `buckets` (B, S, G*G*C + 1) built
+    once by the caller); otherwise the dense distance matrix."""
+    reg = cfg.registration
+    cos_gate = math.cos(math.radians(reg.angle_outlier_deg))
+    b = src_pose.shape[0]
+    radius = torch.as_tensor(radius, dtype=src_pose.dtype,
+                             device=src_pose.device).expand(b)
+    t_rel = se2.relative(kf_poses, src_pose[:, None])          # (B, S, 3)
+    src_mean_t = se2.transform(t_rel, src.mean[:, None])     # (B, S, Msrc, 2)
+    src_norm_t = se2.rotate(t_rel, src.normal[:, None])
+    if reg.assoc_method == "grid":
+        if buckets is None:
+            buckets = build_buckets(kf_cells, cfg)
+        nn, nn_d2 = _nn_grid(kf_cells, buckets, src_mean_t, cfg)
+    else:
+        nn, nn_d2 = _nn_dense_local(kf_cells, src_mean_t)
+    sim_dir = torch.clamp((src_norm_t * _take(kf_cells.normal, nn)).sum(-1),
+                          min=0.0)
+    ok = (src.valid[:, None] & kf_valid[..., None] & _take(kf_cells.valid, nn)
+          & (nn_d2 < (radius * radius)[:, None, None]) & (sim_dir > cos_gate))
+    w = losses.association_weight(
+        reg.weight_opt, src.nsamples[:, None], _take(kf_cells.nsamples, nn),
+        sim_dir, src.planarity[:, None], _take(kf_cells.planarity, nn))
+    return Associations(nn.to(torch.int32), torch.where(ok, w, w.new_zeros(())),
+                        ok)
 
 
 def _residuals(pose, src: CellMap, tgt, cfg):
@@ -403,6 +543,9 @@ def register(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, guess,
     m_src = src.valid.shape[1]
     method = resolve_assoc_method(cfg, m_src, m_tar, s_kf, dev)
     attrs = _world_attrs(kf_cells, kf_poses, cfg)
+    # the grid's bucket tables are built once a call, in the keyframes'
+    # local frames (its association is `associate`, not the world form)
+    buckets = build_buckets(kf_cells, cfg) if method == "grid" else None
     cos_gate = math.cos(math.radians(reg.angle_outlier_deg))
     soft_scale = soft_sqrt_info = None
     if reg.soft_constraint:
@@ -435,8 +578,14 @@ def register(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, guess,
         radius = guess.new_full(
             (b,), 2.0 * reg.assoc_radius if it == 0 else reg.assoc_radius)
         with record_function("associate"):
-            a_new, tgt = _associate_world(attrs, src, pose, kf_valid, radius,
-                                          cfg, cos_gate, method)
+            if buckets is not None:
+                a_new = associate(kf_cells, kf_poses, kf_valid, src, pose,
+                                  radius, cfg, buckets)
+                tgt = _tgt_from_attrs(_gather_attrs(attrs, a_new.tar_idx),
+                                      cfg)
+            else:
+                a_new, tgt = _associate_world(attrs, src, pose, kf_valid,
+                                              radius, cfg, cos_gate, method)
         n_assoc = a_new.valid.sum((-2, -1), dtype=torch.int32)
         n_res = n_assoc * res_dim + (3 if reg.soft_constraint else 0)
         failed_new = n_res <= 1                    # (`n_scan_normal.cpp:370`)
@@ -551,9 +700,14 @@ def get_cost(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, src_pose,
     if attrs is None:
         attrs = _world_attrs(kf_cells, kf_poses, cfg)
     radius = src_pose.new_full((src_pose.shape[0],), reg.assoc_radius)
-    assoc, tgt = _associate_world(
-        attrs, src, src_pose, kf_valid, radius, cfg,
-        math.cos(math.radians(reg.angle_outlier_deg)), method)
+    if method == "grid":
+        assoc = associate(kf_cells, kf_poses, kf_valid, src, src_pose,
+                          radius, cfg)
+        tgt = _tgt_from_attrs(_gather_attrs(attrs, assoc.tar_idx), cfg)
+    else:
+        assoc, tgt = _associate_world(
+            attrs, src, src_pose, kf_valid, radius, cfg,
+            math.cos(math.radians(reg.angle_outlier_deg)), method)
     res_dim = 1 if reg.cost == "P2L" else 2
     return (_cost_only(src_pose, src, tgt, assoc, cfg),
             assoc.valid.sum((-2, -1), dtype=torch.int32) * res_dim)
@@ -644,7 +798,8 @@ def sample_covariance(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap,
 
 
 # lanes per association pass of `cost_surface` with the dense form, whose
-# (lanes, S, Msrc, M) distance matrix is materialised
+# (lanes, S, Msrc, M) distance matrix is materialised, or the grid, whose
+# bucket tables and candidate rows are
 _DENSE_ELEMENTS = 1 << 26
 
 
@@ -665,9 +820,14 @@ def cost_surface(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, pose,
                                   kf_cells.valid.shape[2], kf_valid.shape[1],
                                   pose.device)
     max_lanes = None
+    s_kf, m_src = kf_valid.shape[1], src.valid.shape[1]
     if method == "dense":
-        per_lane = (kf_valid.shape[1] * src.valid.shape[1]
-                    * kf_cells.valid.shape[2])
+        per_lane = s_kf * m_src * kf_cells.valid.shape[2]
+        max_lanes = max(1, _DENSE_ELEMENTS // per_lane)
+    elif method == "grid":     # the bucket tables and the candidate rows
+        _, g = _bucket_geometry(cfg)
+        cap = cfg.registration.bucket_capacity
+        per_lane = s_kf * (g * g * cap + m_src * 9 * cap * 3)
         max_lanes = max(1, _DENSE_ELEMENTS // per_lane)
     costs, _ = _cost_at_offsets(kf_cells, kf_poses, kf_valid, src, pose,
                                 grid, cfg, max_lanes)

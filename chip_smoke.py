@@ -40,7 +40,10 @@ twins (`s50-window`). Last, the long-run odometry path of
 health check every 8 frames, `auto` -> kernel A) over 256 frames of the
 extent-1000 world at 12 m/s (`longrun`), split through a checkpoint
 (`longrun-resume`, bit-identical), with the cost-sampling covariance
-(`longrun-cov`), and in the adversarial world at 8 m/s (`longrun-adv8`);
+(`longrun-cov`), in the adversarial world at 8 m/s (`longrun-adv8`) and
+at 12 m/s, the breaking regime, over 384 frames (`longrun-adv12`: the
+reference's golden marks one health check unhealthy there, and the port
+must mark it too);
 kernels B1 and B2 run on the window `longrun` ends with (the forward S=4
 and the reverse S=1 problem, B=1 and B=8) and are held bit for bit against
 kernel A and their twin (`longrun-window`). Then the SLAM pass of `tools/run_slam_scale.py`
@@ -64,7 +67,13 @@ merge with its joint solve on a NCCL group of one process, bit for bit;
 sequences with image ingest (lane 0 against the CFEAR-3 golden, every
 lane against its own single run, two runs bit for bit); and `segmented`,
 `parallel.segments.run_segmented` over the CFEAR-3 sequence in 4
-segments (ATE within 0.3 m of the serial run's). Each path is held
+segments (ATE within 0.3 m of the serial run's). Last, `online`: the online
+daemon (`online_odometry.OnlineOdometry`, the CFEAR-3 Oxford preset
+unmodified, host ingest, kernels A and F) follows a radar pack that a
+recorder thread grows with the CFEAR-3 sequence in bursts of 1-5 frames;
+one TUM line a frame with monotone stamps, the lines the daemon's poses,
+and its trajectory bit-identical to `OdometryRunner` over the same frames
+in one call; it prints the lag from a frame's append to its flushed line. Each path is held
 against a JAX golden (`tools/make_torch_port_golden.py`) or another run, and must launch
 the kernels it runs (launch counts zeroed just before each path, read just
 after). Exits non-zero, printing no result, when there is no CUDA card or
@@ -203,6 +212,12 @@ LONGRUN_SEQUENCE = {"seed": 11, "n_frames": 256, "speed": 12.0,
 ADVERSARIAL = {"n_dynamic": 40, "dropout_prob": 0.5,
                "speckle_burst_prob": 0.4}
 LONGRUN_ADV8_SEQUENCE = {**LONGRUN_SEQUENCE, "speed": 8.0, **ADVERSARIAL}
+# The breaking regime of `tools/run_longrun.py` (adversarial at 12 m/s),
+# at the smallest multiple of 128 frames at which the reference itself
+# marks a health check unhealthy: 384 frames (one of 47 checks, frame 328;
+# `make_torch_port_golden.py --preset longrun --adversarial --speed 12
+# --frames 384`; at 256 frames none of 31 is).
+LONGRUN_ADV12_SEQUENCE = {**LONGRUN_SEQUENCE, "n_frames": 384, **ADVERSARIAL}
 # Its tolerances, set as TOL is (`make_torch_port_golden.py --preset longrun
 # [--adversarial --speed 8] --assoc-method dense`): over the 256 frames the
 # reference's dense form differs from its kernel A by 12.25 cm per pose,
@@ -215,6 +230,21 @@ LONGRUN_ADV8_SEQUENCE = {**LONGRUN_SEQUENCE, "speed": 8.0, **ADVERSARIAL}
 # `healthy`. Keyframe and health-checked flags must be identical.
 LONGRUN_TOL = (0.40, 3.5e-3, 0.06)
 HEALTH_TOL = (0.045, 1e-3)
+# The breaking regime drifts, and a pose difference grows along the run as
+# drift does: its bounds are set the same way at its depth (`... --preset
+# longrun --adversarial --speed 12 --frames 384 --assoc-method dense`):
+# there the reference's dense form and its kernel A differ by 42.76 cm per
+# pose, 3.81e-3 rad and 13.83 cm per motion, the health signal by 4.93 cm
+# and 5.13e-3 rad (healthy flags identical); the limits are about 3x that.
+LONGRUN_ADV12_TOL = (1.3, 1.15e-2, 0.42)
+HEALTH_ADV12_TOL = (0.15, 1.55e-2)
+# The online daemon as users run it: the CFEAR-3 Oxford preset unmodified
+# (max_cells 3072, no point budget: host ingest hands (A, K) candidate sets
+# over; `auto` -> kernel A at S=4, F in the LM), following a pack that a
+# recorder thread grows with the smoke's CFEAR-3 sequence in bursts of
+# ONLINE_BURST frames, ONLINE_SLEEP_S apart, in chunks of 8.
+ONLINE_BURST = (1, 5)
+ONLINE_SLEEP_S = (0.02, 0.12)
 # Kernel F against its twin: the tolerance of the reference's own
 # kernel-vs-XLA test (tests/test_registration.py:565-567); the two sum in
 # another order, which can move an accept or convergence test by an ulp.
@@ -223,11 +253,13 @@ LM_CASES = (("P2P", "Huber"), ("P2L", "Huber"), ("P2D", "Cauchy"))
 # Kernel F's widths on the main paths, (keyframes, cells, cost, loss) with
 # N = keyframes x cells, one for each cluster size the kernel picks: the
 # long run's reverse solve (N=2,048: one CTA a lane), the slice (4,096) and
-# the long run's forward solve (8,192), the s50 K16 and exact windows
-# (16,384 and 51,200: 8 CTAs a lane) and the s50 preset's (153,600: 16)
+# the long run's forward solve (8,192), the online daemon's preset (12,288),
+# the s50 K16 and exact windows (16,384 and 51,200: 8 CTAs a lane) and the
+# s50 preset's (153,600: 16)
 LM_SHAPES = ((1, 2048, "P2P", "Huber"), (4, 1024, "P2P", "Huber"),
-             (4, 2048, "P2P", "Huber"), (16, 1024, "P2P", "Cauchy"),
-             (50, 1024, "P2P", "Cauchy"), (50, 3072, "P2P", "Cauchy"))
+             (4, 2048, "P2P", "Huber"), (4, 3072, "P2P", "Huber"),
+             (16, 1024, "P2P", "Cauchy"), (50, 1024, "P2P", "Cauchy"),
+             (50, 3072, "P2P", "Cauchy"))
 # ...and loop verification: one keyframe of 1024 cells a lane (N=1,024),
 # the path's own cost (CFEAR-3: P2P/Huber) and P2L, over the SLAM pass's
 # 512 lanes and the merge's 256 (its 129 candidate pairs, `_next_pow2`)
@@ -273,17 +305,18 @@ C_SHAPES = ((1, 4, 1024, 1024), (8, 4, 1024, 1024), (1, 50, 1024, 1024),
 # cells), its window at B=8, the health check's reverse solve (S=1) and
 # `sample_covariance`'s 27 offsets folded into lanes (`longrun-cov`), the
 # SLAM pass's loop verification (512 lanes of one keyframe each, `slam`),
-# the merge's (256 lanes, `merge`); last a ragged shape, checked and not
-# timed. `phase_a_shapes` (run by
+# the merge's (256 lanes, `merge`), the online daemon's preset (B=1, S=4
+# of 3072 cells, `online`); last a ragged shape, checked and not timed. `phase_a_shapes` (run by
 # `phase_kernels`) holds A against its twin at each, on `a_inputs`, and
 # times it; tools/compare_torch_kernels.py times two trees' A at the same
 # shapes.
 A_RAGGED = (3, 2, 1000, 1500)
 A_VERIFY = (512, 1, 1024, 1024)
 A_MERGE = (256, 1, 1024, 1024)
+A_ONLINE = (1, 4, 3072, 3072)
 A_SHAPES = ((8, 4, 1024, 1024), (1, 4, 2048, 2048), (8, 4, 2048, 2048),
             (1, 1, 2048, 2048), (27, 4, 2048, 2048), A_VERIFY, A_MERGE,
-            A_RAGGED)
+            A_ONLINE, A_RAGGED)
 # operations counted per squared distance (2 subtractions, 2 products, a
 # sum; the compare is not counted), per LM row and pass (a cost-only pass,
 # and a cost/gradient/Hessian pass, from the twin's arithmetic for P2P), and
@@ -908,6 +941,8 @@ def phase_lm(dev, card):
         "library_ms": None,
         **{f"{k}_by_n": {str(r["n"]): r[k] for r in by_n}
            for k in ("ms", "masked_ms", "b1_ms")},
+        "bound_ms_by_n": {str(r["n"]): r["bound"]["bound_ms"]
+                          for r in by_n},
         "verify": {k: {"dpose": r["dpose"], "ms": r["ms"],
                        "plain_ms": r["plain_ms"], **r["bound"]}
                    for k, r in verify.items()}}}
@@ -1469,14 +1504,16 @@ def _health_summary(checked, healthy, dist) -> str:
             f"discrepancy {float(np.median(dist[checked])):.4f} m")
 
 
-def phase_longrun(name, cfg, images, gt, sequence, dev, card, passes=1):
+def phase_longrun(name, cfg, images, gt, sequence, dev, card, passes=1,
+                  tol=LONGRUN_TOL, health_tol=HEALTH_TOL):
     """The long-run path through OdometryRunner, held against its JAX
     golden (`longrun_golden`): every frame successful, keyframe decisions
-    and health-checked flags identical, poses within LONGRUN_TOL,
-    health_dist and health_rot within HEALTH_TOL, and `healthy` identical
-    except on frames whose golden discrepancy lies within HEALTH_TOL of
-    its limit (printed). `auto` must resolve to kernel A for
-    the forward (S=4) and the reverse (S=1) problem. Returns (runner,
+    and health-checked flags identical, poses within `tol`, health_dist
+    and health_rot within `health_tol`, `healthy` identical except on
+    frames whose golden discrepancy lies within `health_tol` of its limit
+    (printed), and, where the golden marks checks unhealthy, at least one
+    of them unhealthy here too. `auto` must resolve to kernel A for the
+    forward (S=4) and the reverse (S=1) problem. Returns (runner,
     trajectory, frame outputs)."""
     m = cfg.feature.max_cells
     for s_act in (cfg.odometry.submap_scan_size, 1):
@@ -1500,7 +1537,7 @@ def phase_longrun(name, cfg, images, gt, sequence, dev, card, passes=1):
         raise AssertionError(f"{name}: failed frames "
                              f"{np.flatnonzero(~out.success).tolist()}")
     _check_traj(f"{name} vs JAX golden (kernel A, interpret mode)", traj,
-                g["poses"], out.fused, g["fused"], LONGRUN_TOL)
+                g["poses"], out.fused, g["fused"], tol)
     if not np.array_equal(out.health_checked, g["health_checked"]):
         raise AssertionError(f"{name}: health-checked flags differ")
     chk = out.health_checked
@@ -1508,21 +1545,28 @@ def phase_longrun(name, cfg, images, gt, sequence, dev, card, passes=1):
     drot = float(np.abs(out.health_rot - g["health_rot"]).max())
     odo = cfg.odometry
     near = chk & ((np.abs(g["health_dist"] - odo.health_max_dist)
-                   <= HEALTH_TOL[0])
+                   <= health_tol[0])
                   | (np.abs(g["health_rot"]
                             - np.radians(odo.health_max_rot_deg))
-                     <= HEALTH_TOL[1]))
+                     <= health_tol[1]))
     flips = np.flatnonzero(out.healthy != g["healthy"])
+    unhealthy = np.flatnonzero(chk & ~out.healthy)
+    g_unhealthy = np.flatnonzero(chk & ~g["healthy"])
     _say(f"{name}: health vs golden: max |d health_dist| {ddist:.6f} m, "
          f"|d health_rot| {drot:.3e} rad; healthy differs on frames "
          f"{flips.tolist()}; checked frames near a limit (within "
-         f"HEALTH_TOL) {np.flatnonzero(near).tolist()}")
-    if ddist > HEALTH_TOL[0] or drot > HEALTH_TOL[1]:
+         f"{health_tol}) {np.flatnonzero(near).tolist()}; unhealthy checks "
+         f"at frames {unhealthy.tolist()} (golden {g_unhealthy.tolist()}, "
+         f"health_dist there {g['health_dist'][g_unhealthy].tolist()} m)")
+    if ddist > health_tol[0] or drot > health_tol[1]:
         raise AssertionError(f"{name}: health_dist or health_rot outside "
-                             f"{HEALTH_TOL}")
+                             f"{health_tol}")
     if not near[flips].all():
         raise AssertionError(f"{name}: healthy differs on frames away from "
                              f"the limits: {flips[~near[flips]].tolist()}")
+    if len(g_unhealthy) and not np.isin(unhealthy, g_unhealthy).any():
+        raise AssertionError(f"{name}: none of the golden's unhealthy "
+                             f"checks {g_unhealthy.tolist()} is unhealthy")
     ate = ate_rmse(traj[:, :2], gt[:, :2])
     drift = kitti.kitti_drift(traj, gt)
     g_drift = kitti.kitti_drift(g["poses"], gt)
@@ -2009,6 +2053,106 @@ def phase_segmented(cfg, images, gt, serial, dev, card):
                              "run's, or a seam step over 3 m")
 
 
+def online_config():
+    """The configuration the `online` path's daemon runs: the CFEAR-3
+    Oxford preset unmodified, as `online_odometry.main` builds it."""
+    return port.preset("CFEAR-3", dataset="oxford")
+
+
+def drive_online(cfg, images, dev, tmp, seed=0):
+    """The online daemon as users run it: a recorder thread appends
+    `images` to a radar pack under `tmp` (stamps i * sensor period) in
+    bursts of ONLINE_BURST frames, ONLINE_SLEEP_S apart, while
+    `OnlineOdometry(..., device=dev, chunk=8)` with host ingest follows the
+    pack until it has every frame. Returns (daemon, TUM path, append time
+    of each frame, flush time of each frame's line, wall seconds of the
+    daemon's run)."""
+    import threading
+
+    from cfear_radarodometry_code_public_tpu_torch import online_odometry
+    pack, tum = os.path.join(tmp, "live.radarpack"), os.path.join(tmp,
+                                                                  "poses.tum")
+    n, period = images.shape[0], cfg.radar.sensor_period
+    rng = np.random.default_rng(seed)
+    appended = np.zeros(n)
+    with open(pack, "wb") as f:       # header; the frame count stays 0
+        f.write(np.array([online_odometry._MAGIC, 0, images.shape[1],
+                          images.shape[2]], np.uint64).tobytes())
+
+    def recorder():
+        i = 0
+        while i < n:
+            hi = min(n, i + int(rng.integers(ONLINE_BURST[0],
+                                             ONLINE_BURST[1] + 1)))
+            for j in range(i, hi):
+                with open(pack, "ab") as f:
+                    f.write(np.uint64(round(j * period * 1e9)).tobytes())
+                    f.write(np.ascontiguousarray(images[j]).tobytes())
+                appended[j] = time.perf_counter()
+            i = hi
+            time.sleep(float(rng.uniform(*ONLINE_SLEEP_S)))
+
+    daemon = online_odometry.OnlineOdometry(cfg, pack, tum, chunk=8,
+                                            ingest="host", device=dev)
+    flushed: list = []
+    emit = daemon._emit
+
+    def timed_emit(out_f):
+        new = emit(out_f)
+        flushed.extend([time.perf_counter()] * new)
+        return new
+
+    daemon._emit = timed_emit
+    th = threading.Thread(target=recorder, daemon=True)
+    t0 = time.perf_counter()
+    th.start()
+    processed = daemon.run(follow=True, idle_timeout_s=30.0, max_frames=n)
+    wall = time.perf_counter() - t0
+    th.join()
+    if processed != n:
+        raise AssertionError(f"online: {processed} of {n} frames processed")
+    return daemon, tum, appended, np.asarray(flushed), wall
+
+
+def phase_online(cfg, images, run, launches, dev, card):
+    """The `online` path's checks, after its counts are read: one TUM line
+    a frame, with monotone stamps; each line the daemon's pose as
+    `_tum_line` prints it; the daemon's trajectory bit-identical to
+    `OdometryRunner` over the same frames in one `process` call. Prints
+    the lag from a frame's append to its flushed line, frames/s and the
+    path's kernel A and F launches."""
+    from cfear_radarodometry_code_public_tpu_torch import online_odometry
+    daemon, tum, appended, flushed, wall = run
+    n = images.shape[0]
+    with open(tum) as f:
+        lines = f.read().splitlines()
+    traj = daemon.trajectory()
+    stamps = np.array([float(ln.split()[0]) for ln in lines])
+    if len(lines) != n or not (np.diff(stamps) > 0).all():
+        raise AssertionError(f"online: {len(lines)} TUM lines for {n} "
+                             "frames, or stamps not increasing")
+    if lines != [online_odometry._tum_line(daemon.stamps[i], traj[i])
+                 .rstrip("\n") for i in range(n)]:
+        raise AssertionError("online: the streamed poses are not the "
+                             "daemon's trajectory")
+    runner = odometry.OdometryRunner(cfg, ingest="host", device=dev, chunk=8)
+    runner.process(images)
+    offline = runner.trajectory()
+    same = bool(np.array_equal(traj, offline))
+    lag = (flushed - appended) * 1e3
+    _say(f"online: {n} frames followed in {wall:.2f} s -> {n / wall:.2f} "
+         f"frames/s (the recorder's sleeps included); lag from append to "
+         f"flushed line median {np.median(lag):.1f} ms, max "
+         f"{lag.max():.1f} ms; launches kernel A {launches['nn_min']}, F "
+         f"{launches['lm_solve_fused']} ({card})")
+    _say(f"online: trajectory bit-identical to OdometryRunner over the same "
+         f"frames in one call: {same} (max |delta| "
+         f"{float(np.abs(traj - offline).max()):.2e})")
+    if not same:
+        raise AssertionError("online: the daemon's trajectory differs from "
+                             "the offline runner's")
+
+
 def _reset_launches() -> None:
     for mod in (cuda_assoc, cuda_lm, cuda_features):
         mod.reset_launches()
@@ -2149,6 +2293,13 @@ def main() -> int:
           lambda: phase_longrun("longrun-adv8", lr, images_a, gt_a,
                                 LONGRUN_ADV8_SEQUENCE, dev, card))
     del images_a
+    images_a, gt_a = render(lr, LONGRUN_ADV12_SEQUENCE)
+    drive("longrun-adv12", ("nn_min", "lm_solve_fused"),
+          lambda: phase_longrun("longrun-adv12", lr, images_a, gt_a,
+                                LONGRUN_ADV12_SEQUENCE, dev, card,
+                                tol=LONGRUN_ADV12_TOL,
+                                health_tol=HEALTH_ADV12_TOL))
+    del images_a
 
     # the SLAM pass (`tools/run_slam_scale_torch.py`, cut to 2 laps of 256)
     slam = slam_config()
@@ -2183,6 +2334,13 @@ def main() -> int:
     del fleet, runs
     drive("segmented", ("nn_min_sparse", "lm_solve_fused"),
           lambda: phase_segmented(cfg, images, gt, traj_i, dev, card))
+    # the online daemon following a growing pack of the CFEAR-3 sequence
+    online = online_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        run = drive("online", ("nn_min", "lm_solve_fused"),
+                    lambda: drive_online(online, images, dev, tmp))
+        timed("online checks", lambda: phase_online(
+            online, images, run, paths["online"], dev, card))
     launches = {k: sum(p[k] for p in paths.values()) for k in KERNELS}
     _say(f"kernel launches in the main-path runs: {launches}")
     _say("wall seconds by part: " + json.dumps(

@@ -511,7 +511,8 @@ def test_dense_split_follows_the_shape():
     want = {(8, 4, 1024, 1024): 2, (1, 4, 2048, 2048): 8,
             (8, 4, 2048, 2048): 1, (1, 1, 2048, 2048): 8,
             (27, 4, 2048, 2048): 1, (512, 1, 1024, 1024): 1,
-            (256, 1, 1024, 1024): 1, (3, 2, 1000, 1500): 4,
+            (256, 1, 1024, 1024): 1, (1, 4, 3072, 3072): 8,
+            (3, 2, 1000, 1500): 4,
             (1, 1, 256, 256): 1, (1, 1, 256, 257): 2, (1, 1, 256, 100): 1,
             (1, 1, 1, 10 ** 6): 8, (64, 1, 2048, 10 ** 6): 1}
     assert set(chip_smoke.A_SHAPES) <= set(want)

@@ -149,17 +149,56 @@ def test_cli_config_file_round_trip(cfg_path, tmp_path):
     assert n > 60 and pars["filter.k_strongest"] == "10"
 
 
+STAGES = ("Filtering", "compensate", "build_normals", "register")
+ROWS = ("Surface points", "itrs")
+
+
 def test_cli_refuses_profile_stages_and_needs_a_card(cfg_path, tmp_path,
                                                      monkeypatch):
-    """`--profile-stages` (the reference's TPU stage profiler) raises and
-    names ROADMAP; without `--cpu` and without a card the CLI raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(_args(cfg_path, str(tmp_path / "p"), "--profile-stages"))
+    """`--profile-stages` is ported: with `--cpu` it writes the stage
+    timings and documented rows into `pars.txt`'s table, as the
+    reference's CLI does with the same arguments (its rows compared by
+    name; `test_profile_stages_matches_the_reference` holds the values).
+    Without `--cpu` and without a card the CLI raises."""
+    for cli, sub in ((tcli, "p"), (jcli, "pj")):
+        d = str(tmp_path / sub)
+        cli.main(_args(cfg_path, d, "--profile-stages", n_frames=4))
+        keys = set(_pars_keys(d))
+        assert set(STAGES + ROWS) <= keys, keys
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     args = [a for a in _args(cfg_path, str(tmp_path / "c"), n_frames=2)
             if a != "--cpu"]
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcli.main(args)
+
+
+def test_profile_stages_matches_the_reference():
+    """`_profile_stages` on the first 8 frames of the CLI's sequence, on the
+    CPU, against the reference's: the same stage names and documented rows
+    with the same counts (7 frames after the bootstrap frame), "Surface
+    points" identical frame by frame; "itrs" (outer registration
+    iterations) within one of the reference's, frame by frame: the outer
+    loop stops on a relative score change below `score_tolerance`, which
+    f32 sum order can move by an iteration (poses within the odometry
+    tolerance of `tests/test_torch_odometry.py`, as `test_image_ingest_
+    matches_jax` holds them)."""
+    from cfear_radarodometry_code_public_tpu.datasets import synthetic
+    from cfear_radarodometry_code_public_tpu.utils import stats as jstats
+    from cfear_radarodometry_code_public_tpu_torch.utils import stats as tstats
+    cfg_j, cfg_t = slice_cfg()
+    images, _ = synthetic.make_sequence(seed=3, n_frames=8, cfg=cfg_j)
+    got, want = tstats.Statistics(), jstats.Statistics()
+    tcli._profile_stages(cfg_t, images, got, "cpu")
+    jcli._profile_stages(cfg_j, images, want)
+    assert sorted(got._data) == sorted(want._data) == sorted(STAGES + ROWS)
+    for name in STAGES:
+        assert got.count(name) == want.count(name) == 7, name
+        assert min(got._data[name]) > 0.0
+    assert got._data["Surface points"] == want._data["Surface points"]
+    itrs, itrs_j = np.array(got._data["itrs"]), np.array(want._data["itrs"])
+    assert np.abs(itrs - itrs_j).max() <= 1, (itrs, itrs_j)
+    assert itrs.min() >= 1
+    assert min(got._data["Surface points"]) > 50
 
 
 @pytest.mark.parametrize("filter_type", ["kstrong", "cacfar"])
@@ -261,3 +300,33 @@ def test_oxford_loader_to_result_txt_golden(tmp_path):
     assert os.path.exists(os.path.join(out_dir, "pars.txt"))
     rows = np.loadtxt(os.path.join(out_dir, "est", "00.txt")).reshape(-1, 12)
     assert rows.shape[0] == OX_FRAMES
+
+
+@pytest.mark.slow
+def test_mulran_loader_to_result_txt_golden(tmp_path):
+    """`tests/test_e2e_golden_mulran.py:86-122` through the port: the
+    MulRan directory written from the simulator (range-major PNGs that the
+    loader turns with `rotate_90_ccw`, the CCW scan-time convention, a
+    generic `stamp,x,y,yaw` CSV ground truth), the whole CLI on it at
+    MulRan's sensor scale: every frame, no failures, ATE < 0.21 m over 12
+    frames, and the end pose within 2% of the path of the ground truth's."""
+    from test_e2e_golden_mulran import (N_FRAMES as MR_FRAMES,
+                                        _write_mulran_fixture)
+
+    radar_dir, gt_csv, gt = _write_mulran_fixture(str(tmp_path))
+    out_dir = str(tmp_path / "run")
+    result = tcli.main([
+        "--dataset", "mulran", "--radar-dir", radar_dir,
+        "--gt-csv", gt_csv, "--output-dir", out_dir,
+        "--preset", "CFEAR-3", "--chunk", "4", "--cpu"])
+    assert result["frames"] == MR_FRAMES == 12
+    assert result["registration_failures"] == 0
+    assert result["ate_m"] < 0.21, result
+    assert os.path.exists(os.path.join(out_dir, "est", "result.txt"))
+    rows = np.loadtxt(os.path.join(out_dir, "est", "00.txt")).reshape(-1, 12)
+    assert rows.shape[0] == MR_FRAMES
+    path_len = np.sum(np.linalg.norm(np.diff(gt[:, :2], axis=0), axis=1))
+    c, s = np.cos(gt[0, 2]), np.sin(gt[0, 2])
+    d = gt[-1, :2] - gt[0, :2]
+    end_rel = np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1]])
+    assert np.linalg.norm(rows[-1, [3, 7]] - end_rel) < 0.02 * path_len

@@ -852,3 +852,62 @@ def test_merge_sessions_on_the_card_launches_a_and_f(dev):
     assert np.abs(t_ab - t_ab_c).max() <= 2e-3
     assert np.abs(opt[:, :2] - opt_c[:, :2]).max() <= 1e-2
     assert np.abs(opt[:, 2] - opt_c[:, 2]).max() <= 2e-4
+
+
+def test_grid_association_on_the_card_equals_the_cpu(dev):
+    """`assoc_method="grid"` runs on the card as torch ops (no kernel, as
+    the reference runs it as XLA): bucket tables and associations
+    identical to the CPU's, and the run within 1e-4 of it (kernel F
+    against its twin in the LM)."""
+    import dataclasses
+    from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
+    from cfear_radarodometry_code_public_tpu_torch.models import odometry
+    from cfear_radarodometry_code_public_tpu_torch.ops import registration
+    cfg = _small_cfg()
+    cfg = cfg.replace(registration=dataclasses.replace(
+        cfg.registration, assoc_method="grid"))
+    images, _ = synthetic.make_sequence(seed=3, n_frames=6, cfg=cfg)
+    runs = []
+    for d in (dev, "cpu"):
+        r = odometry.OdometryRunner(cfg, ingest="host", device=d, chunk=4)
+        r.process(images)
+        st = r.state
+        tables = registration.build_buckets(
+            odometry.CellMap(*(a[None] for a in st.kf_cells)), cfg)
+        a = registration.associate(
+            odometry.CellMap(*(a[None] for a in st.kf_cells)),
+            st.kf_poses[None], st.kf_valid[None],
+            odometry.CellMap(*(a[None, -1] for a in st.kf_cells)),
+            st.kf_poses[None, -1], 2.0, cfg)
+        runs.append((r.trajectory(), tables.cpu(), [x.cpu() for x in a]))
+    (t_g, tab_g, a_g), (t_c, tab_c, a_c) = runs
+    assert torch.equal(tab_g, tab_c)
+    assert torch.equal(a_g[0], a_c[0]) and torch.equal(a_g[2], a_c[2])
+    assert np.abs(t_g - t_c).max() < 1e-4
+
+
+def test_online_daemon_on_the_card_equals_the_offline_runner(dev, tmp_path):
+    """The online daemon on the card over a finished pack (drain mode):
+    one TUM line a frame, its trajectory bit for bit the card's offline
+    runner's, kernels A and F launched."""
+    from cfear_radarodometry_code_public_tpu_torch import online_odometry
+    from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
+    from cfear_radarodometry_code_public_tpu_torch.models import odometry
+    from cfear_radarodometry_code_public_tpu_torch.utils import native_io
+    cfg = _small_cfg()
+    images, _ = synthetic.make_sequence(seed=4, n_frames=10, cfg=cfg)
+    pack = str(tmp_path / "p.radarpack")
+    native_io.pack_frames(pack, ((i * 0.25, images[i]) for i in range(10)),
+                          10)
+    ca.reset_launches()
+    cuda_lm.reset_launches()
+    daemon = online_odometry.OnlineOdometry(
+        cfg, pack, str(tmp_path / "poses.tum"), chunk=4, ingest="host",
+        device=dev)
+    assert daemon.run(follow=False) == 10
+    assert ca.launches["nn_min"] > 0 and cuda_lm.launches["lm_solve_fused"] > 0
+    with open(tmp_path / "poses.tum") as f:
+        assert len(f.read().splitlines()) == 10
+    r = odometry.OdometryRunner(cfg, ingest="host", device=dev, chunk=4)
+    r.process(images)
+    assert np.array_equal(daemon.trajectory(), r.trajectory())

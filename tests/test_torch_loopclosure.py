@@ -9,13 +9,29 @@ comparison isolates the loop-closure pass. Tolerances:
   sector bin: the histograms sum integer sample counts, so any bin flip
   would show; none does);
 - accepted pairs and the (i, j, type) of every constraint exact, in order;
-- LOOP_APPEARANCE edge poses within 1e-4 (2e-6 seen) and their scores
+  the association counts of LOOP_APPEARANCE edges exact and their scores
   within 1e-3 relative;
-- CANDIDATE and MINI_LOOP edge poses within 1e-2: they are registrations
-  the score gate rejected or short-range ones, less well conditioned, whose
-  LM ends where f32 sum order puts it (up to 5.7e-3 seen). The reference's
-  own spread is as large: its kernel-A and dense associations give one
-  accepted loop edge of this graph 2.6e-3 apart.
+- with the association the reference runs on the CPU (the dense
+  |s|^2 + |t|^2 - 2 s.t form), every edge pose within 1e-2 (`EDGE_TOL`)
+  and the optimized poses of `close_and_optimize` within 0.125 m and
+  3e-4 rad (`OPT_DENSE_TOL`). At 40-80 m one rounding step of that form is
+  ~5e-4 m^2, so two targets nearer each other than that are a tie it
+  cannot resolve, and which one wins turns on an ulp of the transformed
+  source. XLA's CPU backend contracts the reference's `se2.transform` into
+  FMAs where the CPU has them, the port rounds each product: on an
+  AVX-512 CPU one accepted loop edge picks the other target and lands
+  3.03e-3 from the reference's, and the optimized poses 4.18e-2 m /
+  1.15e-4 rad. The reference itself spreads as far on the same
+  inputs and CPU (`tools/reference_spread_torch.py`): its kernel A against
+  its dense form, 5.7e-3 on mini-loop edges and 4.15e-2 m / 8.9e-5 rad on
+  the optimized poses; with XLA limited to AVX (no FMA) against its
+  default, 5.5e-4 on loop edges and 4.12e-2 m / 9.4e-5 rad. EDGE_TOL is
+  under 2x the first, OPT_DENSE_TOL about 3x the largest;
+- with kernel A's form (`assoc_method="pallas"`: the reference in
+  interpret mode, the port's plain twin, both dx*dx + dy*dy), which has
+  no such tie, the tight bounds: loop edge poses within 1e-4 (9.5e-7
+  seen), the others within 1e-2 (4.6e-4 seen), the optimized poses within
+  2 mm and 1e-4 rad (1.16e-3 m / 1.4e-5 rad seen).
 """
 
 import dataclasses
@@ -64,12 +80,22 @@ def loop(tmp_path_factory):
     return images, out, traj, path
 
 
-def _closers():
-    cfg_j, cfg_t = both_cfgs(_cfg())
+EDGE_TOL = 1e-2
+OPT_DENSE_TOL = (0.125, 3e-4)
+OPT_TOL = (2e-3, 1e-4)
+
+
+def _kernel_a(cfg):
+    return cfg.replace(registration=dataclasses.replace(
+        cfg.registration, assoc_method="pallas"))
+
+
+def _closers(cfg=None):
+    cfg_j, cfg_t = both_cfgs(cfg or _cfg())
     return jlc.LoopCloser(cfg_j), tlc.LoopCloser(cfg_t, device="cpu")
 
 
-def _assert_same_edges(got, want, loop_atol=1e-4, other_atol=1e-2):
+def _assert_same_edges(got, want, loop_atol=EDGE_TOL, other_atol=EDGE_TOL):
     assert len(got.edges) == len(want.edges)
     for e, f in zip(got.edges, want.edges):
         assert (e[0], e[1], e[4]) == (f[0], f[1], f[4])
@@ -143,6 +169,19 @@ def test_close_from_graph_equals_the_reference(loop):
         ct.close_from_graph(stale, precomputed=(stacked, rk, sh))
 
 
+def test_close_from_graph_kernel_a_equals_the_reference(loop):
+    """The same pass with kernel A's form on both sides (the reference in
+    interpret mode, the port's plain twin): pairs and constraints exact,
+    loop edges within 1e-4, the others within 1e-2."""
+    path = loop[3]
+    cj, ct = _closers(_kernel_a(_cfg()))
+    gj, gt = jpg.GraphBuilder.load(path), tpg.GraphBuilder.load(path)
+    acc_j, acc_t = cj.close_from_graph(gj), ct.close_from_graph(gt)
+    assert acc_t == acc_j and len(acc_t) >= 5
+    assert gt.n_constraints(tpg.CANDIDATE) == gj.n_constraints(jpg.CANDIDATE)
+    _assert_same_edges(gt, gj, loop_atol=1e-4, other_atol=1e-2)
+
+
 def test_add_mini_loops_equals_the_reference(loop):
     path = loop[3]
     cj, ct = _closers()
@@ -156,9 +195,10 @@ def test_add_mini_loops_equals_the_reference(loop):
 def test_close_and_optimize_equals_the_reference(loop):
     """The whole pass from the reference's odometry outputs: payloads
     recomputed by each package, closure, optimization (15 GN iterations).
-    Accepted pairs identical; optimized keyframe poses within 2 mm and 1e-4
-    rad, the bound `test_torch_posegraph.OPT_TOL` gives DCS with drift
-    scales (1.2 mm seen). With a mesh the solve runs edge-sharded."""
+    Accepted pairs identical; optimized keyframe poses within
+    OPT_DENSE_TOL (the module docstring; kernel A's form is held to 2 mm
+    by `test_close_and_optimize_kernel_a_equals_the_reference`). With a
+    mesh the solve runs edge-sharded."""
     images, out, traj, _ = loop
     cfg_j, cfg_t = both_cfgs(_cfg())
     opt_j, _, acc_j = jlc.close_and_optimize(images, out, traj, cfg_j,
@@ -166,9 +206,7 @@ def test_close_and_optimize_equals_the_reference(loop):
     opt_t, gb, acc_t = tlc.close_and_optimize(images, out, traj, cfg_t,
                                               iters=15, device="cpu")
     assert acc_t == acc_j and len(acc_t) >= 1
-    opt_j = np.asarray(opt_j)
-    assert np.abs(opt_t[:, :2] - opt_j[:, :2]).max() <= 2e-3
-    assert np.abs(opt_t[:, 2] - opt_j[:, 2]).max() <= 1e-4
+    _assert_opt_close(opt_t, opt_j, OPT_DENSE_TOL)
     # the solve edge-sharded over a mesh of one process: `optimize` bit for
     # bit (tests/test_torch_parallel.py holds two processes)
     opt_m, gb_m, acc_m = tlc.close_and_optimize(
@@ -176,6 +214,26 @@ def test_close_and_optimize_equals_the_reference(loop):
         mesh=tmesh.make_mesh(device="cpu"))
     assert acc_m == acc_t and len(gb_m.edges) == len(gb.edges)
     np.testing.assert_array_equal(opt_m, opt_t)
+
+
+def _assert_opt_close(got, want, tol):
+    want = np.asarray(want)
+    assert np.abs(got[:, :2] - want[:, :2]).max() <= tol[0]
+    assert np.abs(got[:, 2] - want[:, 2]).max() <= tol[1]
+
+
+def test_close_and_optimize_kernel_a_equals_the_reference(loop):
+    """The whole pass with kernel A's form on both sides: accepted pairs
+    identical, optimized keyframe poses within 2 mm and 1e-4 rad, the bound
+    `test_torch_posegraph.OPT_TOL` gives DCS with drift scales."""
+    images, out, traj, _ = loop
+    cfg_j, cfg_t = both_cfgs(_kernel_a(_cfg()))
+    opt_j, _, acc_j = jlc.close_and_optimize(images, out, traj, cfg_j,
+                                             iters=15)
+    opt_t, _, acc_t = tlc.close_and_optimize(images, out, traj, cfg_t,
+                                             iters=15, device="cpu")
+    assert acc_t == acc_j and len(acc_t) >= 1
+    _assert_opt_close(opt_t, opt_j, OPT_TOL)
 
 
 def test_close_computes_missing_payloads_as_the_reference(loop):

@@ -6,17 +6,31 @@ Each session's odometry and graph (scan payloads included) is made once by
 the reference, saved as `simple_graph.npz` and loaded by both packages, so
 the comparison isolates the merge. Tolerances:
 
-- the verified cross-session pairs, their association counts, the inlier
-  pairs and the refusals (type and message) exact;
-- each match's registered `t_ij` within 4e-3 (`TIJ_TOL`) and its score
-  within 2e-2 relative: a cross-session registration starts from a zero
-  translation against another session's speckle, and its LM ends where
-  f32 sum order puts it. The port is up to 1.2e-3 from the reference on
-  the A-B pair; the reference's own dense association and kernel A are
-  up to 3.8e-3 and 1.3e-2 relative apart on the same matches;
-- `t_ab`, the mean of the inlier votes, within 5e-4 (`T_TOL`): 7.0e-5 on
-  the A-B pair and 1.3e-4 on the three-session merge seen, where the
-  reference's dense association and kernel A are 4.8e-4 apart;
+- the verified cross-session pairs, the inlier pairs and the refusals
+  (type and message) exact;
+- with the association the reference runs on the CPU (the dense
+  |s|^2 + |t|^2 - 2 s.t form): each match's association count exact
+  where its registered `t_ij` agrees within 1e-4 (the same solve), within
+  2 otherwise (`NUM_ASSOC_SLACK`); `t_ij` within 1e-2 (`TIJ_TOL`) and the
+  score within 0.1 relative (`SCORE_RTOL`). A cross-session registration
+  starts from a zero translation against another session's speckle; at
+  40-80 m the dense form cannot resolve two targets within ~5e-4 m^2 of
+  each other, and which one wins turns on an ulp of the transformed source
+  (XLA contracts the reference's `se2.transform` into FMAs where the CPU
+  has them; the port rounds each product). On an AVX-512 CPU the port is
+  up to 4.15e-3 from the reference, 3.8e-2 relative in score, with one
+  count one apart. The reference spreads as far on the same
+  inputs and CPU (`tools/reference_spread_torch.py`): its kernel A against
+  its dense form, `t_ij` 5.8e-3, scores 3.8e-2 relative, one count one
+  apart; with XLA limited to AVX (no FMA) against its default, 3.2e-3,
+  3.8e-2 and three counts up to two apart. The bounds are about 1.7x and
+  2.6x that;
+- with kernel A's form on both sides (`assoc_method="pallas"`), which has
+  no such tie: counts exact, `t_ij` within 5e-4 (1.3e-4 seen), scores
+  within 1e-4 relative (4e-6 seen), `t_ab` within 2e-5 (4.8e-6 seen);
+- `t_ab`, the mean of the inlier votes, within 5e-4 (`T_TOL`): 1.6e-4 on
+  the A-B pair and 1.5e-4 on the three-session merge seen, where
+  the reference's dense association and kernel A are 3.1e-4 apart;
 - the port's `optimize` on the reference's joint graph within 2 mm and
   1e-4 rad of the reference's merged poses (`OPT_TOL`, the bound of
   `tests/test_torch_posegraph.py` for DCS with drift scales);
@@ -55,7 +69,10 @@ N_A, B_LO, B_HI = 48, 16, 44
 OPT_TOL = (2e-3, 1e-4)
 MERGE_TOL = (1e-2, 2e-4)
 T_TOL = 5e-4
-TIJ_TOL = 4e-3
+TIJ_TOL = 1e-2
+SCORE_RTOL = 0.1
+NUM_ASSOC_SLACK = 2
+SAME_SOLVE = 1e-4
 MESH_TOL = (5e-3, 1e-4)
 
 
@@ -126,13 +143,19 @@ def sessions(tmp_path_factory):
     return res
 
 
-def _assert_same_matches(got, want):
-    assert [(m["i_a"], m["j_b"], m["num_assoc"]) for m in got] == \
-        [(m["i_a"], m["j_b"], m["num_assoc"]) for m in want]
+def _assert_same_matches(got, want, tij_tol=TIJ_TOL, score_rtol=SCORE_RTOL,
+                         slack=NUM_ASSOC_SLACK):
+    """Pairs exact; counts exact where `t_ij` agrees within SAME_SOLVE, else
+    within `slack`; `t_ij` and scores within their bounds."""
+    assert [(m["i_a"], m["j_b"]) for m in got] == \
+        [(m["i_a"], m["j_b"]) for m in want]
     for g, w in zip(got, want):
-        np.testing.assert_allclose(g["t_ij"], np.asarray(w["t_ij"]), rtol=0,
-                                   atol=TIJ_TOL)
-        assert g["score"] == pytest.approx(w["score"], rel=2e-2)
+        d = np.abs(np.asarray(g["t_ij"]) - np.asarray(w["t_ij"])).max()
+        assert d <= tij_tol, (g["i_a"], g["j_b"], d)
+        dn = abs(g["num_assoc"] - w["num_assoc"])
+        assert dn <= (0 if d <= SAME_SOLVE else slack), \
+            (g["i_a"], g["j_b"], g["num_assoc"], w["num_assoc"], d)
+        assert g["score"] == pytest.approx(w["score"], rel=score_rtol)
         assert g["ring_distance"] == w["ring_distance"]
 
 
@@ -170,6 +193,25 @@ def test_cross_session_matching_and_alignment(sessions):
     t_true = sessions["routes"]["b"][0]
     assert np.linalg.norm(t_ab[:2] - t_true[:2]) < 1.0, (t_ab, t_true)
     assert abs(np.angle(np.exp(1j * (t_ab[2] - t_true[2])))) < 0.06
+
+
+def test_cross_session_matches_kernel_a_equal_the_reference(sessions):
+    """Matching and alignment of A-B with kernel A's form on both sides:
+    pairs and association counts exact, `t_ij` within 5e-4, scores within
+    1e-4 relative, `t_ab` within 2e-5 and the inliers exact."""
+    cfg_j = CFG_J.replace(registration=dataclasses.replace(
+        CFG_J.registration, assoc_method="pallas"))
+    cfg_t = both_cfgs(cfg_j)[1]
+    (ja, ta), (jb, tb) = _both(sessions["a"]), _both(sessions["b"])
+    want = jms.cross_session_matches(ja, jb, cfg_j)
+    got = tms.cross_session_matches(ta, tb, cfg_t, device="cpu")
+    assert len(got) >= 2
+    _assert_same_matches(got, want, tij_tol=5e-4, score_rtol=1e-4, slack=0)
+    t_ab, inliers = tms.align_from_matches(ta, tb, got)
+    t_ab_j, inliers_j = jms.align_from_matches(ja, jb, want)
+    np.testing.assert_allclose(t_ab, t_ab_j, rtol=0, atol=2e-5)
+    assert [(m["i_a"], m["j_b"]) for m in inliers] == \
+        [(m["i_a"], m["j_b"]) for m in inliers_j]
 
 
 def test_merge_sessions_joint_optimization(sessions, pair):

@@ -202,14 +202,94 @@ def test_batched_step_equals_per_lane_steps(seq):
 
 @pytest.mark.parametrize("section,field,value", [
     ("registration", "assoc_method", "grid")])
-def test_unported_options_raise(section, field, value):
-    cfg_j, _ = slice_cfg()
+def test_unported_options_raise(section, field, value, seq):
+    """Every option is ported now: `assoc_method="grid"` (the last one)
+    runs with both ingests, within the odometry tolerance of the port's
+    dense association and of the reference's grid runner, keyframes
+    identical (the grid takes exact distances in each keyframe's frame,
+    the dense form |s|^2 + |t|^2 - 2 s.t in the world's: a near tie may
+    go the other way); an unknown method raises."""
+    cfg_j, _, images, _ = seq
     cfg_j = cfg_j.replace(**{section: dataclasses.replace(
         getattr(cfg_j, section), **{field: value})})
+    cfg_d = cfg_j.replace(registration=dataclasses.replace(
+        cfg_j.registration, assoc_method="dense"))
+    n = 6
     for ingest in ("image", "host"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            todo.OdometryRunner(both_cfgs(cfg_j)[1], ingest=ingest,
-                                device="cpu")
+        runs = []
+        for cfg in (cfg_j, cfg_d):
+            r = todo.OdometryRunner(both_cfgs(cfg)[1], ingest=ingest,
+                                    device="cpu")
+            r.process(images[:n])
+            runs.append((r.trajectory(), r.frame_outputs()))
+        (traj, out), (traj_d, out_d) = runs
+        assert out.success.all()
+        np.testing.assert_array_equal(out.fused, out_d.fused)
+        _assert_traj_close(traj, traj_d)
+    jr = jodo.OdometryRunner(cfg_j, chunk=n - 1, ingest="host")
+    jr.process(images[:n])
+    np.testing.assert_array_equal(out.fused, jr.frame_outputs().fused)
+    _assert_traj_close(traj, jr.trajectory())
+    bad = cfg_j.replace(registration=dataclasses.replace(
+        cfg_j.registration, assoc_method="octree"))
+    with pytest.raises(ValueError, match="octree"):
+        todo.OdometryRunner(both_cfgs(bad)[1], device="cpu")
+
+
+@pytest.mark.parametrize("ingest", ["image", "compact"])
+def test_chunk_runner_equals_stepping_and_the_reference(seq, ingest):
+    """`make_chunk_runner` over chunks of 8 frames after the bootstrap
+    frame: every output leaf and the final state bit for bit those of
+    stepping frame by frame; with image ingest, the trajectory within the
+    odometry tolerance of the reference's `make_chunk_runner` (its jitted
+    `lax.scan`) over the same chunks, keyframes identical."""
+    cfg_j, cfg_t, images, _ = seq
+    if ingest == "image":
+        frames = torch.as_tensor(images)
+    else:
+        frames = todo.to_device(todo.host_filter(images, cfg_t, ingest),
+                                "cpu")
+    one = (lambda i: frames[i]) if ingest == "image" else \
+        (lambda i: todo._map(lambda a: a[i], frames))
+    state, out0 = todo.make_bootstrap(cfg_t, ingest)(
+        todo.init_state(cfg_t, "cpu"), one(0))
+    run_chunk, step = todo.make_chunk_runner(cfg_t, ingest), \
+        todo.make_step(cfg_t, ingest)
+    st_c, st_s, outs_c, outs_s = state, state, [], []
+    for lo in range(1, N_FRAMES, 8):
+        hi = min(lo + 8, N_FRAMES)
+        part = frames[lo:hi] if ingest == "image" else \
+            todo._map(lambda a: a[lo:hi], frames)
+        st_c, o = run_chunk(st_c, part)
+        outs_c.append(o)
+        for i in range(lo, hi):
+            st_s, o = step(st_s, one(i))
+            outs_s.append(o)
+    got = todo.FrameOutput(*(torch.cat(x) for x in zip(*outs_c)))
+    want = todo.FrameOutput(*(torch.stack(x) for x in zip(*outs_s)))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    for a, b in zip(todo.state_leaves(st_c), todo.state_leaves(st_s)):
+        assert torch.equal(a, b)
+    if ingest != "image":
+        return
+    import jax.numpy as jnp
+    js, jo0 = jax.jit(jodo.make_bootstrap(cfg_j))(jodo.init_state(cfg_j),
+                                                  jnp.asarray(images[0]))
+    run_j, outs_j = jodo.make_chunk_runner(cfg_j), []
+    for lo in range(1, N_FRAMES, 8):
+        js, o = run_j(js, jnp.asarray(images[lo:lo + 8]))
+        outs_j.append(o)
+    out_j = jodo.FrameOutput(*(np.concatenate([np.asarray(jo0[k])[None]]
+                                              + [np.asarray(o[k])
+                                                 for o in outs_j])
+                               for k in range(len(jo0))))
+    out_t = todo.FrameOutput(*(np.concatenate([a[None].numpy(), b.numpy()])
+                               for a, b in zip(out0, got)))
+    np.testing.assert_array_equal(out_t.fused, out_j.fused)
+    assert out_t.success.all() and out_j.success.all()
+    _assert_traj_close(todo.compose_trajectory(out_t),
+                       jodo.compose_trajectory(out_j))
 
 
 def _run_both(cfg_j, images, ingest, chunk=12):
@@ -687,7 +767,8 @@ def test_runner_needs_a_card_unless_asked_for_the_cpu(seq, monkeypatch,
 
 
 @pytest.mark.parametrize("sequence", ["LONGRUN_SEQUENCE",
-                                      "LONGRUN_ADV8_SEQUENCE"])
+                                      "LONGRUN_ADV8_SEQUENCE",
+                                      "LONGRUN_ADV12_SEQUENCE"])
 def test_longrun_golden_configs_match_chip_smoke(sequence):
     """The two long-run goldens were made for chip_smoke.py's long-run
     configuration and worlds (`make_torch_port_golden.py --preset longrun

@@ -195,13 +195,130 @@ def test_register_batched_equals_per_lane():
 
 @pytest.mark.parametrize("option,value", [("assoc_method", "grid")])
 def test_unported_registration_options_raise(option, value):
+    """Every registration option is ported now: `assoc_method="grid"` (the
+    last one) registers as the reference's grid does, and an unknown method
+    raises."""
     cfg, kf_cells, kf_poses, src, guess = _problem("P2P", "pallas", n_kf=1)
     cfg = cfg.replace(registration=dataclasses.replace(
         cfg.registration, **{option: value}))
     _, cfg_t = both_cfgs(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_register(cfg_t, kf_cells, kf_poses, src, guess,
-                       np.ones(1, bool))
+    kf_valid = np.ones(1, bool)
+    r_t = _port_register(cfg_t, kf_cells, kf_poses, src, guess, kf_valid)
+    r_j = jreg.register(kf_cells, jnp.asarray(kf_poses),
+                        jnp.asarray(kf_valid), src, jnp.asarray(guess),
+                        cfg=cfg)
+    assert bool(r_j.success) and r_t.success.item()
+    np.testing.assert_allclose(r_t.pose[0].numpy(), np.asarray(r_j.pose),
+                               atol=1e-5)
+    bad = cfg_t.replace(registration=dataclasses.replace(
+        cfg_t.registration, assoc_method="octree"))
+    with pytest.raises(ValueError, match="octree"):
+        _port_register(bad, kf_cells, kf_poses, src, guess, kf_valid)
+
+
+def _grid_problem(cost="P2L", seed=7):
+    """`tests/test_registration.py:197`: one world seen from the origin and
+    from a second keyframe pose, the source from (1.2, 0.7, 0.05); the
+    reference's grid and dense configurations and the port's."""
+    cfg_g = _cfg(cost)
+    cfg_g = cfg_g.replace(registration=dataclasses.replace(
+        cfg_g.registration, assoc_method="grid"))
+    cfg_d = cfg_g.replace(registration=dataclasses.replace(
+        cfg_g.registration, assoc_method="dense"))
+    rng = np.random.default_rng(seed)
+    xy, intens = _world_cloud(rng)
+    kf_poses = np.array([[0, 0, 0], [0.5, 0.2, 0.02]], np.float32)
+    kf = _stack_keyframes([_cells_from_world(xy, intens, p, cfg_g)
+                           for p in kf_poses])
+    src = _cells_from_world(xy, intens, np.array([1.2, 0.7, 0.05]), cfg_g)
+    return cfg_g, cfg_d, kf, kf_poses, src
+
+
+def test_grid_buckets_equal_the_reference():
+    """The bucket tables of both keyframes equal the reference's slot for
+    slot (the stable sort ranks a bucket's cells by index); the overflow
+    sink is -1 in the port, and the reference's holds an invalid cell."""
+    cfg_g, _, kf, _, _ = _grid_problem()
+    cfg_t = both_cfgs(cfg_g)[1]
+    assert treg._bucket_geometry(cfg_t) == jreg._bucket_geometry(cfg_g)
+    got = treg.build_buckets(_lane(kf), cfg_t)[0].numpy()
+    for i in range(2):
+        one = jax_tree_index(kf, i)
+        want = np.asarray(jreg.build_buckets(one, cfg_g))
+        np.testing.assert_array_equal(got[i, :-1], want[:-1])
+        assert got[i, -1] == -1 and not bool(one.valid[want[-1]])
+        assert (want[:-1] >= 0).sum() == int(np.asarray(one.valid).sum())
+
+
+def jax_tree_index(tree, i):
+    return type(tree)(*(a[i] for a in tree))
+
+
+@pytest.mark.parametrize("radius", [2.0, 4.0])
+def test_grid_association_matches_the_reference_and_dense(radius):
+    """`associate` with the grid: target indices, validity and weights of
+    both keyframes equal the reference's grid and the port's own dense
+    association (`tests/test_registration.py:197-216`)."""
+    cfg_g, cfg_d, kf, kf_poses, src = _grid_problem()
+    pose = np.array([1.2, 0.7, 0.05], np.float32)
+    got = {}
+    for name, cfg in (("grid", cfg_g), ("dense", cfg_d)):
+        got[name] = treg.associate(
+            _lane(kf), torch.as_tensor(kf_poses)[None],
+            torch.ones(1, 2, dtype=torch.bool), _lane(src),
+            torch.as_tensor(pose)[None], radius, both_cfgs(cfg)[1])
+    want = jreg.associate(kf, jnp.asarray(kf_poses), jnp.ones(2, bool), src,
+                          jnp.asarray(pose), radius, cfg_g)
+    v = np.asarray(want.valid)
+    assert v.sum() > 100
+    for a in (got["grid"], got["dense"]):
+        np.testing.assert_array_equal(a.valid[0].numpy(), v)
+        np.testing.assert_array_equal(a.tar_idx[0].numpy()[v],
+                                      np.asarray(want.tar_idx)[v])
+        np.testing.assert_allclose(a.weight[0].numpy(),
+                                   np.asarray(want.weight), atol=1e-6)
+
+
+@pytest.mark.parametrize("cost", ["P2P", "P2L", "P2D"])
+def test_grid_register_matches_the_reference_and_dense(cost):
+    """`register` with the grid from a guess off the true pose: the port's
+    grid solve within 1e-5 of its own dense association's (the grid takes
+    the normal agreement in the keyframe's frame, the world form in the
+    world's: weights an ulp apart), with equal association counts and
+    outer iterations, as the reference's grid and dense are; against the
+    reference's grid solve, no farther than the port's dense solve is from
+    the reference's dense solve, plus 1e-5 (on this P2L problem both are
+    1e-4 apart: an LM step decided within f32 rounding, whatever the
+    association; ROADMAP queue 3). `get_cost` with the grid equals
+    the reference's within 1e-5 relative."""
+    cfg_g, cfg_d, kf, kf_poses, src = _grid_problem(cost)
+    guess = np.array([1.4, 0.5, 0.03], np.float32)
+    kf_valid = np.ones(2, bool)
+    r_g = _port_register(both_cfgs(cfg_g)[1], kf, kf_poses, src, guess,
+                         kf_valid)
+    r_d = _port_register(both_cfgs(cfg_d)[1], kf, kf_poses, src, guess,
+                         kf_valid)
+    np.testing.assert_allclose(r_g.pose.numpy(), r_d.pose.numpy(), atol=1e-5)
+    for f in ("num_assoc", "iterations", "success"):
+        assert torch.equal(getattr(r_g, f), getattr(r_d, f)), f
+    r_j, r_jd = (jreg.register(kf, jnp.asarray(kf_poses),
+                               jnp.asarray(kf_valid), src, jnp.asarray(guess),
+                               cfg=c) for c in (cfg_g, cfg_d))
+    assert r_g.success.item() and bool(r_j.success)
+    d_dense = np.abs(r_d.pose[0].numpy() - np.asarray(r_jd.pose)).max()
+    assert np.abs(r_g.pose[0].numpy() - np.asarray(r_j.pose)).max() \
+        <= d_dense + 1e-5
+    for f in ("num_assoc", "iterations"):
+        assert getattr(r_g, f).item() == int(getattr(r_j, f)) \
+            == int(getattr(r_jd, f)), f
+    c_j, n_j = jreg.get_cost(kf, jnp.asarray(kf_poses), jnp.asarray(kf_valid),
+                             src, jnp.asarray(guess), cfg_g)
+    c_t, n_t = treg.get_cost(_lane(kf), torch.as_tensor(kf_poses)[None],
+                             torch.as_tensor(kf_valid)[None], _lane(src),
+                             torch.as_tensor(guess)[None],
+                             both_cfgs(cfg_g)[1])
+    assert n_t.item() == int(n_j)
+    np.testing.assert_allclose(c_t.item(), float(c_j), rtol=1e-5)
 
 
 def test_resolve_assoc_method_policy():

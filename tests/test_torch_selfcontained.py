@@ -536,3 +536,101 @@ def test_viz_equals_the_reference(tmp_path):
     for fig in ("scan", "traj"):
         assert (tmp_path / f"port_{fig}.png").read_bytes() == \
             (tmp_path / f"ref_{fig}.png").read_bytes(), fig
+
+
+def test_online_daemon_and_live_viz_equal_the_reference():
+    """The framework-free parts of the online daemon (`PackFollower`,
+    `_tum_line`, the pack constants) and the whole live viewer
+    (`parse_tum_line`, `TumFollower`, `render_snapshot`, `main`) are the
+    reference's, line for line; `_tum_line` and `parse_tum_line` give the
+    reference's output on the same poses."""
+    import inspect
+
+    from cfear_radarodometry_code_public_tpu import online_odometry as jonl
+    from cfear_radarodometry_code_public_tpu.eval import live_viz as jlv
+    from cfear_radarodometry_code_public_tpu_torch import online_odometry as tonl
+    from cfear_radarodometry_code_public_tpu_torch.eval import live_viz as tlv
+    for name in ("PackFollower", "_tum_line"):
+        assert inspect.getsource(getattr(tonl, name)) == \
+            inspect.getsource(getattr(jonl, name)), name
+    assert (tonl._HDR_BYTES, tonl._MAGIC) == (jonl._HDR_BYTES, jonl._MAGIC)
+    for name in ("parse_tum_line", "TumFollower", "render_snapshot", "main"):
+        assert inspect.getsource(getattr(tlv, name)) == \
+            inspect.getsource(getattr(jlv, name)), name
+    rng = np.random.default_rng(9)
+    for stamp, xyt in zip(rng.uniform(0, 1e9, 20), rng.normal(0, 50, (20, 3))):
+        line = tonl._tum_line(float(stamp), xyt)
+        assert line == jonl._tum_line(float(stamp), xyt)
+        assert tlv.parse_tum_line(line) == jlv.parse_tum_line(line)
+    assert tlv.parse_tum_line("1 2 3") is None
+
+
+def test_association_and_surface_plots_equal_the_reference(tmp_path):
+    """`plot_associations` and `plot_cost_surface` are the reference's,
+    line for line, and write its figures byte for byte."""
+    import inspect
+
+    from cfear_radarodometry_code_public_tpu.eval import viz as jviz
+    from cfear_radarodometry_code_public_tpu_torch.eval import viz as tviz
+    for name in ("plot_associations", "plot_cost_surface"):
+        assert inspect.getsource(getattr(tviz, name)) == \
+            inspect.getsource(getattr(jviz, name)), name
+    rng = np.random.default_rng(6)
+    src, tar = rng.normal(0, 10, (40, 2)), rng.normal(0, 10, (30, 2))
+    idx, valid = rng.integers(0, 30, 40), rng.random(40) < 0.7
+    surface = rng.random((21, 21))
+    for mod, sub in ((tviz, "port"), (jviz, "ref")):
+        mod.plot_associations(str(tmp_path / f"{sub}_assoc.png"), src, tar,
+                              idx, valid)
+        mod.plot_cost_surface(str(tmp_path / f"{sub}_surf.png"), surface,
+                              (-5.0, 5.0, -5.0, 5.0))
+    for fig in ("assoc", "surf"):
+        assert (tmp_path / f"port_{fig}.png").read_bytes() == \
+            (tmp_path / f"ref_{fig}.png").read_bytes(), fig
+
+
+def test_online_entry_points_run_without_the_reference_package(tmp_path):
+    """In the guarded process: the online daemon drains a pack written by
+    the port's native writer (CPU), the live viewer renders its poses, the
+    chunk runner steps the same frames, `--profile-stages` fills its
+    table, and a grid registration runs."""
+    script = _GUARD + textwrap.dedent(r"""
+        import dataclasses
+        import numpy as np
+        import torch
+        import cfear_radarodometry_code_public_tpu_torch as port
+        from cfear_radarodometry_code_public_tpu_torch import (
+            offline_odometry, online_odometry)
+        from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
+        from cfear_radarodometry_code_public_tpu_torch.eval import live_viz
+        from cfear_radarodometry_code_public_tpu_torch.models import odometry
+        from cfear_radarodometry_code_public_tpu_torch.utils import native_io, stats
+        out = sys.argv[2]
+        cfg = port.preset("CFEAR-3", dataset="synthetic")
+        cfg = cfg.replace(
+            feature=dataclasses.replace(cfg.feature, max_cells=256),
+            filter=dataclasses.replace(cfg.filter, k_strongest=8))
+        images, gt = synthetic.make_sequence(seed=3, n_frames=5, cfg=cfg)
+        pack, tum = os.path.join(out, "p.radarpack"), os.path.join(out, "p.tum")
+        native_io.pack_frames(pack, ((i * 0.25, images[i]) for i in range(5)), 5)
+        daemon = online_odometry.OnlineOdometry(cfg, pack, tum, chunk=2,
+                                                ingest="host", device="cpu")
+        assert daemon.run(follow=False) == 5
+        fol = live_viz.TumFollower(tum)
+        assert fol.poll() == 5
+        live_viz.render_snapshot(os.path.join(out, "live.png"), fol.poses)
+        run = odometry.make_chunk_runner(cfg, "image")
+        st, _ = odometry.make_bootstrap(cfg, "image")(
+            odometry.init_state(cfg, "cpu"), torch.as_tensor(images[0]))
+        st, outs = run(st, torch.as_tensor(images[1:]))
+        assert outs.pose.shape == (4, 3) and bool(outs.success.all())
+        t = stats.Statistics()
+        offline_odometry._profile_stages(cfg, images, t, "cpu")
+        assert t.count("register") == 4 and t.count("Surface points") == 4
+        grid = cfg.replace(registration=dataclasses.replace(
+            cfg.registration, assoc_method="grid"))
+        r = odometry.OdometryRunner(grid, ingest="host", device="cpu")
+        r.process(images)
+        assert bool(r.frame_outputs().success.all())
+    """) + _NONE_LOADED
+    _run_guarded(script, str(tmp_path))

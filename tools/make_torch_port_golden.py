@@ -23,7 +23,12 @@ the ATE against ground truth, and the configuration and sequence as JSON to
   `chip_smoke.longrun_golden(sequence)`. The defaults are
   `chip_smoke.LONGRUN_SEQUENCE` (easy world, 12 m/s, 256 frames ->
   `cfear3_longrun_seed11_256_12ms.npz`); `--adversarial --speed 8` is
-  `chip_smoke.LONGRUN_ADV8_SEQUENCE` (`cfear3_longrun_adv_seed11_256_8ms.npz`).
+  `chip_smoke.LONGRUN_ADV8_SEQUENCE` (`cfear3_longrun_adv_seed11_256_8ms.npz`)
+  and `--adversarial --speed 12 --frames 384` is
+  `chip_smoke.LONGRUN_ADV12_SEQUENCE`, the breaking regime
+  (`cfear3_longrun_adv_seed11_384_12ms.npz`): 384 is the smallest multiple
+  of 128 frames at which the reference marks a health check unhealthy (at
+  256 frames none of 31 checks is; at 384 one of 47, frame 328).
   The configuration keeps the preset's `assoc_method="auto"`, which
   resolves to kernel A on a card; the reference runs it as
   `assoc_method="pallas"` (kernel A in interpret mode), and the file also
@@ -63,13 +68,15 @@ the ATE against ground truth, and the configuration and sequence as JSON to
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset CFEAR-3-s50 --k-active 16
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset longrun
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset longrun --adversarial --speed 8
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset longrun --adversarial --speed 12 --frames 384
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset cli
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset slam
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset merge
 
 On one CPU process the first takes about 10 s and the second about a
 minute; the s50 exact golden took 39 s and the K16 golden 18 s (rendering
-of the 128 frames excluded); each longrun golden about a minute.
+of the 128 frames excluded); each longrun golden about a minute, the
+384-frame one 61 s.
 
 With `--assoc-method dense` the tool runs the same configuration with the
 reference's dense association instead, writes nothing, and prints that
