@@ -30,16 +30,17 @@
 // argmins); +inf for invalid targets; targets scanned in index order with a
 // strict '<' so the lowest index wins ties, as argmin does; rows with no
 // valid (or no unskipped) target report (+inf, 0). B1 and B2 share one
-// per-chunk scan (`scan_keyframe`), D1, D2, E and C's first form one
-// per-tile scan (`scan_tile`), so each family gives the same bits; A's and
-// C's split kernels give them too (below).
+// per-chunk scan (`scan_keyframe`), E and C's first form one per-tile scan
+// (`scan_tile`), C's split kernel, D1 and D2 one per-slice scan
+// (`scan_slice`), so each family gives the same bits; A's kernel gives them
+// too (below).
 //
 // What bounds them on an H100: at the CFEAR-3 bench shape (B=8, S=4,
 // M=Msrc=1024) one call is ~34 M distance evaluations, microseconds of ALU
 // work spread over 128 (C's first form) blocks — fewer blocks than a full
 // wave of 132 SMs x several resident blocks. The calls are bound by launch
 // latency and by the short grid, not by bytes (~0.2 MB read) or FLOPs.
-// B1, B2, D1, D2 and E keep the simple design: one source row per thread,
+// B1, B2 and E keep the simple design: one source row per thread,
 // the keyframe's targets staged through shared memory in chunks so every
 // thread reads the same target (a broadcast, no bank conflicts).
 //
@@ -126,16 +127,48 @@
 //
 // D1 and D2 exist on the TPU because every grid step there has a fixed
 // cost (3,200 thin steps at B=8, S=50); a loop inside the kernel replaced
-// the keyframe grid axis. Hopper runs blocks in parallel and has no such
-// cost, so moving the keyframe loop into the block only shrinks the grid:
-// one block per (lane, 256-row source tile) is 32 blocks at B=8, M=1024
-// against 132 SMs, each walking all S keyframes in turn. They are bound by
-// that serial walk (latency of the staging loads and the dependent scan)
-// and are expected to be slower than C; the design keeps them as the
-// reference wrote them and measures that. D2 differs from D1 only in what
-// the compiler knows: they are one template, D1 with the number of target
-// tiles read at runtime, D2 with it a template argument (for the budgets of
-// `UNROLLED_M` in ops/cuda_assoc.py) and the keyframe loop unrolled by 2.
+// the keyframe grid axis. Hopper has no such cost. Their first form kept
+// the TPU's shape, one block of 256 threads per (lane, source tile), each
+// thread one source row walking the S keyframes and staging each live tile
+// by plain loads between two barriers: 32 blocks on 132 SMs at B=8, M=1024,
+// the load latency never overlapped, ~18 issue slots a distance. What a
+// loop over keyframes can buy on Hopper is what this design
+// (`nn_min_sparse_walk_kernel`) takes: the source rows held in registers
+// across keyframes, a CTA's fixed path (bounds, source rows) paid once for
+// several keyframes, and the next keyframe's tiles copied while the
+// current one is scanned. What bounds it is what bounds C, issue slots
+// under the unfused contract, so its scan is C's (`scan_slice`, 4 source
+// rows a thread, slices of 128 targets, groups of 16, one FMNMX a
+// distance, the strict '<', the rescan, the lexicographic slice merge):
+//  - the grid is (lane, keyframe group) x source tile; a lane's S
+//    keyframes are cut into G contiguous groups walked in index order, G
+//    from the shape alone (ops/cuda_assoc.py:walk_groups: the smallest G
+//    up to S that gives 800 CTAs, about six an SM); each keyframe's output
+//    is its own, so groups need no merge;
+//  - each keyframe's live tiles come from the bbox gap test in scan_tile's
+//    arithmetic, one tile a lane and a ballot (the list is uniform), and
+//    go to consecutive slots of a two-stage ring in dynamic shared memory
+//    by cp.async, 16 bytes (two targets) at a time with their 4 valid
+//    bytes; while one stage is scanned the next keyframe's tiles arrive in
+//    the other; a thread then sets the invalid targets of its own copies
+//    to (+inf, +inf), since cp.async copies bytes as they are, so one
+//    barrier a pass and one more a keyframe for the merge;
+//  - a stage holds min(M / 512, SPLIT_MAX_TILES) tiles; a keyframe with
+//    more live tiles is walked in several passes, a row's winning group
+//    rescanned in the pass where its best moved, so D1 takes any M.
+// D2 differs from D1 only in what the compiler knows: M a template
+// argument (the budgets of `UNROLLED_M`) and the pass loop unrolled by 2,
+// so each step's stage is a constant.
+// Their loop is C's: 6.41 (D1) and 6.44 (D2) SASS instructions a distance,
+// 77 and 64 registers. What decides their time is how many CTAs an SM
+// holds and how evenly keyframes fall on SMs, not the walk: at B=8, S=50,
+// M=1024 one CTA a keyframe (G = S, C's grid) was fastest, two a CTA within
+// 2-5%, 7 a CTA (256 CTAs) 19% slower (tools/compare_torch_kernels.py
+// --mode d-sweep). Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py, CUDA events), first form -> this one: 1.74 -> 0.117 ms
+// on the s50 window at B=8 (C 0.113; 61% of the 0.072 ms issue floor),
+// 0.022 at B=1 (C 0.023), 0.047 on the s50-preset window (C 0.057: the
+// ballot and cp.async stage its few live tiles faster than C's loads).
 //
 // E exists on the TPU to fold the attribute gather into the kernel, where
 // it cost a one-hot MXU product per executed tile pair. On Hopper the
@@ -416,6 +449,48 @@ __device__ __forceinline__ void lex_min(float& d, int& i, float e, int j) {
   }
 }
 
+// The scan of kernels C, D1 and D2 over one slice of kSliceC staged
+// targets at p (two a float4), whose first lies at staged offset `base`.
+// Each group of kGroupC targets: the minimum distance of each row by fminf
+// alone (one FMNMX a distance, no index); the row's best moves, with the
+// group's offset, only on a strict '<', so bg is the first group, in index
+// order, that attains the row's best so far.
+__device__ __forceinline__ void scan_slice(const float4* __restrict__ p, int base,
+                                           const float (&sx)[kRowsC],
+                                           const float (&sy)[kRowsC],
+                                           float (&bv)[kRowsC], int (&bg)[kRowsC]) {
+#pragma unroll 1
+  for (int g = 0; g < kSliceC / kGroupC; ++g) {
+    float gm[kRowsC];
+#pragma unroll
+    for (int j = 0; j < kRowsC; ++j) gm[j] = CUDART_INF_F;
+#pragma unroll
+    for (int k = 0; k < kGroupC / 2; ++k) {
+      const float4 t = p[g * (kGroupC / 2) + k];
+#pragma unroll
+      for (int j = 0; j < kRowsC; ++j)
+        gm[j] = fminf(gm[j], fminf(dist2(sx[j], sy[j], t.x, t.y),
+                                   dist2(sx[j], sy[j], t.z, t.w)));
+    }
+#pragma unroll
+    for (int j = 0; j < kRowsC; ++j) {
+      if (gm[j] < bv[j]) {
+        bv[j] = gm[j];
+        bg[j] = base + g * kGroupC;
+      }
+    }
+  }
+}
+
+// The offset within the winning group of staged targets w of the first
+// whose distance, in the same rounded arithmetic, equals the row's best d.
+__device__ __forceinline__ int first_at(const float2* __restrict__ w, float sx,
+                                        float sy, float d) {
+  int k = 0;
+  while (k < kGroupC - 1 && dist2(sx, sy, w[k].x, w[k].y) != d) ++k;
+  return k;
+}
+
 __global__ void __launch_bounds__(kThreadsC) nn_min_sparse_split_kernel(
     const float* __restrict__ src, const float* __restrict__ src_bounds,
     const float* __restrict__ tar, const float* __restrict__ tar_bounds,
@@ -484,48 +559,17 @@ __global__ void __launch_bounds__(kThreadsC) nn_min_sparse_split_kernel(
       bg[j] = 0;
     }
     __syncthreads();
-    // Each group of kGroupC targets: the minimum distance of each row by
-    // fminf alone (one FMNMX a distance, no index); the row's best moves,
-    // with the group's offset, only on a strict '<', so bg is the first
-    // group, in index order, that attains the row's final best.
     for (int jt = 0; jt < n_loc; ++jt) {
       if (!((live >> jt) & 1u)) continue;
       const int base = jt * kTileT + q * kSliceC;
-      const float4* p = stage + base / 2;
-#pragma unroll 1
-      for (int g = 0; g < kSliceC / kGroupC; ++g) {
-        float gm[kRowsC];
-#pragma unroll
-        for (int j = 0; j < kRowsC; ++j) gm[j] = CUDART_INF_F;
-#pragma unroll
-        for (int k = 0; k < kGroupC / 2; ++k) {
-          const float4 t = p[g * (kGroupC / 2) + k];
-#pragma unroll
-          for (int j = 0; j < kRowsC; ++j)
-            gm[j] = fminf(gm[j], fminf(dist2(sx[j], sy[j], t.x, t.y),
-                                       dist2(sx[j], sy[j], t.z, t.w)));
-        }
-#pragma unroll
-        for (int j = 0; j < kRowsC; ++j) {
-          if (gm[j] < bv[j]) {
-            bv[j] = gm[j];
-            bg[j] = base + g * kGroupC;
-          }
-        }
-      }
+      scan_slice(stage + base / 2, base, sx, sy, bv, bg);
     }
-    // the lowest index of the winning group whose distance, in the same
-    // rounded arithmetic, equals the best: the slice's first minimum
+    // the lowest index of the winning group at the best: the slice's first
+    // minimum
 #pragma unroll
-    for (int j = 0; j < kRowsC; ++j) {
-      if (bv[j] < CUDART_INF_F) {
-        int k = 0;
-        while (k < kGroupC - 1 &&
-               dist2(sx[j], sy[j], st2[bg[j] + k].x, st2[bg[j] + k].y) != bv[j])
-          ++k;
-        bi[j] = t0 * kTileT + bg[j] + k;
-      }
-    }
+    for (int j = 0; j < kRowsC; ++j)
+      if (bv[j] < CUDART_INF_F)
+        bi[j] = t0 * kTileT + bg[j] + first_at(st2 + bg[j], sx[j], sy[j], bv[j]);
   }
 #pragma unroll
   for (int j = 0; j < kRowsC; ++j) {
@@ -726,37 +770,204 @@ __global__ void __launch_bounds__(kDenseThreads) nn_min_dense_kernel(
   }
 }
 
-// Kernels D1 and D2. grid (B, Msrc / kTileS), block kTileS: one block per
-// (lane, source tile) walks the lane's S keyframes. D1 is kNT = 0: the
-// number of target tiles M / kTileT is read at runtime. D2 is kNT > 0: M =
-// kNT * kTileT is known at compile time, so the tile loop is unrolled in
-// full and the keyframe loop by 2.
+// Kernels D1 and D2. One CTA of kThreadsC threads per (lane * G + group,
+// 256-row source tile): group g of the G takes the lane's keyframes [g * S /
+// G, (g + 1) * S / G) in index order. Thread (slice q, l) holds source rows
+// l + 64 j (j < kRowsC) in registers for the whole walk and scans targets
+// [q * 128, q * 128 + 128) of every live tile, as in kernel C. The walk is
+// a sequence of passes, each the live tiles of one keyframe, at most `cap`
+// = min(M / 512, kMaxTilesC) of them (one pass a keyframe unless a
+// keyframe has more live tiles than that); a two-stage ring in dynamic
+// shared memory takes the next pass's tiles by cp.async while the current
+// one is scanned. D1 is kNT = 0: M is read at runtime. D2 is kNT > 0: M =
+// kNT * kTileT is known at compile time, and the pass loop is unrolled by 2
+// so each step's stage is a constant.
+constexpr int kChunkW = 4;                        // targets a copy chunk
+constexpr int kChunksT = kTileT / kChunkW;        // copy chunks of a tile
+constexpr int kCopyWays = kThreadsC / kChunksT;   // tiles copied side by side
+static_assert(kThreadsC % kChunksT == 0 && kChunkW == 4,
+              "kernels D1/D2 copy a tile in 16-byte pieces, 4 valid bytes a thread");
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(smem))),
+               "l"(gmem)
+               : "memory");
+}
+
+// One pass of the walk: keyframe s (of the lane), n tiles staged (-1: the
+// walk is over), and whether it is the first and the last of s's passes.
+struct Pass {
+  int s, n;
+  bool first, last;
+};
+
 template <int kNT>
-__global__ void nn_min_sparse_multi_kernel(const float* __restrict__ src,
-                                           const float* __restrict__ src_bounds,
-                                           const float* __restrict__ tar,
-                                           const float* __restrict__ tar_bounds,
-                                           const unsigned char* __restrict__ valid,
-                                           const float* __restrict__ radius,
-                                           int S, int Msrc, int M,
-                                           int* __restrict__ nn,
-                                           float* __restrict__ d2) {
+__global__ void __launch_bounds__(kThreadsC) nn_min_sparse_walk_kernel(
+    const float* __restrict__ src, const float* __restrict__ src_bounds,
+    const float* __restrict__ tar, const float* __restrict__ tar_bounds,
+    const unsigned char* __restrict__ valid, const float* __restrict__ radius,
+    int S, int Msrc, int M, int G, int* __restrict__ nn,
+    float* __restrict__ d2) {
+  // the ring: [2][cap * kTileT] float2 targets, then [2][cap * kTileT]
+  // valid bytes, which arrive as copied; a pass's own copier then sets its
+  // invalid targets to (+inf, +inf), as kernel C stages them
+  extern __shared__ float4 stage[];
+  __shared__ float part_d[kSlicesC][kTileS];
+  __shared__ int part_i[kSlicesC][kTileS];
+  __shared__ int slot_tile[2][kMaxTilesC];   // the target tile in each slot
   const int m = kNT > 0 ? kNT * kTileT : M;
-  __shared__ TileBuf sh;
-  const int lane = blockIdx.x;
-  const SrcTile st = load_src_tile(src, src_bounds, radius, lane, blockIdx.y, Msrc);
-  const int row = blockIdx.y * kTileS + threadIdx.x;
-#pragma unroll (kNT > 0 ? 2 : 1)
-  for (int s = 0; s < S; ++s) {
-    const int bs = lane * S + s;
-    const Keyframe kf = keyframe(tar, valid, tar_bounds, bs, m);
-    float best = CUDART_INF_F;
-    int barg = 0;
+  const int nt = m / kTileT;
+  const int cap = min(nt, kMaxTilesC);
+  const int lane = blockIdx.x / G;
+  const int grp = blockIdx.x % G;
+  const int tile = blockIdx.y;
+  const int s_end = (grp + 1) * S / G;
+  float2* const ring = reinterpret_cast<float2*>(stage);
+  unsigned char* const vring = reinterpret_cast<unsigned char*>(ring + 2 * cap * kTileT);
+
+  // the source tile's bbox and r^2, for the gap test of scan_tile
+  const float* sb = src_bounds + (static_cast<size_t>(lane) * (Msrc / kTileS) + tile) * 4;
+  const float sxmin = sb[0], sxmax = sb[1], symin = sb[2], symax = sb[3];
+  const float r = radius[lane];
+  const float r2 = __fmul_rn(r, r);
+
+  // the producer: the next keyframe and target tile to test. Each live
+  // tile (a lane of every warp tests one of 32 tiles, then a ballot: the
+  // list is uniform over the CTA) goes to the next slot, copied 4 targets
+  // and their 4 valid bytes a thread by the threads of its way
+  int s_p = grp * S / G, j_p = 0;
+  const int c = threadIdx.x % kChunksT;
+  const int way = threadIdx.x / kChunksT;
+  const float2* t2 = reinterpret_cast<const float2*>(tar);
+  auto fill = [&](int k) {
+    Pass p{s_p, 0, j_p == 0, true};
+    if (s_p >= s_end) {
+      p.n = -1;
+      return p;
+    }
+    const size_t bs = static_cast<size_t>(lane) * S + s_p;
+    const float* tb = tar_bounds + bs * nt * 4;
+    float2* st = ring + k * cap * kTileT;
+    unsigned char* vst = vring + k * cap * kTileT;
+    while (p.n < cap && j_p < nt) {
+      const int jt = j_p + static_cast<int>(threadIdx.x % 32);
+      bool live = false;
+      if (jt < nt) {
+        const float* b = tb + jt * 4;
+        const float gapx = fmaxf(fmaxf(__fsub_rn(b[0], sxmax), __fsub_rn(sxmin, b[1])), 0.f);
+        const float gapy = fmaxf(fmaxf(__fsub_rn(b[2], symax), __fsub_rn(symin, b[3])), 0.f);
+        live = __fadd_rn(__fmul_rn(gapx, gapx), __fmul_rn(gapy, gapy)) <= r2;
+      }
+      unsigned w = __ballot_sync(0xffffffffu, live);
+      int taken = j_p - 1;
+      while (w && p.n < cap) {
+        taken = j_p + __ffs(w) - 1;
+        w &= w - 1;
+        if (p.n % kCopyWays == way) {
+          const int o = p.n * kTileT + c * kChunkW;
+          const size_t g = bs * m + taken * kTileT + c * kChunkW;
+          cp_async16(st + o, t2 + g);
+          cp_async16(st + o + 2, t2 + g + 2);
+          cp_async4(vst + o, valid + g);
+        }
+        if (threadIdx.x == 0) slot_tile[k][p.n] = taken;
+        ++p.n;
+      }
+      j_p = w ? taken + 1 : min(j_p + 32, nt);
+    }
+    p.last = j_p >= nt;
+    if (p.last) {
+      ++s_p;
+      j_p = 0;
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    return p;
+  };
+
+  const int q = threadIdx.x / kRowThreadsC;
+  const int l = threadIdx.x % kRowThreadsC;
+  const float2* s2 = reinterpret_cast<const float2*>(src) +
+                     static_cast<size_t>(lane) * Msrc + tile * kTileS + l;
+  float sx[kRowsC], sy[kRowsC], bv[kRowsC];
+  int bi[kRowsC], bg[kRowsC];
 #pragma unroll
-    for (int jt = 0; jt < m / kTileT; ++jt) scan_tile(st, kf.t, kf.v, kf.tb, jt, sh, best, barg);
-    const size_t o = static_cast<size_t>(bs) * Msrc + row;
-    nn[o] = barg;
-    d2[o] = best;
+  for (int j = 0; j < kRowsC; ++j) {
+    const float2 p = s2[j * kRowThreadsC];
+    sx[j] = p.x;
+    sy[j] = p.y;
+  }
+
+  // Pass `cur` in stage k: wait for this thread's copies and fix its own
+  // chunks' invalid targets; one barrier; start the next pass's copies into
+  // the other stage; scan (C's loop), rescan the rows whose best moved in
+  // this pass; after a keyframe's last pass merge the slices and write.
+  Pass cur = fill(0);
+  auto step = [&](int k) {
+    if (cur.n < 0) return false;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    float2* st = ring + k * cap * kTileT;
+    const unsigned char* vst = vring + k * cap * kTileT;
+    for (int i = way; i < cur.n; i += kCopyWays) {
+      const int o = i * kTileT + c * kChunkW;
+      const unsigned v4 = *reinterpret_cast<const unsigned*>(vst + o);
+#pragma unroll
+      for (int b = 0; b < kChunkW; ++b)
+        if (!((v4 >> (8 * b)) & 0xffu)) st[o + b] = make_float2(CUDART_INF_F, CUDART_INF_F);
+    }
+    __syncthreads();
+    const Pass next = fill(k ^ 1);
+#pragma unroll
+    for (int j = 0; j < kRowsC; ++j) {
+      if (cur.first) {
+        bv[j] = CUDART_INF_F;
+        bi[j] = 0;
+      }
+      bg[j] = -1;
+    }
+    for (int i = 0; i < cur.n; ++i) {
+      const int base = i * kTileT + q * kSliceC;
+      scan_slice(stage + (k * cap * kTileT + base) / 2, base, sx, sy, bv, bg);
+    }
+#pragma unroll
+    for (int j = 0; j < kRowsC; ++j)
+      if (bg[j] >= 0)
+        bi[j] = slot_tile[k][bg[j] / kTileT] * kTileT + bg[j] % kTileT +
+                first_at(st + bg[j], sx[j], sy[j], bv[j]);
+    if (cur.last) {   // uniform over the CTA
+#pragma unroll
+      for (int j = 0; j < kRowsC; ++j) {
+        part_d[q][l + j * kRowThreadsC] = bv[j];
+        part_i[q][l + j * kRowThreadsC] = bi[j];
+      }
+      __syncthreads();
+      if (threadIdx.x < kTileS) {
+        const int row = threadIdx.x;
+        float d = part_d[0][row];
+        int i = part_i[0][row];
+#pragma unroll
+        for (int s = 1; s < kSlicesC; ++s) lex_min(d, i, part_d[s][row], part_i[s][row]);
+        const size_t o = (static_cast<size_t>(lane) * S + cur.s) * Msrc + tile * kTileS + row;
+        nn[o] = i;
+        d2[o] = d;
+      }
+    }
+    cur = next;
+    return true;
+  };
+  if constexpr (kNT > 0) {
+    while (step(0) && step(1)) {
+    }
+  } else {
+    for (int k = 0; step(k); k ^= 1) {
+    }
   }
 }
 
@@ -792,30 +1003,47 @@ __global__ void nn_min_sparse_attrs_kernel(const float* __restrict__ src,
   for (int d = 0; d < Dpad; ++d) go[static_cast<size_t>(d) * Msrc] = hit ? a[static_cast<size_t>(d) * M] : 0.f;
 }
 
-// Launch D1 (kNT = 0) or D2 for kNT target tiles; false, without
-// launching, when kNT > 0 and M is not kNT * kTileT.
+struct WalkArgs {
+  const float *src, *src_bounds, *tar, *tar_bounds;
+  const unsigned char* valid;
+  const float* radius;
+  int B, S, Msrc, M, G;
+  int* nn;
+  float* d2;
+  cudaStream_t stream;
+};
+
+// Launch D1 (kNT = 0) or D2 for kNT target tiles; returns the CUDA error,
+// cudaErrorInvalidValue without launching for a group count outside [1, S].
 template <int kNT>
-bool launch_multi(const float* src, const float* src_bounds, const float* tar,
-                  const float* tar_bounds, const unsigned char* valid,
-                  const float* radius, int B, int S, int Msrc, int M, int* nn,
-                  float* d2, cudaStream_t stream) {
-  if (kNT > 0 && M != kNT * kTileT) return false;
-  nn_min_sparse_multi_kernel<kNT><<<dim3(B, Msrc / kTileS), kTileS, 0, stream>>>(
-      src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, M, nn, d2);
-  return true;
+int launch_walk(const WalkArgs& a) {
+  if (a.G < 1 || a.G > a.S) return static_cast<int>(cudaErrorInvalidValue);
+  const int cap = a.M / kTileT < kMaxTilesC ? a.M / kTileT : kMaxTilesC;
+  const size_t smem = static_cast<size_t>(2) * cap * kTileT * (sizeof(float2) + 1);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        nn_min_sparse_walk_kernel<kNT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  nn_min_sparse_walk_kernel<kNT><<<dim3(a.B * a.G, a.Msrc / kTileS), kThreadsC,
+                                   smem, a.stream>>>(
+      a.src, a.src_bounds, a.tar, a.tar_bounds, a.valid, a.radius, a.S, a.Msrc,
+      a.M, a.G, a.nn, a.d2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // D2 for whichever tile count in CFEAR_UNROLLED_MASK, from kNT down to 1,
-// matches M; false, without launching, when none does.
-template <int kNT, typename... Args>
-bool launch_unrolled(Args... args) {
+// matches M; cudaErrorInvalidValue, without launching, when none does.
+template <int kNT>
+int launch_unrolled(const WalkArgs& a) {
   if constexpr (kNT == 0) {
-    return false;
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     if constexpr (((CFEAR_UNROLLED_MASK) >> kNT) & 1) {
-      if (launch_multi<kNT>(args...)) return true;
+      if (a.M == kNT * kTileT) return launch_walk<kNT>(a);
     }
-    return launch_unrolled<kNT - 1>(args...);
+    return launch_unrolled<kNT - 1>(a);
   }
 }
 
@@ -917,28 +1145,32 @@ int cfear_nn_min_sparse(const float* src, const float* src_bounds,
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
+// Kernels D1 and D2. `groups` is the number of keyframe groups a lane's
+// keyframes are cut into (1 to S; ops/cuda_assoc.py:walk_groups picks it
+// from the shape); any other value returns cudaErrorInvalidValue without
+// launching. src 8-byte, tar 16-byte and valid 4-byte aligned (the wrapper
+// checks). D1 takes any M % 512 == 0.
 int cfear_nn_min_sparse_multi(const float* src, const float* src_bounds,
                               const float* tar, const float* tar_bounds,
                               const unsigned char* valid, const float* radius,
-                              int B, int S, int Msrc, int M, int* nn, float* d2,
-                              void* stream) {
-  launch_multi<0>(src, src_bounds, tar, tar_bounds, valid, radius, B, S, Msrc,
-                  M, nn, d2, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+                              int B, int S, int Msrc, int M, int groups, int* nn,
+                              float* d2, void* stream) {
+  return launch_walk<0>({src, src_bounds, tar, tar_bounds, valid, radius, B, S,
+                         Msrc, M, groups, nn, d2,
+                         static_cast<cudaStream_t>(stream)});
 }
 
-// M must be one of the budgets D2 is built for (CFEAR_UNROLLED_MASK; the
-// wrapper checks); any other M returns cudaErrorInvalidValue without
+// M must also be one of the budgets D2 is built for (CFEAR_UNROLLED_MASK;
+// the wrapper checks); any other M returns cudaErrorInvalidValue without
 // launching.
 int cfear_nn_min_sparse_unrolled(const float* src, const float* src_bounds,
                                  const float* tar, const float* tar_bounds,
                                  const unsigned char* valid, const float* radius,
-                                 int B, int S, int Msrc, int M, int* nn,
-                                 float* d2, void* stream) {
-  if (!launch_unrolled<30>(src, src_bounds, tar, tar_bounds, valid, radius, B,
-                           S, Msrc, M, nn, d2, static_cast<cudaStream_t>(stream)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+                                 int B, int S, int Msrc, int M, int groups,
+                                 int* nn, float* d2, void* stream) {
+  return launch_unrolled<30>({src, src_bounds, tar, tar_bounds, valid, radius,
+                              B, S, Msrc, M, groups, nn, d2,
+                              static_cast<cudaStream_t>(stream)});
 }
 
 int cfear_nn_min_sparse_attrs(const float* src, const float* src_bounds,

@@ -16,9 +16,9 @@ instantiated for, bit n for n tiles, made from `cuda_assoc.UNROLLED_M`:
 512, 1024, 2048, 3072 -> 1, 2, 4, 6; the second the keyframe counts of
 kernel B2, bit n for S = n, from `cuda_assoc.UNROLLED_S`: 1, 4; the next
 three kernel C's split, `cuda_assoc.SPLIT_SLICE`, `SPLIT_GROUP` and
-`SPLIT_MAX_TILES`; the last six kernel A's, `cuda_assoc.DENSE_TILE`,
-`DENSE_ROWS`, `DENSE_CHUNK`, `DENSE_SLICE`, `DENSE_GROUP` and
-`DENSE_STAGE`)
+`SPLIT_MAX_TILES`, which kernels D1 and D2 share; the last six kernel A's,
+`cuda_assoc.DENSE_TILE`, `DENSE_ROWS`, `DENSE_CHUNK`, `DENSE_SLICE`,
+`DENSE_GROUP` and `DENSE_STAGE`)
 
 and the objects are linked into one shared library in `<package>/_build/`
 (git-ignored), under a name that carries a hash of the sources and flags,
@@ -140,13 +140,11 @@ def library() -> ctypes.CDLL:
         for name in ("cfear_nn_min_multi", "cfear_nn_min_multi_unrolled"):
             getattr(lib, name).argtypes = [p, p, p, i, i, i, i, i, p, p, p]
             getattr(lib, name).restype = i
-        lib.cfear_nn_min_sparse.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                            i, p, p, p]
-        lib.cfear_nn_min_sparse.restype = i
-        for name in ("cfear_nn_min_sparse_multi",
+        # C's split, D1's and D2's keyframe groups follow M
+        for name in ("cfear_nn_min_sparse", "cfear_nn_min_sparse_multi",
                      "cfear_nn_min_sparse_unrolled"):
-            getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, i, i, p, p,
-                                           p]
+            getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                           p, p, p]
             getattr(lib, name).restype = i
         lib.cfear_nn_min_sparse_attrs.argtypes = [p, p, p, p, p, p, p, i, i,
                                                   i, i, i, p, p, p, p]

@@ -7,8 +7,9 @@ Every function takes the reference's layout with a leading lane axis, so one
 launch serves a batched step: src (B, Msrc, 2), tar (B, S, M, 2),
 valid (B, S, M) -> nn (B, S, Msrc) int32, d2 (B, S, Msrc) float32.
 B1 and B2 compute A's function (keyframe loop inside the kernel, at runtime
-or unrolled) and share A's twin; D1 and D2 compute C's function (keyframe loop inside the kernel, at runtime
-or unrolled) and share C's twin; E adds the winner's attribute column,
+or unrolled) and share A's twin; D1 and D2 compute C's function (a CTA
+walks a group of a lane's keyframes, M read at runtime or known at compile
+time) and share C's twin; E adds the winner's attribute column,
 attrs_t (B, S, D_pad, M) -> g (B, S, D_pad, Msrc).
 
 Dispatch: each wrapper runs its plain twin only when the tensors lie on the
@@ -53,6 +54,17 @@ SPLIT_SLICE, SPLIT_GROUP, SPLIT_MAX_TILES, SPLIT_MIN_CTAS = 128, 16, 8, 128
 # faster (tools/compare_torch_kernels.py --mode a-sweep).
 DENSE_TILE, DENSE_ROWS, DENSE_CHUNK, DENSE_SLICE = 256, 4, 256, 64
 DENSE_GROUP, DENSE_STAGE, DENSE_MIN_CTAS = 16, 2048, 256
+# Kernels D1 and D2 scan as kernel C does (SPLIT_SLICE, SPLIT_GROUP; a
+# stage of their ring holds at most SPLIT_MAX_TILES target tiles) and cut a
+# lane's keyframes into groups until the grid has WALK_MIN_CTAS CTAs, about
+# six for each of an H100's 132 SMs: two waves of the three CTAs D1's 77
+# registers let an SM hold, so no SM is left with a group more than the
+# rest. Two an SM (256) left SMs with two groups of 7 keyframes, 14 against
+# a mean of 12.1 an SM, at B=8, S=50 and ran 19% slower than 800 (two
+# keyframes a CTA); C's grid, one keyframe a CTA, was the fastest at every
+# shape of chip_smoke.C_SHAPES, 800 within 2-5% of it at B=8, S=50 and the
+# same elsewhere (tools/compare_torch_kernels.py --mode d-sweep).
+WALK_MIN_CTAS = 800
 
 launches = {"nn_min": 0, "nn_min_multi": 0, "nn_min_multi_unrolled": 0,
             "nn_min_sparse": 0, "nn_min_sparse_multi": 0,
@@ -99,6 +111,17 @@ def sparse_split(b: int, s: int, m_src: int, m: int) -> int:
                                      or -(-nt // c) > SPLIT_MAX_TILES):
         c *= 2
     return c if -(-nt // c) <= SPLIT_MAX_TILES else 0
+
+
+def walk_groups(b: int, s: int, m_src: int, m: int) -> int:
+    """Keyframe groups per (lane, source tile) of kernels D1 and D2, from
+    the shape alone: the smallest count up to S that gives WALK_MIN_CTAS
+    CTAs in all (M does not enter: a CTA stages any number of target tiles
+    in passes). Group g takes keyframes [g S / G, (g + 1) S / G), so every
+    keyframe falls in exactly one; any count gives the same bits, since
+    each keyframe's output is its own."""
+    pairs = b * (m_src // TS_SPARSE)
+    return max(1, min(s, -(-WALK_MIN_CTAS // max(pairs, 1))))
 
 
 def dense_split(b: int, s: int, m_src: int, m: int) -> int:
@@ -250,10 +273,17 @@ def _nn_out(valid, m_src, dev):
             torch.empty((b, s, m_src), dtype=torch.float32, device=dev))
 
 
-def _check_aligned(name, src, tar):
+def _check_aligned(name, src, tar, valid=None):
+    """src and tar start on 8-byte boundaries (the kernels read points as
+    float2); with `valid`, for kernels D1 and D2, which copy targets 16
+    bytes and valid bytes 4 at a time, tar on 16 and valid on 4."""
     if (src.data_ptr() | tar.data_ptr()) % 8:
         raise ValueError(f"{name}: src and tar must start on 8-byte "
                          "boundaries (the kernel reads points as float2)")
+    if valid is not None and (tar.data_ptr() % 16 or valid.data_ptr() % 4):
+        raise ValueError(f"{name}: tar must start on a 16-byte and valid on "
+                         "a 4-byte boundary (the kernel copies them 16 and 4 "
+                         "bytes at a time)")
 
 
 def nn_min(src, tar, valid):
@@ -320,7 +350,7 @@ def nn_min_multi_unrolled(src, tar, valid):
 def _sparse(name, entry, src, src_bounds, tar, tar_bounds, valid, radius,
             *extra):
     """Launch one of C, D1, D2 (same arguments, same outputs; `extra` ints
-    follow M: C's split)."""
+    follow M: C's split, D1's and D2's keyframe groups)."""
     b, s, m = valid.shape
     nn, d2 = _nn_out(valid, src.shape[1], src.device)
     if nn.numel():
@@ -345,18 +375,27 @@ def nn_min_sparse(src, src_bounds, tar, tar_bounds, valid, radius):
                                 valid.shape[2]))
 
 
+def _walk(name, entry, src, src_bounds, tar, tar_bounds, valid, radius):
+    """Launch D1 or D2 over `walk_groups` keyframe groups."""
+    _check_aligned(name, src, tar, valid)
+    return _sparse(name, entry, src, src_bounds, tar, tar_bounds, valid,
+                   radius, walk_groups(*valid.shape[:2], src.shape[1],
+                                       valid.shape[2]))
+
+
 def nn_min_sparse_multi(src, src_bounds, tar, tar_bounds, valid, radius):
     """`nn_min_sparse` with the keyframe loop inside the kernel (kernel D1
-    on CUDA: one block per (lane, 256-row source tile) walks the S
-    keyframes; `nn_min_sparse_plain` on the CPU). Identical outputs."""
+    on CUDA: one CTA per (lane, group of `walk_groups` keyframes, 256-row
+    source tile) walks its keyframes in turn; `nn_min_sparse_plain` on the
+    CPU). Identical outputs; any M % 512 == 0."""
     args = (src, src_bounds, tar, tar_bounds, valid, radius)
     if _check_sparse("nn_min_sparse_multi", *args).type == "cpu":
         return nn_min_sparse_plain(*args)
-    return _sparse("nn_min_sparse_multi", "cfear_nn_min_sparse_multi", *args)
+    return _walk("nn_min_sparse_multi", "cfear_nn_min_sparse_multi", *args)
 
 
 def nn_min_sparse_unrolled(src, src_bounds, tar, tar_bounds, valid, radius):
-    """`nn_min_sparse` with the loops unrolled at compile time (kernel D2 on
+    """`nn_min_sparse_multi` with M known at compile time (kernel D2 on
     CUDA, built for the target budgets `UNROLLED_M`; `nn_min_sparse_plain`
     on the CPU). Identical outputs. Any other M raises ValueError."""
     args = (src, src_bounds, tar, tar_bounds, valid, radius)
@@ -367,8 +406,8 @@ def nn_min_sparse_unrolled(src, src_bounds, tar, tar_bounds, valid, radius):
                          f"budget the kernel is built for {UNROLLED_M}")
     if dev.type == "cpu":
         return nn_min_sparse_plain(*args)
-    return _sparse("nn_min_sparse_unrolled", "cfear_nn_min_sparse_unrolled",
-                   *args)
+    return _walk("nn_min_sparse_unrolled", "cfear_nn_min_sparse_unrolled",
+                 *args)
 
 
 def nn_min_sparse_attrs(src, src_bounds, tar, tar_bounds, valid, attrs_t,

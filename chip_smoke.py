@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from `cfear_radarodometry_code_public_tpu_torch/
 csrc/` with nvcc and checks each against its plain PyTorch twin on the card:
 the 1-NN kernels A and C (A also at every main-path shape of `A_SHAPES`
 and a ragged one, C at every main-path shape of `C_SHAPES`; two launches
-bit-identical and a B=1 call equal to its lane of a batched call), the
+bit-identical and a B=1 call equal to its lane of a batched call), D1 and
+D2 at every shape of `C_SHAPES` in the same way and bit for bit against C,
+timed beside C and the issue-slot floor of their inner loop (`sass_loop`), the
 fused LM solve F (both variants, three cost /
 loss pairs at S=4, and every width the main paths give it, `LM_SHAPES`: the
 long run's reverse and forward solves, 1 and 4 x 2048 cells, and the s50
@@ -88,9 +90,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import inspect
 import json
 import os
+import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -300,6 +305,13 @@ F32_FLOPS_PER_S = 67e12
 # tools/compare_torch_kernels.py times two trees' C at the same shapes.
 C_SHAPES = ((1, 4, 1024, 1024), (8, 4, 1024, 1024), (1, 50, 1024, 1024),
             (8, 50, 1024, 1024), (1, 50, 3072, 3072), (8, 4, 512, 1024))
+# Kernels D1 and D2 are instances of one template, `nn_min_sparse_walk_kernel
+# <kNT>` (D1 kNT = 0, D2 kNT = M / 512): the functions whose inner loop
+# (`sass_loop`) sets their issue-slot floor, D2's at M = 1024 (every
+# instance has the same loop). `phase_d_shapes` holds them against C at
+# every shape of C_SHAPES; tools/compare_torch_kernels.py times two trees'.
+D_FUNCTIONS = {"nn_min_sparse_multi": "nn_min_sparse_walk_kernelILi0EE",
+               "nn_min_sparse_unrolled": "nn_min_sparse_walk_kernelILi2EE"}
 # Kernel A's shapes on the main paths, (B, S, Msrc, M): `phase_kernels`'
 # CFEAR-3 x8 shape, the long run's forward association (B=1, S=4 of 2048
 # cells), its window at B=8, the health check's reverse solve (S=1) and
@@ -510,6 +522,72 @@ def _cuda_ms(fn, n: int, twin: str = "") -> float:
         spin *= 4
 
 
+def sass_loop(lib_path, function):
+    """The inner loop of `function` (a substring of its mangled name) in the
+    built library, by `cuobjdump -sass`: the basic block (cut at every
+    branch and branch target) with the most FMUL, two a distance. In kernel
+    C's, A's, D1's and D2's form that block is the whole branch-free loop
+    over a group of targets; in a loop with branches inside (a first form's)
+    it is only a part. Returns {instructions, fmul, fmnmx,
+    slots_per_distance}, or None where the library has no such function:
+    every instruction takes one issue slot of its SM sub-partition."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                     r"([A-Z][A-Z0-9_.]*)([^;]*)")
+    for chunk in sass.split("Function : ")[1:]:
+        if function not in chunk.split(None, 1)[0]:
+            continue
+        code = [(int(m.group(1), 16), m.group(2), m.group(3))
+                for m in map(ins.search, chunk.splitlines()) if m]
+        cuts = {int(t, 16) for _, o, rest in code if o == "BRA"
+                for t in re.findall(r"0x([0-9a-f]+)", rest)}
+        cuts |= {a + 16 for a, o, _ in code if o in ("BRA", "EXIT")}
+        blocks = [[]]
+        for a, o, _ in code:
+            if a in cuts:
+                blocks.append([])
+            if o != "NOP":
+                blocks[-1].append(o)
+        body = max(blocks, key=lambda b: sum(o.startswith("FMUL") for o in b))
+        n_mul = sum(o.startswith("FMUL") for o in body)
+        return {"instructions": len(body), "fmul": n_mul,
+                "fmnmx": sum(o.startswith("FMNMX") for o in body),
+                "slots_per_distance": len(body) / max(n_mul / 2, 1)}
+    return None
+
+
+def max_sm_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+@functools.lru_cache(maxsize=None)
+def _loop(function: str) -> dict:
+    loop = sass_loop(_build.library()._name, function)
+    if loop is None:
+        raise AssertionError(f"no function {function} in the built library")
+    return loop
+
+
+@functools.lru_cache(maxsize=None)
+def _issue_hz() -> float:
+    """Issue slots a second of the card: SMs x 128 lanes x top SM clock."""
+    return (torch.cuda.get_device_properties(0).multi_processor_count * 128
+            * max_sm_hz())
+
+
+def issue_floor_ms(function: str, distances: float) -> float:
+    """The least time `distances` distance evaluations take through the
+    inner loop of `function`: its SASS instructions a distance over the
+    card's issue slots a second."""
+    return (distances * _loop(function)["slots_per_distance"] / _issue_hz()
+            * 1e3)
+
+
 def bound(nbytes: float, flops: float) -> dict:
     """`bound_ms` and `bound_by` of a kernel call from its bytes and
     operations."""
@@ -710,10 +788,51 @@ def phase_c_shapes(dev, card):
     return res
 
 
+def phase_d_shapes(dev, card, c_recs):
+    """Kernels D1 and D2 at every shape of C_SHAPES: bit-equal to kernel C
+    and its twin, two launches bit-identical, the first and last lane of a
+    call equal to their own B=1 calls (`_hold`); then timed beside C's
+    time at the shape (`c_recs`, `phase_c_shapes`' records of this run),
+    its bound and `cdist + min`, and the issue-slot floor of their own
+    loop at the executed share of tile pairs. Returns {name: {"sass":
+    loop, "by_shape": {shape_key: record}}}."""
+    res = {k: {"sass": _loop(f), "by_shape": {}}
+           for k, f in D_FUNCTIONS.items()}
+    for shape in C_SHAPES:
+        args = c_inputs(dev, *shape)
+        key = shape_key(*shape)
+        c_out = cuda_assoc.nn_min_sparse(*args)
+        c = c_recs[key]
+        distances = float(np.prod(shape)) * c["live_pairs"]
+        for name, function in D_FUNCTIONS.items():
+            fn = getattr(cuda_assoc, name)
+            (nn_d, d2_d), (_, d2_q) = _hold(
+                name, key, fn, cuda_assoc.nn_min_sparse_plain, args)
+            if not (torch.equal(nn_d, c_out[0])
+                    and torch.equal(d2_d, c_out[1])):
+                raise AssertionError(f"kernel {name} at {key} differs from "
+                                     "kernel C")
+            fin = torch.isfinite(d2_q)
+            r = res[name]["by_shape"][key] = {
+                "max_abs_err": float((d2_d[fin] - d2_q[fin]).abs().max()),
+                "ms": _cuda_ms(lambda: fn(*args), 100), "c_ms": c["ms"],
+                "groups": cuda_assoc.walk_groups(*shape),
+                "floor_ms": issue_floor_ms(function, distances),
+                **{k: c[k] for k in ("bound_ms", "bound_by", "library_ms",
+                                     "live_pairs")}}
+            _say(f"kernel {name} {key}: bit-equal to C and its twin, repeat "
+                 f"and lanes bit-identical; {r['groups']} keyframe groups; "
+                 f"kernel {r['ms']:.4f} ms ({r['ms'] / r['c_ms']:.2f}x C's "
+                 f"{r['c_ms']:.4f}), issue-slot floor {r['floor_ms']:.4f} ms, "
+                 f"bound {r['bound_ms']:.4f} ms ({card})")
+    return res
+
+
 def phase_kernels(dev, card):
     """Kernels A and C against their plain twins at the slice's shapes,
-    A at every shape of A_SHAPES (`phase_a_shapes`) and C at every shape of
-    C_SHAPES (`phase_c_shapes`)."""
+    A at every shape of A_SHAPES (`phase_a_shapes`), C at every shape of
+    C_SHAPES (`phase_c_shapes`), and D1 and D2 there against C
+    (`phase_d_shapes`)."""
     b, s, m = BATCH, 4, 1024
     src, src_valid, tar, valid = _morton_cells(np.random.default_rng(0),
                                                b, s, m, dev)
@@ -788,6 +907,7 @@ def phase_kernels(dev, card):
                             "bound_by": bounds[0]["bound_by"],
                             "library_ms": lib_ms,
                             "by_shape": phase_c_shapes(dev, card)}
+    res.update(phase_d_shapes(dev, card, res["nn_min_sparse"]["by_shape"]))
     _say(f"kernel A: nn equal, d2 bit-equal; kernel {res['nn_min']['ms']:.4f}"
          f" ms, plain {res['nn_min']['plain_ms']:.4f} ms, bound "
          f"{res['nn_min']['bound_ms']:.4f} ms, cdist + min {lib_ms:.4f} ms "
@@ -1426,8 +1546,9 @@ def phase_window(win, outs, r, card, name="s50 window"):
     its g equals its twin's and the flat gather (`_gather_attrs`) on every
     row within the radius and is zero on +inf rows and in the padding.
     Times by CUDA events: C, D1, D2, E, the gather, C + gather, and the
-    twins. Returns {B: records of C, D1, D2 and E}; every check is bit for
-    bit, so each max_abs_err is 0.0."""
+    twins; D1's and D2's keyframe groups and issue-slot floor. Returns {B:
+    records of C, D1, D2 and E}; every check is bit for bit, so each
+    max_abs_err is 0.0."""
     res = {}
     for b, (args, at, att) in win.items():
         o = outs[b]
@@ -1493,6 +1614,17 @@ def phase_window(win, outs, r, card, name="s50 window"):
                                       else "cdist + min"]}
                   for k in ("nn_min_sparse", "nn_min_sparse_multi",
                             "nn_min_sparse_unrolled", "nn_min_sparse_attrs")}
+        shape = (b, args[2].shape[1], args[0].shape[1], args[2].shape[2])
+        d = {k: res[b][k] for k in D_FUNCTIONS}
+        for k, function in D_FUNCTIONS.items():
+            d[k].update(groups=cuda_assoc.walk_groups(*shape),
+                        floor_ms=issue_floor_ms(
+                            function, float(np.prod(shape)) * live))
+        _say(f"{name} B={b}: D1 / D2 " + " / ".join(
+            f"{t[k] / t['nn_min_sparse']:.2f}" for k in d) + "x C, "
+             f"{d['nn_min_sparse_multi']['groups']} keyframe groups, "
+             "issue-slot floor " + " / ".join(
+                 f"{r['floor_ms']:.4f}" for r in d.values()) + " ms")
     return res
 
 
@@ -2244,14 +2376,17 @@ def main() -> int:
     preset, state_p = drive("s50-preset", ("nn_min_sparse", "lm_solve_fused"),
                             lambda: phase_s50_preset(images50, gt50, dev, card))
     # kernel C at the preset's shapes (B=1, S=50, Msrc=M=3072) against its
-    # twin on the window that path ends with, and D1, D2, E beside it; C's
-    # records on the real windows join its entry on the kernels line
-    c_windows = kernels["nn_min_sparse"]["windows"] = {}
+    # twin on the window that path ends with, and D1, D2, E beside it; C's,
+    # D1's and D2's records on the real windows join their entries on the
+    # kernels line
+    def keep_windows(recs, label):
+        for k in ("nn_min_sparse", *D_FUNCTIONS):
+            kernels[k].setdefault("windows", {})[label] = recs[k]
+
     win_p = window_inputs(state_p, preset, dev, "s50-preset window", (1,))
-    c_windows["s50-preset window B=1"] = timed(
-        "window checks", lambda: phase_window(
-            win_p, drive_window(win_p), preset.registration.assoc_radius,
-            card, "s50-preset window"))[1]["nn_min_sparse"]
+    keep_windows(timed("window checks", lambda: phase_window(
+        win_p, drive_window(win_p), preset.registration.assoc_radius, card,
+        "s50-preset window"))[1], "s50-preset window B=1")
     # D1, D2 and E on the window the s50 path ends with: the counted run is
     # one call of each; the checks against C and the twins, and the
     # timings, come after the counts are read
@@ -2264,8 +2399,10 @@ def main() -> int:
     recs = timed("window checks", lambda: phase_window(
         win, outs, s50.registration.assoc_radius, card))
     for b, rec in recs.items():
-        c_windows[f"s50 window B={b}"] = rec.pop("nn_min_sparse")
-    kernels.update(recs[BATCH])
+        keep_windows(rec, f"s50 window B={b}")
+    for k, rec in recs[BATCH].items():
+        if k != "nn_min_sparse":
+            kernels.setdefault(k, {}).update(rec)
 
     # the long-run path (`tools/run_longrun.py`, cut to 256 frames)
     lr = longrun_config()

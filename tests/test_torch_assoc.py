@@ -3,7 +3,8 @@
 (`nn_min_sparse_multi`), D2 (`nn_min_sparse_unrolled`) and E
 (`nn_min_sparse_attrs`): the port's plain twins against the reference's
 Pallas kernels in interpret mode, on the cases of tests/test_registration.py
-plus a tie case, with a lane axis. The CUDA kernels against the twins:
+plus a tie case, with a lane axis; the CUDA kernels A, C, D1 and D2
+modelled in the twin's arithmetic. The CUDA kernels against the twins:
 tests/test_torch_cuda.py.
 
 Tolerance: nearest-neighbour indices are compared exactly. d2 is compared
@@ -378,6 +379,169 @@ def test_sparse_split_follows_the_shape():
             assert c <= max(nt, 1) and -(-nt // c) <= ca.SPLIT_MAX_TILES
     assert ca.TT_SPARSE % ca.SPLIT_SLICE == 0
     assert ca.SPLIT_SLICE % ca.SPLIT_GROUP == 0
+
+
+def _walk_model(src, sb, tar, tb, valid, radius, groups, cap=None):
+    """Kernels D1 and D2 (csrc/nn_assoc.cu `nn_min_sparse_walk_kernel`) in
+    the twin's arithmetic: a CTA per (lane, keyframe group, source tile),
+    group g of `groups` walking keyframes [g S / groups, (g+1) S / groups)
+    in index order; each keyframe's live tiles in passes of at most `cap`
+    (the kernel's min(M / 512, SPLIT_MAX_TILES)) staged in consecutive
+    slots; each slice of SPLIT_SLICE targets of a staged tile scanned in
+    groups of SPLIT_GROUP, a row's best moving to a group's minimum (fminf:
+    NaN dropped) only on a strict '<', carried across the keyframe's
+    passes; the winning group rescanned for the first target at that
+    distance in the pass where the best moved; slices merged by
+    lexicographic (d2, index). Invalid targets are (+inf, +inf). Every
+    keyframe must be walked exactly once."""
+    b, s, m = valid.shape
+    m_src, nt = src.shape[1], m // ca.TT_SPARSE
+    cap = cap or min(nt, ca.SPLIT_MAX_TILES)
+    tt, g = ca.TT_SPARSE, ca.SPLIT_GROUP
+    n_slice, n_grp = tt // ca.SPLIT_SLICE, ca.SPLIT_SLICE // g
+    inf = torch.tensor(float("inf"))
+    t = torch.where(valid[..., None], tar, inf)
+    live = ca.pair_live(sb, tb, radius)                 # (B, S, ns, nt)
+    out_d = torch.full((b, s, m_src), float("nan"))
+    out_i = torch.full((b, s, m_src), -1, dtype=torch.int64)
+    for i in range(b):
+        for st in range(m_src // ca.TS_SPARSE):
+            rows = slice(st * ca.TS_SPARSE, (st + 1) * ca.TS_SPARSE)
+            sx, sy = src[i, rows, 0, None], src[i, rows, 1, None]
+            for c in range(groups):
+                for k in range(c * s // groups, (c + 1) * s // groups):
+                    assert (out_i[i, k, rows] == -1).all()  # walked once
+                    tiles = live[i, k, st].nonzero().flatten()
+                    bv = torch.full((n_slice, ca.TS_SPARSE), float("inf"))
+                    bi = torch.zeros((n_slice, ca.TS_SPARSE), dtype=torch.int64)
+                    for p0 in range(0, len(tiles), cap):
+                        slots = tiles[p0:p0 + cap]
+                        tg = t[i, k].reshape(nt, tt, 2)[slots]  # (n, 512, 2)
+                        dx, dy = sx[:, None] - tg[None, ..., 0], sy[:, None] - tg[None, ..., 1]
+                        # (slices, rows, the pass's groups in order, G)
+                        d = (dx * dx + dy * dy).reshape(
+                            -1, len(slots), n_slice, n_grp, g).permute(
+                            2, 0, 1, 3, 4).flatten(2, 3)
+                        gm = torch.where(torch.isnan(d), inf, d).amin(-1)
+                        best, grp = gm.amin(-1), gm.argmin(-1)
+                        first = (d.gather(2, grp[..., None, None].expand(
+                            -1, -1, 1, g))[:, :, 0] == best[..., None]).to(
+                            torch.int8).argmax(-1)
+                        idx = (slots[grp // n_grp] * tt + grp % n_grp * g + first
+                               + torch.arange(n_slice)[:, None] * ca.SPLIT_SLICE)
+                        moved = best < bv
+                        bv = torch.where(moved, best, bv)
+                        bi = torch.where(moved, idx, bi)
+                    d_row, i_row = bv[0], bi[0]
+                    for q in range(1, n_slice):
+                        take = (bv[q] < d_row) | ((bv[q] == d_row) & (bi[q] < i_row))
+                        d_row = torch.where(take, bv[q], d_row)
+                        i_row = torch.where(take, bi[q], i_row)
+                    out_d[i, k, rows], out_i[i, k, rows] = d_row, i_row
+    assert (out_i >= 0).all()                                   # every keyframe
+    return out_i.to(torch.int32), out_d
+
+
+def _walk_case(s, m_src, m, seed=19):
+    """Spatially ordered points as `_sparse_case`'s at S keyframes, with
+    exact ties across a group, a
+    slice and a tile (in keyframe 0), an identical target and source row
+    in the keyframes on both sides of each boundary of 2 and 3 keyframe
+    groups (each keyframe reports its own index), and keyframe 2 empty
+    where S > 2. Returns the case and [(keyframe, lo, row)]."""
+    rng = np.random.default_rng(seed)
+    src = rng.normal(size=(m_src, 2)).astype(np.float32) * 60
+    src = src[np.argsort(src[:, 0], kind="stable")]
+    tar = rng.normal(size=(s, m, 2)).astype(np.float32) * 60
+    for k in range(s):
+        tar[k] = tar[k][np.argsort(tar[k][:, 0], kind="stable")]
+    valid = rng.random((s, m)) < 0.8
+    ties = [(0, 15, 16, 40), (0, 127, 128, 41), (0, 511, 512, 42)]
+    for k, lo, hi, row in ties:
+        tar[k, hi] = tar[k, lo]
+        valid[k, [lo, hi]] = True
+        src[row] = tar[k, lo]
+    edges = sorted({e for n in (2, 3) for e in range(1, n) if n <= s
+                    for e in [e * s // n]})
+    for j, e in enumerate(edges):
+        row, lo, p = 60 + j, 200 + 37 * j, tar[0, 900 + 3 * j].copy()
+        tar[e - 1, lo] = tar[e, lo + 1] = p
+        valid[e - 1, lo] = valid[e, lo + 1] = True
+        src[row] = p
+        ties += [(e - 1, lo, None, row), (e, lo + 1, None, row)]
+    if s > 2:
+        valid[2] = False
+        ties = [t for t in ties if t[0] != 2]
+    return (src, tar, valid), [(k, lo, row) for k, lo, _, row in ties]
+
+
+@pytest.mark.parametrize("s", [1, 3, 50])
+def test_walk_model_equals_twin_and_pallas(s):
+    """Kernels D1 and D2, modelled on the CPU (`_walk_model`), equal
+    `nn_min_sparse_plain` at every keyframe-group count the shape allows
+    (1 to S), in passes of the kernel's stage and of one tile; and the
+    reference's D1 and D2 in interpret mode (nn exact, d2 within 1 ulp),
+    with ties across a group, a slice, a tile and a keyframe-group boundary,
+    an empty keyframe (S > 2) and Msrc != M."""
+    radius = 5.0
+    m_src, m = (256, 1024) if s == 50 else (512, 2048)
+    case, ties = _walk_case(s, m_src, m)
+    args = _lanes([case], radius)
+    nn_p, d2_p = ca.nn_min_sparse_plain(*args)
+    for groups in range(1, s + 1):
+        for cap in (None, 1) if groups in (1, s) else (None,):
+            nn_m, d2_m = _walk_model(*args, groups, cap)
+            assert torch.equal(nn_m, nn_p) and torch.equal(d2_m, d2_p), \
+                (groups, cap)
+    for k, lo, row in ties:
+        assert nn_p[0, k, row] == lo and d2_p[0, k, row] == 0, (k, lo, row)
+    if s > 2:
+        assert torch.isinf(d2_p[0, 2]).all() and (nn_p[0, 2] == 0).all()
+    for fn in (pa.nn_min_sparse_multi, pa.nn_min_sparse_unrolled):
+        nn_r, d2_r = _ref_sparse(fn, case, radius)
+        np.testing.assert_array_equal(nn_p[0].numpy(), nn_r)
+        _assert_d2(d2_p[0].numpy(), d2_r, nn_r, case[0], case[1])
+
+
+@pytest.mark.parametrize("radius", [2.0, 4.0])
+def test_walk_model_on_smoke_inputs(radius):
+    """`chip_smoke.c_inputs` (the card check's inputs) cut to B=2, S=3,
+    Msrc=512, M=2048: kernels D1 and D2 at the group count the shape gets,
+    at 1 and at S, in passes of the stage and of one tile, equal the
+    twin."""
+    args = chip_smoke.c_inputs(torch.device("cpu"), 2, 3, 512, 2048, radius)
+    nn_p, d2_p = ca.nn_min_sparse_plain(*args)
+    assert ca.walk_groups(2, 3, 512, 2048) == 3
+    for groups, cap in ((3, None), (1, None), (1, 1), (2, 3)):
+        nn_m, d2_m = _walk_model(*args, groups, cap)
+        assert torch.equal(nn_m, nn_p) and torch.equal(d2_m, d2_p), groups
+    assert nn_p[0, 0, 5] == 300 and d2_p[0, 0, 5] == 0
+    assert torch.isinf(d2_p[1, 2]).all() and (nn_p[1, 2] == 0).all()
+    assert torch.isfinite(d2_p).float().mean() > 0.5
+
+
+def test_walk_groups_follows_the_shape():
+    """Kernels D1's and D2's keyframe groups from the shape: the smallest
+    count up to S that gives WALK_MIN_CTAS CTAs over the (lane, source
+    tile) pairs; every keyframe in exactly one group at every count."""
+    want = {(1, 50, 1024, 1024): 50,      # the s50 window, B=1
+            (8, 50, 1024, 1024): 25,      # the s50 window, B=8
+            (1, 50, 3072, 3072): 50,      # the s50-preset window, B=1
+            (8, 1, 1024, 1024): 1, (1, 1, 256, 512): 1,
+            (1, 4, 1024, 1024): 4, (8, 4, 1024, 1024): 4,
+            (8, 4, 512, 1024): 4, (256, 4, 1024, 1024): 1,
+            (16, 50, 1024, 1024): 13, (64, 50, 1024, 1024): 4}
+    for shape, groups in want.items():
+        assert ca.walk_groups(*shape) == groups, shape
+        b, s, m_src, _ = shape
+        pairs = b * m_src // ca.TS_SPARSE
+        assert pairs * groups >= ca.WALK_MIN_CTAS or groups == s
+        assert groups == 1 or pairs * (groups - 1) < ca.WALK_MIN_CTAS
+    for s in (1, 3, 4, 7, 50):
+        for groups in range(1, s + 1):
+            walked = [k for g in range(groups)
+                      for k in range(g * s // groups, (g + 1) * s // groups)]
+            assert walked == list(range(s)), (s, groups)
 
 
 def _dense_model(src, tar, valid, split):

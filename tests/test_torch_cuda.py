@@ -231,8 +231,11 @@ def test_kernel_c_bit_equal_at_main_path_shapes(dev, shape):
 def _split_window(dev, b=2, s=3, m=4096):
     """Sparse-kernel arguments with exact ties straddling every boundary
     kernel C splits at, for any cluster size up to 8 at M=4096: groups of
-    16, slices of 128, tiles of 512, ranks at multiples of 512. Keyframe 1
-    of the last lane is empty. Returns (args, [(keyframe, lo, row)])."""
+    16, slices of 128, tiles of 512, ranks at multiples of 512; above that,
+    where kernel D1 stages a keyframe's tiles in passes of 8, a tie across
+    the first pass boundary (4096) and one across its first window of 32
+    tiles (16384). Keyframe 1 of the last lane is empty. Returns (args,
+    [(keyframe, lo, row)])."""
     rng = np.random.default_rng(11)
     src = (rng.normal(size=(b, 512, 2)) * 40).astype(np.float32)
     src = np.take_along_axis(src, np.argsort(src[..., :1], 1, kind="stable"), 1)
@@ -240,7 +243,7 @@ def _split_window(dev, b=2, s=3, m=4096):
     valid = rng.random((b, s, m)) < 0.85
     ties = [(0, 15, 16, 20), (0, 127, 128, 21), (1, 511, 512, 22),
             (2, 1023, 1024, 23), (0, 2047, 2048, 24), (2, 3071, 3072, 25),
-            (1, 100, 4000, 26)]
+            (1, 100, 4000, 26), (0, 4095, 4096, 27), (2, 16383, 16384, 28)]
     ties = [t for t in ties if t[2] < m]
     for k, lo, hi, row in ties:
         tar[:, k, hi] = tar[:, k, lo]
@@ -316,8 +319,9 @@ def _window(dev, b, s, m=1024, d_pad=8, seed=3):
     tar = (src[:, None] + shift + rng.normal(size=(b, s, m, 2))).astype(np.float32)
     valid = rng.random((b, s, m)) < 0.9
     valid[b - 1, s - 1] = False
-    tar[0, 0, 700] = tar[0, 0, 300]
-    valid[0, 0, [300, 700]] = True
+    hi = 700 if m > 700 else 400       # across target tiles where M > 512
+    tar[0, 0, hi] = tar[0, 0, 300]
+    valid[0, 0, [300, hi]] = True
     src[0, 9] = tar[0, 0, 300]
     attrs_t = rng.normal(size=(b, s, d_pad, m)).astype(np.float32)
     attrs_t[rng.random(attrs_t.shape) < 0.1] = 0.0
@@ -329,11 +333,13 @@ def _window(dev, b, s, m=1024, d_pad=8, seed=3):
     return (src, sb, tar, tb, valid, radius), attrs_t
 
 
+@pytest.mark.parametrize("m", [512, 1024, 3072])
 @pytest.mark.parametrize("s", [1, 4, 50])
-def test_kernels_d1_d2_e_bit_equal_to_c_and_twins(dev, s):
+def test_kernels_d1_d2_e_bit_equal_to_c_and_twins(dev, s, m):
     """D1, D2 and E give kernel C's (nn, d2) bit for bit, and their twins'
-    results, over B=3 lanes with an empty keyframe; E's g is the twin's."""
-    args, attrs_t = _window(dev, 3, s)
+    results, over B=3 lanes with an empty keyframe, at one, two and six
+    target tiles; E's g is the twin's."""
+    args, attrs_t = _window(dev, 3, s, m)
     ca.reset_launches()
     nn_c, d2_c = ca.nn_min_sparse(*args)
     outs = {"multi": ca.nn_min_sparse_multi(*args),
@@ -400,6 +406,46 @@ def test_kernel_e_takes_both_paddings(dev, d_pad):
         assert torch.equal(a, b)
     fin = torch.isfinite(d2)
     assert fin.any() and (~fin).any()
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3])
+def test_kernels_d1_d2_ties_across_every_group_count(dev, monkeypatch, groups):
+    """D1 and D2 with each keyframe-group count forced: bit-equal to kernel
+    C and the twin, the lowest index winning ties that straddle a group,
+    slice, tile, stage-pass or live-window boundary, an empty keyframe
+    (+inf, 0). D1 at 8 target tiles (one pass), 9 (two passes of the
+    8-tile stage) and 40 (five, over two windows of 32 tiles); D2 at 6."""
+    monkeypatch.setattr(ca, "walk_groups", lambda *shape: groups)
+    for fn, m in ((ca.nn_min_sparse_multi, 4096),
+                  (ca.nn_min_sparse_multi, 9 * ca.TT_SPARSE),
+                  (ca.nn_min_sparse_multi, 40 * ca.TT_SPARSE),
+                  (ca.nn_min_sparse_unrolled, 3072)):
+        args, ties = _split_window(dev, m=m)
+        ca.reset_launches()
+        nn_k, d2_k = fn(*args)
+        nn_c, d2_c = ca.nn_min_sparse(*args)
+        nn_p, d2_p = ca.nn_min_sparse_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(nn_c, nn_p) and torch.equal(d2_c, d2_p)
+        assert torch.equal(nn_k, nn_c) and torch.equal(d2_k, d2_c), (fn, m)
+        for k, lo, row in ties:
+            assert (nn_k[0, k, row] == lo).item(), (m, k, lo)
+        assert torch.isinf(d2_k[-1, 1]).all() and (nn_k[-1, 1] == 0).all()
+        assert {k: v for k, v in ca.launches.items() if v} == {
+            fn.__name__: 1, "nn_min_sparse": 1}
+
+
+def test_kernels_d1_d2_refuse_a_group_count_they_cannot_take(dev, monkeypatch):
+    """A keyframe-group count outside [1, S] (0; S + 1) returns a CUDA
+    error: the wrappers raise and count nothing."""
+    args, _ = _window(dev, 2, 3)
+    ca.reset_launches()
+    for groups in (0, 4):
+        monkeypatch.setattr(ca, "walk_groups", lambda *shape: groups)
+        for fn in (ca.nn_min_sparse_multi, ca.nn_min_sparse_unrolled):
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                fn(*args)
+    assert not any(ca.launches.values())
 
 
 def test_kernel_d2_rejects_other_budgets(dev):

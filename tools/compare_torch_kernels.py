@@ -1,10 +1,12 @@
 """Time the port's kernels F (fused LM solve), G (feature moments), C
-(block-sparse 1-NN) and A (dense 1-NN) of several source trees on one CUDA
-card, in turns inside one call.
+(block-sparse 1-NN), A (dense 1-NN) and D1 and D2 (C's function, the
+keyframe loop in the kernel) of several source trees on one CUDA card, in
+turns inside one call.
 
     python tools/compare_torch_kernels.py [--out DIR] PARENT . . PARENT
     python tools/compare_torch_kernels.py --mode sweep [--out DIR]
     python tools/compare_torch_kernels.py --mode a-sweep [--out DIR]
+    python tools/compare_torch_kernels.py --mode d-sweep [--out DIR]
     python tools/compare_torch_kernels.py --mode by-kernel
 
 Each tree named (a checkout of the repo: `git archive <commit> | tar -x -C
@@ -24,7 +26,9 @@ built library with `cuobjdump -sass` (instructions a distance, hence the
 issue-slot floor: live distances x slots over SMs x 128 lanes at the
 card's top SM clock); `phase_a_shapes` and the same SASS reading do it
 for kernel A at every timed shape of `chip_smoke.A_SHAPES` (all
-distances count: A has no live set).
+distances count: A has no live set); `_d_block` for D1 and D2 at every
+shape of `chip_smoke.C_SHAPES`, each held bit for bit against C, with the
+SASS of whichever form the tree has (`chip_smoke.sass_loop`).
 The one timer here, `_call_ms`, times the same calls back to
 back: the slower of host and card, which is what a caller waits for. The
 table goes to stdout; with `--out DIR` the records also go to
@@ -38,6 +42,10 @@ lane's cluster size from N. `--mode a-sweep` times this tree's kernel A
 at every cluster size (1, 2, 4, 8) the kernel takes at each timed shape of
 `chip_smoke.A_SHAPES`, each held bit for bit against the size
 `dense_split` picks: the basis of `cuda_assoc.DENSE_MIN_CTAS`.
+`--mode d-sweep` times this tree's D1 and D2 at each keyframe-group count
+of `D_SWEEP_GROUPS` up to S at every shape of `chip_smoke.C_SHAPES`, each
+held bit for bit against C, beside C: the basis of
+`cuda_assoc.WALK_MIN_CTAS`.
 `--mode by-kernel` traces this tree's wrappers
 with `torch.profiler` and prints the device time of each `__global__`
 function behind them (kernel G is two: fill and sum).
@@ -49,8 +57,6 @@ import argparse
 import importlib.util
 import json
 import os
-import re
-import shutil
 import subprocess
 import sys
 
@@ -103,49 +109,15 @@ def _g_inputs(cs, dev):
 C_FUNCTIONS = ("nn_min_sparse_split_kernel", "nn_min_sparse_kernel")
 # kernel A's: the split kernel and, in trees before it, the first form
 A_FUNCTIONS = ("nn_min_dense_kernel", "nn_min_kernel")
-
-
-def sass_loop(lib_path, function=C_FUNCTIONS[0]):
-    """The inner loop of `function` in the built library, by `cuobjdump
-    -sass`: the basic block (cut at every branch and branch target) with
-    the most FMUL, two a distance. In the split kernel that block is the
-    whole branch-free loop over a group of targets; in a loop with branches
-    inside (the one-block form's) it is only a part, so no other function
-    is read. Returns {instructions, fmul, fmnmx, slots_per_distance}, or
-    None where the library has no such function: every instruction takes
-    one issue slot of its SM sub-partition."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True, check=True).stdout
-    ins = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                     r"([A-Z][A-Z0-9_.]*)([^;]*)")
-    for chunk in sass.split("Function : ")[1:]:
-        if function not in chunk.split(None, 1)[0]:
-            continue
-        code = [(int(m.group(1), 16), m.group(2), m.group(3))
-                for m in map(ins.search, chunk.splitlines()) if m]
-        cuts = {int(t, 16) for _, o, rest in code if o == "BRA"
-                for t in re.findall(r"0x([0-9a-f]+)", rest)}
-        cuts |= {a + 16 for a, o, _ in code if o in ("BRA", "EXIT")}
-        blocks = [[]]
-        for a, o, _ in code:
-            if a in cuts:
-                blocks.append([])
-            if o != "NOP":
-                blocks[-1].append(o)
-        body = max(blocks, key=lambda b: sum(o.startswith("FMUL") for o in b))
-        n_mul = sum(o.startswith("FMUL") for o in body)
-        return {"instructions": len(body), "fmul": n_mul,
-                "fmnmx": sum(o.startswith("FMNMX") for o in body),
-                "slots_per_distance": len(body) / max(n_mul / 2, 1)}
-    return None
-
-
-def _max_sm_hz() -> float:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
-                          "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True)
-    return float(out.stdout.split()[0]) * 1e6
+# kernels D1's and D2's (D2 at M = 1024): the walk kernel and, in trees
+# before it, the first form; and their wrappers
+D_FUNCTIONS = {"D1": ("nn_min_sparse_walk_kernelILi0EE",
+                      "nn_min_sparse_multi_kernelILi0EE"),
+               "D2": ("nn_min_sparse_walk_kernelILi2EE",
+                      "nn_min_sparse_multi_kernelILi2EE")}
+D_WRAPPERS = {"D1": "nn_min_sparse_multi", "D2": "nn_min_sparse_unrolled"}
+# keyframe-group counts `--mode d-sweep` tries (those up to S)
+D_SWEEP_GROUPS = (1, 2, 4, 5, 8, 10, 13, 17, 25, 50)
 
 
 def _c_block(cs, dev, lib_path) -> dict:
@@ -154,14 +126,14 @@ def _c_block(cs, dev, lib_path) -> dict:
     the split kernel runs, the issue-slot floor from its SASS."""
     import torch
     from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
-    sass = sass_loop(lib_path)
+    sass = cs.sass_loop(lib_path, C_FUNCTIONS[0])
     if sass:
         print(f"{C_FUNCTIONS[0]} inner loop (cuobjdump -sass): "
               f"{sass['instructions']} instructions, {sass['fmul']} FMUL, "
               f"{sass['fmnmx']} FMNMX: {sass['slots_per_distance']:.3f} "
               "issue slots a distance")
     lanes_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
-                * 128 * _max_sm_hz())
+                * 128 * cs.max_sm_hz())
     split = getattr(cuda_assoc, "sparse_split", None)
     recs = cs.phase_c_shapes(dev, cs._card())
     for shape in cs.C_SHAPES:
@@ -186,7 +158,7 @@ def _a_block(cs, dev, lib_path) -> dict:
     from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
     sass = None
     for function in A_FUNCTIONS:
-        sass = sass_loop(lib_path, function)
+        sass = cs.sass_loop(lib_path, function)
         if sass:
             sass["function"] = function
             print(f"{function} inner loop (cuobjdump -sass): "
@@ -195,7 +167,7 @@ def _a_block(cs, dev, lib_path) -> dict:
                   "issue slots a distance")
             break
     lanes_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
-                * 128 * _max_sm_hz())
+                * 128 * cs.max_sm_hz())
     split = getattr(cuda_assoc, "dense_split", None)
     recs = cs.phase_a_shapes(dev, cs._card())
     for shape in cs.A_SHAPES:
@@ -209,6 +181,60 @@ def _a_block(cs, dev, lib_path) -> dict:
             b, s, m_src, m = shape
             rec["floor_ms"] = (b * s * m_src * m * sass["slots_per_distance"]
                                / lanes_hz * 1e3)
+    return {"shapes": recs, "sass": sass}
+
+
+def _d_block(cs, dev, lib_path) -> dict:
+    """Kernels D1 and D2 at every shape of `chip_smoke.C_SHAPES`, the
+    counterpart of `_c_block`: each bit for bit against kernel C and its
+    twin (a difference fails the run), on the device (`chip_smoke._cuda_ms`)
+    and back to back, with the keyframe groups where the tree picks them
+    and the issue-slot floor of whichever form's loop the tree has (the
+    first form's loop holds a branch, so its block may be only a part of
+    the loop)."""
+    import torch
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
+    sass = {}
+    for k, functions in D_FUNCTIONS.items():
+        for function in functions:
+            sass[k] = cs.sass_loop(lib_path, function)
+            if sass[k]:
+                sass[k]["function"] = function
+                print(f"{function} inner loop (cuobjdump -sass): "
+                      f"{sass[k]['instructions']} instructions, "
+                      f"{sass[k]['fmul']} FMUL, {sass[k]['fmnmx']} FMNMX: "
+                      f"{sass[k]['slots_per_distance']:.3f} issue slots a "
+                      "distance")
+                break
+    lanes_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * 128 * cs.max_sm_hz())
+    groups = getattr(cuda_assoc, "walk_groups", None)
+    recs = {}
+    for shape in cs.C_SHAPES:
+        args = cs.c_inputs(dev, *shape)
+        key = cs.shape_key(*shape)
+        want = cuda_assoc.nn_min_sparse(*args)
+        plain = cuda_assoc.nn_min_sparse_plain(*args)
+        live = float(cuda_assoc.pair_live(args[1], args[3], args[5])
+                     .float().mean())
+        torch.cuda.synchronize()
+        if not all(map(torch.equal, want, plain)):
+            raise AssertionError(f"kernel C at {key} differs from its twin")
+        rec = recs[key] = {"live_pairs": live,
+                           "groups": groups(*shape) if groups else None}
+        for k, wrapper in D_WRAPPERS.items():
+            fn = getattr(cuda_assoc, wrapper)
+            got = fn(*args)
+            torch.cuda.synchronize()
+            if not all(map(torch.equal, got, want)):
+                raise AssertionError(f"kernel {k} at {key} differs from C")
+            r = rec[k] = {"ms": cs._cuda_ms(lambda: fn(*args), 100),
+                          "call_ms": _call_ms(lambda: fn(*args), 100)}
+            if sass[k]:
+                b, s, m_src, m = shape
+                r["floor_ms"] = (b * s * m_src * m * live
+                                 * sass[k]["slots_per_distance"] / lanes_hz
+                                 * 1e3)
     return {"shapes": recs, "sass": sass}
 
 
@@ -228,7 +254,7 @@ def worker(root) -> int:
             entry = line.split("'")[1]
         elif "Used" in line and entry and any(
                 k in entry for k in ("lm_solve", "moment") + C_FUNCTIONS
-                + A_FUNCTIONS):
+                + A_FUNCTIONS + D_FUNCTIONS["D1"][:1]):
             print(f"{entry}: {line.split(':', 1)[1].strip()}")
     f = cs.phase_lm(dev, card)["lm_solve_fused"]
     images, inputs, one = _g_inputs(cs, dev)
@@ -252,6 +278,7 @@ def worker(root) -> int:
         "index_add_ms": g["library_ms"]}
     rec["C"] = _c_block(cs, dev, _build.library()._name)
     rec["A"] = _a_block(cs, dev, _build.library()._name)
+    rec["D"] = _d_block(cs, dev, _build.library()._name)
     print(json.dumps(rec))
     return 0
 
@@ -327,6 +354,47 @@ def a_sweep(out_dir) -> int:
     return 0
 
 
+def d_sweep(out_dir) -> int:
+    import torch
+    cs = _load(HERE)
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
+    dev = torch.device("cuda", 0)
+    print(cs._card())
+    pick = cuda_assoc.walk_groups
+    out = {}
+    for shape in cs.C_SHAPES:
+        args = cs.c_inputs(dev, *shape)
+        want = cuda_assoc.nn_min_sparse(*args)
+        key = cs.shape_key(*shape)
+        out[key] = {"picked": pick(*shape),
+                    "c_ms": round(cs._cuda_ms(
+                        lambda: cuda_assoc.nn_min_sparse(*args), 100), 5)}
+        for k, wrapper in D_WRAPPERS.items():
+            fn = getattr(cuda_assoc, wrapper)
+            row = {}
+            for g in D_SWEEP_GROUPS:
+                if g > shape[1]:
+                    continue
+                cuda_assoc.walk_groups = lambda *_, g=g: g
+                try:
+                    got = fn(*args)
+                    same = all(torch.equal(a, b) for a, b in zip(got, want))
+                    row[g] = (round(cs._cuda_ms(lambda: fn(*args), 100), 5),
+                              same)
+                finally:
+                    cuda_assoc.walk_groups = pick
+            out[key][k] = row
+        print(f"{key}: picked {out[key]['picked']}, C {out[key]['c_ms']} "
+              "ms; (ms, bit-equal to C) by keyframe groups: "
+              + "; ".join(f"{k} {out[key][k]}" for k in D_WRAPPERS),
+              flush=True)
+    if out_dir:
+        with open(os.path.join(out_dir, "sweep_torch_d_groups.json"),
+                  "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
 def by_kernel() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -382,7 +450,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="*", help="source trees, in running order")
     ap.add_argument("--mode", choices=("compare", "sweep", "a-sweep",
-                                       "by-kernel"),
+                                       "d-sweep", "by-kernel"),
                     default="compare")
     ap.add_argument("--out", metavar="DIR", help="also write the records "
                     "and a log of the output there")
@@ -397,6 +465,8 @@ def main() -> int:
         return sweep(args.out)
     if args.mode == "a-sweep":
         return a_sweep(args.out)
+    if args.mode == "d-sweep":
+        return d_sweep(args.out)
     if args.mode == "by-kernel":
         return by_kernel()
     if not args.roots:
@@ -446,6 +516,17 @@ def main() -> int:
             + (f"{a['floor_ms']:.4f}" if "floor_ms" in a else "-")
             + f" / {a['library_ms']:.4f}; {a.get('split')}"
             for r in recs for a in (r["A"]["shapes"][key],)))
+    print("kernels D1 / D2, ms (back-to-back calls | on the device | "
+          "issue-slot floor; keyframe groups):")
+    for key, rec in recs[0]["D"]["shapes"].items():
+        print(f"  {key}, executed tile pairs {rec['live_pairs']:.4f}: "
+              + "; ".join(
+                  f"{r['root']} " + " / ".join(
+                      f"{d[k]['call_ms']:.4f} | {d[k]['ms']:.4f} | "
+                      + (f"{d[k]['floor_ms']:.4f}" if "floor_ms" in d[k]
+                         else "-") for k in D_WRAPPERS)
+                  + f"; {d['groups']}"
+                  for r in recs for d in (r["D"]["shapes"][key],)))
     if args.out:
         with open(os.path.join(args.out, "compare_torch_kernels.json"),
                   "w") as f:
