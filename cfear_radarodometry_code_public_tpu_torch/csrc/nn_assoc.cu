@@ -29,20 +29,19 @@
 // contracting into an FMA, which would move d2 by an ulp and flip near-tie
 // argmins); +inf for invalid targets; targets scanned in index order with a
 // strict '<' so the lowest index wins ties, as argmin does; rows with no
-// valid (or no unskipped) target report (+inf, 0). B1 and B2 share one
-// per-chunk scan (`scan_keyframe`), E and C's first form one per-tile scan
-// (`scan_tile`), C's split kernel, D1 and D2 one per-slice scan
-// (`scan_slice`), so each family gives the same bits; A's kernel gives them
-// too (below).
+// valid (or no unskipped) target report (+inf, 0). A, B1 and B2 share one
+// per-pass scan (`scan_dense_pass`, `rescan_dense`), E and C's first form
+// one per-tile scan (`scan_tile`), C's split kernel, D1 and D2 one
+// per-slice scan (`scan_slice`), so each family gives the same bits.
 //
 // What bounds them on an H100: at the CFEAR-3 bench shape (B=8, S=4,
 // M=Msrc=1024) one call is ~34 M distance evaluations, microseconds of ALU
 // work spread over 128 (C's first form) blocks — fewer blocks than a full
 // wave of 132 SMs x several resident blocks. The calls are bound by launch
 // latency and by the short grid, not by bytes (~0.2 MB read) or FLOPs.
-// B1, B2 and E keep the simple design: one source row per thread,
-// the keyframe's targets staged through shared memory in chunks so every
-// thread reads the same target (a broadcast, no bank conflicts).
+// E keeps the simple design: one source row per thread, the keyframe's
+// targets staged through shared memory in tiles so every thread reads the
+// same target (a broadcast, no bank conflicts).
 //
 // C has a design of its own (`nn_min_sparse_split_kernel`). The contract
 // fixes the arithmetic: five unfused operations a distance, so no FMA and
@@ -93,7 +92,8 @@
 // lexicographic (d2, index). A source row at +-inf or NaN reports (+inf,
 // 0), as the first form and B1/B2 do: its distances are +inf or NaN, and
 // neither becomes a best (the plain twin, and the reference, report NaN
-// with an index for a NaN row instead; ROADMAP.md queue 3).
+// with an index for a NaN row instead; ROADMAP.md queue 3). B1 and B2
+// report the same.
 // Its loop is C's: 6.41 SASS instructions a distance, 47 registers, 26 KB
 // of shared memory a CTA. Measured on an NVIDIA H100 80GB HBM3 at 700 W
 // (tools/compare_torch_kernels.py, CUDA events), first form -> this one:
@@ -105,25 +105,42 @@
 // B1 and B2 exist on the TPU for the same reason as D1 and D2 below: the
 // grid runs in order on one core and every grid step has a fixed cost
 // (~5 us), so the reference moved the keyframe axis of A's (S, Msrc/ts)
-// grid into the kernel, with fat source tiles (ts = 512 up to M = 2048,
-// else 256, `_ts_multi`). Hopper has no such cost. Moving the keyframe loop
-// into the block only shrinks the grid: from A's first form's
-// B*S*ceil(Msrc/128) blocks of 128 threads to B*Msrc/ts blocks of ts
-// threads, e.g. 512 -> 32 blocks at B=8, S=4, M=2048 (4 -> 1 per lane and
-// source tile at B=1), each thread
-// walking S keyframes of M targets in turn. The work is the same and
-// operation-bound (5 flops and a compare per distance), so the shorter grid
-// leaves most of the 132 SMs idle: they were predicted to be slower than A
-// (several times at B=8, where A fills the card), and the design keeps them
-// as the reference wrote them and measures that. B2 differs from B1 only
-// in what the compiler knows: one template, B1 with S read at runtime, B2
-// with S a template argument (the list `UNROLLED_S` in ops/cuda_assoc.py:
-// 1, the reverse problem of the health check, and 4, CFEAR-3's window) and
-// the keyframe loop unrolled. Measured on an NVIDIA H100 80GB HBM3 at
-// 700 W (chip_smoke.py, long-run window, CUDA events): at S=4, M=2048
-// B1 0.28 ms and B2 0.29 ms against A's first form's 0.065 ms (B=1) and
-// 0.079 ms (B=8); at S=1 B1 0.073 ms and B2 0.077 ms against its 0.064 ms
-// at both B.
+// grid into the kernel. Hopper has no such cost. Their first form kept the
+// TPU's shape, one block per (lane, source tile of 512 rows), each thread
+// one source row walking S keyframes of M targets with a validity select
+// on every target: 32 blocks on 132 SMs at the long run's B=8, S=4,
+// M=2048, ~18 issue slots a distance, 0.28 ms against A's 0.039. What a
+// loop over keyframes can buy on Hopper is what D1/D2's walk takes, over
+// A's dense scan (`nn_min_dense_walk_kernel`):
+//  - the grid is (lane, keyframe group, rank) x source tile; a lane's S
+//    keyframes are cut into G contiguous groups walked in index order (G as
+//    D1/D2 pick it) and, where G = S still leaves the grid short, each
+//    keyframe's chunks are shared by a cluster of C ranks as in A
+//    (ops/cuda_assoc.py:multi_split; C > 1 only at G = S, so a cluster
+//    merges once); at every shape of the smoke's G = S, one keyframe a CTA,
+//    which its sweep found the fastest;
+//  - the scan is A's (4 source rows a thread held in registers for the
+//    whole walk, slices of 64 targets, groups of 16 with one FMNMX a
+//    distance, the strict '<', the rescan of the winning group in the pass
+//    where a row's best moved, slices and ranks merged by lexicographic
+//    (d2, index)), so the outputs are A's bit for bit;
+//  - a pass stages up to 2,048 of a keyframe's targets in one stage of a
+//    two-stage ring; the next pass (the keyframe's next stage or the next
+//    keyframe's first) is copied by cp.async, 16 bytes (two targets) at a
+//    time with their 4 valid bytes, while the current one is scanned; a
+//    thread then sets its own invalid and padding targets to (+inf, +inf),
+//    so one barrier a pass.
+// B2 differs from B1 only in what the compiler knows: S a template argument
+// (the list `UNROLLED_S` in ops/cuda_assoc.py: 1, the reverse problem of
+// the health check, and 4, CFEAR-3's window) and the keyframe loop
+// unrolled. Their loop is A's, 410 SASS instructions, 6.41 a distance; B1
+// takes 64 registers, B2 at S=4 102 (the unrolled walk), and 46 KB of
+// shared memory a CTA. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py, CUDA events), first form -> this one, B1 / B2: 0.2798 /
+// 0.2862 -> 0.0389 / 0.0376 ms at the long-run window's B=8, S=4, M=2048
+// (A 0.0387), 0.0714 / 0.0753 -> 0.0150 / 0.0154 at its B=8, S=1 (A
+// 0.0196, a cluster of 4 where the walk's rule takes 2); 0.77-1.12x A at
+// the other shapes of chip_smoke.A_SHAPES.
 //
 // D1 and D2 exist on the TPU because every grid step there has a fixed
 // cost (3,200 thin steps at B=8, S=50); a loop inside the kernel replaced
@@ -220,7 +237,6 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kChunkA = 1024;    // targets staged per shared-memory pass (12 KB)
 constexpr int kTileS = 256;      // source rows per block, kernels C/D1/D2/E
 constexpr int kTileT = 512;      // target rows per skip-test granule
 
@@ -228,92 +244,6 @@ __device__ __forceinline__ float dist2(float sx, float sy, float tx, float ty) {
   const float dx = __fsub_rn(sx, tx);
   const float dy = __fsub_rn(sy, ty);
   return __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-}
-
-struct ChunkBuf {
-  float x[kChunkA];
-  float y[kChunkA];
-  unsigned char v[kChunkA];
-};
-
-// The dense scan of kernels A, B1 and B2: one keyframe's M targets (t, v)
-// staged through shared memory in chunks of kChunkA (every thread of the
-// block loads, so every thread must call it), each chunk scanned in index
-// order into (best, barg) by the threads whose row is `active`.
-__device__ __forceinline__ void scan_keyframe(bool active, float sx, float sy,
-                                              const float* __restrict__ t,
-                                              const unsigned char* __restrict__ v,
-                                              int M, ChunkBuf& sh, float& best,
-                                              int& barg) {
-  for (int base = 0; base < M; base += kChunkA) {
-    const int n = min(kChunkA, M - base);
-    __syncthreads();
-    for (int k = threadIdx.x; k < n; k += blockDim.x) {
-      sh.x[k] = t[2 * (base + k)];
-      sh.y[k] = t[2 * (base + k) + 1];
-      sh.v[k] = v[base + k];
-    }
-    __syncthreads();
-    if (active) {
-      for (int k = 0; k < n; ++k) {
-        const float d = sh.v[k] ? dist2(sx, sy, sh.x[k], sh.y[k]) : CUDART_INF_F;
-        if (d < best) {
-          best = d;
-          barg = base + k;
-        }
-      }
-    }
-  }
-}
-
-// Kernels B1 and B2. grid (B, Msrc / ts), block ts (512 or 256; the
-// wrapper checks Msrc % ts == 0): one block per (lane, source tile) walks
-// the lane's S keyframes with A's scan. B1 is kS = 0 (S read at runtime),
-// B2 is kS > 0 (S = kS known at compile time, the keyframe loop unrolled).
-template <int kS>
-__global__ void nn_min_multi_kernel(const float* __restrict__ src,
-                                    const float* __restrict__ tar,
-                                    const unsigned char* __restrict__ valid,
-                                    int S, int Msrc, int M,
-                                    int* __restrict__ nn, float* __restrict__ d2) {
-  const int s_n = kS > 0 ? kS : S;
-  __shared__ ChunkBuf sh;
-  const int lane = blockIdx.x;
-  const int row = blockIdx.y * blockDim.x + threadIdx.x;
-  const float sx = src[(static_cast<size_t>(lane) * Msrc + row) * 2];
-  const float sy = src[(static_cast<size_t>(lane) * Msrc + row) * 2 + 1];
-#pragma unroll (kS > 0 ? kS : 1)
-  for (int s = 0; s < s_n; ++s) {
-    const size_t bs = static_cast<size_t>(lane) * s_n + s;
-    float best = CUDART_INF_F;
-    int barg = 0;
-    scan_keyframe(true, sx, sy, tar + bs * M * 2, valid + bs * M, M, sh, best,
-                  barg);
-    nn[bs * Msrc + row] = barg;
-    d2[bs * Msrc + row] = best;
-  }
-}
-
-// B2 for whichever keyframe count in CFEAR_UNROLLED_S_MASK, from kS down to
-// 1, equals S; false, without launching, when none does.
-template <int kS>
-bool launch_multi_unrolled(const float* src, const float* tar,
-                           const unsigned char* valid, int B, int S, int Msrc,
-                           int M, int ts, int* nn, float* d2,
-                           cudaStream_t stream) {
-  if constexpr (kS == 0) {
-    return false;
-  } else {
-    if constexpr (((CFEAR_UNROLLED_S_MASK) >> kS) & 1) {
-      if (S == kS) {
-        nn_min_multi_kernel<kS><<<dim3(B, Msrc / ts), ts, 0, stream>>>(
-            src, tar, valid, S, Msrc, M, nn, d2);
-        return true;
-      }
-    }
-    return launch_multi_unrolled<kS - 1>(src, tar, valid, B, S, Msrc, M, ts,
-                                         nn, d2, stream);
-  }
 }
 
 // The block's source row and its tile's skip-test inputs (kernels C/D1/D2/E,
@@ -635,6 +565,114 @@ static_assert(kDenseTile % kDenseRows == 0 && kDenseChunk % kDenseSlice == 0 &&
               kDenseRows <= 32,
               "kernel A does not tile its block");
 
+// Kernel A's scan of one staged pass, shared with B1 and B2: n targets
+// (whole chunks) of a keyframe from its target `base`, two a float4 at
+// `stage`, of which thread slice q takes targets [q * kDenseSlice, (q + 1)
+// * kDenseSlice) of each chunk. Each group of kDenseGroup targets: the
+// minimum distance of each row by fminf alone (one FMNMX a distance, no
+// index); the row's best moves, with the group's first index, only on a
+// strict '<', so bg is the first group, in index order, that attains the
+// row's best so far.
+__device__ __forceinline__ void scan_dense_pass(
+    const float4* __restrict__ stage, int base, int n, int q,
+    const float (&sx)[kDenseRows], const float (&sy)[kDenseRows],
+    float (&bv)[kDenseRows], int (&bg)[kDenseRows]) {
+  for (int c = 0; c < n / kDenseChunk; ++c) {
+    const int off = c * kDenseChunk + q * kDenseSlice;
+    const float4* p = stage + off / 2;
+#pragma unroll 1
+    for (int g = 0; g < kDenseSlice / kDenseGroup; ++g) {
+      float gm[kDenseRows];
+#pragma unroll
+      for (int j = 0; j < kDenseRows; ++j) gm[j] = CUDART_INF_F;
+#pragma unroll
+      for (int k = 0; k < kDenseGroup / 2; ++k) {
+        const float4 t = p[g * (kDenseGroup / 2) + k];
+#pragma unroll
+        for (int j = 0; j < kDenseRows; ++j)
+          gm[j] = fminf(gm[j], fminf(dist2(sx[j], sy[j], t.x, t.y),
+                                     dist2(sx[j], sy[j], t.z, t.w)));
+      }
+#pragma unroll
+      for (int j = 0; j < kDenseRows; ++j) {
+        if (gm[j] < bv[j]) {
+          bv[j] = gm[j];
+          bg[j] = base + off + g * kDenseGroup;
+        }
+      }
+    }
+  }
+}
+
+// After scan_dense_pass over the pass staged (two targets a float4) at st2
+// from keyframe target `base`: a row whose best moved in this pass (its
+// group lies in the pass) gets the lowest index of the winning group whose
+// distance, in the same rounded arithmetic, equals the best.
+__device__ __forceinline__ void rescan_dense(
+    const float2* __restrict__ st2, int base, const float (&sx)[kDenseRows],
+    const float (&sy)[kDenseRows], const float (&bv)[kDenseRows],
+    const int (&bg)[kDenseRows], int (&bi)[kDenseRows]) {
+#pragma unroll
+  for (int j = 0; j < kDenseRows; ++j) {
+    if (bg[j] >= base) {
+      const float2* w = st2 + (bg[j] - base);
+      int k = 0;
+      while (k < kDenseGroup - 1 && dist2(sx[j], sy[j], w[k].x, w[k].y) != bv[j])
+        ++k;
+      bi[j] = bg[j] + k;
+    }
+  }
+}
+
+// The end of a keyframe in kernels A, B1 and B2: thread (q, l)'s rows'
+// (bv, bi) merged over the slices, then over the C ranks of the cluster
+// through distributed shared memory, in a fixed order by lexicographic
+// minimum, and written at out0 (the `rows` of the tile that lie in Msrc).
+// With C > 1 it syncs the cluster: every CTA of it must call it once.
+__device__ __forceinline__ void merge_dense(
+    float (&part_d)[kDenseSlices][kDenseTile],
+    int (&part_i)[kDenseSlices][kDenseTile], float (&res_d)[kDenseTile],
+    int (&res_i)[kDenseTile], int q, int l, const float (&bv)[kDenseRows],
+    const int (&bi)[kDenseRows], int C, int rank, size_t out0, int rows,
+    int* __restrict__ nn, float* __restrict__ d2) {
+#pragma unroll
+  for (int j = 0; j < kDenseRows; ++j) {
+    part_d[q][l + j * kDenseRowThreads] = bv[j];
+    part_i[q][l + j * kDenseRowThreads] = bi[j];
+  }
+  __syncthreads();
+  if (threadIdx.x < kDenseTile) {
+    const int row = threadIdx.x;
+    float d = part_d[0][row];
+    int i = part_i[0][row];
+#pragma unroll
+    for (int s = 1; s < kDenseSlices; ++s) lex_min(d, i, part_d[s][row], part_i[s][row]);
+    if (C > 1) {
+      res_d[row] = d;
+      res_i[row] = i;
+    } else if (row < rows) {
+      nn[out0 + row] = i;
+      d2[out0 + row] = d;
+    }
+  }
+  if (C > 1) {   // uniform over the cluster
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int per = kDenseTile / C;
+    const int row = rank * per + threadIdx.x;
+    if (threadIdx.x < per && row < rows) {
+      float d = cluster.map_shared_rank(res_d, 0)[row];
+      int i = cluster.map_shared_rank(res_i, 0)[row];
+      for (int c = 1; c < C; ++c)
+        lex_min(d, i, cluster.map_shared_rank(res_d, c)[row],
+                cluster.map_shared_rank(res_i, c)[row]);
+      nn[out0 + row] = i;
+      d2[out0 + row] = d;
+    }
+    cluster.sync();   // no CTA leaves while a peer reads its shared memory
+  }
+}
+
 __global__ void __launch_bounds__(kDenseThreads) nn_min_dense_kernel(
     const float* __restrict__ src, const float* __restrict__ tar,
     const unsigned char* __restrict__ valid, int S, int Msrc, int M, int C,
@@ -643,7 +681,7 @@ __global__ void __launch_bounds__(kDenseThreads) nn_min_dense_kernel(
   // targets as (+inf, +inf): dist2 of a finite source to one is +inf, of a
   // source at +-inf or NaN NaN; fminf drops a NaN, so neither ever becomes
   // a best, which starts at +inf. A source row at +-inf or NaN thus reports
-  // (+inf, 0), as the strict '<' scan of `scan_keyframe` (B1, B2) does.
+  // (+inf, 0).
   __shared__ float4 stage[kDenseStage / 2];
   __shared__ float part_d[kDenseSlices][kDenseTile];
   __shared__ int part_i[kDenseSlices][kDenseTile];
@@ -686,88 +724,12 @@ __global__ void __launch_bounds__(kDenseThreads) nn_min_dense_kernel(
       st2[k] = in && v[g] ? t : inf2;
     }
     __syncthreads();
-    // Each group of kDenseGroup targets: the minimum distance of each row
-    // by fminf alone (one FMNMX a distance, no index); the row's best moves,
-    // with the group's first index, only on a strict '<', so bg is the
-    // first group, in index order, that attains the row's best so far.
-    for (int c = 0; c < n / kDenseChunk; ++c) {
-      const int off = c * kDenseChunk + q * kDenseSlice;
-      const float4* p = stage + off / 2;
-#pragma unroll 1
-      for (int g = 0; g < kDenseSlice / kDenseGroup; ++g) {
-        float gm[kDenseRows];
-#pragma unroll
-        for (int j = 0; j < kDenseRows; ++j) gm[j] = CUDART_INF_F;
-#pragma unroll
-        for (int k = 0; k < kDenseGroup / 2; ++k) {
-          const float4 t = p[g * (kDenseGroup / 2) + k];
-#pragma unroll
-          for (int j = 0; j < kDenseRows; ++j)
-            gm[j] = fminf(gm[j], fminf(dist2(sx[j], sy[j], t.x, t.y),
-                                       dist2(sx[j], sy[j], t.z, t.w)));
-        }
-#pragma unroll
-        for (int j = 0; j < kDenseRows; ++j) {
-          if (gm[j] < bv[j]) {
-            bv[j] = gm[j];
-            bg[j] = base + off + g * kDenseGroup;
-          }
-        }
-      }
-    }
-    // a row whose best moved in this pass (its group lies in the pass): the
-    // lowest index of the winning group whose distance, in the same rounded
-    // arithmetic, equals the best
-#pragma unroll
-    for (int j = 0; j < kDenseRows; ++j) {
-      if (bg[j] >= base) {
-        const float2* w = st2 + (bg[j] - base);
-        int k = 0;
-        while (k < kDenseGroup - 1 && dist2(sx[j], sy[j], w[k].x, w[k].y) != bv[j])
-          ++k;
-        bi[j] = bg[j] + k;
-      }
-    }
+    scan_dense_pass(stage, base, n, q, sx, sy, bv, bg);
+    rescan_dense(st2, base, sx, sy, bv, bg, bi);
   }
-#pragma unroll
-  for (int j = 0; j < kDenseRows; ++j) {
-    part_d[q][l + j * kDenseRowThreads] = bv[j];
-    part_i[q][l + j * kDenseRowThreads] = bi[j];
-  }
-  __syncthreads();
-  // slices, then ranks, merged in a fixed order by lexicographic minimum
-  const size_t out0 = static_cast<size_t>(bs) * Msrc + tile * kDenseTile;
-  const int rows = min(kDenseTile, Msrc - tile * kDenseTile);
-  if (threadIdx.x < kDenseTile) {
-    const int row = threadIdx.x;
-    float d = part_d[0][row];
-    int i = part_i[0][row];
-#pragma unroll
-    for (int s = 1; s < kDenseSlices; ++s) lex_min(d, i, part_d[s][row], part_i[s][row]);
-    if (C > 1) {
-      res_d[row] = d;
-      res_i[row] = i;
-    } else if (row < rows) {
-      nn[out0 + row] = i;
-      d2[out0 + row] = d;
-    }
-  }
-  if (C > 1) {   // uniform over the cluster
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    const int per = kDenseTile / C;
-    const int row = rank * per + threadIdx.x;
-    if (threadIdx.x < per && row < rows) {
-      float d = cluster.map_shared_rank(res_d, 0)[row];
-      int i = cluster.map_shared_rank(res_i, 0)[row];
-      for (int c = 1; c < C; ++c)
-        lex_min(d, i, cluster.map_shared_rank(res_d, c)[row],
-                cluster.map_shared_rank(res_i, c)[row]);
-      nn[out0 + row] = i;
-      d2[out0 + row] = d;
-    }
-    cluster.sync();   // no CTA leaves while a peer reads its shared memory
-  }
+  merge_dense(part_d, part_i, res_d, res_i, q, l, bv, bi, C, rank,
+              static_cast<size_t>(bs) * Msrc + tile * kDenseTile,
+              min(kDenseTile, Msrc - tile * kDenseTile), nn, d2);
 }
 
 // Kernels D1 and D2. One CTA of kThreadsC threads per (lane * G + group,
@@ -971,6 +933,192 @@ __global__ void __launch_bounds__(kThreadsC) nn_min_sparse_walk_kernel(
   }
 }
 
+// Kernels B1 and B2. One CTA of kDenseThreads threads per (lane * G +
+// group, kDenseTile-row source tile, rank), a thread-block cluster of C
+// ranks per (lane, group, source tile), C > 1 only where G = S (one
+// keyframe a CTA, so a cluster merges once): group g of the G takes the
+// lane's keyframes [g * S / G, (g + 1) * S / G) in index order, and rank c
+// each keyframe's chunks [c * nc / C, (c + 1) * nc / C) of nc = ceil(M /
+// kDenseChunk), the last padded with (+inf, +inf), as kernel A does. Thread
+// (slice q, l) holds source rows l + kDenseRowThreads * j (j < kDenseRows;
+// rows past Msrc computed, not written) in registers for the whole walk.
+// The walk is a sequence of passes, each up to kDenseStage of a keyframe's
+// targets; a two-stage ring takes the next pass by cp.async while the
+// current one is scanned with A's scan. B1 is kS = 0 (S read at runtime),
+// B2 kS > 0 (S = kS known at compile time, the keyframe loop unrolled).
+// M % 4 == 0, tar 16-byte and valid 4-byte aligned (the entry and the
+// wrapper check).
+constexpr int kCopyUnit = 4;   // targets a thread copies at a time
+static_assert(kDenseChunk % kCopyUnit == 0,
+              "kernels B1/B2 copy whole units of 4 targets a chunk");
+
+template <int kS>
+__global__ void __launch_bounds__(kDenseThreads) nn_min_dense_walk_kernel(
+    const float* __restrict__ src, const float* __restrict__ tar,
+    const unsigned char* __restrict__ valid, int S, int Msrc, int M, int G,
+    int C, int* __restrict__ nn, float* __restrict__ d2) {
+  // the ring: two stages of kDenseStage targets, two a float4, and their
+  // valid bytes, which arrive as copied; each copier then sets its own
+  // invalid and padding targets to (+inf, +inf), as kernel A stages them
+  __shared__ float4 ring[2][kDenseStage / 2];
+  __shared__ unsigned vring[2][kDenseStage / kCopyUnit];
+  __shared__ float part_d[kDenseSlices][kDenseTile];
+  __shared__ int part_i[kDenseSlices][kDenseTile];
+  __shared__ float res_d[kDenseTile];
+  __shared__ int res_i[kDenseTile];
+  const int s_n = kS > 0 ? kS : S;
+  const int lg = blockIdx.x / C;
+  const int rank = blockIdx.x % C;
+  const int lane = lg / G;
+  const int grp = lg % G;
+  const int tile = blockIdx.y;
+  const int s0 = grp * s_n / G;
+  const int s_end = (grp + 1) * s_n / G;
+  const int nc = (M + kDenseChunk - 1) / kDenseChunk;
+  const int lo = rank * nc / C * kDenseChunk;
+  const int hi = (rank + 1) * nc / C * kDenseChunk;
+  // a keyframe's passes; one with no target where the rank has none
+  const int passes = max(1, (hi - lo + kDenseStage - 1) / kDenseStage);
+  const int q = threadIdx.x / kDenseRowThreads;
+  const int l = threadIdx.x % kDenseRowThreads;
+  const float2* t2 = reinterpret_cast<const float2*>(tar);
+
+  // Pass p of keyframe s into stage k: thread u copies units u, u +
+  // kDenseThreads, ... of 4 targets (two 16-byte copies) and their 4 valid
+  // bytes; units past M (the padded tail) are left to `fix`.
+  auto copy = [&](int s, int p, int k) {
+    const int base = lo + p * kDenseStage;
+    const int n = min(kDenseStage, hi - base);
+    const size_t bs = static_cast<size_t>(lane) * s_n + s;
+    float2* st = reinterpret_cast<float2*>(ring[k]);
+    for (int u = threadIdx.x; u < n / kCopyUnit; u += kDenseThreads) {
+      const int g = base + u * kCopyUnit;
+      if (g < M) {
+        const size_t o = bs * M + g;
+        cp_async16(st + u * kCopyUnit, t2 + o);
+        cp_async16(st + u * kCopyUnit + 2, t2 + o + 2);
+        cp_async4(&vring[k][u], valid + o);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // after this thread's copies of pass p in stage k have landed: its own
+  // invalid and padding targets to (+inf, +inf)
+  auto fix = [&](int p, int k) {
+    const int base = lo + p * kDenseStage;
+    const int n = min(kDenseStage, hi - base);
+    float2* st = reinterpret_cast<float2*>(ring[k]);
+    for (int u = threadIdx.x; u < n / kCopyUnit; u += kDenseThreads) {
+      const unsigned v4 = base + u * kCopyUnit < M ? vring[k][u] : 0u;
+#pragma unroll
+      for (int b = 0; b < kCopyUnit; ++b)
+        if (!((v4 >> (8 * b)) & 0xffu))
+          st[u * kCopyUnit + b] = make_float2(CUDART_INF_F, CUDART_INF_F);
+    }
+  };
+
+  const float2* s2 = reinterpret_cast<const float2*>(src) + static_cast<size_t>(lane) * Msrc;
+  float sx[kDenseRows], sy[kDenseRows], bv[kDenseRows];
+  int bg[kDenseRows], bi[kDenseRows];
+#pragma unroll
+  for (int j = 0; j < kDenseRows; ++j) {
+    const int row = tile * kDenseTile + l + j * kDenseRowThreads;
+    const float2 p = row < Msrc ? s2[row] : make_float2(0.f, 0.f);
+    sx[j] = p.x;
+    sy[j] = p.y;
+  }
+  const int rows = min(kDenseTile, Msrc - tile * kDenseTile);
+
+  // Pass p of keyframe s in stage k: wait for this thread's copies and fix
+  // them; one barrier (every thread has also left the pass before, which
+  // read the other stage); start the next pass's copies into the other
+  // stage; scan, rescan the rows whose best moved in this pass. After a
+  // keyframe's last pass merge the slices and ranks and write.
+  int k = 0;
+  copy(s0, 0, 0);
+#pragma unroll (kS > 0 ? kS : 1)
+  for (int i = 0; i < s_n; ++i) {
+    const int s = s0 + i;
+    if (s >= s_end) break;
+#pragma unroll
+    for (int j = 0; j < kDenseRows; ++j) {
+      bv[j] = CUDART_INF_F;
+      bg[j] = -1;
+      bi[j] = 0;
+    }
+    for (int p = 0; p < passes; ++p) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      fix(p, k);
+      __syncthreads();
+      if (p + 1 < passes) {
+        copy(s, p + 1, k ^ 1);
+      } else if (s + 1 < s_end) {
+        copy(s + 1, 0, k ^ 1);
+      }
+      const int base = lo + p * kDenseStage;
+      scan_dense_pass(ring[k], base, min(kDenseStage, hi - base), q, sx, sy,
+                      bv, bg);
+      rescan_dense(reinterpret_cast<const float2*>(ring[k]), base, sx, sy, bv,
+                   bg, bi);
+      k ^= 1;
+    }
+    merge_dense(part_d, part_i, res_d, res_i, q, l, bv, bi, C, rank,
+                (static_cast<size_t>(lane) * s_n + s) * Msrc + tile * kDenseTile,
+                rows, nn, d2);
+  }
+}
+
+struct DenseWalkArgs {
+  const float *src, *tar;
+  const unsigned char* valid;
+  int B, S, Msrc, M, G, C;
+  int* nn;
+  float* d2;
+  cudaStream_t stream;
+};
+
+// Launch B1 (kS = 0) or B2 for kS keyframes; returns the CUDA error,
+// cudaErrorInvalidValue without launching for a group count outside [1,
+// S], a cluster size other than 1, 2, 4 or 8, one above 1 with G != S or
+// above the keyframe's chunks, or M % 4 != 0.
+template <int kS>
+int launch_dense_walk(const DenseWalkArgs& a) {
+  const int nc = (a.M + kDenseChunk - 1) / kDenseChunk;
+  if (a.G < 1 || a.G > a.S || (a.C != 1 && a.C != 2 && a.C != 4 && a.C != 8) ||
+      (a.C > 1 && (a.G != a.S || a.C > nc)) || a.M % kCopyUnit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(a.C * a.B * a.G, (a.Msrc + kDenseTile - 1) / kDenseTile);
+  config.blockDim = dim3(kDenseThreads);
+  config.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = a.C > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, nn_min_dense_walk_kernel<kS>, a.src, a.tar, a.valid, a.S,
+      a.Msrc, a.M, a.G, a.C, a.nn, a.d2);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
+}
+
+// B2 for whichever keyframe count in CFEAR_UNROLLED_S_MASK, from kS down
+// to 1, equals S; cudaErrorInvalidValue, without launching, when none does.
+template <int kS>
+int launch_dense_unrolled(const DenseWalkArgs& a) {
+  if constexpr (kS == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if constexpr (((CFEAR_UNROLLED_S_MASK) >> kS) & 1) {
+      if (a.S == kS) return launch_dense_walk<kS>(a);
+    }
+    return launch_dense_unrolled<kS - 1>(a);
+  }
+}
+
 // Kernel E. grid (B*S, Msrc / kTileS), block kTileS: kernel C, then each
 // thread copies its winner's attribute column attrs_t[bs, :, barg] (D_pad
 // values) to g[bs, :, row]; zeros where the row's best never improved
@@ -1081,27 +1229,31 @@ int cfear_nn_min(const float* src, const float* tar, const unsigned char* valid,
   return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
-// ts is the source tile (512 or 256); Msrc % ts == 0 (the wrapper checks).
+// Kernels B1 and B2. `groups` is the number of keyframe groups a lane's
+// keyframes are cut into (1 to S) and `split` the cluster size (1, 2, 4 or
+// 8 CTAs per keyframe and source tile, above 1 only with groups = S and at
+// most ceil(M / kDenseChunk)); ops/cuda_assoc.py:multi_split picks both
+// from the shape. Any other value, or M % 4 != 0, returns
+// cudaErrorInvalidValue without launching. src 8-byte, tar 16-byte and
+// valid 4-byte aligned (the wrapper checks). Any Msrc.
 int cfear_nn_min_multi(const float* src, const float* tar,
                        const unsigned char* valid, int B, int S, int Msrc,
-                       int M, int ts, int* nn, float* d2, void* stream) {
-  nn_min_multi_kernel<0><<<dim3(B, Msrc / ts), ts, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      src, tar, valid, S, Msrc, M, nn, d2);
-  return static_cast<int>(cudaGetLastError());
+                       int M, int groups, int split, int* nn, float* d2,
+                       void* stream) {
+  return launch_dense_walk<0>({src, tar, valid, B, S, Msrc, M, groups, split,
+                               nn, d2, static_cast<cudaStream_t>(stream)});
 }
 
-// S must be one of the keyframe counts B2 is built for
+// S must also be one of the keyframe counts B2 is built for
 // (CFEAR_UNROLLED_S_MASK; the wrapper checks); any other S returns
 // cudaErrorInvalidValue without launching.
 int cfear_nn_min_multi_unrolled(const float* src, const float* tar,
                                 const unsigned char* valid, int B, int S,
-                                int Msrc, int M, int ts, int* nn, float* d2,
-                                void* stream) {
-  if (!launch_multi_unrolled<16>(src, tar, valid, B, S, Msrc, M, ts, nn, d2,
-                                 static_cast<cudaStream_t>(stream)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+                                int Msrc, int M, int groups, int split,
+                                int* nn, float* d2, void* stream) {
+  return launch_dense_unrolled<16>({src, tar, valid, B, S, Msrc, M, groups,
+                                    split, nn, d2,
+                                    static_cast<cudaStream_t>(stream)});
 }
 
 // Kernel C. `split` is the cluster size of the split kernel (1, 2, 4 or 8

@@ -137,8 +137,10 @@ def library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.cfear_nn_min.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
         lib.cfear_nn_min.restype = i
+        # B1's and B2's keyframe groups and cluster size follow M
         for name in ("cfear_nn_min_multi", "cfear_nn_min_multi_unrolled"):
-            getattr(lib, name).argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+            getattr(lib, name).argtypes = [p, p, p, i, i, i, i, i, i, p, p,
+                                           p]
             getattr(lib, name).restype = i
         # C's split, D1's and D2's keyframe groups follow M
         for name in ("cfear_nn_min_sparse", "cfear_nn_min_sparse_multi",

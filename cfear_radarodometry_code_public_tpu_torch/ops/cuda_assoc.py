@@ -6,8 +6,9 @@
 Every function takes the reference's layout with a leading lane axis, so one
 launch serves a batched step: src (B, Msrc, 2), tar (B, S, M, 2),
 valid (B, S, M) -> nn (B, S, Msrc) int32, d2 (B, S, Msrc) float32.
-B1 and B2 compute A's function (keyframe loop inside the kernel, at runtime
-or unrolled) and share A's twin; D1 and D2 compute C's function (a CTA
+B1 and B2 compute A's function (a CTA walks a group of a lane's keyframes
+with A's scan, S read at runtime or known at compile time) and share A's
+twin; D1 and D2 compute C's function (a CTA
 walks a group of a lane's keyframes, M read at runtime or known at compile
 time) and share C's twin; E adds the winner's attribute column,
 attrs_t (B, S, D_pad, M) -> g (B, S, D_pad, Msrc).
@@ -65,6 +66,18 @@ DENSE_GROUP, DENSE_STAGE, DENSE_MIN_CTAS = 16, 2048, 256
 # shape of chip_smoke.C_SHAPES, 800 within 2-5% of it at B=8, S=50 and the
 # same elsewhere (tools/compare_torch_kernels.py --mode d-sweep).
 WALK_MIN_CTAS = 800
+# Kernels B1 and B2 scan as kernel A does (the DENSE_ constants), cut a
+# lane's keyframes into groups as D1 and D2 do (`walk_groups`), and, where
+# one keyframe a CTA still leaves the grid short, share each keyframe's
+# chunks over a cluster until the grid has MULTI_MIN_CTAS CTAs, about one
+# for each of an H100's 132 SMs, as kernel C does. At every shape of
+# chip_smoke.A_SHAPES and the long-run window (tools/compare_torch_kernels.py
+# --mode b-sweep): one keyframe a CTA was the fastest (two a CTA 15% slower
+# at B=27, S=4); of the cluster sizes, 128 CTAs was the fastest or within
+# 3% of it but at B=1, S=4, M=2048 (9% for B1, 2% for B2), where 64 to 256
+# CTAs lie within 9% of each other; A's 256 cost 30-42% at B=1, S=4,
+# M=3072 and 28-35% at the window's B=8, S=1.
+MULTI_MIN_CTAS = 128
 
 launches = {"nn_min": 0, "nn_min_multi": 0, "nn_min_multi_unrolled": 0,
             "nn_min_sparse": 0, "nn_min_sparse_multi": 0,
@@ -82,8 +95,9 @@ def supported(m: int) -> bool:
 
 
 def ts_multi(m: int) -> int:
-    """Source rows per block of kernels B1 and B2: the reference's
-    `_ts_multi`, 512 up to M = 2048, else 256."""
+    """The reference's `_ts_multi`, its B1/B2 source tile: 512 rows up to
+    M = 2048, else 256. The port keeps it for the reference's refusal
+    (`supported_multi`); its kernels take any Msrc."""
     return 512 if m <= 2048 else 256
 
 
@@ -122,6 +136,26 @@ def walk_groups(b: int, s: int, m_src: int, m: int) -> int:
     each keyframe's output is its own."""
     pairs = b * (m_src // TS_SPARSE)
     return max(1, min(s, -(-WALK_MIN_CTAS // max(pairs, 1))))
+
+
+def multi_split(b: int, s: int, m_src: int, m: int) -> tuple:
+    """(keyframe groups, cluster size) per (lane, source tile) of kernels
+    B1 and B2, from the shape alone: the groups of `walk_groups`; where
+    those are S (one keyframe a CTA), the smallest power of two up to 8 and
+    up to the keyframe's ceil(M / DENSE_CHUNK) chunks that gives
+    MULTI_MIN_CTAS CTAs, and else 1. Group g takes keyframes [g S / G, (g +
+    1) S / G), so every keyframe falls in exactly one; any count and size
+    give the same bits, since each keyframe's output is its own and the
+    partial minima are merged by lexicographic (d2, index)."""
+    groups = walk_groups(b, s, m_src, m)
+    if groups < s:
+        return groups, 1
+    pairs = b * s * -(-m_src // DENSE_TILE)
+    chunks = -(-m // DENSE_CHUNK)
+    c = 1
+    while c < 8 and 2 * c <= chunks and pairs * c < MULTI_MIN_CTAS:
+        c *= 2
+    return groups, c
 
 
 def dense_split(b: int, s: int, m_src: int, m: int) -> int:
@@ -275,8 +309,9 @@ def _nn_out(valid, m_src, dev):
 
 def _check_aligned(name, src, tar, valid=None):
     """src and tar start on 8-byte boundaries (the kernels read points as
-    float2); with `valid`, for kernels D1 and D2, which copy targets 16
-    bytes and valid bytes 4 at a time, tar on 16 and valid on 4."""
+    float2); with `valid`, for kernels B1, B2, D1 and D2, which copy
+    targets 16 bytes and valid bytes 4 at a time, tar on 16 and valid on
+    4."""
     if (src.data_ptr() | tar.data_ptr()) % 8:
         raise ValueError(f"{name}: src and tar must start on 8-byte "
                          "boundaries (the kernel reads points as float2)")
@@ -318,19 +353,21 @@ def _multi(name, entry, src, tar, valid):
             "must both be 0")
     if dev.type == "cpu":
         return nn_min_plain(src, tar, valid)
+    _check_aligned(name, src, tar, valid)
     nn, d2 = _nn_out(valid, m_src, dev)
     if nn.numel():
         _launch(name, entry, dev, src.data_ptr(), tar.data_ptr(),
-                valid.data_ptr(), b, s, m_src, m, ts_multi(m), nn.data_ptr(),
-                d2.data_ptr())
+                valid.data_ptr(), b, s, m_src, m,
+                *multi_split(b, s, m_src, m), nn.data_ptr(), d2.data_ptr())
     return nn, d2
 
 
 def nn_min_multi(src, tar, valid):
     """`nn_min` with the keyframe loop inside the kernel (kernel B1 on
-    CUDA: one block per (lane, source tile of `ts_multi(M)` rows) walks the
-    S keyframes; `nn_min_plain` on the CPU). Identical outputs. Shapes the
-    reference refuses (`supported_multi`) raise ValueError."""
+    CUDA: one CTA per (lane, group of keyframes, source tile, cluster rank)
+    from `multi_split` walks its keyframes with kernel A's scan;
+    `nn_min_plain` on the CPU). Identical outputs. Shapes the reference
+    refuses (`supported_multi`) raise ValueError."""
     return _multi("nn_min_multi", "cfear_nn_min_multi", src, tar, valid)
 
 

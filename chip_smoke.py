@@ -8,7 +8,8 @@ the 1-NN kernels A and C (A also at every main-path shape of `A_SHAPES`
 and a ragged one, C at every main-path shape of `C_SHAPES`; two launches
 bit-identical and a B=1 call equal to its lane of a batched call), D1 and
 D2 at every shape of `C_SHAPES` in the same way and bit for bit against C,
-timed beside C and the issue-slot floor of their inner loop (`sass_loop`), the
+timed beside C and the issue-slot floor of their inner loop (`sass_loop`), B1
+and B2 at every shape of `A_SHAPES` they take, in the same way against A, the
 fused LM solve F (both variants, three cost /
 loss pairs at S=4, and every width the main paths give it, `LM_SHAPES`: the
 long run's reverse and forward solves, 1 and 4 x 2048 cells, and the s50
@@ -312,6 +313,14 @@ C_SHAPES = ((1, 4, 1024, 1024), (8, 4, 1024, 1024), (1, 50, 1024, 1024),
 # every shape of C_SHAPES; tools/compare_torch_kernels.py times two trees'.
 D_FUNCTIONS = {"nn_min_sparse_multi": "nn_min_sparse_walk_kernelILi0EE",
                "nn_min_sparse_unrolled": "nn_min_sparse_walk_kernelILi2EE"}
+# Kernels B1 and B2 are instances of one template, `nn_min_dense_walk_kernel
+# <kS>` (B1 kS = 0, B2 kS = S): the functions whose inner loop (`sass_loop`)
+# sets their issue-slot floor, B2's at S = 4 (both instances have the same
+# loop). `phase_b_shapes` holds them against A at every shape of A_SHAPES
+# that `supported_multi` admits; tools/compare_torch_kernels.py times two
+# trees'.
+B_FUNCTIONS = {"nn_min_multi": "nn_min_dense_walk_kernelILi0EE",
+               "nn_min_multi_unrolled": "nn_min_dense_walk_kernelILi4EE"}
 # Kernel A's shapes on the main paths, (B, S, Msrc, M): `phase_kernels`'
 # CFEAR-3 x8 shape, the long run's forward association (B=1, S=4 of 2048
 # cells), its window at B=8, the health check's reverse solve (S=1) and
@@ -755,6 +764,55 @@ def phase_a_shapes(dev, card):
     return res
 
 
+def b_shapes():
+    """The shapes of A_SHAPES kernels B1 and B2 take (`supported_multi`;
+    B2 also needs S in `UNROLLED_S`): all but A_RAGGED."""
+    return [sh for sh in A_SHAPES if cuda_assoc.supported_multi(sh[2], sh[3])
+            and sh[1] in cuda_assoc.UNROLLED_S]
+
+
+def phase_b_shapes(dev, card, a_recs):
+    """Kernels B1 and B2 at every shape of `b_shapes()`: bit-equal to
+    kernel A and its twin, two launches bit-identical, the first and last
+    lane of a call equal to their own B=1 calls (`_hold`, against the
+    twin's output computed once a shape); then timed beside A's time at
+    the shape (`a_recs`, `phase_a_shapes`' records of this run), its bound
+    and `cdist + min`, and the issue-slot floor of their own loop. Returns
+    {name: {"sass": loop, "by_shape": {shape_key: record}}}."""
+    res = {k: {"sass": _loop(f), "by_shape": {}}
+           for k, f in B_FUNCTIONS.items()}
+    for shape in b_shapes():
+        args = a_inputs(dev, *shape)
+        key = shape_key(*shape)
+        a_out = cuda_assoc.nn_min(*args)
+        want = cuda_assoc.nn_min_plain(*args)
+        torch.cuda.synchronize()
+        if not all(map(torch.equal, a_out, want)):
+            raise AssertionError(f"kernel A at {key} differs from its twin")
+        a = a_recs[key]
+        fin = torch.isfinite(want[1])
+        for name, function in B_FUNCTIONS.items():
+            fn = getattr(cuda_assoc, name)
+            (nn_b, d2_b), _ = _hold(name, key, fn, lambda *_: want, args)
+            if not (torch.equal(nn_b, a_out[0]) and torch.equal(d2_b, a_out[1])):
+                raise AssertionError(f"kernel {name} at {key} differs from "
+                                     "kernel A")
+            groups, split = cuda_assoc.multi_split(*shape)
+            r = res[name]["by_shape"][key] = {
+                "max_abs_err": float((d2_b[fin] - want[1][fin]).abs().max()),
+                "ms": _cuda_ms(lambda: fn(*args), 100), "a_ms": a["ms"],
+                "groups": groups, "split": split,
+                "floor_ms": issue_floor_ms(function, float(np.prod(shape))),
+                **{k: a[k] for k in ("bound_ms", "bound_by", "library_ms")}}
+            _say(f"kernel {name} {key}: bit-equal to A and its twin, repeat "
+                 f"and lanes bit-identical; {groups} keyframe groups, "
+                 f"cluster {split}; kernel {r['ms']:.4f} ms "
+                 f"({r['ms'] / r['a_ms']:.2f}x A's {r['a_ms']:.4f}), "
+                 f"issue-slot floor {r['floor_ms']:.4f} ms, bound "
+                 f"{r['bound_ms']:.4f} ms ({card})")
+    return res
+
+
 def phase_c_shapes(dev, card):
     """Kernel C at every shape of C_SHAPES: bit-equal to its twin, two
     launches bit-identical, the first and last lane of a B=8 call equal to
@@ -830,9 +888,9 @@ def phase_d_shapes(dev, card, c_recs):
 
 def phase_kernels(dev, card):
     """Kernels A and C against their plain twins at the slice's shapes,
-    A at every shape of A_SHAPES (`phase_a_shapes`), C at every shape of
-    C_SHAPES (`phase_c_shapes`), and D1 and D2 there against C
-    (`phase_d_shapes`)."""
+    A at every shape of A_SHAPES (`phase_a_shapes`) and B1 and B2 there
+    against A (`phase_b_shapes`), C at every shape of C_SHAPES
+    (`phase_c_shapes`), and D1 and D2 there against C (`phase_d_shapes`)."""
     b, s, m = BATCH, 4, 1024
     src, src_valid, tar, valid = _morton_cells(np.random.default_rng(0),
                                                b, s, m, dev)
@@ -907,6 +965,7 @@ def phase_kernels(dev, card):
                             "bound_by": bounds[0]["bound_by"],
                             "library_ms": lib_ms,
                             "by_shape": phase_c_shapes(dev, card)}
+    res.update(phase_b_shapes(dev, card, res["nn_min"]["by_shape"]))
     res.update(phase_d_shapes(dev, card, res["nn_min_sparse"]["by_shape"]))
     _say(f"kernel A: nn equal, d2 bit-equal; kernel {res['nn_min']['ms']:.4f}"
          f" ms, plain {res['nn_min']['plain_ms']:.4f} ms, bound "
@@ -2422,8 +2481,9 @@ def main() -> int:
     win_lr = longrun_window(runner_lr.state, lr, dev)
     outs_lr = drive("longrun-window", ("nn_min_multi", "nn_min_multi_unrolled"),
                     lambda: drive_longrun_window(win_lr))
-    kernels.update(timed("window checks", lambda: phase_longrun_window(
-        win_lr, outs_lr, card)))
+    for k, rec in timed("window checks", lambda: phase_longrun_window(
+            win_lr, outs_lr, card)).items():
+        kernels[k].update(rec)
     del images_lr
     images_a, gt_a = render(lr, LONGRUN_ADV8_SEQUENCE)
     drive("longrun-adv8", ("nn_min", "lm_solve_fused"),

@@ -544,12 +544,12 @@ def test_walk_groups_follows_the_shape():
             assert walked == list(range(s)), (s, groups)
 
 
-def _dense_model(src, tar, valid, split):
+def _dense_model(src, tar, valid, split, stage=None):
     """Kernel A (csrc/nn_assoc.cu `nn_min_dense_kernel`) in the twin's
     arithmetic: a keyframe's targets cut into chunks of DENSE_CHUNK, the
     tail padded with (+inf, +inf) as invalid targets are; rank c of
     `split` takes chunks [c nc / split, (c+1) nc / split) and stages them
-    DENSE_STAGE targets a pass; each slice of DENSE_SLICE targets of a
+    `stage` targets a pass (the kernel's DENSE_STAGE); each slice of DENSE_SLICE targets of a
     chunk is scanned in groups of DENSE_GROUP, a row's minimum over a group
     by fminf (NaN dropped), its best moving to a group's minimum only on a
     strict '<'; the winning group is rescanned, in the pass where the best
@@ -557,6 +557,7 @@ def _dense_model(src, tar, valid, split):
     merged by lexicographic (d2, index)."""
     b, s, m = valid.shape
     m_src = src.shape[1]
+    stage = stage or ca.DENSE_STAGE
     ch, sl, g = ca.DENSE_CHUNK, ca.DENSE_SLICE, ca.DENSE_GROUP
     nc, n_slice, n_grp = -(-m // ch), ch // sl, sl // g
     inf = torch.tensor(float("inf"))
@@ -579,8 +580,8 @@ def _dense_model(src, tar, valid, split):
         for q in range(n_slice):
             best = out_d.new_full(out_d.shape, float("inf"))
             bi = torch.zeros_like(out_i)
-            for base in range(lo, hi, ca.DENSE_STAGE):
-                n = min(ca.DENSE_STAGE, hi - base)
+            for base in range(lo, hi, stage):
+                n = min(stage, hi - base)
                 # (B, S, Msrc, groups, G): the slice's groups of the pass
                 d = d2[..., base:base + n].reshape(
                     b, s, m_src, n // ch, n_slice, n_grp, g)[..., q, :, :]
@@ -812,3 +813,165 @@ def test_dense_multi_keyframe_wrappers_refuse_what_the_reference_refuses():
         ca.nn_min_multi_unrolled(src[:, :, :0], tar[:, :2].contiguous(),
                                  valid[:, :2].contiguous())
     ca.nn_min_multi(src, tar[:, :2].contiguous(), valid[:, :2].contiguous())
+
+
+def _dense_walk_model(src, tar, valid, groups, split, stage=None):
+    """Kernels B1 and B2 (csrc/nn_assoc.cu `nn_min_dense_walk_kernel`) in
+    the twin's arithmetic: a CTA per (lane, keyframe group, source tile,
+    rank), group g of `groups` walking keyframes [g S / groups, (g+1) S /
+    groups) in index order, a cluster of `split` ranks only where groups =
+    S; each keyframe scanned as kernel A scans it (`_dense_model`: chunks,
+    ranks, passes of `stage` targets, slices, groups, the strict '<', the
+    rescan and the lexicographic merges), its best reset at its first
+    pass. Every keyframe must be walked exactly once."""
+    b, s, _ = valid.shape
+    assert split == 1 or groups == s
+    out_i = torch.full((b, s, src.shape[1]), -1, dtype=torch.int32)
+    out_d = torch.full(out_i.shape, float("nan"))
+    for i in range(b):
+        for grp in range(groups):
+            for k in range(grp * s // groups, (grp + 1) * s // groups):
+                assert (out_i[i, k] == -1).all()                # walked once
+                nn, d2 = _dense_model(src[i:i + 1], tar[i:i + 1, k:k + 1],
+                                      valid[i:i + 1, k:k + 1], split, stage)
+                out_i[i, k], out_d[i, k] = nn[0, 0], d2[0, 0]
+    assert (out_i >= 0).all()                                   # every keyframe
+    return out_i, out_d
+
+
+def _walk_splits(s, m):
+    """Every (keyframe groups, cluster size) kernels B1 and B2 take at S
+    keyframes of M targets: 1 to S groups of one rank, and at S groups each
+    cluster size up to the keyframe's chunks."""
+    chunks = -(-m // ca.DENSE_CHUNK)
+    return ([(g, 1) for g in range(1, s + 1)]
+            + [(s, c) for c in (2, 4, 8) if c <= chunks])
+
+
+def _ref_multi(case, names=("nn_min_multi", "nn_min_multi_unrolled")):
+    """The reference's B1 and B2 in interpret mode, lane by lane (they have
+    no lane axis): {name: [(nn, d2) of each lane]}."""
+    src, tar, valid = case
+    return {name: [tuple(np.asarray(a) for a in getattr(pa, name)(
+        jnp.asarray(src[i]), jnp.asarray(tar[i]), jnp.asarray(valid[i]),
+        interpret=True)) for i in range(len(src))] for name in names}
+
+
+@pytest.mark.parametrize("s", [1, 4])
+def test_dense_walk_model_equals_twin_and_pallas(s):
+    """Kernels B1 and B2, modelled on the CPU (`_dense_walk_model`), equal
+    `nn_min_plain` at every keyframe-group count and cluster size they take
+    (B=2, Msrc=512, M=4096: 16 chunks, two passes of the stage at one
+    rank), and the reference's B1 and B2 in interpret mode (nn exact, d2
+    within 1 ulp): S=1, the health check's reverse problem, and S=4,
+    CFEAR-3's window, with exact ties across a group, a slice, a chunk, a
+    rank and the pass boundary, and an empty keyframe (S=4)."""
+    (src, tar, valid), ties = dense_ties(b=2, s=max(s, 2))
+    if s == 1:                      # keyframe 0 of two: the other is empty
+        tar, valid = tar[:, :1].copy(), valid[:, :1].copy()
+        ties = [t for t in ties if t[0] == 0]
+    args = [torch.as_tensor(a) for a in (src, tar, valid)]
+    nn_p, d2_p = ca.nn_min_plain(*args)
+    for groups, split in _walk_splits(s, 4096):
+        nn_m, d2_m = _dense_walk_model(*args, groups, split)
+        assert torch.equal(nn_m, nn_p) and torch.equal(d2_m, d2_p), \
+            (groups, split)
+    assert len(ties) >= (4 if s == 1 else 8)
+    for k, lo, row in ties:
+        assert (nn_p[:, k, row] == lo).all() and (d2_p[:, k, row] == 0).all()
+    if s == 4:
+        assert torch.isinf(d2_p[:, 3]).all() and (nn_p[:, 3] == 0).all()
+    for name, lanes in _ref_multi((src, tar, valid)).items():
+        for i, (nn_r, d2_r) in enumerate(lanes):
+            np.testing.assert_array_equal(nn_p[i].numpy(), nn_r, name)
+            _assert_d2(d2_p[i].numpy(), d2_r, nn_r, src[i], tar[i])
+
+
+def test_dense_walk_model_takes_a_padded_tail():
+    """M = 1,152 (4.5 chunks: the last padded at (+inf, +inf), as
+    `supported_multi` admits), S=3, B=2: the model at every group count and
+    cluster size, in passes of the stage and of one chunk (five passes
+    through both stages of the ring), equals the twin and the reference's
+    B1 and B2, with ties across passes (targets 100 and 1,100), inside the
+    padded chunk (1,030 and 1,150) and across a chunk (255 and 256), and
+    keyframe 2 empty."""
+    rng = np.random.default_rng(31)
+    b, s, m_src, m = 2, 3, 512, 1152
+    assert ca.supported_multi(m_src, m) and m % ca.DENSE_CHUNK
+    src = (rng.normal(size=(b, m_src, 2)) * 40).astype(np.float32)
+    tar = (rng.normal(size=(b, s, m, 2)) * 40).astype(np.float32)
+    valid = rng.random((b, s, m)) < 0.85
+    ties = [(0, 100, 1100, 30), (0, 1030, 1150, 31), (1, 255, 256, 32)]
+    for k, lo, hi, row in ties:
+        tar[:, k, hi] = tar[:, k, lo]
+        valid[:, k, [lo, hi]] = True
+        src[:, row] = tar[:, k, lo]
+    valid[:, 2] = False
+    args = [torch.as_tensor(a) for a in (src, tar, valid)]
+    nn_p, d2_p = ca.nn_min_plain(*args)
+    for groups, split in _walk_splits(s, m):
+        for stage in (None, ca.DENSE_CHUNK):
+            nn_m, d2_m = _dense_walk_model(*args, groups, split, stage)
+            assert torch.equal(nn_m, nn_p) and torch.equal(d2_m, d2_p), \
+                (groups, split, stage)
+    for k, lo, _, row in ties:
+        assert (nn_p[:, k, row] == lo).all() and (d2_p[:, k, row] == 0).all()
+    assert torch.isinf(d2_p[:, 2]).all() and (nn_p[:, 2] == 0).all()
+    for name, lanes in _ref_multi((src, tar, valid)).items():
+        for i, (nn_r, d2_r) in enumerate(lanes):
+            np.testing.assert_array_equal(nn_p[i].numpy(), nn_r, name)
+            _assert_d2(d2_p[i].numpy(), d2_r, nn_r, src[i], tar[i])
+
+
+def test_dense_walk_model_on_smoke_inputs():
+    """`chip_smoke.a_inputs` (Morton-ordered wall cells, the inputs the
+    card check uses) on the CPU, cut to B=2, S=4, Msrc=M=1024: kernels B1
+    and B2 at the groups and cluster size `multi_split` gives the shape, at
+    one group and at two, equal the twin; the tie across chunks goes to the
+    lower index, the last lane's last keyframe is empty."""
+    args = chip_smoke.a_inputs(torch.device("cpu"), 2, 4, 1024, 1024)
+    nn_p, d2_p = ca.nn_min_plain(*args)
+    assert ca.multi_split(2, 4, 1024, 1024) == (4, 4)
+    for groups, split in ((4, 4), (1, 1), (2, 1)):
+        nn_m, d2_m = _dense_walk_model(*args, groups, split)
+        assert torch.equal(nn_m, nn_p) and torch.equal(d2_m, d2_p), \
+            (groups, split)
+    assert nn_p[0, 0, 5] == 300 and d2_p[0, 0, 5] == 0
+    assert torch.isinf(d2_p[1, 3]).all() and (nn_p[1, 3] == 0).all()
+    assert torch.isfinite(d2_p).float().mean() > 0.7
+
+
+def test_multi_split_follows_the_shape():
+    """Kernels B1's and B2's (keyframe groups, cluster size) from the shape
+    at every shape of `chip_smoke.A_SHAPES` and at the long-run window's
+    four problems: the groups of `walk_groups` (one keyframe a CTA at every
+    one of those shapes), then, at S groups only, a cluster grown to
+    MULTI_MIN_CTAS CTAs, up to 8 and the keyframe's chunks. Every keyframe
+    falls in exactly one group at every count."""
+    want = {(8, 4, 1024, 1024): (4, 1), (1, 4, 2048, 2048): (4, 4),
+            (8, 4, 2048, 2048): (4, 1), (1, 1, 2048, 2048): (1, 8),
+            (27, 4, 2048, 2048): (4, 1), (512, 1, 1024, 1024): (1, 1),
+            (256, 1, 1024, 1024): (1, 1), (1, 4, 3072, 3072): (4, 4),
+            (3, 2, 1000, 1500): (2, 4),
+            (8, 1, 2048, 2048): (1, 2),       # the long-run window's S=1 B=8
+            (2, 3, 512, 1152): (3, 4), (1, 1, 256, 128): (1, 1),
+            (64, 16, 1024, 1024): (4, 1), (4, 16, 1024, 1024): (16, 1)}
+    assert set(chip_smoke.A_SHAPES) <= set(want)
+    for shape, (groups, split) in want.items():
+        assert ca.multi_split(*shape) == (groups, split), shape
+        assert groups == ca.walk_groups(*shape), shape
+        b, s, m_src, m = shape
+        chunks = -(-m // ca.DENSE_CHUNK)
+        ctas = b * -(-m_src // ca.DENSE_TILE) * groups * split
+        assert split in (1, 2, 4, 8) and (split == 1 or (groups == s
+                                                        and split <= chunks))
+        assert split == 1 or ctas // 2 < ca.MULTI_MIN_CTAS
+        assert ctas >= ca.MULTI_MIN_CTAS or groups < s or split == 8 \
+            or 2 * split > chunks
+        if shape in chip_smoke.A_SHAPES:
+            assert groups == s, shape                  # one keyframe a CTA
+    for s in (1, 2, 3, 4, 7, 16):
+        for groups in range(1, s + 1):
+            walked = [k for g in range(groups)
+                      for k in range(g * s // groups, (g + 1) * s // groups)]
+            assert walked == list(range(s)), (s, groups)

@@ -1,11 +1,13 @@
 """Time the port's kernels F (fused LM solve), G (feature moments), C
-(block-sparse 1-NN), A (dense 1-NN) and D1 and D2 (C's function, the
-keyframe loop in the kernel) of several source trees on one CUDA card, in
-turns inside one call.
+(block-sparse 1-NN), A (dense 1-NN), B1 and B2 (A's function, the keyframe
+loop in the kernel), D1 and D2 (C's function, the keyframe loop in the
+kernel) and E (C plus the winner's attributes) of several source trees on
+one CUDA card, in turns inside one call.
 
     python tools/compare_torch_kernels.py [--out DIR] PARENT . . PARENT
     python tools/compare_torch_kernels.py --mode sweep [--out DIR]
     python tools/compare_torch_kernels.py --mode a-sweep [--out DIR]
+    python tools/compare_torch_kernels.py --mode b-sweep [--out DIR]
     python tools/compare_torch_kernels.py --mode d-sweep [--out DIR]
     python tools/compare_torch_kernels.py --mode by-kernel
 
@@ -26,9 +28,13 @@ built library with `cuobjdump -sass` (instructions a distance, hence the
 issue-slot floor: live distances x slots over SMs x 128 lanes at the
 card's top SM clock); `phase_a_shapes` and the same SASS reading do it
 for kernel A at every timed shape of `chip_smoke.A_SHAPES` (all
-distances count: A has no live set); `_d_block` for D1 and D2 at every
-shape of `chip_smoke.C_SHAPES`, each held bit for bit against C, with the
-SASS of whichever form the tree has (`chip_smoke.sass_loop`).
+distances count: A has no live set); `_b_block` for B1 and B2 at every
+shape of `chip_smoke.A_SHAPES` they take, each held bit for bit against A,
+and `_d_block` for D1 and D2 at every shape of `chip_smoke.C_SHAPES`, each
+held bit for bit against C, both with the SASS of whichever form the tree
+has (`chip_smoke.sass_loop`); `_e_block` for E at every shape of
+`chip_smoke.C_SHAPES` with 8 random attribute rows, held bit for bit
+against its twin.
 The one timer here, `_call_ms`, times the same calls back to
 back: the slower of host and card, which is what a caller waits for. The
 table goes to stdout; with `--out DIR` the records also go to
@@ -42,6 +48,11 @@ lane's cluster size from N. `--mode a-sweep` times this tree's kernel A
 at every cluster size (1, 2, 4, 8) the kernel takes at each timed shape of
 `chip_smoke.A_SHAPES`, each held bit for bit against the size
 `dense_split` picks: the basis of `cuda_assoc.DENSE_MIN_CTAS`.
+`--mode b-sweep` times this tree's B1 and B2 at every (keyframe groups,
+cluster size) they take (groups up to S at one rank; at S groups, each
+cluster size up to the keyframe's chunks) at each shape of
+`chip_smoke.A_SHAPES` they take, each held bit for bit against A, beside
+A: the basis of `cuda_assoc.MULTI_MIN_CTAS`.
 `--mode d-sweep` times this tree's D1 and D2 at each keyframe-group count
 of `D_SWEEP_GROUPS` up to S at every shape of `chip_smoke.C_SHAPES`, each
 held bit for bit against C, beside C: the basis of
@@ -116,8 +127,31 @@ D_FUNCTIONS = {"D1": ("nn_min_sparse_walk_kernelILi0EE",
                "D2": ("nn_min_sparse_walk_kernelILi2EE",
                       "nn_min_sparse_multi_kernelILi2EE")}
 D_WRAPPERS = {"D1": "nn_min_sparse_multi", "D2": "nn_min_sparse_unrolled"}
+# kernels B1's and B2's (B2 at S = 4): the dense walk and, in trees before
+# it, the first form; and their wrappers
+B_FUNCTIONS = {"B1": ("nn_min_dense_walk_kernelILi0EE",
+                      "nn_min_multi_kernelILi0EE"),
+               "B2": ("nn_min_dense_walk_kernelILi4EE",
+                      "nn_min_multi_kernelILi4EE")}
+B_WRAPPERS = {"B1": "nn_min_multi", "B2": "nn_min_multi_unrolled"}
+# kernel E's
+E_FUNCTIONS = ("nn_min_sparse_attrs_kernel",)
 # keyframe-group counts `--mode d-sweep` tries (those up to S)
 D_SWEEP_GROUPS = (1, 2, 4, 5, 8, 10, 13, 17, 25, 50)
+
+
+def _sass(cs, lib_path, functions) -> dict | None:
+    """The inner loop of the first of `functions` the library has."""
+    for function in functions:
+        sass = cs.sass_loop(lib_path, function)
+        if sass:
+            sass["function"] = function
+            print(f"{function} inner loop (cuobjdump -sass): "
+                  f"{sass['instructions']} instructions, {sass['fmul']} FMUL, "
+                  f"{sass['fmnmx']} FMNMX: {sass['slots_per_distance']:.3f} "
+                  "issue slots a distance")
+            return sass
+    return None
 
 
 def _c_block(cs, dev, lib_path) -> dict:
@@ -126,12 +160,7 @@ def _c_block(cs, dev, lib_path) -> dict:
     the split kernel runs, the issue-slot floor from its SASS."""
     import torch
     from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
-    sass = cs.sass_loop(lib_path, C_FUNCTIONS[0])
-    if sass:
-        print(f"{C_FUNCTIONS[0]} inner loop (cuobjdump -sass): "
-              f"{sass['instructions']} instructions, {sass['fmul']} FMUL, "
-              f"{sass['fmnmx']} FMNMX: {sass['slots_per_distance']:.3f} "
-              "issue slots a distance")
+    sass = _sass(cs, lib_path, C_FUNCTIONS[:1])
     lanes_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
                 * 128 * cs.max_sm_hz())
     split = getattr(cuda_assoc, "sparse_split", None)
@@ -156,16 +185,7 @@ def _a_block(cs, dev, lib_path) -> dict:
     the loop)."""
     import torch
     from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
-    sass = None
-    for function in A_FUNCTIONS:
-        sass = cs.sass_loop(lib_path, function)
-        if sass:
-            sass["function"] = function
-            print(f"{function} inner loop (cuobjdump -sass): "
-                  f"{sass['instructions']} instructions, {sass['fmul']} FMUL, "
-                  f"{sass['fmnmx']} FMNMX: {sass['slots_per_distance']:.3f} "
-                  "issue slots a distance")
-            break
+    sass = _sass(cs, lib_path, A_FUNCTIONS)
     lanes_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
                 * 128 * cs.max_sm_hz())
     split = getattr(cuda_assoc, "dense_split", None)
@@ -184,6 +204,79 @@ def _a_block(cs, dev, lib_path) -> dict:
     return {"shapes": recs, "sass": sass}
 
 
+def _b_block(cs, dev, lib_path) -> dict:
+    """Kernels B1 and B2 at every shape of `chip_smoke.A_SHAPES` they take,
+    the counterpart of `_d_block`: each bit for bit against kernel A and its
+    twin (a difference fails the run), on the device
+    (`chip_smoke._cuda_ms`) and back to back, with the keyframe groups and
+    cluster size where the tree picks them and the issue-slot floor of
+    whichever form's loop the tree has (the first form's loop holds a
+    branch, so its block may be only a part of the loop)."""
+    import torch
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
+    sass = {k: _sass(cs, lib_path, f) for k, f in B_FUNCTIONS.items()}
+    lanes_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * 128 * cs.max_sm_hz())
+    split = getattr(cuda_assoc, "multi_split", None)
+    recs = {}
+    for shape in cs.b_shapes():
+        args = cs.a_inputs(dev, *shape)
+        key = cs.shape_key(*shape)
+        want = cuda_assoc.nn_min(*args)
+        plain = cuda_assoc.nn_min_plain(*args)
+        torch.cuda.synchronize()
+        if not all(map(torch.equal, want, plain)):
+            raise AssertionError(f"kernel A at {key} differs from its twin")
+        rec = recs[key] = {
+            "split": split(*shape) if split else None,
+            "a_ms": cs._cuda_ms(lambda: cuda_assoc.nn_min(*args), 100)}
+        for k, wrapper in B_WRAPPERS.items():
+            fn = getattr(cuda_assoc, wrapper)
+            got = fn(*args)
+            torch.cuda.synchronize()
+            if not all(map(torch.equal, got, want)):
+                raise AssertionError(f"kernel {k} at {key} differs from A")
+            r = rec[k] = {"ms": cs._cuda_ms(lambda: fn(*args), 100),
+                          "call_ms": _call_ms(lambda: fn(*args), 100)}
+            if sass[k]:
+                b, s, m_src, m = shape
+                r["floor_ms"] = (b * s * m_src * m
+                                 * sass[k]["slots_per_distance"] / lanes_hz
+                                 * 1e3)
+    return {"shapes": recs, "sass": sass}
+
+
+def _e_inputs(cs, dev, shape):
+    """Kernel C's inputs at `shape` and 8 random attribute rows (D_pad 8),
+    in E's argument order."""
+    import torch
+    args = cs.c_inputs(dev, *shape)
+    b, s, _, m = shape
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    attrs_t = torch.rand((b, s, 8, m), generator=gen).to(dev)
+    return (*args[:5], attrs_t, args[5])
+
+
+def _e_block(cs, dev, lib_path) -> dict:
+    """Kernel E at every shape of `chip_smoke.C_SHAPES`: bit for bit
+    against its twin, on the device and back to back."""
+    import torch
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
+    recs = {}
+    for shape in cs.C_SHAPES:
+        args = _e_inputs(cs, dev, shape)
+        key = cs.shape_key(*shape)
+        got = cuda_assoc.nn_min_sparse_attrs(*args)
+        want = cuda_assoc.nn_min_sparse_attrs_plain(*args)
+        torch.cuda.synchronize()
+        if not all(map(torch.equal, got, want)):
+            raise AssertionError(f"kernel E at {key} differs from its twin")
+        fn = cuda_assoc.nn_min_sparse_attrs
+        recs[key] = {"ms": cs._cuda_ms(lambda: fn(*args), 100),
+                     "call_ms": _call_ms(lambda: fn(*args), 100)}
+    return {"shapes": recs, "sass": _sass(cs, lib_path, E_FUNCTIONS)}
+
+
 def _d_block(cs, dev, lib_path) -> dict:
     """Kernels D1 and D2 at every shape of `chip_smoke.C_SHAPES`, the
     counterpart of `_c_block`: each bit for bit against kernel C and its
@@ -194,18 +287,7 @@ def _d_block(cs, dev, lib_path) -> dict:
     the loop)."""
     import torch
     from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
-    sass = {}
-    for k, functions in D_FUNCTIONS.items():
-        for function in functions:
-            sass[k] = cs.sass_loop(lib_path, function)
-            if sass[k]:
-                sass[k]["function"] = function
-                print(f"{function} inner loop (cuobjdump -sass): "
-                      f"{sass[k]['instructions']} instructions, "
-                      f"{sass[k]['fmul']} FMUL, {sass[k]['fmnmx']} FMNMX: "
-                      f"{sass[k]['slots_per_distance']:.3f} issue slots a "
-                      "distance")
-                break
+    sass = {k: _sass(cs, lib_path, f) for k, f in D_FUNCTIONS.items()}
     lanes_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
                 * 128 * cs.max_sm_hz())
     groups = getattr(cuda_assoc, "walk_groups", None)
@@ -254,7 +336,8 @@ def worker(root) -> int:
             entry = line.split("'")[1]
         elif "Used" in line and entry and any(
                 k in entry for k in ("lm_solve", "moment") + C_FUNCTIONS
-                + A_FUNCTIONS + D_FUNCTIONS["D1"][:1]):
+                + A_FUNCTIONS + D_FUNCTIONS["D1"][:1] + B_FUNCTIONS["B1"][:1]
+                + B_FUNCTIONS["B2"][:1] + E_FUNCTIONS):
             print(f"{entry}: {line.split(':', 1)[1].strip()}")
     f = cs.phase_lm(dev, card)["lm_solve_fused"]
     images, inputs, one = _g_inputs(cs, dev)
@@ -278,7 +361,9 @@ def worker(root) -> int:
         "index_add_ms": g["library_ms"]}
     rec["C"] = _c_block(cs, dev, _build.library()._name)
     rec["A"] = _a_block(cs, dev, _build.library()._name)
+    rec["B"] = _b_block(cs, dev, _build.library()._name)
     rec["D"] = _d_block(cs, dev, _build.library()._name)
+    rec["E"] = _e_block(cs, dev, _build.library()._name)
     print(json.dumps(rec))
     return 0
 
@@ -349,6 +434,50 @@ def a_sweep(out_dir) -> int:
               f"size) by cluster size {row}", flush=True)
     if out_dir:
         with open(os.path.join(out_dir, "sweep_torch_a_clusters.json"),
+                  "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
+def b_sweep(out_dir) -> int:
+    import torch
+    cs = _load(HERE)
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
+    dev = torch.device("cuda", 0)
+    print(cs._card())
+    pick = cuda_assoc.multi_split
+    out = {}
+    # and the long-run window's reverse problem at B=8, which `longrun-window`
+    # times and A_SHAPES lacks
+    for shape in cs.b_shapes() + [(cs.BATCH, 1, 2048, 2048)]:
+        args = cs.a_inputs(dev, *shape)
+        want = cuda_assoc.nn_min(*args)
+        key = cs.shape_key(*shape)
+        s, chunks = shape[1], -(-shape[3] // cuda_assoc.DENSE_CHUNK)
+        tries = ([(g, 1) for g in (1, 2, 4) if g <= s]
+                 + [(s, c) for c in (2, 4, 8) if c <= chunks])
+        out[key] = {"picked": list(pick(*shape)),
+                    "a_ms": round(cs._cuda_ms(
+                        lambda: cuda_assoc.nn_min(*args), 100), 5)}
+        for k, wrapper in B_WRAPPERS.items():
+            fn = getattr(cuda_assoc, wrapper)
+            row = {}
+            for g, c in tries:
+                cuda_assoc.multi_split = lambda *_, g=g, c=c: (g, c)
+                try:
+                    got = fn(*args)
+                    same = all(torch.equal(a, b) for a, b in zip(got, want))
+                    row[f"{g}x{c}"] = (round(cs._cuda_ms(
+                        lambda: fn(*args), 100), 5), same)
+                finally:
+                    cuda_assoc.multi_split = pick
+            out[key][k] = row
+        print(f"{key}: picked {out[key]['picked']}, A {out[key]['a_ms']} "
+              "ms; (ms, bit-equal to A) by groups x cluster: "
+              + "; ".join(f"{k} {out[key][k]}" for k in B_WRAPPERS),
+              flush=True)
+    if out_dir:
+        with open(os.path.join(out_dir, "sweep_torch_b_splits.json"),
                   "w") as f:
             json.dump(out, f, indent=1)
     return 0
@@ -450,7 +579,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="*", help="source trees, in running order")
     ap.add_argument("--mode", choices=("compare", "sweep", "a-sweep",
-                                       "d-sweep", "by-kernel"),
+                                       "b-sweep", "d-sweep", "by-kernel"),
                     default="compare")
     ap.add_argument("--out", metavar="DIR", help="also write the records "
                     "and a log of the output there")
@@ -465,6 +594,8 @@ def main() -> int:
         return sweep(args.out)
     if args.mode == "a-sweep":
         return a_sweep(args.out)
+    if args.mode == "b-sweep":
+        return b_sweep(args.out)
     if args.mode == "d-sweep":
         return d_sweep(args.out)
     if args.mode == "by-kernel":
@@ -527,6 +658,21 @@ def main() -> int:
                          else "-") for k in D_WRAPPERS)
                   + f"; {d['groups']}"
                   for r in recs for d in (r["D"]["shapes"][key],)))
+    print("kernels B1 / B2, ms (back-to-back calls | on the device | "
+          "issue-slot floor; A on the device; groups, cluster):")
+    for key in recs[0]["B"]["shapes"]:
+        print(f"  {key}: " + "; ".join(
+            f"{r['root']} " + " / ".join(
+                f"{b[k]['call_ms']:.4f} | {b[k]['ms']:.4f} | "
+                + (f"{b[k]['floor_ms']:.4f}" if "floor_ms" in b[k] else "-")
+                for k in B_WRAPPERS)
+            + f"; A {b['a_ms']:.4f}; {b['split']}"
+            for r in recs for b in (r["B"]["shapes"][key],)))
+    print("kernel E, ms (back-to-back calls | on the device):")
+    for key in recs[0]["E"]["shapes"]:
+        print(f"  {key}: " + "; ".join(
+            f"{r['root']} {e['call_ms']:.4f} | {e['ms']:.4f}"
+            for r in recs for e in (r["E"]["shapes"][key],)))
     if args.out:
         with open(os.path.join(args.out, "compare_torch_kernels.json"),
                   "w") as f:
