@@ -30,18 +30,21 @@
 // argmins); +inf for invalid targets; targets scanned in index order with a
 // strict '<' so the lowest index wins ties, as argmin does; rows with no
 // valid (or no unskipped) target report (+inf, 0). A, B1 and B2 share one
-// per-pass scan (`scan_dense_pass`, `rescan_dense`), E and C's first form
-// one per-tile scan (`scan_tile`), C's split kernel, D1 and D2 one
-// per-slice scan (`scan_slice`), so each family gives the same bits.
+// per-pass scan (`scan_dense_pass`, `rescan_dense`), C's and E's first
+// forms one per-tile scan (`scan_tile`), C's and E's split kernel (one
+// template), D1 and D2 one per-slice scan (`scan_slice`), so each family
+// gives the same bits.
 //
 // What bounds them on an H100: at the CFEAR-3 bench shape (B=8, S=4,
 // M=Msrc=1024) one call is ~34 M distance evaluations, microseconds of ALU
 // work spread over 128 (C's first form) blocks — fewer blocks than a full
 // wave of 132 SMs x several resident blocks. The calls are bound by launch
 // latency and by the short grid, not by bytes (~0.2 MB read) or FLOPs.
-// E keeps the simple design: one source row per thread, the keyframe's
-// targets staged through shared memory in tiles so every thread reads the
-// same target (a broadcast, no bank conflicts).
+// The first forms of C and E (`nn_min_sparse_kernel`,
+// `nn_min_sparse_attrs_kernel`, kept for keyframes of more than 32,768
+// cells) have the simple design: one source row per thread, the
+// keyframe's targets staged through shared memory in tiles so every thread
+// reads the same target (a broadcast, no bank conflicts).
 //
 // C has a design of its own (`nn_min_sparse_split_kernel`). The contract
 // fixes the arithmetic: five unfused operations a distance, so no FMA and
@@ -189,11 +192,27 @@
 //
 // E exists on the TPU to fold the attribute gather into the kernel, where
 // it cost a one-hot MXU product per executed tile pair. On Hopper the
-// winner's attributes are D_pad loads per thread after the scan (the
-// row's argmin is known by then), written with neighbouring threads on
-// neighbouring addresses; it adds D_pad x 4 bytes of reads and writes per
-// row to C and saves the separate gather's launch and its (B, S, Msrc, D)
-// round trip through device memory.
+// winner's attributes are D_pad loads after the scan, once a row's argmin
+// is known; E's extra work over C is that column copy alone (D_pad x 4
+// bytes read and written a row, the reads from a keyframe's attribute
+// slice that L2 holds), and the scan sets its time. So E is C's split
+// kernel (`nn_min_sparse_split_kernel<true>`, C is `<false>`): the same
+// scan, live set, rescan and merges, hence C's (nn, d2) by construction,
+// from C's cluster rule (ops/cuda_assoc.py:sparse_split), and then, in the
+// thread that writes a row's final (nn, d2) (after the slice merge, or
+// after the cluster merge before the last cluster barrier), the column
+// copy (`copy_column`): 8 loads in flight through the read-only path, then
+// 8 stores, neighbouring rows on neighbouring addresses; zeros on +inf
+// rows. No attribute tile is staged in shared memory: at D_pad 16 six live
+// tiles would take 192 KB and cut the CTAs an SM holds. It saves the
+// separate gather's launch and its (B, S, Msrc, D) round trip through
+// device memory. Its loop is C's: 409 SASS instructions, 6.39 a distance.
+// Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (tools/compare_torch_kernels.py, CUDA events), the first form (one
+// source row per thread, scan_tile, ~18 issue slots a distance) -> this
+// one: 0.2111-0.2129 -> 0.1098-0.1101 ms at B=8, S=50, M=1024 (C
+// 0.1116-0.1122 in the same call), 0.0465-0.0468 -> 0.0231-0.0232 at B=1;
+// 0.98-1.07x C at every shape of chip_smoke.C_SHAPES.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -421,12 +440,40 @@ __device__ __forceinline__ int first_at(const float2* __restrict__ w, float sx,
   return k;
 }
 
+// Kernel E's epilogue: row `row` of source tile `tile` of keyframe bs,
+// whose final (i, d) the caller has just written, gets its winner's
+// attribute column, g[bs, :, tile * kTileS + row] = attrs_t[bs, :, i], or
+// zeros where d = +inf. D_pad (a multiple of 8) loads through the
+// read-only path, 8 in flight before their stores; neighbouring rows store
+// to neighbouring addresses.
+__device__ __forceinline__ void copy_column(const float* __restrict__ attrs_t,
+                                            float* __restrict__ g, int bs,
+                                            int tile, int row, int Msrc, int M,
+                                            int Dpad, int i, float d) {
+  const bool hit = d < CUDART_INF_F;
+  const float* a = attrs_t + static_cast<size_t>(bs) * Dpad * M + i;
+  float* o = g + static_cast<size_t>(bs) * Dpad * Msrc + tile * kTileS + row;
+  for (int k0 = 0; k0 < Dpad; k0 += 8) {
+    float v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = hit ? __ldg(a + static_cast<size_t>(k0 + k) * M) : 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) o[static_cast<size_t>(k0 + k) * Msrc] = v[k];
+  }
+}
+
+// Kernel C is kAttrs = false (attrs_t, Dpad and g unused); kernel E is
+// kAttrs = true: the same scan, live set, rescan and merges, so its (nn,
+// d2) are C's, and then `copy_column` by whichever thread writes a row.
+template <bool kAttrs>
 __global__ void __launch_bounds__(kThreadsC) nn_min_sparse_split_kernel(
     const float* __restrict__ src, const float* __restrict__ src_bounds,
     const float* __restrict__ tar, const float* __restrict__ tar_bounds,
     const unsigned char* __restrict__ valid, const float* __restrict__ radius,
     int S, int Msrc, int M, int C, int* __restrict__ nn,
-    float* __restrict__ d2) {
+    float* __restrict__ d2, const float* __restrict__ attrs_t, int Dpad,
+    float* __restrict__ g) {
   // the rank's live target tiles, two targets a float4, invalid targets as
   // (+inf, +inf): dist2 of a finite source to one is +inf, of a source at
   // +-inf or NaN NaN; neither passes a '<' against a best that starts at
@@ -518,6 +565,7 @@ __global__ void __launch_bounds__(kThreadsC) nn_min_sparse_split_kernel(
     if (C == 1) {
       nn[out0 + row] = i;
       d2[out0 + row] = d;
+      if constexpr (kAttrs) copy_column(attrs_t, g, bs, tile, row, Msrc, M, Dpad, i, d);
     } else {
       res_d[row] = d;
       res_i[row] = i;
@@ -536,6 +584,7 @@ __global__ void __launch_bounds__(kThreadsC) nn_min_sparse_split_kernel(
                 cluster.map_shared_rank(res_i, c)[row]);
       nn[out0 + row] = i;
       d2[out0 + row] = d;
+      if constexpr (kAttrs) copy_column(attrs_t, g, bs, tile, row, Msrc, M, Dpad, i, d);
     }
     cluster.sync();   // no CTA leaves while a peer reads its shared memory
   }
@@ -1119,7 +1168,9 @@ int launch_dense_unrolled(const DenseWalkArgs& a) {
   }
 }
 
-// Kernel E. grid (B*S, Msrc / kTileS), block kTileS: kernel C, then each
+// Kernel E's first form (`split` 0: kept for the shapes
+// ops/cuda_assoc.py:sparse_split gives it, as C's).
+// grid (B*S, Msrc / kTileS), block kTileS: kernel C, then each
 // thread copies its winner's attribute column attrs_t[bs, :, barg] (D_pad
 // values) to g[bs, :, row]; zeros where the row's best never improved
 // (d2 = +inf: every tile pair skipped or no valid target).
@@ -1179,6 +1230,52 @@ int launch_walk(const WalkArgs& a) {
       a.src, a.src_bounds, a.tar, a.tar_bounds, a.valid, a.radius, a.S, a.Msrc,
       a.M, a.G, a.nn, a.d2);
   return static_cast<int>(cudaGetLastError());
+}
+
+struct SplitArgs {
+  const float *src, *src_bounds, *tar, *tar_bounds;
+  const unsigned char* valid;
+  const float* radius;
+  int B, S, Msrc, M, split;
+  int* nn;
+  float* d2;
+  const float* attrs_t;   // kernel E's; C passes nullptr, 0, nullptr
+  int Dpad;
+  float* g;
+  cudaStream_t stream;
+};
+
+// Launch kernel C's (kAttrs = false) or E's (true) instance of the split
+// kernel with a cluster of `split` CTAs; returns the CUDA error,
+// cudaErrorInvalidValue without launching for a split other than 1, 2, 4
+// or 8, above M / 512 (when above 1), or leaving a CTA more than
+// kMaxTilesC target tiles.
+template <bool kAttrs>
+int launch_split(const SplitArgs& a) {
+  if (a.split != 1 && a.split != 2 && a.split != 4 && a.split != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = a.M / kTileT;
+  const int tiles = (nt + a.split - 1) / a.split;   // the most any rank takes
+  if ((a.split > 1 && a.split > nt) || tiles > kMaxTilesC)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(a.split * a.B * a.S, a.Msrc / kTileS);
+  config.blockDim = dim3(kThreadsC);
+  config.dynamicSmemBytes = static_cast<size_t>(tiles) * kTileT * sizeof(float2);
+  config.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = a.split > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, nn_min_sparse_split_kernel<kAttrs>, a.src, a.src_bounds, a.tar,
+      a.tar_bounds, a.valid, a.radius, a.S, a.Msrc, a.M, a.split, a.nn, a.d2,
+      a.attrs_t, a.Dpad, a.g);
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // D2 for whichever tile count in CFEAR_UNROLLED_MASK, from kNT down to 1,
@@ -1273,28 +1370,9 @@ int cfear_nn_min_sparse(const float* src, const float* src_bounds,
         src, src_bounds, tar, tar_bounds, valid, radius, S, Msrc, M, nn, d2);
     return static_cast<int>(cudaGetLastError());
   }
-  const int nt = M / kTileT;
-  const int tiles = (nt + split - 1) / split;   // the most any rank takes
-  if ((split != 1 && split != 2 && split != 4 && split != 8) ||
-      (split > 1 && split > nt) || tiles > kMaxTilesC)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(split * B * S, Msrc / kTileS);
-  config.blockDim = dim3(kThreadsC);
-  config.dynamicSmemBytes = static_cast<size_t>(tiles) * kTileT * sizeof(float2);
-  config.stream = st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  config.attrs = attr;
-  config.numAttrs = split > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &config, nn_min_sparse_split_kernel, src, src_bounds, tar, tar_bounds,
-      valid, radius, S, Msrc, M, split, nn, d2);
-  const cudaError_t last = cudaGetLastError();
-  return static_cast<int>(err != cudaSuccess ? err : last);
+  return launch_split<false>({src, src_bounds, tar, tar_bounds, valid, radius,
+                              B, S, Msrc, M, split, nn, d2, nullptr, 0,
+                              nullptr, st});
 }
 
 // Kernels D1 and D2. `groups` is the number of keyframe groups a lane's
@@ -1325,17 +1403,28 @@ int cfear_nn_min_sparse_unrolled(const float* src, const float* src_bounds,
                               static_cast<cudaStream_t>(stream)});
 }
 
+// Kernel E. `split` is kernel C's, from the same rule
+// (ops/cuda_assoc.py:sparse_split): 1, 2, 4 or 8 runs the split kernel's E
+// instance with that cluster size and C's limits, 0 the one-block-per-
+// tile-pair `nn_min_sparse_attrs_kernel`. Dpad is a positive multiple of 8.
+// Any other value returns cudaErrorInvalidValue without launching.
 int cfear_nn_min_sparse_attrs(const float* src, const float* src_bounds,
                               const float* tar, const float* tar_bounds,
                               const unsigned char* valid, const float* attrs_t,
                               const float* radius, int B, int S, int Msrc,
-                              int M, int Dpad, int* nn, float* d2, float* g,
-                              void* stream) {
-  const dim3 grid(B * S, Msrc / kTileS);
-  nn_min_sparse_attrs_kernel<<<grid, kTileS, 0, static_cast<cudaStream_t>(stream)>>>(
-      src, src_bounds, tar, tar_bounds, valid, attrs_t, radius, S, Msrc, M,
-      Dpad, nn, d2, g);
-  return static_cast<int>(cudaGetLastError());
+                              int M, int Dpad, int split, int* nn, float* d2,
+                              float* g, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Dpad <= 0 || Dpad % 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (split == 0) {
+    nn_min_sparse_attrs_kernel<<<dim3(B * S, Msrc / kTileS), kTileS, 0, st>>>(
+        src, src_bounds, tar, tar_bounds, valid, attrs_t, radius, S, Msrc, M,
+        Dpad, nn, d2, g);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return launch_split<true>({src, src_bounds, tar, tar_bounds, valid, radius,
+                             B, S, Msrc, M, split, nn, d2, attrs_t, Dpad, g,
+                             st});
 }
 
 }  // extern "C"

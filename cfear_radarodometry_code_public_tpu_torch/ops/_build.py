@@ -148,8 +148,9 @@ def library() -> ctypes.CDLL:
             getattr(lib, name).argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                            p, p, p]
             getattr(lib, name).restype = i
+        # E's D_pad, then C's split
         lib.cfear_nn_min_sparse_attrs.argtypes = [p, p, p, p, p, p, p, i, i,
-                                                  i, i, i, p, p, p, p]
+                                                  i, i, i, i, p, p, p, p]
         lib.cfear_nn_min_sparse_attrs.restype = i
         lib.cfear_lm_solve_fused.argtypes = [p, p, i, i, i, i, f, i, f, i,
                                              i, i, p, p]

@@ -117,7 +117,9 @@ def sparse_split(b: int, s: int, m_src: int, m: int) -> int:
     tiles that gives SPLIT_MIN_CTAS CTAs in all and at most SPLIT_MAX_TILES
     tiles a CTA; 0, the one-block-per-tile-pair kernel, where no cluster of
     8 keeps a CTA's tiles within that limit. Any split gives the same bits:
-    the partial minima are merged by lexicographic (d2, index)."""
+    the partial minima are merged by lexicographic (d2, index). Kernel E,
+    C's split kernel with a column copy after the merge, takes the same
+    split."""
     nt = m // TT_SPARSE
     pairs = b * s * (m_src // TS_SPARSE)
     c = 1
@@ -449,8 +451,10 @@ def nn_min_sparse_unrolled(src, src_bounds, tar, tar_bounds, valid, radius):
 
 def nn_min_sparse_attrs(src, src_bounds, tar, tar_bounds, valid, attrs_t,
                         radius):
-    """`nn_min_sparse` plus the winner's attribute column (kernel E on CUDA,
-    `nn_min_sparse_attrs_plain` on the CPU). attrs_t (B, S, D_pad, M) is
+    """`nn_min_sparse` plus the winner's attribute column (kernel E on CUDA:
+    kernel C's split kernel, over the same `sparse_split` CTAs per keyframe
+    and source tile, with the column copied by the thread that writes a
+    row; `nn_min_sparse_attrs_plain` on the CPU). attrs_t (B, S, D_pad, M) is
     the transposed world-attribute matrix, D_pad a multiple of 8. Returns
     (nn, d2, g (B, S, D_pad, Msrc)) with g[..., :, n] = attrs_t[..., :,
     nn[n]] where d2 is finite and zeros where it is +inf."""
@@ -468,6 +472,7 @@ def nn_min_sparse_attrs(src, src_bounds, tar, tar_bounds, valid, attrs_t,
     if dev.type == "cpu":
         return nn_min_sparse_attrs_plain(src, src_bounds, tar, tar_bounds,
                                          valid, attrs_t, radius)
+    _check_aligned("nn_min_sparse_attrs", src, tar)
     m_src = src.shape[1]
     nn, d2 = _nn_out(valid, m_src, dev)
     g = torch.empty((b, s, d_pad, m_src), dtype=torch.float32, device=dev)
@@ -475,6 +480,7 @@ def nn_min_sparse_attrs(src, src_bounds, tar, tar_bounds, valid, attrs_t,
         _launch("nn_min_sparse_attrs", "cfear_nn_min_sparse_attrs", dev,
                 src.data_ptr(), src_bounds.data_ptr(), tar.data_ptr(),
                 tar_bounds.data_ptr(), valid.data_ptr(), attrs_t.data_ptr(),
-                radius.data_ptr(), b, s, m_src, m, d_pad, nn.data_ptr(),
-                d2.data_ptr(), g.data_ptr())
+                radius.data_ptr(), b, s, m_src, m, d_pad,
+                sparse_split(b, s, m_src, m), nn.data_ptr(), d2.data_ptr(),
+                g.data_ptr())
     return nn, d2, g

@@ -8,7 +8,9 @@ the 1-NN kernels A and C (A also at every main-path shape of `A_SHAPES`
 and a ragged one, C at every main-path shape of `C_SHAPES`; two launches
 bit-identical and a B=1 call equal to its lane of a batched call), D1 and
 D2 at every shape of `C_SHAPES` in the same way and bit for bit against C,
-timed beside C and the issue-slot floor of their inner loop (`sass_loop`), B1
+timed beside C and the issue-slot floor of their inner loop (`sass_loop`),
+E there too (D_pad 8, and 16 at `E_WIDE`; its (nn, d2) bit for bit against
+C's, g against its twin's), timed beside C and C + the flat gather, B1
 and B2 at every shape of `A_SHAPES` they take, in the same way against A, the
 fused LM solve F (both variants, three cost /
 loss pairs at S=4, and every width the main paths give it, `LM_SHAPES`: the
@@ -313,6 +315,15 @@ C_SHAPES = ((1, 4, 1024, 1024), (8, 4, 1024, 1024), (1, 50, 1024, 1024),
 # every shape of C_SHAPES; tools/compare_torch_kernels.py times two trees'.
 D_FUNCTIONS = {"nn_min_sparse_multi": "nn_min_sparse_walk_kernelILi0EE",
                "nn_min_sparse_unrolled": "nn_min_sparse_walk_kernelILi2EE"}
+# Kernels C and E are the two instances of one template,
+# `nn_min_sparse_split_kernel<kAttrs>` (C false; E true: C's kernel and then
+# the winner's attribute column copied): the functions whose inner loop
+# (`sass_loop`) sets their issue-slot floor. `phase_e_shapes` holds E
+# against C at every shape of C_SHAPES with D_pad 8, and at E_WIDE also
+# with 16; tools/compare_torch_kernels.py times two trees'.
+C_FUNCTION = "nn_min_sparse_split_kernelILb0EE"
+E_FUNCTION = "nn_min_sparse_split_kernelILb1EE"
+E_WIDE = (8, 4, 1024, 1024)
 # Kernels B1 and B2 are instances of one template, `nn_min_dense_walk_kernel
 # <kS>` (B1 kS = 0, B2 kS = S): the functions whose inner loop (`sass_loop`)
 # sets their issue-slot floor, B2's at S = 4 (both instances have the same
@@ -886,11 +897,78 @@ def phase_d_shapes(dev, card, c_recs):
     return res
 
 
+def e_inputs(dev, shape, d_pad=8, seed=5):
+    """Kernel E's arguments at a shape of C_SHAPES, in its argument order:
+    `c_inputs` and random attribute columns attrs_t (B, S, D_pad, M); and
+    the same columns as rows (B, S, M, D_pad), the flat gather's input."""
+    args = c_inputs(dev, *shape)
+    b, s, _, m = shape
+    at = torch.as_tensor(np.random.default_rng(seed).normal(
+        size=(b, s, d_pad, m)).astype(np.float32)).to(dev)
+    return (*args[:5], at, args[5]), at.transpose(-1, -2).contiguous()
+
+
+def phase_e_shapes(dev, card, c_recs):
+    """Kernel E at every shape of C_SHAPES with D_pad 8, and at E_WIDE also
+    with 16: its (nn, d2) bit-equal to kernel C's, g to its twin's, two
+    launches bit-identical, the first and last lane of a call equal to their
+    own B=1 calls (`_hold`); then timed beside C's time at the shape
+    (`c_recs`, `phase_c_shapes`' records of this run) and C + the flat
+    gather (`registration._gather_attrs`, what the main path runs), with
+    the issue-slot floor of its own loop at the executed share of tile
+    pairs. Returns {"sass": E's loop, "c_sass": C's, "by_shape":
+    {shape_key: record}}."""
+    res = {"sass": _loop(E_FUNCTION), "c_sass": _loop(C_FUNCTION),
+           "by_shape": {}}
+    for shape in C_SHAPES:
+        c = c_recs[shape_key(*shape)]
+        for d_pad in (8, 16) if shape == E_WIDE else (8,):
+            args, attrs = e_inputs(dev, shape, d_pad)
+            c_args = (*args[:5], args[6])
+            key = shape_key(*shape) + f" D_pad={d_pad}"
+            c_out = cuda_assoc.nn_min_sparse(*c_args)
+            (nn_e, d2_e, g_e), (_, d2_q, _) = _hold(
+                "E", key, cuda_assoc.nn_min_sparse_attrs,
+                cuda_assoc.nn_min_sparse_attrs_plain, args)
+            if not (torch.equal(nn_e, c_out[0])
+                    and torch.equal(d2_e, c_out[1])):
+                raise AssertionError(f"kernel E at {key}: (nn, d2) differ "
+                                     "from kernel C's")
+            fin = torch.isfinite(d2_q)
+            r = res["by_shape"][key] = {
+                "max_abs_err": float((d2_e[fin] - d2_q[fin]).abs().max()),
+                "split": cuda_assoc.sparse_split(*shape),
+                "ms": _cuda_ms(lambda: cuda_assoc.nn_min_sparse_attrs(*args),
+                               100),
+                "c_ms": c["ms"],
+                "c_gather_ms": _cuda_ms(lambda: registration._gather_attrs(
+                    attrs, cuda_assoc.nn_min_sparse(*c_args)[0]), 100,
+                    "C + gather"),
+                "floor_ms": issue_floor_ms(
+                    E_FUNCTION, float(np.prod(shape)) * c["live_pairs"]),
+                **nn_bound(args[0], args[2], args[4], c["live_pairs"],
+                           (args[1].numel() + args[3].numel()
+                            + args[5].numel() + g_e.numel()) * 4),
+                "live_pairs": c["live_pairs"]}
+            _say(f"kernel E {key}: (nn, d2) bit-equal to C, g to its twin, "
+                 f"repeat and lanes bit-identical; cluster {r['split']}; "
+                 f"kernel {r['ms']:.4f} ms ({r['ms'] / r['c_ms']:.2f}x C's "
+                 f"{r['c_ms']:.4f}; C + gather {r['c_gather_ms']:.4f}), "
+                 f"issue-slot floor {r['floor_ms']:.4f} ms, bound "
+                 f"{r['bound_ms']:.4f} ms ({card})")
+    _say(f"kernels C / E inner loop (cuobjdump -sass): "
+         f"{res['c_sass']['instructions']} / {res['sass']['instructions']} "
+         f"instructions, {res['c_sass']['slots_per_distance']:.3f} / "
+         f"{res['sass']['slots_per_distance']:.3f} issue slots a distance")
+    return res
+
+
 def phase_kernels(dev, card):
     """Kernels A and C against their plain twins at the slice's shapes,
     A at every shape of A_SHAPES (`phase_a_shapes`) and B1 and B2 there
     against A (`phase_b_shapes`), C at every shape of C_SHAPES
-    (`phase_c_shapes`), and D1 and D2 there against C (`phase_d_shapes`)."""
+    (`phase_c_shapes`), and D1, D2 (`phase_d_shapes`) and E
+    (`phase_e_shapes`) there against C."""
     b, s, m = BATCH, 4, 1024
     src, src_valid, tar, valid = _morton_cells(np.random.default_rng(0),
                                                b, s, m, dev)
@@ -967,6 +1045,8 @@ def phase_kernels(dev, card):
                             "by_shape": phase_c_shapes(dev, card)}
     res.update(phase_b_shapes(dev, card, res["nn_min"]["by_shape"]))
     res.update(phase_d_shapes(dev, card, res["nn_min_sparse"]["by_shape"]))
+    res["nn_min_sparse_attrs"] = phase_e_shapes(
+        dev, card, res["nn_min_sparse"]["by_shape"])
     _say(f"kernel A: nn equal, d2 bit-equal; kernel {res['nn_min']['ms']:.4f}"
          f" ms, plain {res['nn_min']['plain_ms']:.4f} ms, bound "
          f"{res['nn_min']['bound_ms']:.4f} ms, cdist + min {lib_ms:.4f} ms "
@@ -1605,7 +1685,8 @@ def phase_window(win, outs, r, card, name="s50 window"):
     its g equals its twin's and the flat gather (`_gather_attrs`) on every
     row within the radius and is zero on +inf rows and in the padding.
     Times by CUDA events: C, D1, D2, E, the gather, C + gather, and the
-    twins; D1's and D2's keyframe groups and issue-slot floor. Returns {B:
+    twins; D1's and D2's keyframe groups, C's and E's cluster size, and
+    the issue-slot floor of each. Returns {B:
     records of C, D1, D2 and E}; every check is bit for bit, so each
     max_abs_err is 0.0."""
     res = {}
@@ -1679,6 +1760,18 @@ def phase_window(win, outs, r, card, name="s50 window"):
             d[k].update(groups=cuda_assoc.walk_groups(*shape),
                         floor_ms=issue_floor_ms(
                             function, float(np.prod(shape)) * live))
+        for k, function in (("nn_min_sparse", C_FUNCTION),
+                            ("nn_min_sparse_attrs", E_FUNCTION)):
+            res[b][k].update(split=cuda_assoc.sparse_split(*shape),
+                             floor_ms=issue_floor_ms(
+                                 function, float(np.prod(shape)) * live))
+        res[b]["nn_min_sparse_attrs"].update(
+            c_ms=t["nn_min_sparse"], c_gather_ms=t["C + gather"])
+        e = res[b]["nn_min_sparse_attrs"]
+        _say(f"{name} B={b}: E {e['ms'] / e['c_ms']:.2f}x C, "
+             f"{e['ms'] / e['c_gather_ms']:.2f}x C + gather, cluster "
+             f"{e['split']}, issue-slot floor {e['floor_ms']:.4f} ms (C "
+             f"{res[b]['nn_min_sparse']['floor_ms']:.4f})")
         _say(f"{name} B={b}: D1 / D2 " + " / ".join(
             f"{t[k] / t['nn_min_sparse']:.2f}" for k in d) + "x C, "
              f"{d['nn_min_sparse_multi']['groups']} keyframe groups, "

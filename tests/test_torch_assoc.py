@@ -13,6 +13,7 @@ TPU kernel's and the CUDA kernel's form), and to within 1 ulp of the
 interpret-mode result: XLA's CPU backend contracts dx*dx + dy*dy into
 fma(dx, dx, dy*dy), one rounding fewer."""
 
+import functools
 import math
 import os
 import sys
@@ -274,14 +275,19 @@ def test_unrolled_rejects_other_budgets():
         ca.nn_min_sparse_attrs(*args[:5], torch.zeros(1, 3, 7, 1536), args[5])
 
 
-def _split_model(src, sb, tar, tb, valid, radius, split):
+def _split_model(src, sb, tar, tb, valid, radius, split, attrs_t=None):
     """Kernel C's split (csrc/nn_assoc.cu `nn_min_sparse_split_kernel`)
     in the twin's arithmetic: rank c of `split` takes target tiles [c nt /
     split, (c+1) nt / split); each slice of SPLIT_SLICE targets of a live
     tile is scanned in groups of SPLIT_GROUP, a row's best moving to a
     group's minimum only on a strict '<'; the winning group is rescanned
     for the first target at that distance; slices, then ranks, are merged
-    by lexicographic (d2, index). Invalid targets are (+inf, +inf)."""
+    by lexicographic (d2, index). Invalid targets are (+inf, +inf). With
+    attrs_t (B, S, D_pad, M), kernel E, the same kernel's other instance:
+    then its epilogue (`copy_column`) in the kernel's flat addressing, each
+    row's D_pad values read from attrs_t at bs D_pad M + k M + nn and
+    written to g at bs D_pad Msrc + k Msrc + row, zeros where d2 = +inf;
+    returns (nn, d2, g)."""
     b, s, m = valid.shape
     m_src, nt = src.shape[1], m // ca.TT_SPARSE
     inf = torch.tensor(float("inf"))
@@ -313,7 +319,16 @@ def _split_model(src, sb, tar, tb, valid, radius, split):
             take = (best < out_d) | ((best == out_d) & (idx < out_i))
             out_d = torch.where(take, best, out_d)
             out_i = torch.where(take, idx, out_i)
-    return out_i.to(torch.int32), out_d
+    if attrs_t is None:
+        return out_i.to(torch.int32), out_d
+    d_pad = attrs_t.shape[2]
+    bs = torch.arange(b * s).reshape(b, s, 1, 1)
+    k = torch.arange(d_pad).reshape(1, 1, d_pad, 1)
+    vals = attrs_t.reshape(-1)[bs * d_pad * m + k * m + out_i[:, :, None]]
+    vals = torch.where(torch.isinf(out_d)[:, :, None], 0.0, vals)
+    g = torch.full((b * s * d_pad * m_src,), float("nan"))
+    g[bs * d_pad * m_src + k * m_src + torch.arange(m_src)] = vals
+    return out_i.to(torch.int32), out_d, g.reshape(b, s, d_pad, m_src)
 
 
 @pytest.mark.parametrize("split", [1, 2, 4])
@@ -342,6 +357,84 @@ def test_split_merge_equals_twin_and_pallas(split):
     nn_r, d2_r = _ref_sparse(pa.nn_min_sparse, (src, tar, valid), radius)
     np.testing.assert_array_equal(nn_m[0].numpy(), nn_r)
     _assert_d2(d2_m[0].numpy(), d2_r, nn_r, src, tar)
+
+
+@functools.lru_cache(maxsize=None)
+def _attrs_split_case(d_pad):
+    """E's case for `test_split_attrs_epilogue_equals_twin_and_pallas`: S=4,
+    Msrc=512, M=2048 (four target tiles), radius 5, D = d_pad - 1
+    attribute rows with zeros, exact ties across a group, slice, tile and
+    rank boundary, an empty keyframe (2); and the reference kernel's (nn,
+    d2, g) in interpret mode, computed once a D_pad."""
+    radius, s, m = 5.0, 4, 2048
+    src, tar, valid = _sparse_case(seed=19, m=m)
+    for k, lo, hi, row in ((0, 15, 16, 40), (0, 127, 128, 41),
+                           (1, 511, 512, 42), (1, 1023, 1024, 43),
+                           (3, 1535, 1536, 44)):
+        tar[k, hi] = tar[k, lo]
+        valid[k, [lo, hi]] = True
+        src[row] = tar[k, lo]
+    attrs, at = _attrs_case(np.random.default_rng(d_pad), s, m, d_pad - 1,
+                            d_pad)
+    ref = _ref_sparse(pa.nn_min_sparse_attrs, (src, tar, valid), radius, at)
+    return (src, tar, valid), attrs, at, radius, ref
+
+
+@pytest.mark.parametrize("d_pad", [8, 16])
+@pytest.mark.parametrize("split", [1, 2, 4])
+def test_split_attrs_epilogue_equals_twin_and_pallas(split, d_pad):
+    """Kernel E on kernel C's split kernel, modelled on the CPU
+    (`_split_model` with attrs_t: the scan and merges of C, then the column
+    copy and zero fill in the kernel's addressing) at each cluster size of
+    four target tiles and both paddings: (nn, d2) equal to C's model and
+    E's twin, g equal to the twin's everywhere (every element written once)
+    and to the reference kernel's within the radius, the attribute rows of
+    the winner there, zeros on +inf rows."""
+    case, attrs, at, radius, (nn_r, d2_r, g_r) = _attrs_split_case(d_pad)
+    src, tar, _ = case
+    args = _lanes([case], radius)
+    at_t = torch.as_tensor(at)[None]
+    nn_m, d2_m, g_m = _split_model(*args, split, at_t)
+    nn_c, d2_c = _split_model(*args, split)
+    assert torch.equal(nn_m, nn_c) and torch.equal(d2_m, d2_c)
+    for got, want in zip((nn_m, d2_m, g_m),
+                         ca.nn_min_sparse_attrs_plain(*args[:5], at_t,
+                                                      args[5])):
+        assert torch.equal(got, want)
+    np.testing.assert_array_equal(nn_m[0].numpy(), nn_r)
+    _assert_d2(d2_m[0].numpy(), d2_r, nn_r, src, tar)
+    g = np.swapaxes(g_m[0].numpy(), -1, -2)                # (S, Msrc, D_pad)
+    within = d2_m[0].numpy() <= radius * radius
+    inf = np.isinf(d2_m[0].numpy())
+    assert within.any() and inf[2].all() and (g[inf] == 0).all()
+    np.testing.assert_array_equal(g[within], np.swapaxes(g_r, -1, -2)[within])
+    np.testing.assert_array_equal(
+        g[within][:, :d_pad - 1],
+        np.take_along_axis(attrs, nn_r[..., None], axis=1)[within])
+    for k, lo, row in ((0, 15, 40), (1, 511, 42), (3, 1535, 44)):
+        assert nn_m[0, k, row] == lo
+        np.testing.assert_array_equal(g[k, row], at[k, :, lo])
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 512, 1024), (2, 3, 512, 1024),
+                                   (1, 1, 256, 2048), (1, 1, 256, 4096)],
+                         ids=lambda x: chip_smoke.shape_key(*x))
+def test_kernel_e_takes_c_split_rule(shape):
+    """Kernel E's wrapper passes kernel C's `sparse_split`: at shapes where
+    it gives 2, 2, 4 and 8, E's model at that cluster size, on
+    `chip_smoke.c_inputs` with random attribute columns, equals E's twin
+    and C's model."""
+    split = ca.sparse_split(*shape)
+    assert split == {1024: 2, 2048: 4, 4096: 8}[shape[3]]
+    args = chip_smoke.c_inputs(torch.device("cpu"), *shape)
+    b, s, _, m = shape
+    at_t = torch.as_tensor(np.random.default_rng(7).normal(
+        size=(b, s, 8, m)).astype(np.float32))
+    nn_m, d2_m, g_m = _split_model(*args, split, at_t)
+    want = ca.nn_min_sparse_attrs_plain(*args[:5], at_t, args[5])
+    assert all(map(torch.equal, (nn_m, d2_m, g_m), want))
+    assert all(map(torch.equal, (nn_m, d2_m), _split_model(*args, split)))
+    assert torch.isfinite(d2_m).any()
 
 
 @pytest.mark.parametrize("radius", [2.0, 4.0])

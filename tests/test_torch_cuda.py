@@ -287,6 +287,56 @@ def test_kernel_c_refuses_a_split_it_cannot_take(dev, monkeypatch):
     assert ca.launches["nn_min_sparse"] == 0
 
 
+def _split_attrs(dev, args, d_pad=8, seed=13):
+    """Random attribute columns attrs_t (B, S, D_pad, M) for the keyframes
+    of `args` (a `_split_window`), a tenth of them zero."""
+    b, s, m = args[4].shape
+    rng = np.random.default_rng(seed)
+    at = rng.normal(size=(b, s, d_pad, m)).astype(np.float32)
+    at[rng.random(at.shape) < 0.1] = 0.0
+    return torch.as_tensor(at).to(dev)
+
+
+@pytest.mark.parametrize("split", [0, 1, 2, 4, 8])
+def test_kernel_e_ties_across_every_split(dev, monkeypatch, split):
+    """Kernel E with each cluster size forced (0: its one-block form), on
+    C's tie window: (nn, d2) bit-equal to kernel C's and the twin's, g to
+    the twin's, the tie winners' columns copied, zeros on the empty
+    keyframe; one launch of each."""
+    args, ties = _split_window(dev)
+    at = _split_attrs(dev, args)
+    monkeypatch.setattr(ca, "sparse_split", lambda *shape: split)
+    ca.reset_launches()
+    nn_e, d2_e, g_e = ca.nn_min_sparse_attrs(*args[:5], at, args[5])
+    nn_c, d2_c = ca.nn_min_sparse(*args)
+    nn_p, d2_p, g_p = ca.nn_min_sparse_attrs_plain(*args[:5], at, args[5])
+    torch.cuda.synchronize()
+    assert torch.equal(nn_c, nn_p) and torch.equal(d2_c, d2_p)
+    assert torch.equal(nn_e, nn_c) and torch.equal(d2_e, d2_c)
+    assert torch.equal(g_e, g_p)
+    for k, lo, row in ties:
+        assert (nn_e[0, k, row] == lo).item()
+        assert torch.equal(g_e[0, k, :, row], at[0, k, :, lo])
+    assert torch.isinf(d2_e[-1, 1]).all() and (g_e[-1, 1] == 0).all()
+    assert {k: v for k, v in ca.launches.items() if v} == {
+        "nn_min_sparse_attrs": 1, "nn_min_sparse": 1}
+
+
+def test_kernel_e_refuses_a_split_it_cannot_take(dev, monkeypatch):
+    """A cluster size kernel E does not take (3; 8 over two target tiles;
+    1 over more tiles than a CTA stages), as kernel C: a CUDA error, the
+    wrapper raises and counts nothing."""
+    ca.reset_launches()
+    for split, m in ((3, 4096), (8, 1024),
+                     (1, (ca.SPLIT_MAX_TILES + 1) * ca.TT_SPARSE)):
+        args, _ = _split_window(dev, m=m)
+        at = _split_attrs(dev, args)
+        monkeypatch.setattr(ca, "sparse_split", lambda *shape: split)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            ca.nn_min_sparse_attrs(*args[:5], at, args[5])
+    assert ca.launches["nn_min_sparse_attrs"] == 0
+
+
 def test_kernel_c_k16_window_and_lanes(dev):
     """The K16 case (S=50, keyframes 16-49 invalid, their tiles skipped):
     bit-equal to the twin; each lane of a B=8 call equals its B=1 call

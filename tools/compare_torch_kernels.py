@@ -9,6 +9,7 @@ one CUDA card, in turns inside one call.
     python tools/compare_torch_kernels.py --mode a-sweep [--out DIR]
     python tools/compare_torch_kernels.py --mode b-sweep [--out DIR]
     python tools/compare_torch_kernels.py --mode d-sweep [--out DIR]
+    python tools/compare_torch_kernels.py --mode e-sweep [--out DIR]
     python tools/compare_torch_kernels.py --mode by-kernel
 
 Each tree named (a checkout of the repo: `git archive <commit> | tar -x -C
@@ -34,7 +35,9 @@ and `_d_block` for D1 and D2 at every shape of `chip_smoke.C_SHAPES`, each
 held bit for bit against C, both with the SASS of whichever form the tree
 has (`chip_smoke.sass_loop`); `_e_block` for E at every shape of
 `chip_smoke.C_SHAPES` with 8 random attribute rows, held bit for bit
-against its twin.
+against its twin and its (nn, d2) against C's, with the SASS of
+whichever form the tree has (the split kernel's E instance, or the first
+form).
 The one timer here, `_call_ms`, times the same calls back to
 back: the slower of host and card, which is what a caller waits for. The
 table goes to stdout; with `--out DIR` the records also go to
@@ -57,6 +60,11 @@ A: the basis of `cuda_assoc.MULTI_MIN_CTAS`.
 of `D_SWEEP_GROUPS` up to S at every shape of `chip_smoke.C_SHAPES`, each
 held bit for bit against C, beside C: the basis of
 `cuda_assoc.WALK_MIN_CTAS`.
+`--mode e-sweep` times this tree's C and E at every cluster size they take
+(0, the first form, where a CTA of the first form holds every tile; 1, 2,
+4 and 8 up to the target tiles and within `SPLIT_MAX_TILES` tiles a CTA)
+at every shape of `chip_smoke.C_SHAPES`, each held bit for bit against
+the twin: whether C's rule, `cuda_assoc.sparse_split`, also serves E.
 `--mode by-kernel` traces this tree's wrappers
 with `torch.profiler` and prints the device time of each `__global__`
 function behind them (kernel G is two: fill and sum).
@@ -116,8 +124,11 @@ def _g_inputs(cs, dev):
     return images, inputs, one[0]
 
 
-# kernel C's __global__ functions: the split kernel and the one-block form
-C_FUNCTIONS = ("nn_min_sparse_split_kernel", "nn_min_sparse_kernel")
+# kernel C's __global__ functions: the split kernel (C's instance of the
+# template; in trees before E shared it, the plain function) and the
+# one-block form
+C_FUNCTIONS = ("nn_min_sparse_split_kernelILb0EE",
+               "nn_min_sparse_split_kernel", "nn_min_sparse_kernel")
 # kernel A's: the split kernel and, in trees before it, the first form
 A_FUNCTIONS = ("nn_min_dense_kernel", "nn_min_kernel")
 # kernels D1's and D2's (D2 at M = 1024): the walk kernel and, in trees
@@ -134,8 +145,9 @@ B_FUNCTIONS = {"B1": ("nn_min_dense_walk_kernelILi0EE",
                "B2": ("nn_min_dense_walk_kernelILi4EE",
                       "nn_min_multi_kernelILi4EE")}
 B_WRAPPERS = {"B1": "nn_min_multi", "B2": "nn_min_multi_unrolled"}
-# kernel E's
-E_FUNCTIONS = ("nn_min_sparse_attrs_kernel",)
+# kernel E's: the split kernel's E instance and the first form, which
+# runs at split 0 (and is all of E in trees before the split kernel took it)
+E_FUNCTIONS = ("nn_min_sparse_split_kernelILb1EE", "nn_min_sparse_attrs_kernel")
 # keyframe-group counts `--mode d-sweep` tries (those up to S)
 D_SWEEP_GROUPS = (1, 2, 4, 5, 8, 10, 13, 17, 25, 50)
 
@@ -160,7 +172,7 @@ def _c_block(cs, dev, lib_path) -> dict:
     the split kernel runs, the issue-slot floor from its SASS."""
     import torch
     from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
-    sass = _sass(cs, lib_path, C_FUNCTIONS[:1])
+    sass = _sass(cs, lib_path, C_FUNCTIONS[:2])
     lanes_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
                 * 128 * cs.max_sm_hz())
     split = getattr(cuda_assoc, "sparse_split", None)
@@ -258,23 +270,41 @@ def _e_inputs(cs, dev, shape):
 
 
 def _e_block(cs, dev, lib_path) -> dict:
-    """Kernel E at every shape of `chip_smoke.C_SHAPES`: bit for bit
-    against its twin, on the device and back to back."""
+    """Kernel E at every shape of `chip_smoke.C_SHAPES`: g bit for bit
+    against its twin and (nn, d2) against kernel C's, on the device and
+    back to back, with the cluster size and, where the tree runs the split
+    kernel's E instance, the issue-slot floor of its loop at the executed
+    share of tile pairs."""
     import torch
     from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
+    sass = _sass(cs, lib_path, E_FUNCTIONS)
+    split_form = bool(sass) and sass["function"] == E_FUNCTIONS[0]
+    lanes_hz = (torch.cuda.get_device_properties(dev).multi_processor_count
+                * 128 * cs.max_sm_hz())
     recs = {}
     for shape in cs.C_SHAPES:
         args = _e_inputs(cs, dev, shape)
         key = cs.shape_key(*shape)
         got = cuda_assoc.nn_min_sparse_attrs(*args)
         want = cuda_assoc.nn_min_sparse_attrs_plain(*args)
+        c_out = cuda_assoc.nn_min_sparse(*args[:5], args[6])
+        live = float(cuda_assoc.pair_live(args[1], args[3], args[6])
+                     .float().mean())
         torch.cuda.synchronize()
         if not all(map(torch.equal, got, want)):
             raise AssertionError(f"kernel E at {key} differs from its twin")
+        if not all(map(torch.equal, got[:2], c_out)):
+            raise AssertionError(f"kernel E at {key} differs from C")
         fn = cuda_assoc.nn_min_sparse_attrs
-        recs[key] = {"ms": cs._cuda_ms(lambda: fn(*args), 100),
-                     "call_ms": _call_ms(lambda: fn(*args), 100)}
-    return {"shapes": recs, "sass": _sass(cs, lib_path, E_FUNCTIONS)}
+        split = cuda_assoc.sparse_split(*shape) if split_form else 0
+        r = recs[key] = {"ms": cs._cuda_ms(lambda: fn(*args), 100),
+                         "call_ms": _call_ms(lambda: fn(*args), 100),
+                         "split": split, "live_pairs": live}
+        if split:
+            b, s, m_src, m = shape
+            r["floor_ms"] = (b * s * m_src * m * live
+                             * sass["slots_per_distance"] / lanes_hz * 1e3)
+    return {"shapes": recs, "sass": sass}
 
 
 def _d_block(cs, dev, lib_path) -> dict:
@@ -524,6 +554,48 @@ def d_sweep(out_dir) -> int:
     return 0
 
 
+def e_sweep(out_dir) -> int:
+    import torch
+    cs = _load(HERE)
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc
+    dev = torch.device("cuda", 0)
+    print(cs._card())
+    pick = cuda_assoc.sparse_split
+    out = {}
+    for shape in cs.C_SHAPES:
+        args = _e_inputs(cs, dev, shape)
+        c_args = (*args[:5], args[6])
+        want = cuda_assoc.nn_min_sparse_attrs_plain(*args)
+        key = cs.shape_key(*shape)
+        nt = shape[3] // cuda_assoc.TT_SPARSE
+        tries = [c for c in (0, 1, 2, 4, 8)
+                 if c == 0 or ((c == 1 or c <= nt)
+                               and -(-nt // c) <= cuda_assoc.SPLIT_MAX_TILES)]
+        out[key] = {"picked": pick(*shape), "C": {}, "E": {}}
+        for c in tries:
+            cuda_assoc.sparse_split = lambda *_, c=c: c
+            try:
+                got = cuda_assoc.nn_min_sparse_attrs(*args)
+                c_got = cuda_assoc.nn_min_sparse(*c_args)
+                same = (all(map(torch.equal, got, want))
+                        and all(map(torch.equal, c_got, want[:2])))
+                out[key]["E"][c] = (round(cs._cuda_ms(
+                    lambda: cuda_assoc.nn_min_sparse_attrs(*args), 100), 5),
+                    same)
+                out[key]["C"][c] = round(cs._cuda_ms(
+                    lambda: cuda_assoc.nn_min_sparse(*c_args), 100), 5)
+            finally:
+                cuda_assoc.sparse_split = pick
+        print(f"{key}: picked {out[key]['picked']}; E (ms, bit-equal to the "
+              f"twin and C) by cluster size {out[key]['E']}; C ms "
+              f"{out[key]['C']}", flush=True)
+    if out_dir:
+        with open(os.path.join(out_dir, "sweep_torch_e_splits.json"),
+                  "w") as f:
+            json.dump(out, f, indent=1)
+    return 0
+
+
 def by_kernel() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -579,7 +651,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="*", help="source trees, in running order")
     ap.add_argument("--mode", choices=("compare", "sweep", "a-sweep",
-                                       "b-sweep", "d-sweep", "by-kernel"),
+                                       "b-sweep", "d-sweep", "e-sweep",
+                                       "by-kernel"),
                     default="compare")
     ap.add_argument("--out", metavar="DIR", help="also write the records "
                     "and a log of the output there")
@@ -598,6 +671,8 @@ def main() -> int:
         return b_sweep(args.out)
     if args.mode == "d-sweep":
         return d_sweep(args.out)
+    if args.mode == "e-sweep":
+        return e_sweep(args.out)
     if args.mode == "by-kernel":
         return by_kernel()
     if not args.roots:
@@ -668,10 +743,13 @@ def main() -> int:
                 for k in B_WRAPPERS)
             + f"; A {b['a_ms']:.4f}; {b['split']}"
             for r in recs for b in (r["B"]["shapes"][key],)))
-    print("kernel E, ms (back-to-back calls | on the device):")
+    print("kernel E, ms (back-to-back calls | on the device | issue-slot "
+          "floor; split):")
     for key in recs[0]["E"]["shapes"]:
         print(f"  {key}: " + "; ".join(
-            f"{r['root']} {e['call_ms']:.4f} | {e['ms']:.4f}"
+            f"{r['root']} {e['call_ms']:.4f} | {e['ms']:.4f} | "
+            + (f"{e['floor_ms']:.4f}" if "floor_ms" in e else "-")
+            + f"; {e.get('split')}"
             for r in recs for e in (r["E"]["shapes"][key],)))
     if args.out:
         with open(os.path.join(args.out, "compare_torch_kernels.json"),
