@@ -136,9 +136,10 @@
 // B2 differs from B1 only in what the compiler knows: S a template argument
 // (the list `UNROLLED_S` in ops/cuda_assoc.py: 1, the reverse problem of
 // the health check, and 4, CFEAR-3's window) and the keyframe loop
-// unrolled. Their loop is A's, 410 SASS instructions, 6.41 a distance; B1
-// takes 64 registers, B2 at S=4 102 (the unrolled walk), and 46 KB of
-// shared memory a CTA. Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// unrolled; B2 at any other S launches the runtime-count instance, B1's,
+// which gives the same bits. Their loop is A's, 410 SASS instructions,
+// 6.41 a distance; B1 takes 64 registers, B2 at S=4 102 (the unrolled
+// walk), and 46 KB of shared memory a CTA. Measured on an NVIDIA H100 80GB HBM3 at 700 W
 // (chip_smoke.py, CUDA events), first form -> this one, B1 / B2: 0.2798 /
 // 0.2862 -> 0.0389 / 0.0376 ms at the long-run window's B=8, S=4, M=2048
 // (A 0.0387), 0.0714 / 0.0753 -> 0.0150 / 0.0154 at its B=8, S=1 (A
@@ -178,7 +179,8 @@
 //    rescanned in the pass where its best moved, so D1 takes any M.
 // D2 differs from D1 only in what the compiler knows: M a template
 // argument (the budgets of `UNROLLED_M`) and the pass loop unrolled by 2,
-// so each step's stage is a constant.
+// so each step's stage is a constant; D2 at any other M launches the
+// runtime-count instance, D1's, which gives the same bits.
 // Their loop is C's: 6.41 (D1) and 6.44 (D2) SASS instructions a distance,
 // 77 and 64 registers. What decides their time is how many CTAs an SM
 // holds and how evenly keyframes fall on SMs, not the walk: at B=8, S=50,
@@ -995,8 +997,10 @@ __global__ void __launch_bounds__(kThreadsC) nn_min_sparse_walk_kernel(
 // targets; a two-stage ring takes the next pass by cp.async while the
 // current one is scanned with A's scan. B1 is kS = 0 (S read at runtime),
 // B2 kS > 0 (S = kS known at compile time, the keyframe loop unrolled).
-// M % 4 == 0, tar 16-byte and valid 4-byte aligned (the entry and the
-// wrapper check).
+// tar 16-byte and valid 4-byte aligned (the wrapper checks). Where M % 4
+// != 0 a lane's rows are not 16-byte aligned, and each thread loads its
+// units element by element instead of by cp.async (the same staged
+// values, without the overlap).
 constexpr int kCopyUnit = 4;   // targets a thread copies at a time
 static_assert(kDenseChunk % kCopyUnit == 0,
               "kernels B1/B2 copy whole units of 4 targets a chunk");
@@ -1034,7 +1038,10 @@ __global__ void __launch_bounds__(kDenseThreads) nn_min_dense_walk_kernel(
 
   // Pass p of keyframe s into stage k: thread u copies units u, u +
   // kDenseThreads, ... of 4 targets (two 16-byte copies) and their 4 valid
-  // bytes; units past M (the padded tail) are left to `fix`.
+  // bytes, or, where M % 4 != 0, loads the unit's targets below M one by
+  // one and packs their valid bytes; units past M (the padded tail) are
+  // left to `fix`.
+  const bool aligned = M % kCopyUnit == 0;
   auto copy = [&](int s, int p, int k) {
     const int base = lo + p * kDenseStage;
     const int n = min(kDenseStage, hi - base);
@@ -1044,9 +1051,18 @@ __global__ void __launch_bounds__(kDenseThreads) nn_min_dense_walk_kernel(
       const int g = base + u * kCopyUnit;
       if (g < M) {
         const size_t o = bs * M + g;
-        cp_async16(st + u * kCopyUnit, t2 + o);
-        cp_async16(st + u * kCopyUnit + 2, t2 + o + 2);
-        cp_async4(&vring[k][u], valid + o);
+        if (aligned) {
+          cp_async16(st + u * kCopyUnit, t2 + o);
+          cp_async16(st + u * kCopyUnit + 2, t2 + o + 2);
+          cp_async4(&vring[k][u], valid + o);
+        } else {
+          unsigned v4 = 0u;
+          for (int b = 0; b < kCopyUnit && g + b < M; ++b) {
+            st[u * kCopyUnit + b] = t2[o + b];
+            v4 |= static_cast<unsigned>(valid[o + b] != 0) << (8 * b);
+          }
+          vring[k][u] = v4;
+        }
       }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -1128,13 +1144,13 @@ struct DenseWalkArgs {
 
 // Launch B1 (kS = 0) or B2 for kS keyframes; returns the CUDA error,
 // cudaErrorInvalidValue without launching for a group count outside [1,
-// S], a cluster size other than 1, 2, 4 or 8, one above 1 with G != S or
-// above the keyframe's chunks, or M % 4 != 0.
+// S], a cluster size other than 1, 2, 4 or 8, or one above 1 with G != S
+// or above the keyframe's chunks.
 template <int kS>
 int launch_dense_walk(const DenseWalkArgs& a) {
   const int nc = (a.M + kDenseChunk - 1) / kDenseChunk;
   if (a.G < 1 || a.G > a.S || (a.C != 1 && a.C != 2 && a.C != 4 && a.C != 8) ||
-      (a.C > 1 && (a.G != a.S || a.C > nc)) || a.M % kCopyUnit)
+      (a.C > 1 && (a.G != a.S || a.C > nc)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(a.C * a.B * a.G, (a.Msrc + kDenseTile - 1) / kDenseTile);
@@ -1155,11 +1171,12 @@ int launch_dense_walk(const DenseWalkArgs& a) {
 }
 
 // B2 for whichever keyframe count in CFEAR_UNROLLED_S_MASK, from kS down
-// to 1, equals S; cudaErrorInvalidValue, without launching, when none does.
+// to 1, equals S; when none does, the runtime-count instance (B1's: the
+// same scan, the same bits).
 template <int kS>
 int launch_dense_unrolled(const DenseWalkArgs& a) {
   if constexpr (kS == 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dense_walk<0>(a);
   } else {
     if constexpr (((CFEAR_UNROLLED_S_MASK) >> kS) & 1) {
       if (a.S == kS) return launch_dense_walk<kS>(a);
@@ -1279,11 +1296,12 @@ int launch_split(const SplitArgs& a) {
 }
 
 // D2 for whichever tile count in CFEAR_UNROLLED_MASK, from kNT down to 1,
-// matches M; cudaErrorInvalidValue, without launching, when none does.
+// matches M; when none does, the runtime-count instance (D1's: the same
+// scan, the same bits).
 template <int kNT>
 int launch_unrolled(const WalkArgs& a) {
   if constexpr (kNT == 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch_walk<0>(a);
   } else {
     if constexpr (((CFEAR_UNROLLED_MASK) >> kNT) & 1) {
       if (a.M == kNT * kTileT) return launch_walk<kNT>(a);
@@ -1330,9 +1348,9 @@ int cfear_nn_min(const float* src, const float* tar, const unsigned char* valid,
 // keyframes are cut into (1 to S) and `split` the cluster size (1, 2, 4 or
 // 8 CTAs per keyframe and source tile, above 1 only with groups = S and at
 // most ceil(M / kDenseChunk)); ops/cuda_assoc.py:multi_split picks both
-// from the shape. Any other value, or M % 4 != 0, returns
-// cudaErrorInvalidValue without launching. src 8-byte, tar 16-byte and
-// valid 4-byte aligned (the wrapper checks). Any Msrc.
+// from the shape. Any other value returns cudaErrorInvalidValue without
+// launching. src 8-byte, tar 16-byte and valid 4-byte aligned (the wrapper
+// checks). Any Msrc and M.
 int cfear_nn_min_multi(const float* src, const float* tar,
                        const unsigned char* valid, int B, int S, int Msrc,
                        int M, int groups, int split, int* nn, float* d2,
@@ -1341,9 +1359,8 @@ int cfear_nn_min_multi(const float* src, const float* tar,
                                nn, d2, static_cast<cudaStream_t>(stream)});
 }
 
-// S must also be one of the keyframe counts B2 is built for
-// (CFEAR_UNROLLED_S_MASK; the wrapper checks); any other S returns
-// cudaErrorInvalidValue without launching.
+// B2: S one of the keyframe counts it is built for (CFEAR_UNROLLED_S_MASK)
+// launches that instance, any other S the runtime-count one.
 int cfear_nn_min_multi_unrolled(const float* src, const float* tar,
                                 const unsigned char* valid, int B, int S,
                                 int Msrc, int M, int groups, int split,
@@ -1390,9 +1407,8 @@ int cfear_nn_min_sparse_multi(const float* src, const float* src_bounds,
                          static_cast<cudaStream_t>(stream)});
 }
 
-// M must also be one of the budgets D2 is built for (CFEAR_UNROLLED_MASK;
-// the wrapper checks); any other M returns cudaErrorInvalidValue without
-// launching.
+// D2: M one of the budgets it is built for (CFEAR_UNROLLED_MASK) launches
+// that instance, any other M % 512 == 0 the runtime-count one.
 int cfear_nn_min_sparse_unrolled(const float* src, const float* src_bounds,
                                  const float* tar, const float* tar_bounds,
                                  const unsigned char* valid, const float* radius,

@@ -11,10 +11,12 @@ per source, all started together:
          -DCFEAR_DENSE_SLICE=64 -DCFEAR_DENSE_GROUP=16
          -DCFEAR_DENSE_STAGE=2048 -c
 
-(the first define is the set of target tile counts kernel D2 is
-instantiated for, bit n for n tiles, made from `cuda_assoc.UNROLLED_M`:
+(the first define is the set of target tile counts kernel D2 has a
+static instance for, bit n for n tiles, made from `cuda_assoc.UNROLLED_M`:
 512, 1024, 2048, 3072 -> 1, 2, 4, 6; the second the keyframe counts of
-kernel B2, bit n for S = n, from `cuda_assoc.UNROLLED_S`: 1, 4; the next
+kernel B2's static instances, bit n for S = n, from
+`cuda_assoc.UNROLLED_S`: 1, 4; any other count runs the template's
+runtime-count instance, the same scan; the next
 three kernel C's split, `cuda_assoc.SPLIT_SLICE`, `SPLIT_GROUP` and
 `SPLIT_MAX_TILES`, which kernels D1 and D2 share; the last six kernel A's,
 `cuda_assoc.DENSE_TILE`, `DENSE_ROWS`, `DENSE_CHUNK`, `DENSE_SLICE`,

@@ -29,11 +29,13 @@ import torch
 TS_SPARSE = 256      # source rows per skip-test granule (kernels C, D1, D2, E)
 TT_SPARSE = 512      # target rows per skip-test granule
 _TS = 256            # cell-budget granule of the dense kernel's policy
-# target budgets kernel D2 is built for: the one list, which `_build` passes
-# to nvcc as the template instances (M / TT_SPARSE tiles each, at most 30)
+# target budgets kernel D2 has a static instance for: the one list, which
+# `_build` passes to nvcc as the template instances (M / TT_SPARSE tiles
+# each, at most 30); any other M runs the runtime-count instance
 UNROLLED_M = (512, 1024, 2048, 3072)
-# keyframe counts kernel B2 is built for, the one list (`_build` passes it
-# to nvcc): 1 is the health check's reverse problem, 4 CFEAR-3's window
+# keyframe counts kernel B2 has a static instance for, the one list
+# (`_build` passes it to nvcc): 1 is the health check's reverse problem, 4
+# CFEAR-3's window; any other S runs the runtime-count instance
 UNROLLED_S = (1, 4)
 # Kernel C's split (`_build` passes these to nvcc): each 512-row target
 # tile is scanned in slices of SPLIT_SLICE targets by slices of threads, a
@@ -97,13 +99,15 @@ def supported(m: int) -> bool:
 def ts_multi(m: int) -> int:
     """The reference's `_ts_multi`, its B1/B2 source tile: 512 rows up to
     M = 2048, else 256. The port keeps it for the reference's refusal
-    (`supported_multi`); its kernels take any Msrc."""
+    (Msrc % ts_multi(M), which B1 and B2 share); its kernels take any
+    Msrc."""
     return 512 if m <= 2048 else 256
 
 
 def supported_multi(m_src: int, m_tar: int) -> bool:
     """The reference's `supported_multi`: the source tiles evenly and the
-    target budget is a multiple of 128."""
+    target budget is a multiple of 128. Its B1 and B2 refuse only the
+    first (`m_src % ts_multi(m_tar)`), and so do the port's."""
     return m_src % ts_multi(m_tar) == 0 and m_tar % 128 == 0
 
 
@@ -343,16 +347,14 @@ def nn_min(src, tar, valid):
 
 
 def _multi(name, entry, src, tar, valid):
-    """Check the shapes kernels B1 and B2 take, then run `nn_min_plain` on
-    the CPU or launch `entry` on CUDA."""
+    """Refuse what the reference's B1 and B2 refuse (Msrc % ts_multi(M)),
+    then run `nn_min_plain` on the CPU or launch `entry` on CUDA."""
     dev = _check(name, src=src, tar=tar, valid=valid)
     _check_shapes(name, src, tar, valid)
     b, s, m = valid.shape
     m_src = src.shape[1]
-    if not supported_multi(m_src, m):
-        raise ValueError(
-            f"{name}: m_src={m_src} % {ts_multi(m)} and m_tar={m} % 128 "
-            "must both be 0")
+    if m_src % ts_multi(m):
+        raise ValueError(f"{name}: m_src={m_src} % {ts_multi(m)} must be 0")
     if dev.type == "cpu":
         return nn_min_plain(src, tar, valid)
     _check_aligned(name, src, tar, valid)
@@ -368,20 +370,17 @@ def nn_min_multi(src, tar, valid):
     """`nn_min` with the keyframe loop inside the kernel (kernel B1 on
     CUDA: one CTA per (lane, group of keyframes, source tile, cluster rank)
     from `multi_split` walks its keyframes with kernel A's scan;
-    `nn_min_plain` on the CPU). Identical outputs. Shapes the reference
-    refuses (`supported_multi`) raise ValueError."""
+    `nn_min_plain` on the CPU). Identical outputs; any S and M. Shapes the
+    reference refuses (Msrc % ts_multi(M)) raise ValueError."""
     return _multi("nn_min_multi", "cfear_nn_min_multi", src, tar, valid)
 
 
 def nn_min_multi_unrolled(src, tar, valid):
     """`nn_min_multi` with the keyframe loop unrolled at compile time
-    (kernel B2 on CUDA, built for the keyframe counts `UNROLLED_S`;
-    `nn_min_plain` on the CPU). Identical outputs. Any other S, and the
-    shapes `nn_min_multi` refuses, raise ValueError."""
-    s = valid.shape[1] if valid.dim() == 3 else None
-    if s not in UNROLLED_S:
-        raise ValueError(f"nn_min_multi_unrolled: S={s} is not a keyframe "
-                         f"count the kernel is built for {UNROLLED_S}")
+    (kernel B2 on CUDA: the static instance for S in `UNROLLED_S`, the
+    runtime-count instance for any other S, the same bits, counted as B2's
+    launch; `nn_min_plain` on the CPU). Identical outputs. The shapes
+    `nn_min_multi` refuses raise ValueError."""
     return _multi("nn_min_multi_unrolled", "cfear_nn_min_multi_unrolled",
                   src, tar, valid)
 
@@ -435,15 +434,12 @@ def nn_min_sparse_multi(src, src_bounds, tar, tar_bounds, valid, radius):
 
 def nn_min_sparse_unrolled(src, src_bounds, tar, tar_bounds, valid, radius):
     """`nn_min_sparse_multi` with M known at compile time (kernel D2 on
-    CUDA, built for the target budgets `UNROLLED_M`; `nn_min_sparse_plain`
-    on the CPU). Identical outputs. Any other M raises ValueError."""
+    CUDA: the static instance for M in `UNROLLED_M`, the runtime-count
+    instance for any other M, the same bits, counted as D2's launch;
+    `nn_min_sparse_plain` on the CPU). Identical outputs; any M % 512 ==
+    0, as the reference's D2."""
     args = (src, src_bounds, tar, tar_bounds, valid, radius)
-    dev = _check_sparse("nn_min_sparse_unrolled", *args)
-    m = valid.shape[2]
-    if m not in UNROLLED_M:
-        raise ValueError(f"nn_min_sparse_unrolled: M={m} is not a target "
-                         f"budget the kernel is built for {UNROLLED_M}")
-    if dev.type == "cpu":
+    if _check_sparse("nn_min_sparse_unrolled", *args).type == "cpu":
         return nn_min_sparse_plain(*args)
     return _walk("nn_min_sparse_unrolled", "cfear_nn_min_sparse_unrolled",
                  *args)

@@ -263,14 +263,33 @@ def test_attrs_twin_matches_pallas():
 
 
 def test_unrolled_rejects_other_budgets():
+    """D2 refuses what the reference's D2 refuses (Msrc % 256, M % 512) and
+    nothing else: at M = 1536, a budget without a static instance on the
+    card, it answers as D1 and C's twin; E still refuses a D_pad that is
+    not a multiple of 8."""
     src, tar, valid = _sparse_case(s=3)
     tar = np.concatenate([tar, tar[:, :512]], 1)            # M = 1536
     valid = np.concatenate([valid, valid[:, :512]], 1)
     args = _lanes([(src, tar, valid)], 4.0)
-    assert ca.supported_sparse(512, 1536)
-    ca.nn_min_sparse_multi(*args)                           # D1 takes any M
-    with pytest.raises(ValueError, match="512, 1024, 2048, 3072"):
-        ca.nn_min_sparse_unrolled(*args)
+    assert ca.supported_sparse(512, 1536) and 1536 not in ca.UNROLLED_M
+    nn_1, d2_1 = ca.nn_min_sparse_multi(*args)
+    nn_2, d2_2 = ca.nn_min_sparse_unrolled(*args)
+    nn_c, d2_c = ca.nn_min_sparse_plain(*args)
+    assert torch.equal(nn_2, nn_1) and torch.equal(d2_2, d2_1)
+    assert torch.equal(nn_2, nn_c) and torch.equal(d2_2, d2_c)
+    with pytest.raises(ValueError, match="% 512"):          # M % 512
+        ca.nn_min_sparse_unrolled(*args[:2], args[2][:, :, :1000].contiguous(),
+                                  args[3], args[4][:, :, :1000].contiguous(),
+                                  args[5])
+    with pytest.raises(ValueError, match="% 256"):          # Msrc % 256
+        ca.nn_min_sparse_unrolled(args[0][:, :300].contiguous(),
+                                  args[1][:, :1], *args[2:])
+    sb = pa.tile_bounds(jnp.asarray(src), jnp.ones(512, bool), 256)
+    tb = pa.tile_bounds(jnp.asarray(tar), jnp.asarray(valid), 512)
+    with pytest.raises(ValueError):                         # the reference
+        pa.nn_min_sparse_unrolled(jnp.asarray(src[:300]), sb,
+                                  jnp.asarray(tar), tb, jnp.asarray(valid),
+                                  4.0, interpret=True)
     with pytest.raises(ValueError, match="D_pad"):
         ca.nn_min_sparse_attrs(*args[:5], torch.zeros(1, 3, 7, 1536), args[5])
 
@@ -462,7 +481,7 @@ def test_sparse_split_follows_the_shape():
     want = {(1, 4, 1024, 1024): 2, (8, 4, 1024, 1024): 1,
             (1, 50, 1024, 1024): 1, (8, 50, 1024, 1024): 1,
             (1, 50, 3072, 3072): 1, (8, 4, 512, 1024): 2,
-            (1, 1, 256, 4096): 8, (1, 1, 256, 512): 1,
+            (1, 4, 1024, 4096): 8, (1, 1, 256, 4096): 8, (1, 1, 256, 512): 1,
             (1, 1, 256, 8 * ca.SPLIT_MAX_TILES * 512): 8,
             (1, 1, 256, (8 * ca.SPLIT_MAX_TILES + 1) * 512): 0}
     for shape, c in want.items():
@@ -623,6 +642,7 @@ def test_walk_groups_follows_the_shape():
             (8, 1, 1024, 1024): 1, (1, 1, 256, 512): 1,
             (1, 4, 1024, 1024): 4, (8, 4, 1024, 1024): 4,
             (8, 4, 512, 1024): 4, (256, 4, 1024, 1024): 1,
+            (1, 4, 1024, 4096): 4,
             (16, 50, 1024, 1024): 13, (64, 50, 1024, 1024): 4}
     for shape, groups in want.items():
         assert ca.walk_groups(*shape) == groups, shape
@@ -771,6 +791,9 @@ def test_dense_split_follows_the_shape():
             (27, 4, 2048, 2048): 1, (512, 1, 1024, 1024): 1,
             (256, 1, 1024, 1024): 1, (1, 4, 3072, 3072): 8,
             (3, 2, 1000, 1500): 4,
+            (1, 1, 1024, 1024): 4, (1, 2, 1024, 1024): 4,
+            (1, 3, 1024, 1024): 4, (1, 4, 1024, 1024): 4,
+            (1, 8, 1024, 1024): 4, (3, 2, 1024, 1500): 4,
             (1, 1, 256, 256): 1, (1, 1, 256, 257): 2, (1, 1, 256, 100): 1,
             (1, 1, 1, 10 ** 6): 8, (64, 1, 2048, 10 ** 6): 1}
     assert set(chip_smoke.A_SHAPES) <= set(want)
@@ -888,6 +911,10 @@ def test_dense_multi_keyframe_twins_match_pallas(s, m):
 
 
 def test_dense_multi_keyframe_wrappers_refuse_what_the_reference_refuses():
+    """B1 and B2 refuse what the reference's B1 and B2 refuse, Msrc %
+    ts_multi(M), and nothing else: M = 500 (not a multiple of 128, which
+    `supported_multi` would ask for) and S = 2 (no static instance of B2
+    on the card) answer as the reference's kernels and A's twin."""
     src, tar, valid = _t(*_dense_case(s=4))                 # M = 512
     with pytest.raises(ValueError):                         # the reference
         pa.nn_min_multi(jnp.asarray(src[0, :256]), jnp.asarray(tar[0]),
@@ -895,17 +922,20 @@ def test_dense_multi_keyframe_wrappers_refuse_what_the_reference_refuses():
     for fn in (ca.nn_min_multi, ca.nn_min_multi_unrolled):
         with pytest.raises(ValueError, match="% 512"):
             fn(src[:, :256].contiguous(), tar, valid)
-        with pytest.raises(ValueError, match="% 128"):      # supported_multi
-            fn(src, tar[:, :, :500].contiguous(),
-               valid[:, :, :500].contiguous())
     assert ca.supported_multi(512, 2048) and ca.supported_multi(256, 2560)
     assert not ca.supported_multi(256, 2048)
     assert not ca.supported_multi(512, 1000)
     assert pa.supported_multi(512, 2048) and not pa.supported_multi(512, 1000)
-    with pytest.raises(ValueError, match=r"\(1, 4\)"):
-        ca.nn_min_multi_unrolled(src[:, :, :0], tar[:, :2].contiguous(),
-                                 valid[:, :2].contiguous())
-    ca.nn_min_multi(src, tar[:, :2].contiguous(), valid[:, :2].contiguous())
+    for cut in (tar[:, :, :500], tar[:, :2]):
+        case = (src, cut.contiguous(), valid[:, :cut.shape[1], :cut.shape[2]]
+                .contiguous())
+        nn_a, d2_a = ca.nn_min_plain(*case)
+        for name, lanes in _ref_multi([a.numpy() for a in case]).items():
+            nn_t, d2_t = getattr(ca, name)(*case)
+            assert torch.equal(nn_t, nn_a) and torch.equal(d2_t, d2_a), name
+            np.testing.assert_array_equal(nn_t[0].numpy(), lanes[0][0], name)
+            _assert_d2(d2_t[0].numpy(), lanes[0][1], lanes[0][0],
+                       case[0][0].numpy(), case[1][0].numpy())
 
 
 def _dense_walk_model(src, tar, valid, groups, split, stage=None):
@@ -1046,6 +1076,9 @@ def test_multi_split_follows_the_shape():
             (27, 4, 2048, 2048): (4, 1), (512, 1, 1024, 1024): (1, 1),
             (256, 1, 1024, 1024): (1, 1), (1, 4, 3072, 3072): (4, 4),
             (3, 2, 1000, 1500): (2, 4),
+            (1, 1, 1024, 1024): (1, 4), (1, 2, 1024, 1024): (2, 4),
+            (1, 3, 1024, 1024): (3, 4), (1, 4, 1024, 1024): (4, 4),
+            (1, 8, 1024, 1024): (8, 4), (3, 2, 1024, 1500): (2, 4),
             (8, 1, 2048, 2048): (1, 2),       # the long-run window's S=1 B=8
             (2, 3, 512, 1152): (3, 4), (1, 1, 256, 128): (1, 1),
             (64, 16, 1024, 1024): (4, 1), (4, 16, 1024, 1024): (16, 1)}
@@ -1068,3 +1101,78 @@ def test_multi_split_follows_the_shape():
             walked = [k for g in range(groups)
                       for k in range(g * s // groups, (g + 1) * s // groups)]
             assert walked == list(range(s)), (s, groups)
+
+
+def _variants_case():
+    """tests/test_registration.py:test_nn_kernel_variants_match's input
+    exactly (seed 3, S=3, M=Msrc=512: a tie, an empty keyframe), and its
+    numpy argmin."""
+    rng = np.random.default_rng(3)
+    s, m = 3, 512
+    src = rng.normal(size=(m, 2)).astype(np.float32) * 40
+    tar = rng.normal(size=(s, m, 2)).astype(np.float32) * 40
+    tar[1, 10] = tar[1, 20]
+    src[5] = tar[1, 10]
+    valid = rng.random((s, m)) < 0.8
+    valid[2] = False
+    d2 = np.sum((src[None, :, None, :] - tar[:, None, :, :]) ** 2, -1)
+    d2 = np.where(valid[:, None, :], d2, np.inf)
+    return (src, tar, valid), np.argmin(d2, axis=2)
+
+
+@pytest.mark.parametrize("s,m", [(3, 512), (2, 1024), (3, 1500), (16, 1536),
+                                 (50, 512), (2, 1001)])
+def test_b2_takes_every_shape_the_reference_takes(s, m):
+    """Kernel B2 (`nn_min_multi_unrolled`) at keyframe counts without a
+    static instance on the card (S = 2, 3, 16, 50; `UNROLLED_S` is 1, 4)
+    and target budgets that are not a multiple of 128 (1,500, A's ragged
+    budget) or of 4 (1,001): equal to B1, A's twin and the reference's B2
+    in interpret mode (nn exact, d2 within 1 ulp). (3, 512) is the exact
+    input of tests/test_registration.py:test_nn_kernel_variants_match,
+    held to its numpy argmin as well."""
+    if (s, m) == (3, 512):
+        case, want_nn = _variants_case()
+    else:
+        src, tar, valid = _dense_case(seed=40 + s, s=max(s, 3), m=m)
+        case, want_nn = (src[:512], tar[:s].copy(), valid[:s].copy()), None
+    assert s not in ca.UNROLLED_S and case[0].shape[0] % ca.ts_multi(m) == 0
+    args = _t(*case)
+    nn_2, d2_2 = ca.nn_min_multi_unrolled(*args)
+    nn_1, d2_1 = ca.nn_min_multi(*args)
+    nn_a, d2_a = ca.nn_min_plain(*args)
+    assert torch.equal(nn_2, nn_1) and torch.equal(d2_2, d2_1)
+    assert torch.equal(nn_2, nn_a) and torch.equal(d2_2, d2_a)
+    nn_r, d2_r = _ref_multi([a[None] for a in case],
+                            ("nn_min_multi_unrolled",))[
+        "nn_min_multi_unrolled"][0]
+    np.testing.assert_array_equal(nn_2[0].numpy(), nn_r)
+    _assert_d2(d2_2[0].numpy(), d2_r, nn_r, case[0], case[1])
+    if want_nn is not None:
+        np.testing.assert_array_equal(nn_2[0].numpy(), want_nn)
+        assert nn_2[0, 1, 5] == 10 and torch.isinf(d2_2[0, 2]).all()
+
+
+@pytest.mark.parametrize("s,m", [(2, 4096), (3, 1536), (16, 1536),
+                                 (50, 1536)])
+def test_d2_takes_every_shape_the_reference_takes(s, m):
+    """Kernel D2 (`nn_min_sparse_unrolled`) at target budgets without a
+    static instance on the card (1,536 and 4,096; `UNROLLED_M` is 512,
+    1,024, 2,048, 3,072) and S = 2, 3, 16, 50, Msrc 512, radius 5: equal
+    to D1, C's twin and the reference's D2 in interpret mode (nn exact,
+    d2 within 1 ulp), with the tie across target tiles and the empty
+    keyframe of `_sparse_case`."""
+    assert m not in ca.UNROLLED_M
+    case = _sparse_case(seed=60 + s, s=max(s, 3), m=m)
+    case = (case[0], case[1][:s].copy(), case[2][:s].copy())
+    args = _lanes([case], 5.0)
+    nn_2, d2_2 = ca.nn_min_sparse_unrolled(*args)
+    nn_1, d2_1 = ca.nn_min_sparse_multi(*args)
+    nn_c, d2_c = ca.nn_min_sparse_plain(*args)
+    assert torch.equal(nn_2, nn_1) and torch.equal(d2_2, d2_1)
+    assert torch.equal(nn_2, nn_c) and torch.equal(d2_2, d2_c)
+    nn_r, d2_r = _ref_sparse(pa.nn_min_sparse_unrolled, case, 5.0)
+    np.testing.assert_array_equal(nn_2[0].numpy(), nn_r)
+    _assert_d2(d2_2[0].numpy(), d2_r, nn_r, *case[:2])
+    assert nn_2[0, 0, 200] == 300                           # the tie
+    if s > 2:
+        assert torch.isinf(d2_2[0, 2]).all()                # empty keyframe

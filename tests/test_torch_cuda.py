@@ -439,7 +439,8 @@ def test_kernels_b1_b2_bit_equal_to_a_and_twin(dev, b, s, m):
 # (S, keyframe groups, cluster size): every pair `multi_split` gives at the
 # smoke's shapes (`chip_smoke.b_shapes()`) and every group count at S=4
 B_SPLITS = ((4, 4, 1), (4, 4, 2), (4, 4, 4), (4, 4, 8), (4, 1, 1), (4, 2, 1),
-            (4, 3, 1), (1, 1, 1), (1, 1, 2), (1, 1, 4), (1, 1, 8))
+            (4, 3, 1), (1, 1, 1), (1, 1, 2), (1, 1, 4), (1, 1, 8),
+            (2, 2, 4), (3, 3, 4), (8, 8, 4))
 
 
 @pytest.mark.parametrize("s,groups,split", B_SPLITS)
@@ -511,14 +512,36 @@ def test_kernels_b1_b2_refuse_misaligned_targets(dev):
 
 
 def test_kernels_b1_b2_refuse_other_shapes(dev):
+    """B1 and B2 refuse only what the reference's refuse, Msrc %
+    ts_multi(M), and launch nothing then. B2 at keyframe counts without a
+    static instance (S = 2, 3, 8: the runtime-count instance) and at target
+    budgets that are not a multiple of 128 (1,500) or of 4 (1,001, staged
+    element by element) is bit-equal to kernel A, B1 and the twin, each
+    call counted as one launch of its own kernel."""
+    for b, s, m_src, m in ((2, 2, 1024, 1024), (1, 3, 1024, 1024),
+                           (2, 8, 1024, 1024), (3, 2, 1024, 1500),
+                           (2, 3, 512, 1001)):
+        src, tar, valid = _inputs(dev, b=b, s=s, m=m)
+        src = src[:, :m_src].contiguous()
+        assert s not in ca.UNROLLED_S or m % 128
+        ca.reset_launches()
+        nn_a, d2_a = ca.nn_min(src, tar, valid)
+        got = {"multi": ca.nn_min_multi(src, tar, valid),
+               "unrolled": ca.nn_min_multi_unrolled(src, tar, valid)}
+        nn_p, d2_p = ca.nn_min_plain(src, tar, valid)
+        torch.cuda.synchronize()
+        assert torch.equal(nn_a, nn_p) and torch.equal(d2_a, d2_p)
+        for name, (nn, d2) in got.items():
+            assert torch.equal(nn, nn_a) and torch.equal(d2, d2_a), \
+                (name, b, s, m_src, m)
+        assert torch.isinf(d2_a[:, s - 1]).all()           # empty keyframe
+        assert {k: v for k, v in ca.launches.items() if v} == {
+            "nn_min": 1, "nn_min_multi": 1, "nn_min_multi_unrolled": 1}
     src, tar, valid = _inputs(dev, b=1, s=2, m=1024)
-    nn, _ = ca.nn_min_multi(src, tar, valid)                # B1 takes any S
-    assert nn.shape == (1, 2, 1024)
     ca.reset_launches()
-    with pytest.raises(ValueError, match="keyframe count"):
-        ca.nn_min_multi_unrolled(src, tar, valid)
-    with pytest.raises(ValueError, match="% 512"):
-        ca.nn_min_multi(src[:, :768].contiguous(), tar, valid)
+    for fn in (ca.nn_min_multi, ca.nn_min_multi_unrolled):
+        with pytest.raises(ValueError, match="% 512"):
+            fn(src[:, :768].contiguous(), tar, valid)
     assert not any(ca.launches.values())
 
 
@@ -576,13 +599,37 @@ def test_kernels_d1_d2_refuse_a_group_count_they_cannot_take(dev, monkeypatch):
 
 
 def test_kernel_d2_rejects_other_budgets(dev):
+    """D2 refuses only what the reference's D2 refuses (Msrc % 256, M %
+    512) and launches nothing then. At target budgets without a static
+    instance (1,536 and 4,096: the runtime-count instance) it is bit-equal
+    to kernel C, D1 and the twin, each call counted as one launch of its
+    own kernel."""
+    for b, s, m in ((1, 2, 1536), (3, 4, 1536), (1, 2, 4096), (2, 16, 4096)):
+        assert m not in ca.UNROLLED_M
+        args, _ = _window(dev, b, s, m=m)
+        ca.reset_launches()
+        nn_c, d2_c = ca.nn_min_sparse(*args)
+        got = {"multi": ca.nn_min_sparse_multi(*args),
+               "unrolled": ca.nn_min_sparse_unrolled(*args)}
+        nn_p, d2_p = ca.nn_min_sparse_plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(nn_c, nn_p) and torch.equal(d2_c, d2_p)
+        for name, (nn, d2) in got.items():
+            assert torch.equal(nn, nn_c) and torch.equal(d2, d2_c), \
+                (name, b, s, m)
+        assert {k: v for k, v in ca.launches.items() if v} == {
+            "nn_min_sparse": 1, "nn_min_sparse_multi": 1,
+            "nn_min_sparse_unrolled": 1}
     args, _ = _window(dev, 1, 2, m=1536)
-    nn, _ = ca.nn_min_sparse_multi(*args)                  # D1 takes any M
-    assert nn.shape == (1, 2, 1536)
     ca.reset_launches()
-    with pytest.raises(ValueError, match="512, 1024, 2048, 3072"):
-        ca.nn_min_sparse_unrolled(*args)
-    assert ca.launches["nn_min_sparse_unrolled"] == 0
+    with pytest.raises(ValueError, match="% 512"):
+        ca.nn_min_sparse_unrolled(*args[:2], args[2][:, :, :1000].contiguous(),
+                                  args[3], args[4][:, :, :1000].contiguous(),
+                                  args[5])
+    with pytest.raises(ValueError, match="% 256"):
+        ca.nn_min_sparse_unrolled(args[0][:, :300].contiguous(),
+                                  args[1][:, :1], *args[2:])
+    assert not any(ca.launches.values())
 
 
 def test_failed_launch_raises(dev, monkeypatch):
@@ -631,7 +678,9 @@ def test_wrappers_raise_instead_of_falling_back(dev):
 @pytest.mark.parametrize("cost,loss", chip_smoke.LM_CASES)
 def test_kernel_f_matches_plain(dev, cost, loss, early_exit):
     """Kernel F at the slice's width against its twin (chip_smoke's
-    tolerances); the other variant gives the same bits."""
+    tolerances: the loss's own pose bound, and for `LM_STEPS_FREE` losses
+    the pose only on lanes whose accepted steps agree); the other variant
+    gives the same bits."""
     cfg, packed, pose0, _ = chip_smoke.lm_problem(
         np.random.default_rng(2), 8, 4, 1024, cost, loss)
     packed, pose0 = (torch.as_tensor(a).to(dev) for a in (packed, pose0))
@@ -644,9 +693,16 @@ def test_kernel_f_matches_plain(dev, cost, loss, early_exit):
     assert cuda_lm.launches["lm_solve_fused"] == 2
     for a, b in zip(got, other):
         assert torch.equal(a, b)
-    assert (got[0] - plain[0]).abs().max() <= chip_smoke.LM_POSE_TOL
+    same = got[2] == plain[2]
+    assert same.all() or loss in chip_smoke.LM_STEPS_FREE
+    assert (got[0] - plain[0])[same].abs().max() <= \
+        chip_smoke.LM_POSE_TOL_LOSS.get(loss, chip_smoke.LM_POSE_TOL)
     assert ((got[1] - plain[1]).abs() / plain[1]).max() <= chip_smoke.LM_COST_RTOL
-    assert got[2].dtype == torch.int32 and (got[2] > 0).all()
+    # every lane takes a step, but on Tukey's problem, where the reference's
+    # own two solvers take none on two lanes (tools/tool_spread_torch.py
+    # --problems lm: steps 1, 0, 1, 1, 0, 1, 20, 1)
+    assert got[2].dtype == torch.int32 and ((got[2] > 0).all()
+                                            or loss == "Tukey")
 
 
 def _lm_rows(dev, b, n, cost="P2P", loss="Cauchy", seed=4):

@@ -258,6 +258,38 @@ def test_slam_pass_runs_without_the_reference_package(tmp_path):
     _run_guarded(script, str(tmp_path))
 
 
+def test_evaluation_tools_run_without_the_reference_package(tmp_path):
+    """The port's three evaluation tools (`tools/run_ablation_sweep_torch.py`,
+    `run_sim_sensitivity_torch.py`, `run_time_continuous_ab_torch.py`) run
+    on the CPU in the guarded process at a few frames and write their
+    files."""
+    script = _GUARD + textwrap.dedent(r"""
+        import importlib.util
+
+        def tool(name):
+            spec = importlib.util.spec_from_file_location(
+                name, os.path.join(sys.argv[1], "tools", name + ".py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            return mod
+
+        out = sys.argv[2]
+        n = tool("run_ablation_sweep_torch").main([
+            "--cpu", "--grids", "baseline", "--seeds", "11",
+            "--n-frames", "4", "--output-root", os.path.join(out, "sweep"),
+            "--csv", os.path.join(out, "ablation.csv")])
+        assert n == 1, n
+        rows = tool("run_sim_sensitivity_torch").main([
+            "--cpu", "--seeds", "11", "--n-frames", "4", "--groups",
+            "baseline", "--out", os.path.join(out, "sim.csv")])
+        assert len(rows) == 1, rows
+        rows = tool("run_time_continuous_ab_torch").main([
+            "--cpu", "--n-frames", "4", "--out", os.path.join(out, "tc.txt")])
+        assert len(rows) == 2 and os.path.exists(os.path.join(out, "tc.txt"))
+    """) + _NONE_LOADED
+    _run_guarded(script, str(tmp_path))
+
+
 def test_sweep_equals_the_reference(tmp_path):
     """`parallel/sweep.py` is the reference's file but for the CLI it runs:
     the same ablation grids and grid expansion, the same job directories,

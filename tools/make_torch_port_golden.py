@@ -61,6 +61,16 @@ the ATE against ground truth, and the configuration and sequence as JSON to
   verified and inlier (A node, B node) pairs, the candidate count, `t_ab`,
   B's keyframe flags, poses and ground truth, the merged optimized poses,
   and B's keyframe error after the merge and with the identity alignment.
+- `--preset sweep`: the reference's evaluation sweep as
+  `tools/run_ablation_sweep.py` runs it, cut to `chip_smoke.SWEEP_JOBS`
+  (six jobs of its grids, the adaptive threshold and time-continuous
+  registration) in its adversarial world at
+  `chip_smoke.SWEEP_SEQUENCE` (48 frames): the reference's
+  `parallel.sweep.run_sweep` and offline CLI with the CFEAR-3 synthetic
+  preset as --config-file and `assoc_method="pallas"` (kernel A in
+  interpret mode, what `auto` resolves to on a card) ->
+  `cfear3_sweep_adv_seed11_48.npz`: each job's poses, keyframe and success
+  flags, drift and ATE.
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --feature-backend pallas
@@ -72,6 +82,7 @@ the ATE against ground truth, and the configuration and sequence as JSON to
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset cli
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset slam
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset merge
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset sweep
 
 On one CPU process the first takes about 10 s and the second about a
 minute; the s50 exact golden took 39 s and the K16 golden 18 s (rendering
@@ -306,6 +317,77 @@ def merge_golden(method: str) -> None:
     print(f"{chip_smoke.GOLDEN_MERGE}: " + summary)
 
 
+def sweep_golden(method: str, compare: bool) -> None:
+    """`--preset sweep`: the reference's `parallel.sweep.run_sweep` and
+    offline CLI over `chip_smoke.SWEEP_JOBS` on the CPU
+    (`chip_smoke.run_sweep_jobs`), the CFEAR-3 synthetic preset given as
+    --config-file with kernel A in interpret mode, what `auto` resolves to
+    on a card -> chip_smoke.GOLDEN_SWEEP; with `method` "dense", the same
+    jobs with the dense association, and with `compare` the same jobs as
+    the golden's: each job's spread from the golden printed and nothing
+    written (run under XLA_FLAGS=--xla_cpu_max_isa=AVX, the spread of the
+    reference's own arithmetic: no FMA contraction)."""
+    from cfear_radarodometry_code_public_tpu.config import preset
+    from cfear_radarodometry_code_public_tpu.parallel import sweep
+
+    method = "pallas" if method == "pallas_sparse" else method
+    cfg = preset("CFEAR-3", dataset="synthetic")
+    cfg = cfg.replace(registration=dataclasses.replace(
+        cfg.registration, assoc_method=method))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cfear3_synthetic.json")
+        cfg.save(path)
+        argv = ["--config-file", path] + chip_smoke.sweep_args() + ["--cpu"]
+        jobs = chip_smoke.run_sweep_jobs(sweep, OdometryRunner, tmp, argv)
+    names = list(jobs)
+    secs = time.perf_counter() - t0
+    if method == "dense" or compare:
+        with np.load(chip_smoke.GOLDEN_SWEEP) as z:
+            g = {k: z[k] for k in z.files}
+        worst = np.zeros(3)
+        for i, name in enumerate(json.loads(str(g["names"]))):
+            got = jobs[name]
+            spread = chip_smoke.traj_spread(got["poses"], g[f"poses_{i}"])
+            worst = np.maximum(worst, spread)
+            print(f"{method} vs golden {name}: max |dpos| {spread[0]:.6f} m, "
+                  f"|dyaw| {spread[1]:.3e} rad, |dmotion| {spread[2]:.6f} m; "
+                  f"keyframe flags equal "
+                  f"{bool(np.array_equal(got['fused'], g[f'fused_{i}']))}; "
+                  f"failed frames {int((~got['success']).sum())} (golden "
+                  f"{int((~g[f'success_{i}']).sum())}); drift "
+                  f"{float(got['result']['t_err_percent']):.4f}% (golden "
+                  f"{float(g['drift'][i]):.4f}%), ATE "
+                  f"{float(got['result']['ate_m']):.4f} m (golden "
+                  f"{float(g['ate'][i]):.4f})")
+        print(f"{method} vs golden, the worst job: max |dpos| {worst[0]:.6f} m, "
+              f"|dyaw| {worst[1]:.3e} rad, |dmotion| {worst[2]:.6f} m; "
+              f"{secs:.1f} s on the CPU")
+        return
+    arrays = {}
+    for i, name in enumerate(names):
+        arrays.update({f"poses_{i}": jobs[name]["poses"],
+                       f"fused_{i}": jobs[name]["fused"],
+                       f"success_{i}": jobs[name]["success"]})
+    os.makedirs(os.path.dirname(chip_smoke.GOLDEN_SWEEP), exist_ok=True)
+    np.savez_compressed(
+        chip_smoke.GOLDEN_SWEEP, names=json.dumps(names),
+        jobs=json.dumps(chip_smoke.SWEEP_JOBS),
+        sequence=json.dumps(chip_smoke.SWEEP_SEQUENCE),
+        argv=json.dumps(chip_smoke.sweep_args()), assoc_method=method,
+        drift=np.array([float(jobs[n]["result"]["t_err_percent"])
+                        for n in names]),
+        ate=np.array([float(jobs[n]["result"]["ate_m"]) for n in names]),
+        **arrays)
+    for name in names:
+        r = jobs[name]["result"]
+        print(f"{name}: keyframes {r['keyframes']}, failures "
+              f"{r['registration_failures']}, drift {r['t_err_percent']}%, "
+              f"ATE {r['ate_m']} m")
+    print(f"{chip_smoke.GOLDEN_SWEEP}: {len(names)} jobs, {secs:.1f} s on "
+          f"the CPU (assoc {method})")
+
+
 def target(preset: str, feature_backend: str, k_active: int, args):
     """(configuration, sequence, output path) of one golden."""
     if preset == "longrun":
@@ -333,7 +415,7 @@ def target(preset: str, feature_backend: str, k_active: int, args):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=("CFEAR-3", "CFEAR-3-s50", "longrun",
-                                         "cli", "slam", "merge"),
+                                         "cli", "slam", "merge", "sweep"),
                     default="CFEAR-3")
     ap.add_argument("--feature-backend", choices=("auto", "pallas"),
                     default="auto")
@@ -350,6 +432,9 @@ def main() -> None:
     ap.add_argument("--speed", type=float, default=long["speed"])
     ap.add_argument("--extent", type=float, default=long["extent"])
     ap.add_argument("--adversarial", action="store_true")
+    ap.add_argument("--compare-only", action="store_true",
+                    help="sweep: print the run's spread from the golden and "
+                         "write nothing")
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
     if args.preset == "cli":
@@ -360,6 +445,9 @@ def main() -> None:
         return
     if args.preset == "merge":
         merge_golden(args.assoc_method)
+        return
+    if args.preset == "sweep":
+        sweep_golden(args.assoc_method, args.compare_only)
         return
     port_cfg, sequence, path = target(args.preset, args.feature_backend,
                                       args.k_active, args)

@@ -1,0 +1,338 @@
+"""The reference's own spread on the CPU problems of
+`tests/test_torch_eval_tools.py` and on kernel F's cost/loss cases of
+`chip_smoke.py` and `tests/test_torch_cuda.py`, beside the port's
+deviation from the reference.
+
+That test holds the port's evaluation tools (`run_ablation_sweep_torch.py`,
+`run_sim_sensitivity_torch.py`) to the reference's (`run_ablation_sweep.py`,
+`run_sim_sensitivity.py`) on two small problems, both on the CPU:
+
+- ABLATION: the Tukey-0.1 and None-0.1 jobs of the `loss_function` grid
+  (`parallel/sweep.py:ABLATIONS`) as one grid, seed 11, 36 frames of the
+  sweep's adversarial world (the first length at which the CLI's KITTI
+  drift has a 100 m subsequence);
+- SIM: the baseline and the `saturation` knob's two levels, seed 11, 40
+  frames;
+- AB: the time-continuous A/B (`run_time_continuous_ab.py`), seed 11, 40
+  frames at 12 m/s;
+- AB256: the same at its defaults (256 frames), the run of the reference's
+  artifact, which `tests/test_torch_trends.py` sets the port's card run
+  beside: there the port runs kernel A (`auto` on a card), so the spread
+  that bounds it is `kernelA`'s (the port does not run AB256 here);
+- RES15: the job of the ablation sweep that fails frames on the card,
+  `resolution/seed_12/job_0` (res 1.5, 120 frames), as
+  `run_ablation_sweep.py` runs it (`--n-workers 5 --worker-index 0`):
+  each variant's keyframes and failed frames, drift and ATE (ROADMAP.md,
+  queue 3).
+
+Both sides run the dense association on the CPU (`auto`). The rows can
+part within float32 rounding, so the test's bounds on drift and ATE are
+the reference's own spread on the same problems, about 3x: each variant's
+largest deviation from the reference as the test runs it (`dense`):
+- `kernelA`: the reference with `assoc_method="pallas"`, kernel A in
+  interpret mode (the distance as dx*dx + dy*dy);
+- `avx`: the reference with XLA limited to AVX
+  (`XLA_FLAGS=--xla_cpu_max_isa=AVX`: no FMA contraction).
+The port's own deviation from `dense` is printed beside them.
+
+The LM cases (`--problems lm`, in this process, about a minute): each pair
+of `chip_smoke.LM_CASES` on `chip_smoke.lm_problem` at the slice's width
+(B=8, N=4,096), as `chip_smoke.phase_lm` draws them (one generator of seed
+1 in order) and as `test_kernel_f_matches_plain` does (seed 2): the
+largest |dpose| between the reference's fused LM kernel (interpret mode)
+and its packed-XLA loop over the lanes, the lanes where their accepted
+steps differ, and the port's twin's |dpose| from the XLA loop. Kernel F
+is held to its twin at `chip_smoke.LM_POSE_TOL`, or at the loss's own
+bound where the reference's spread is wider.
+
+    JAX_PLATFORMS=cpu python tools/tool_spread_torch.py [--dir DIR]
+    JAX_PLATFORMS=cpu python tools/tool_spread_torch.py --problems ab256
+    JAX_PLATFORMS=cpu python tools/tool_spread_torch.py --problems lm
+
+About three minutes on the CPU for ABLATION, SIM and AB, and five more for
+AB256 (each variant in a process of its own).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import csv
+import dataclasses
+import importlib.util
+import os
+import subprocess
+import sys
+import tempfile
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TOOLS = os.path.join(ROOT, "tools")
+sys.path.insert(0, ROOT)
+
+ABLATION = {"grid": "loss_tukey_none",
+            "jobs": {"loss_type": ["Tukey", "None"], "loss_limit": [0.1]},
+            "seeds": "11", "frames": 36}
+SIM = {"knobs": "saturation", "seeds": "11", "frames": 40,
+       "groups": ("baseline", "knobs")}
+AB_FRAMES = {"ab": 40, "ab256": 256}
+RES15 = ["--grids", "resolution", "--seeds", "12", "--n-frames", "120",
+         "--n-workers", "5", "--worker-index", "0"]
+VARIANTS = ("dense", "kernelA", "avx", "port")
+# the rows' columns each test compares: exactly, and within a bound
+EXACT = ("keyframes", "registration_failures")
+BOUNDED = ("t_err_percent", "ate_m")
+
+
+def load_tool(name: str):
+    """A tool of `tools/` as a module (the tools are scripts)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(TOOLS, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def ablation_grid(sweep_mod):
+    """ABLATION's grid added to `sweep_mod.ABLATIONS` while the block
+    runs."""
+    sweep_mod.ABLATIONS[ABLATION["grid"]] = ABLATION["jobs"]
+    try:
+        yield
+    finally:
+        del sweep_mod.ABLATIONS[ABLATION["grid"]]
+
+
+@contextlib.contextmanager
+def sim_rows(tool):
+    """The sim tool `tool` (a module) without its rows beyond SIM's groups:
+    the reference's tool has no `--groups`, so its lists of the other
+    groups are emptied while the block runs."""
+    saved = {k: getattr(tool, k) for k in
+             ("BEYOND", "MITIGATED", "BEYOND_MITIGATED")}
+    for k in saved:
+        setattr(tool, k, [])
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(tool, k, v)
+
+
+def ablation_argv(d: str) -> list:
+    return ["--grids", ABLATION["grid"], "--seeds", ABLATION["seeds"],
+            "--n-frames", str(ABLATION["frames"]),
+            "--output-root", os.path.join(d, "sweep"),
+            "--csv", os.path.join(d, "ablation.csv")]
+
+
+def sim_argv(d: str) -> list:
+    return ["--knobs", SIM["knobs"], "--seeds", SIM["seeds"],
+            "--n-frames", str(SIM["frames"]),
+            "--out", os.path.join(d, "sim.csv")]
+
+
+def res15_argv(d: str) -> list:
+    return RES15 + ["--output-root", os.path.join(d, "res15"),
+                    "--csv", os.path.join(d, "res15.csv")]
+
+
+def ab_argv(d: str, problem: str) -> list:
+    return ["--n-frames", str(AB_FRAMES[problem]),
+            "--out", os.path.join(d, f"{problem}.txt")]
+
+
+def run_reference(d: str, problems, kernel_a: bool = False) -> None:
+    """The reference's tools on `problems`, into `d` (ablation.csv,
+    sim.csv, ab.txt); with `kernel_a`, every preset they build takes
+    `assoc_method="pallas"`."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from cfear_radarodometry_code_public_tpu import config
+    from cfear_radarodometry_code_public_tpu.parallel import sweep
+
+    preset = config.preset
+
+    def preset_a(*args, **kw):
+        cfg = preset(*args, **kw)
+        return cfg.replace(registration=dataclasses.replace(
+            cfg.registration, assoc_method="pallas"))
+
+    if kernel_a:
+        config.preset = preset_a
+    try:
+        if "ablation" in problems:
+            with ablation_grid(sweep):
+                load_tool("run_ablation_sweep").main(ablation_argv(d))
+        if "sim" in problems:
+            tool = load_tool("run_sim_sensitivity")
+            with sim_rows(tool):
+                tool.main(sim_argv(d))
+        for problem in AB_FRAMES:
+            if problem in problems:
+                load_tool("run_time_continuous_ab").main(ab_argv(d, problem))
+        if "res15" in problems:
+            load_tool("run_ablation_sweep").main(res15_argv(d))
+    finally:
+        config.preset = preset
+
+
+def run_port(d: str, problems) -> None:
+    """The port's tools on `problems` but AB256, on the CPU, into `d`."""
+    from cfear_radarodometry_code_public_tpu_torch.parallel import sweep
+    if "ablation" in problems:
+        with ablation_grid(sweep):
+            load_tool("run_ablation_sweep_torch").main(ablation_argv(d)
+                                                       + ["--cpu"])
+    if "sim" in problems:
+        load_tool("run_sim_sensitivity_torch").main(
+            sim_argv(d) + ["--cpu", "--groups", ",".join(SIM["groups"])])
+    if "ab" in problems:
+        load_tool("run_time_continuous_ab_torch").main(ab_argv(d, "ab")
+                                                       + ["--cpu"])
+    if "res15" in problems:
+        load_tool("run_ablation_sweep_torch").main(res15_argv(d) + ["--cpu"])
+
+
+def read_ab(path: str) -> dict:
+    """{mode: (t_err %, ATE m, all_success)} of an A/B artifact, the
+    reference's layout ("tc=off  t_err  r_err  ATE  all_success")."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            if line.startswith("tc="):
+                mode, t_err, _, ate, ok = line.split()
+                out[mode] = (float(t_err), float(ate), ok == "True")
+    return out
+
+
+def read(path: str, key: str) -> dict:
+    with open(path, newline="") as f:
+        return {tuple(r[k] for k in key.split(",")): r
+                for r in csv.DictReader(f)}
+
+
+def deviation(got: dict, want: dict) -> dict:
+    """Per column of BOUNDED, the largest |got - want| over the rows (nan
+    equal to nan); per column of EXACT, the rows that differ."""
+    out = {}
+    for col in BOUNDED:
+        devs = []
+        for k, r in want.items():
+            a, b = float(got[k][col]), float(r[col])
+            devs.append(0.0 if (a != a and b != b) else abs(a - b))
+        out[col] = max(devs)
+    for col in EXACT:
+        out[col] = sorted(k for k, r in want.items()
+                          if col in r and got[k][col] != r[col])
+    return out
+
+
+def compare(d: str, problems) -> None:
+    files = (("ablation", "ablation.csv", "job"),
+             ("sim", "sim.csv", "knob,level,seed"))
+    for problem, name, key in files:
+        if problem not in problems:
+            continue
+        want = read(os.path.join(d, "dense", name), key)
+        for v in VARIANTS[1:]:
+            got = read(os.path.join(d, v, name), key)
+            print(f"{name}: {v} vs dense: {deviation(got, want)}")
+    if "res15" in problems:
+        for v in VARIANTS:
+            for r in read(os.path.join(d, v, "res15.csv"), "job").values():
+                print(f"res15.csv: {v}: {r['job']}: keyframes "
+                      f"{r['keyframes']}, failed frames "
+                      f"{r['registration_failures']}, drift "
+                      f"{float(r['t_err_percent']):.4f} %, ATE "
+                      f"{float(r['ate_m']):.4f} m")
+    for problem in AB_FRAMES:
+        if problem not in problems:
+            continue
+        name = f"{problem}.txt"
+        want = read_ab(os.path.join(d, "dense", name))
+        for v in VARIANTS[1:] if problem == "ab" else ("kernelA", "avx"):
+            got = read_ab(os.path.join(d, v, name))
+            print(f"{name}: {v} vs dense: " + ", ".join(
+                f"{m}: |d t_err| {abs(got[m][0] - w[0]):.3f} %, |d ATE| "
+                f"{abs(got[m][1] - w[1]):.3f} m, all_success {got[m][2]}"
+                for m, w in want.items()))
+
+
+def lm_spread() -> None:
+    """`--problems lm`: the reference's own LM spread on kernel F's cases
+    (see the module's docstring), printed."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from cfear_radarodometry_code_public_tpu.config import CFEARConfig
+    from cfear_radarodometry_code_public_tpu.ops import pallas_lm
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_lm
+
+    jax.config.update("jax_platforms", "cpu")
+    rng = np.random.default_rng(1)
+    cases = [("chip_smoke", c, l, chip_smoke.lm_problem(rng, 8, 4, 1024, c, l))
+             for c, l in chip_smoke.LM_CASES]
+    cases += [("test_kernel_f_matches_plain", c, l, chip_smoke.lm_problem(
+        np.random.default_rng(2), 8, 4, 1024, c, l))
+        for c, l in chip_smoke.LM_CASES]
+    for where, cost, loss, (cfg, packed, pose0, _) in cases:
+        jcfg = CFEARConfig.from_dict(cfg.to_dict())
+        twin = cuda_lm.lm_solve_fused_plain(torch.as_tensor(packed),
+                                            torch.as_tensor(pose0), cfg)
+        spread, port, lanes = 0.0, 0.0, []
+        for i in range(packed.shape[0]):
+            args = (jnp.asarray(packed[i]), jnp.asarray(pose0[i]), jcfg)
+            x = pallas_lm.lm_solve_packed_xla(*args)
+            k = pallas_lm.lm_solve_fused(*args, interpret=True,
+                                         early_exit=True)
+            spread = max(spread, float(np.abs(np.asarray(k[0])
+                                              - np.asarray(x[0])).max()))
+            port = max(port, float(np.abs(twin[0][i].numpy()
+                                          - np.asarray(x[0])).max()))
+            if int(k[2]) != int(x[2]):
+                lanes.append((i, int(k[2]), int(x[2])))
+        print(f"lm {where} {cost}/{loss}: reference kernel vs XLA max "
+              f"|dpose| {spread:.3e}, lanes whose steps differ (lane, "
+              f"kernel, XLA) {lanes}; port twin vs XLA {port:.3e}; twin "
+              f"steps {twin[2].tolist()}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dir", default=os.path.join(tempfile.gettempdir(),
+                                                  "tool_spread"))
+    ap.add_argument("--variant", choices=VARIANTS, default=None,
+                    help="run one variant in this process")
+    ap.add_argument("--problems", default="ablation,sim,ab",
+                    help="of ablation, sim, ab, ab256, res15; or lm alone")
+    args = ap.parse_args()
+    problems = args.problems.split(",")
+    if problems == ["lm"]:
+        lm_spread()
+        return
+    if args.variant:
+        d = os.path.join(args.dir, args.variant)
+        os.makedirs(d, exist_ok=True)
+        if args.variant == "port":
+            run_port(d, problems)
+        else:
+            run_reference(d, problems, kernel_a=args.variant == "kernelA")
+        return
+    for v in VARIANTS:
+        if v == "port" and problems == ["ab256"]:
+            continue
+        env = dict(os.environ, JAX_PLATFORMS="cpu")
+        if v == "avx":
+            env["XLA_FLAGS"] = "--xla_cpu_max_isa=AVX"
+        subprocess.run([sys.executable, __file__, "--dir", args.dir,
+                        "--variant", v, "--problems", args.problems],
+                       env=env, check=True, stdout=subprocess.DEVNULL)
+    compare(args.dir, problems)
+
+
+if __name__ == "__main__":
+    main()
