@@ -15,7 +15,9 @@ released formats —
   and hence the motion-compensation time convention for CCW radars.
 
 Ground truth is read from the released CSVs. Nothing here downloads — all
-loaders take local directories and raise clearly when absent.
+loaders take local directories and raise clearly when absent. The PNGs are
+decoded by the port's own `png.read_png` (numpy and `zlib`; the reference
+uses PIL, which the port does not need).
 
 The port's own copy of the reference's
 `cfear_radarodometry_code_public_tpu/datasets/oxford.py` (framework-free;
@@ -31,6 +33,8 @@ from typing import Iterator, Tuple
 
 import numpy as np
 
+from cfear_radarodometry_code_public_tpu_torch.datasets import png
+
 
 def _require(path: str):
     if not os.path.exists(path):
@@ -39,18 +43,13 @@ def _require(path: str):
             "mounted locally; this environment has no network egress)")
 
 
-def _read_png(path: str) -> np.ndarray:
-    from PIL import Image
-    return np.asarray(Image.open(path))
-
-
 def oxford_frames(radar_dir: str) -> Iterator[Tuple[float, np.ndarray]]:
     """Yield (timestamp_s, polar uint8 (400, 3768)) from an Oxford
     `radar` directory of <microseconds>.png sweeps."""
     _require(radar_dir)
     names = sorted(f for f in os.listdir(radar_dir) if f.endswith(".png"))
     for name in names:
-        img = _read_png(os.path.join(radar_dir, name))
+        img = png.read_png(os.path.join(radar_dir, name))
         if img.ndim == 3:
             img = img[..., 0]
         data = img[:, 11:] if img.shape[1] > 3768 else img
@@ -71,7 +70,7 @@ def mulran_frames(radar_dir: str) -> Iterator[Tuple[float, np.ndarray]]:
     _require(radar_dir)
     names = sorted(f for f in os.listdir(radar_dir) if f.endswith(".png"))
     for name in names:
-        img = _read_png(os.path.join(radar_dir, name))
+        img = png.read_png(os.path.join(radar_dir, name))
         if img.ndim == 3:
             img = img[..., 0]
         if img.shape[0] > img.shape[1]:   # range-major -> azimuth-major

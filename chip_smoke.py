@@ -15,7 +15,8 @@ and B2 at every shape of `A_SHAPES` they take, in the same way against A, the
 fused LM solve F (both variants, the six cost /
 loss pairs of `LM_CASES` at S=4, and every width the main paths give it,
 `LM_SHAPES`: the long run's reverse and forward solves, 1 and 4 x 2048
-cells, the `sweep` path's 1 and 3 x 1024, and the s50 widths, S=16 and
+cells, the `sweep` path's 1 and 3 x 1024, CFEAR-1's and CFEAR-2's P2L
+solves over 1 and 3 x 2048, and the s50 widths, S=16 and
 S=50 of 1024 cells and S=50 of 3072, so that every cluster
 size the kernel picks is held against the twin; a lane of a B=8 call must
 equal its own B=1 call bit for bit) and the feature-moment kernel G (on
@@ -31,7 +32,16 @@ preset as users call it (`auto`: kernel A), the default image ingest
 in turns with host ingest's), the offline CLI as users run it (`cli`:
 `offline_odometry.main` with the CFEAR-3 Oxford preset as --config-file,
 32 frames, image ingest, --save-graph, held to the reference CLI's
-golden), the reference's evaluation sweep as users run it (`sweep`: eight
+golden), the CLI beyond that (`cli-oxford` and `cli-mulran`: directories
+in the released Oxford and MulRan layouts, written from the simulator with
+the port's own PNG encoder and read back bit for bit without PIL, the
+MulRan sweeps range-major and counter-clockwise; `cli-cfear1` and
+`cli-cfear2`: the paper's P2L presets, kernel A at S=1 and S=3 and kernel
+F's P2L instances in the odometry step; `cli-cacfar`: CFEAR-3 under
+CA-CFAR, the card's CA-CFAR rows first held to the host filter's; each
+against the reference CLI's golden: keyframe decisions and failed frames
+identical, poses within `CLI_PATH_TOL`, the graph's counts), the
+reference's evaluation sweep as users run it (`sweep`: eight
 jobs of `tools/run_ablation_sweep.py`'s grids and world, cut to 48
 frames, through the port's `parallel.sweep.run_sweep` and offline CLI,
 kernels A at S = 1-8 and F with the Tukey, no-loss and P2D costs, each job
@@ -40,7 +50,8 @@ identical, the Tukey-0.1 job failing frames, poses within `SWEEP_TOL`),
 batched x8 (`make_batched_step`, two runs that must agree bit for
 bit), and single-sequence with `feature.backend="pallas"` (kernel G).
 Then CFEAR-3-s50, the 50-keyframe submap, over 128 frames:
-exact and with the K=16 gate (`s50`, `s50-k16`), batched x8
+exact and with the K=16 gate (`s50`, `s50-k16`; both print their drift
+under `bench.py --check-drift`'s protocol beside the golden's), batched x8
 (`s50-batched`), and the preset as users call it (`s50-preset`), after which
 C, D1, D2 and E are held against their twins on the window that path ends
 with (B=1, M=3072; C's time there, and on the `s50` window, joins C's
@@ -66,7 +77,11 @@ B=512 S=1 and F at B=512 N=1024, both also held against their twins at
 that shape), `to_arrays` and `optimize` (40 GN x 400 PCG); the keyframe
 count, the accepted loop edges and the keyframe ATE before and after are
 held to the golden's, and `optimize` on the golden's own graph arrays must
-repeat bit for bit and equal JAX's. Then the multi-session merge
+repeat bit for bit and equal JAX's; `slam-dropout` is the same pass with
+the sweeps rendered under azimuth dropout 0.35 (after `merge-mesh`), held
+to its own golden: the keyframe count, `slam`'s loop-edge shares on the
+edges the card's verification accepts on a graph built from the golden's
+own odometry, the closed keyframe ATE within `SLAM_DROPOUT_ATE_TOL`. Then the multi-session merge
 (`merge`): a second drive of 128 frames over the same world, from frame
 320 of its route with its own speckle, odometry and graph on the card,
 folded into the `slam` path's map by `merge_many` (cross-session
@@ -101,6 +116,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import inspect
 import json
 import os
@@ -111,13 +127,14 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
 
 import cfear_radarodometry_code_public_tpu_torch as port
 from cfear_radarodometry_code_public_tpu_torch import offline_odometry
-from cfear_radarodometry_code_public_tpu_torch.datasets import synthetic
+from cfear_radarodometry_code_public_tpu_torch.datasets import png, synthetic
 from cfear_radarodometry_code_public_tpu_torch.eval import kitti, slam_scale
 from cfear_radarodometry_code_public_tpu_torch.eval.trajectory import ate_rmse
 from cfear_radarodometry_code_public_tpu_torch.models import (
@@ -147,6 +164,61 @@ S50_SEQUENCE = {"seed": 1, "n_frames": 128, "speed": 6.0}
 # cli`)
 CLI_SEQUENCE = {"seed": 1, "n_frames": 32, "speed": 6.0}
 GOLDEN_CLI = os.path.join(_GOLDEN_DIR, "cfear3_cli_oxford_seed1_32.npz")
+# The offline CLI beyond CFEAR-3 on synthetic input (the `cli-*` paths).
+# `cli-oxford` and `cli-mulran` read dataset directories in the released
+# layouts, written from the simulator as tests/test_e2e_golden.py and
+# tests/test_e2e_golden_mulran.py write theirs but with the port's own PNG
+# encoder (`datasets/png.py`; the loader decodes them without PIL): Oxford
+# <microseconds>.png sweeps of 400 x (11 + 3768), the 11 metadata columns
+# zero, and `radar_odometry.csv`; MulRan range-major <nanoseconds>.png
+# sweeps of 3360 x 400, rendered counter-clockwise, and a `stamp,x,y,yaw`
+# CSV. Each is the world of `world_seed`, a trajectory of `traj_seed`
+# (n_frames + 1 poses, the first a pre-roll pose so that the first sweep's
+# stamp lies inside the ground truth), sweep i rendered with the generator
+# of `render_seed + i`; stamps start at `t0` (the loader's unit).
+DATASET_SEQUENCES = {
+    "oxford": {"world_seed": 7, "traj_seed": 8, "render_seed": 1000,
+               "n_frames": 32, "speed": 8.0, "t0": 1_547_120_000_000_000},
+    "mulran": {"world_seed": 17, "traj_seed": 18, "render_seed": 2000,
+               "n_frames": 32, "speed": 8.0,
+               "t0": 1_561_000_000_000_000_000},
+}
+# `cli-cfear1`, `cli-cfear2` and `cli-cacfar` run CLI_SEQUENCE's world at
+# Oxford width (400 x 3768) with the paper's CFEAR-1 and CFEAR-2 presets
+# (P2L, weight "Combined", submaps of 1 and 3 scans: kernel A at S=1 and 3
+# of 2048 cells, kernel F's P2L instances in the odometry step) and with
+# CFEAR-3 under CA-CFAR, each preset's Oxford form given with
+# --config-file, as `cli` gives CFEAR-3's. `auto` resolves to kernel A on
+# a card on every one of these paths. Their goldens: the reference's CLI
+# with the same arguments and --cpu, kernel A in interpret mode
+# (`make_torch_port_golden.py --preset cli-oxford`, ...).
+CLI_PATHS = {
+    "cli-oxford": {"preset": "CFEAR-3", "dataset": "oxford"},
+    "cli-mulran": {"preset": "CFEAR-3", "dataset": "mulran"},
+    "cli-cfear1": {"preset": "CFEAR-1"},
+    "cli-cfear2": {"preset": "CFEAR-2"},
+    "cli-cacfar": {"preset": "CFEAR-3",
+                   "extra": ["--filter_type", "cacfar"]},
+}
+# Their tolerances (position m, yaw rad, motion m), about 3x the larger of
+# two spreads of the reference's own from its golden on the path
+# (`make_torch_port_golden.py --preset <path> --assoc-method dense`, and
+# with `--eager` the same run op by op, `jax.disable_jit()`: the compiled
+# reference fuses the image filter with the compensation, which can keep a
+# cell the op-by-op reference and the port do not; JAX on the CPU). Dense /
+# op by op: cli-oxford 4.10 / 6.18 cm, 1.30e-3 / 1.74e-3 rad, 4.31 / 1.90
+# cm; cli-mulran 0.72 / 0.95 cm, 3.20e-4 / 3.47e-4, 0.54 / 1.08 cm;
+# cli-cfear1 0.42 / 1.61 cm, 1.83e-4 / 4.15e-4, 0.28 / 0.27 cm; cli-cfear2
+# 0.18 / 0.32 cm, 1.02e-4 / 1.26e-4, 0.07 / 0.08 cm; cli-cacfar 0.83 /
+# 1.04 cm, 2.43e-4 / 3.18e-4, 0.99 / 0.96 cm. Keyframe decisions, failed
+# frames (none) and graph counts are identical in every one of these runs.
+# The golden run again under XLA_FLAGS=--xla_cpu_max_isa=AVX stays within
+# 1.6 mm of it on every path.
+CLI_PATH_TOL = {"cli-oxford": (0.19, 5.2e-3, 0.13),
+                "cli-mulran": (0.03, 1.05e-3, 0.033),
+                "cli-cfear1": (0.049, 1.25e-3, 0.0085),
+                "cli-cfear2": (0.0098, 3.8e-4, 0.0024),
+                "cli-cacfar": (0.031, 9.5e-4, 0.030)}
 # The SLAM pass (`slam` path) of `tools/run_slam_scale.py`: its configuration
 # (`slam_config`) and multi-lap world of seed 9, cut in depth from 4,096
 # frames (4 laps of 1,024) to 2 laps of 256 at 2.5 m/s, where loops close
@@ -169,6 +241,29 @@ GOLDEN_SLAM = os.path.join(_GOLDEN_DIR, "cfear3_slam_seed9_512.npz")
 # `test_optimize_on_the_slam_golden_graph` (1.1e-5 m on the CPU).
 SLAM_LOOP_SHARE, SLAM_PAIR_SHARE = 0.10, 0.70
 SLAM_OPT_TOL = (1e-3, 1e-4)
+# The SLAM pass with azimuth-wedge dropout (`slam-dropout` path): `slam`'s
+# world, route and configuration rendered with dropout 0.35, as
+# `eval_results/SLAM_SCALE_dropout_tpu.txt` runs the reference's pass. Its
+# golden: `make_torch_port_golden.py --preset slam --dropout 0.35`.
+SLAM_DROPOUT_SEQUENCE = {**SLAM_SEQUENCE, "dropout_prob": 0.35}
+GOLDEN_SLAM_DROPOUT = os.path.join(_GOLDEN_DIR,
+                                   "cfear3_slam_dropout35_seed9_512.npz")
+# Its limits. The reference's own reruns of this pass (`... --preset slam
+# --dropout 0.35`, with `--assoc-method dense`, and each again under
+# XLA_FLAGS=--xla_cpu_max_isa=AVX, `--compare-only` for kernel A; JAX on
+# the CPU) keep 171 keyframes and accept 47, 47 and 49 loop edges (40, 44
+# and 8 of the golden's 47 pairs: with the AVX dense run the keyframe
+# flags shift, and a pair's node indices with them), the odometry up to
+# 1.00 m, 2.24e-2 rad and 0.39 m per motion from the golden's, the closed
+# keyframe ATE 0.1607, 0.1438 and 0.1158 m against 0.1443. A pass's loop
+# edges follow the odometry it is given, which parts from the golden's by
+# float32 rounding grown over 512 frames of dropout; so the shares of
+# `slam` (SLAM_LOOP_SHARE, SLAM_PAIR_SHARE) hold the edges the card's
+# verification accepts on a graph built from the golden's own odometry
+# (`golden_loops`), and the path's own closed keyframe ATE must lie within
+# SLAM_DROPOUT_ATE_TOL of the golden's, about 3x the 0.0285 m of the
+# reference's reruns (ROADMAP queue 3, "slam-dropout's loop edges").
+SLAM_DROPOUT_ATE_TOL = 0.086
 # The multi-session merge (`merge` path): session A is the `slam` path's
 # graph after loop closure (the map a user has); session B drives the same
 # seed-9 world along the lap route from its frame 320 for 128 frames with
@@ -218,6 +313,12 @@ TOL = (0.08, 3e-3, 0.025)   # (position m, yaw rad, motion m)
 # largest position difference is on frame 1, whose pose is its motion,
 # before the gate has a keyframe to drop). The limits are about 3x that.
 S50_TOL = (0.05, 1.25e-3, 0.05)
+# The s50 paths' drift under `bench.py --check-drift`'s protocol (KITTI
+# drift, step 5, subsequences of 50 and 100 m), printed beside the golden's
+# and the reference artifact's accuracy figures
+# (`eval_results/BENCH_s50_tpu.txt:10,15`: 0.060% exact, 0.065% K16).
+S50_DRIFT_KW = {"step_size": 5, "lengths": (50.0, 100.0)}
+S50_DRIFT_ARTIFACT = {"s50": 0.060, "s50-k16": 0.065}
 # The long-run odometry path (`tools/run_longrun.py`'s configuration, cut
 # from 1024 to 256 frames, about 770 m at 12 m/s): CFEAR-3 at Oxford scale,
 # max_cells 2048, the reverse-registration health check every 8 frames, in
@@ -269,8 +370,9 @@ ONLINE_SLEEP_S = (0.02, 0.12)
 # is a grid of one or two: (name, grid, extra CLI arguments). They take
 # the Tukey-0.1 loss, which must fail frames through the divergence gate
 # (`min_assoc_fraction`), its None-0.1 neighbour, P2D with covar_scale 2,
-# an 8-keyframe submap, res 1.5 (more voxels than max_cells: compaction
-# drops cells), motion compensation off, the adaptive threshold
+# an 8-keyframe submap, res 1.5 (many more voxels, but fewer valid cells
+# than max_cells: at most 357 on seed 12's 120 frames,
+# `tools/res15_frames_torch.py`), motion compensation off, the adaptive threshold
 # (`z_min_quantile` 0.98) and time-continuous registration. Its golden:
 # `make_torch_port_golden.py --preset sweep` (the reference's
 # `run_sweep` and CLI on the CPU, kernel A in interpret mode).
@@ -322,14 +424,17 @@ LM_CASES = (("P2P", "Huber"), ("P2L", "Huber"), ("P2D", "Cauchy"),
 # long run's reverse solve (N=2,048: one CTA a lane), the slice (4,096) and
 # the long run's forward solve (8,192), the online daemon's preset (12,288),
 # the s50 K16 and exact windows (16,384 and 51,200: 8 CTAs a lane) and the
-# s50 preset's (153,600: 16); and the `sweep` path's submaps of 1 and 3
+# s50 preset's (153,600: 16); the `sweep` path's submaps of 1 and 3
 # keyframes of 1024 cells (N=1,024 and 3,072; its 2 and 8 give N=2,048
-# and 8,192, above)
+# and 8,192, above); and the paper's CFEAR-1 and CFEAR-2 (`cli-cfear1`,
+# `cli-cfear2`): P2L with Huber's loss over 1 and 3 keyframes of 2048
+# cells (N=2,048, one CTA a lane, and 6,144, a cluster of 8)
 LM_SHAPES = ((1, 2048, "P2P", "Huber"), (4, 1024, "P2P", "Huber"),
              (4, 2048, "P2P", "Huber"), (4, 3072, "P2P", "Huber"),
              (16, 1024, "P2P", "Cauchy"), (50, 1024, "P2P", "Cauchy"),
              (50, 3072, "P2P", "Cauchy"), (1, 1024, "P2P", "Huber"),
-             (3, 1024, "P2P", "Huber"))
+             (3, 1024, "P2P", "Huber"), (1, 2048, "P2L", "Huber"),
+             (3, 2048, "P2L", "Huber"))
 # ...and loop verification: one keyframe of 1024 cells a lane (N=1,024),
 # the path's own cost (CFEAR-3: P2P/Huber) and P2L, over the SLAM pass's
 # 512 lanes and the merge's 256 (its 129 candidate pairs, `_next_pow2`)
@@ -404,9 +509,10 @@ B_FUNCTIONS = {"nn_min_multi": "nn_min_dense_walk_kernelILi0EE",
 # SLAM pass's loop verification (512 lanes of one keyframe each, `slam`),
 # the merge's (256 lanes, `merge`), the online daemon's preset (B=1, S=4
 # of 3072 cells, `online`), the `sweep` path's submaps (B=1, S = 1, 2, 3,
-# 4, 8 of 1024 cells), a target budget that is not a multiple of 128
-# (B_RAGGED, which B1 and B2 take); last a ragged shape, checked and not
-# timed. `phase_a_shapes` (run by
+# 4, 8 of 1024 cells), CFEAR-2's submap (B=1, S=3 of 2048 cells,
+# `cli-cfear2`; CFEAR-1's S=1 is the reverse solve's shape), a target
+# budget that is not a multiple of 128 (B_RAGGED, which B1 and B2 take);
+# last a ragged shape, checked and not timed. `phase_a_shapes` (run by
 # `phase_kernels`) holds A against its twin at each, on `a_inputs`, and
 # times it; tools/compare_torch_kernels.py times two trees' A at the same
 # shapes.
@@ -415,10 +521,11 @@ A_VERIFY = (512, 1, 1024, 1024)
 A_MERGE = (256, 1, 1024, 1024)
 A_ONLINE = (1, 4, 3072, 3072)
 A_SWEEP = tuple((1, s, 1024, 1024) for s in (1, 2, 3, 4, 8))
+A_CFEAR2 = (1, 3, 2048, 2048)
 B_RAGGED = (3, 2, 1024, 1500)
 A_SHAPES = ((8, 4, 1024, 1024), (1, 4, 2048, 2048), (8, 4, 2048, 2048),
             (1, 1, 2048, 2048), (27, 4, 2048, 2048), A_VERIFY, A_MERGE,
-            A_ONLINE, *A_SWEEP, B_RAGGED, A_RAGGED)
+            A_ONLINE, *A_SWEEP, A_CFEAR2, B_RAGGED, A_RAGGED)
 # operations counted per squared distance (2 subtractions, 2 products, a
 # sum; the compare is not counted), per LM row and pass (a cost-only pass,
 # and a cost/gradient/Hessian pass, from the twin's arithmetic for P2P), and
@@ -519,6 +626,127 @@ def read_cli_run(out_dir: str, period: float) -> dict:
     fused[np.rint(np.asarray(graph.stamps) / period).astype(int)] = True
     return {"poses": poses, "fused": fused, "n_nodes": len(graph.poses),
             "n_edges": len(graph.edges),
+            "n_scans": sum(s is not None for s in graph.scans)}
+
+
+def _relative(a, b) -> np.ndarray:
+    """The motion taking pose a to pose b, in a's frame (yaw wrapped)."""
+    c, s = np.cos(a[2]), np.sin(a[2])
+    d = b[:2] - a[:2]
+    dth = b[2] - a[2]
+    return np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1],
+                     np.arctan2(np.sin(dth), np.cos(dth))])
+
+
+def write_dataset(dataset: str, root: str) -> np.ndarray:
+    """DATASET_SEQUENCES[dataset] rendered (sweep i at trajectory pose i +
+    1 with the motion since pose i, its yaw unwrapped, as the reference
+    tests' fixture writers render theirs) and written under `root` in the
+    released layout (`radar/` and `gt.csv` for Oxford, `polar/` and
+    `gt.csv` for MulRan; see `cli_path_args`). Returns the sweeps as the
+    loader must read them back."""
+    seq = DATASET_SEQUENCES[dataset]
+    cfg = port.preset("CFEAR-3", dataset=dataset)
+    world = synthetic.make_world(np.random.default_rng(seq["world_seed"]))
+    dt, n = cfg.radar.sensor_period, seq["n_frames"]
+    traj = synthetic.make_trajectory(np.random.default_rng(seq["traj_seed"]),
+                                     n + 1, dt=dt, speed=seq["speed"])
+    unit = 1e6 if dataset == "oxford" else 1e9
+    stamps = [seq["t0"] + int(i * dt * unit) for i in range(n + 1)]
+    images = []
+    for i in range(n):
+        motion = _relative(traj[i], traj[i + 1])
+        motion[2] = traj[i + 1, 2] - traj[i, 2]
+        images.append(synthetic.render_polar(
+            world, traj[i + 1], cfg,
+            np.random.default_rng(seq["render_seed"] + i), motion=motion,
+            t=(i + 1) * dt))
+    images = np.stack(images)
+    oxford = dataset == "oxford"
+    radar_dir = os.path.join(root, "radar" if oxford else "polar")
+    os.makedirs(radar_dir, exist_ok=True)
+    for i, img in enumerate(images):
+        stored = (np.concatenate([np.zeros((img.shape[0], 11), np.uint8),
+                                  img], 1) if oxford
+                  else np.ascontiguousarray(np.rot90(img, -1)))
+        png.write_png(os.path.join(radar_dir, f"{stamps[i + 1]}.png"), stored)
+    with open(os.path.join(root, "gt.csv"), "w") as f:
+        if oxford:      # relative poses, source -> destination
+            f.write("source_radar_timestamp,destination_radar_timestamp,"
+                    "x,y,z,roll,pitch,yaw\n")
+            for i in range(len(images)):
+                rel = _relative(traj[i], traj[i + 1])
+                f.write(f"{stamps[i]},{stamps[i + 1]},{rel[0]:.9f},"
+                        f"{rel[1]:.9f},0.0,0.0,0.0,{rel[2]:.9f}\n")
+        else:           # global poses
+            f.write("stamp,x,y,yaw\n")
+            for i, p in enumerate(traj):
+                f.write(f"{stamps[i] * 1e-9:.6f},{p[0]:.9f},{p[1]:.9f},"
+                        f"{p[2]:.9f}\n")
+    return images
+
+
+def cli_path_sequence(name: str) -> dict:
+    spec = CLI_PATHS[name]
+    return DATASET_SEQUENCES[spec["dataset"]] if "dataset" in spec \
+        else CLI_SEQUENCE
+
+
+def cli_path_args(name: str, root: str, out_dir: str) -> list:
+    """The offline CLI's arguments of a `cli-*` path (without --cpu), its
+    inputs under `root` (`prepare_cli_path`)."""
+    spec = CLI_PATHS[name]
+    if "dataset" in spec:
+        ds = spec["dataset"]
+        return ["--dataset", ds, "--radar-dir",
+                os.path.join(root, "radar" if ds == "oxford" else "polar"),
+                "--gt-csv", os.path.join(root, "gt.csv"), "--preset",
+                spec["preset"], "--output-dir", out_dir]
+    seq = CLI_SEQUENCE
+    return ["--config-file", os.path.join(root, "config.json"), "--dataset",
+            "synthetic", "--seed", str(seq["seed"]), "--speed",
+            str(seq["speed"]), "--n-frames", str(seq["n_frames"]),
+            *spec.get("extra", ()), "--output-dir", out_dir]
+
+
+def prepare_cli_path(name: str, root: str):
+    """Write a `cli-*` path's inputs under `root`: the dataset directory,
+    or the preset's Oxford form as the --config-file. Returns the sweeps of
+    a dataset path (None for the others)."""
+    spec = CLI_PATHS[name]
+    os.makedirs(root, exist_ok=True)
+    if "dataset" in spec:
+        return write_dataset(spec["dataset"], root)
+    port.preset(spec["preset"], dataset="oxford").save(
+        os.path.join(root, "config.json"))
+    return None
+
+
+def cli_golden_path(name: str) -> str:
+    return os.path.join(_GOLDEN_DIR, f"{name.replace('-', '_')}_32.npz")
+
+
+def run_cli(cli_mod, runner_cls, argv: list) -> dict:
+    """One offline CLI run (`cli_mod.main(argv)`, the port's or the
+    reference's): the poses of `est/00.txt`, the runner's keyframe and
+    success flags and configuration (its `process`, recorded), the graph's
+    node and edge counts (`simple_graph.npz` read back by the port's
+    `GraphBuilder.load`) and the CLI's result."""
+    with recorded(runner_cls, "process") as calls:
+        result = cli_mod.main(argv)
+    if len(calls) != 1:
+        raise AssertionError(f"the CLI ran {len(calls)} odometry passes")
+    runner = calls[0][0]["self"]
+    out = runner.frame_outputs()
+    out_dir = argv[argv.index("--output-dir") + 1]
+    rows = np.loadtxt(os.path.join(out_dir, "est", "00.txt")).reshape(-1, 12)
+    graph = posegraph.GraphBuilder.load(os.path.join(out_dir,
+                                                     "simple_graph.npz"))
+    return {"poses": np.stack([rows[:, 3], rows[:, 7],
+                               np.arctan2(rows[:, 4], rows[:, 0])], -1),
+            "fused": np.asarray(out.fused), "success": np.asarray(out.success),
+            "cfg": runner.cfg.to_dict(), "result": result,
+            "n_nodes": len(graph.poses), "n_edges": len(graph.edges),
             "n_scans": sum(s is not None for s in graph.scans)}
 
 
@@ -814,9 +1042,8 @@ def _hold(name, key, kernel, plain, args):
 def phase_a_shapes(dev, card):
     """Kernel A at every shape of A_SHAPES: bit-equal to its twin, two
     launches bit-identical, the first and last lane of a call equal to
-    their own B=1 calls; then, but for A_RAGGED, timed beside its bound
-    and `cdist + min` (and its twin where B x S <= BATCH). Returns
-    {shape_key: record}."""
+    their own B=1 calls; then, but for A_RAGGED, timed beside its bound,
+    `cdist + min` and its twin. Returns {shape_key: record}."""
     res = {}
     for shape in A_SHAPES:
         args = a_inputs(dev, *shape)
@@ -839,9 +1066,8 @@ def phase_a_shapes(dev, card):
                  **nn_bound(*args),
                  library_ms=_cuda_ms(lambda: library_nn(*args), 5,
                                      "cdist + min"))
-        if shape[0] * shape[1] <= BATCH:   # the twin's (B, S, Msrc, M)
-            r["plain_ms"] = _cuda_ms(lambda: cuda_assoc.nn_min_plain(*args),
-                                     5, "nn_min_plain")
+        r["plain_ms"] = _cuda_ms(lambda: cuda_assoc.nn_min_plain(*args),
+                                 5, "nn_min_plain")
         _say(f"kernel A {key}: bit-equal to its twin, repeat and lanes "
              f"bit-identical; kernel {r['ms']:.4f} ms, bound "
              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), cdist + min "
@@ -1190,6 +1416,12 @@ def lm_inputs(rng, dev, s, m, cost, loss, b=BATCH):
     return (cfg, *(torch.as_tensor(a).to(dev) for a in (packed, pose0, true)))
 
 
+def lm_shape_key(s, m, cost, loss) -> str:
+    """The key of an LM_SHAPES entry in the `*_by_n` records: N, and the
+    cost and loss after it for a cost other than P2P."""
+    return str(s * m) if cost == "P2P" else f"{s * m} {cost}/{loss}"
+
+
 def _lm_case(rng, dev, card, s, m, cost, loss, b=BATCH):
     """Kernel F, both variants, on `lm_problem(rng, b, s, m, cost, loss)`
     against its plain twin, and each lane (the first and last when b >
@@ -1246,7 +1478,7 @@ def _lm_case(rng, dev, card, s, m, cost, loss, b=BATCH):
          f"N={packed.shape[2]} ({card})")
     return {"dpose": dpose, "ms": t_ee, "masked_ms": t_m, "b1_ms": t_1,
             "plain_ms": t_p, "bound": lm_bound(packed, ee[2]),
-            "n": packed.shape[2]}
+            "n": packed.shape[2], "key": lm_shape_key(s, m, cost, loss)}
 
 
 def phase_lm(dev, card):
@@ -1278,10 +1510,9 @@ def phase_lm(dev, card):
         "max_abs_err": max(r["dpose"] for r in rows + list(verify.values())),
         "ms": first["ms"], "plain_ms": first["plain_ms"], **first["bound"],
         "library_ms": None,
-        **{f"{k}_by_n": {str(r["n"]): r[k] for r in by_n}
+        **{f"{k}_by_n": {r["key"]: r[k] for r in by_n}
            for k in ("ms", "masked_ms", "b1_ms", "plain_ms")},
-        "bound_ms_by_n": {str(r["n"]): r["bound"]["bound_ms"]
-                          for r in by_n},
+        "bound_ms_by_n": {r["key"]: r["bound"]["bound_ms"] for r in by_n},
         "by_case": by_case,
         "verify": {k: {"dpose": r["dpose"], "ms": r["ms"],
                        "plain_ms": r["plain_ms"], **r["bound"]}
@@ -1506,6 +1737,20 @@ def phase_single(cfg, images, gt, dev, card, golden, name="single",
     return traj, out, runner.state
 
 
+def phase_s50_drift(name, traj, golden, card) -> None:
+    """The s50 path `name`'s KITTI drift under `bench.py --check-drift`'s
+    protocol (S50_DRIFT_KW), beside its golden's under the same protocol
+    and the reference artifact's (S50_DRIFT_ARTIFACT); printed only."""
+    with np.load(golden) as z:
+        g_traj, gt = z["poses"], z["gt"]
+    got = kitti.kitti_drift(traj, gt, **S50_DRIFT_KW)
+    want = kitti.kitti_drift(g_traj, gt, **S50_DRIFT_KW)
+    _say(f"{name}: drift {got['t_err_percent']:.4f}% over "
+         f"{got['n_subsequences']} subsequences of 50 and 100 m, step 5 "
+         f"(golden {want['t_err_percent']:.4f}%; the reference artifact "
+         f"{S50_DRIFT_ARTIFACT[name]:.3f}% at its own length) ({card})")
+
+
 def phase_auto(images, traj, out, dev, card):
     """The preset as users call it (assoc 'auto', no spatial sort): on a
     card it resolves to kernel A; held against the kernel-C run."""
@@ -1622,6 +1867,121 @@ def phase_cli(dev, card):
          f"{counts[0]} nodes / {counts[1]} edges as the golden; "
          f"{secs:.1f} s for the whole CLI run, rendering and graph "
          f"included ({card})")
+
+
+def check_dataset_read(name: str, root: str, images) -> None:
+    """The port's loader (`oxford_frames` or `mulran_frames`, PNGs decoded
+    by `datasets/png.py`) reads a `cli-*` path's directory back to the
+    rendered sweeps bit for bit, with stamps from the file names; the
+    sweeps are the ones its golden was made from."""
+    from cfear_radarodometry_code_public_tpu_torch.datasets import oxford
+    ds = CLI_PATHS[name]["dataset"]
+    t0 = time.perf_counter()
+    frames = list(oxford.oxford_frames(os.path.join(root, "radar"))
+                  if ds == "oxford"
+                  else oxford.mulran_frames(os.path.join(root, "polar")))
+    ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    got = np.stack([img for _, img in frames])
+    seq = DATASET_SEQUENCES[ds]
+    dt = port.preset("CFEAR-3", dataset=ds).radar.sensor_period
+    if not np.array_equal(got, images):
+        raise AssertionError(f"{name}: the loader's sweeps differ from the "
+                             "rendered ones")
+    with np.load(cli_golden_path(name)) as z:
+        if hashlib.sha256(images.tobytes()).hexdigest() \
+                != str(z["images_sha256"]):
+            raise AssertionError(f"{name}: golden was made from other sweeps")
+    if not np.allclose(np.diff([t for t, _ in frames]), dt, atol=1e-6):
+        raise AssertionError(f"{name}: stamps not {dt} s apart")
+    _say(f"{name}: {len(frames)} sweeps of {got.shape[1:]} written as PNG "
+         f"and read back bit for bit without PIL, {ms:.1f} ms a sweep on "
+         f"the host clock, first stamp {frames[0][0]:.6f} s (t0 "
+         f"{seq['t0']})")
+
+
+def phase_cacfar_filter(dev, card) -> None:
+    """CA-CFAR on the `cli-cacfar` path's sweeps (CLI_SEQUENCE at Oxford
+    width): the card's image filter (`filtering.cfar_select`) gives the
+    native host filter's rows (`cfar_filter_frames_host`) bin for bin and
+    intensity for intensity."""
+    cfg = port.preset("CFEAR-3", dataset="oxford")
+    cfg = cfg.replace(filter=dataclasses.replace(cfg.filter, method="cacfar"))
+    images, _ = synthetic.make_sequence(cfg=cfg, **CLI_SEQUENCE)
+    bins, valid, intens = filtering.cfar_select(
+        torch.as_tensor(images).to(dev), cfg)
+    h_bins, h_int, _ = native_io.cfar_filter_frames_host(images, cfg)
+    got_b = torch.where(valid, bins.to(torch.int64), -1).cpu().numpy()
+    got_i = torch.where(valid, intens, 0).cpu().numpy()
+    per_az = valid.sum(-1).cpu().numpy()
+    if not (np.array_equal(got_b, h_bins.astype(np.int64))
+            and np.array_equal(got_i, np.where(h_bins >= 0, h_int, 0))):
+        raise AssertionError("cli-cacfar: the card's CA-CFAR rows differ "
+                             "from the host filter's")
+    _say(f"cli-cacfar filter: the card's CA-CFAR rows equal the host "
+         f"filter's on {images.shape[0]} sweeps of {images.shape[1:]}: "
+         f"{int(per_az.sum())} detections, {float(per_az.mean()):.1f} an "
+         f"azimuth, {int((per_az == cfg.filter.cfar_max_per_azimuth).sum())} "
+         f"azimuths at the cap of {cfg.filter.cfar_max_per_azimuth} ({card})")
+
+
+def drive_cli_path(name: str, root: str, dev) -> tuple:
+    """A `cli-*` path: the port's offline CLI on the card with
+    `cli_path_args` over the inputs under `root`. Returns (the run,
+    seconds)."""
+    if dev.type != "cuda":
+        raise AssertionError(f"{name}: the path runs on the card")
+    t0 = time.perf_counter()
+    run = run_cli(offline_odometry, odometry.OdometryRunner,
+                  cli_path_args(name, root, os.path.join(root, "run")))
+    return run, time.perf_counter() - t0
+
+
+def phase_cli_path(name: str, run: dict, secs: float, dev, card) -> None:
+    """A `cli-*` path against its golden (`cli_golden_path`): the same
+    configuration, sequence and arguments; `auto` resolved to kernel A;
+    every frame in `est/00.txt`; failed frames and keyframe decisions
+    identical; poses within CLI_PATH_TOL[name]; the graph with the
+    golden's node and edge counts and a payload on every node."""
+    with np.load(cli_golden_path(name)) as z:
+        g = {k: z[k] for k in z.files}
+    if json.loads(str(g["sequence"])) != cli_path_sequence(name) \
+            or json.loads(str(g["argv"])) != cli_path_args(name, "<in>",
+                                                           "<run>") \
+            or json.loads(str(g["config"])) != run["cfg"]:
+        raise AssertionError(f"{name}: golden was made for another "
+                             "configuration, sequence or arguments")
+    cfg = port.CFEARConfig.from_dict(run["cfg"])
+    m = cfg.feature.max_cells
+    method = registration.resolve_assoc_method(
+        cfg, m, m, cfg.odometry.submap_scan_size, dev)
+    if method != "pallas":
+        raise AssertionError(f"{name}: auto resolved to {method}, expected "
+                             "kernel A")
+    n = cli_path_sequence(name)["n_frames"]
+    if run["poses"].shape != (n, 3) or run["result"]["frames"] != n:
+        raise AssertionError(f"{name}: {run['poses'].shape[0]} rows in "
+                             f"est/00.txt, expected {n}")
+    fails = np.flatnonzero(~run["success"]).tolist()
+    want = np.flatnonzero(~g["success"]).tolist()
+    if fails != want or len(fails) != run["result"]["registration_failures"]:
+        raise AssertionError(f"{name}: failed frames {fails}, golden {want}")
+    _check_traj(f"{name} vs the reference CLI's golden", run["poses"],
+                g["poses"], run["fused"], g["fused"], CLI_PATH_TOL[name])
+    counts = (run["n_nodes"], run["n_edges"])
+    g_counts = (int(g["n_nodes"]), int(g["n_edges"]))
+    if counts != g_counts or run["n_scans"] != run["n_nodes"]:
+        raise AssertionError(f"{name}: graph of {counts} nodes/edges and "
+                             f"{run['n_scans']} payloads, golden {g_counts}")
+    r = run["result"]
+    _say(f"{name}: {n} frames, {r['keyframes']} keyframes, {len(fails)} "
+         f"failed, ATE {r['ate_m']:.4f} m (golden {float(g['ate']):.4f}), "
+         f"drift {r['t_err_percent']:.4f}% (golden "
+         f"{float(g['drift']):.4f}%), graph {counts[0]} nodes / {counts[1]} "
+         f"edges as the golden; {cfg.name} {cfg.registration.cost}/"
+         f"{cfg.registration.loss}, filter {cfg.filter.method}, S="
+         f"{cfg.odometry.submap_scan_size}, max_cells {m}, "
+         f"{cfg.radar.n_bins} bins; {secs:.1f} s for the whole CLI run "
+         f"({r['fps']:.2f} frames/s in its result) ({card})")
 
 
 def sweep_args() -> list:
@@ -2209,49 +2569,73 @@ def drive_slam(cfg, images, dev):
             "opt": opt, "secs": secs, "verify": verify}
 
 
+def golden_outputs(g):
+    """The two fields of a SLAM golden's frame outputs that the graph
+    builder reads: its keyframe flags, and unit odometry covariances
+    (loop verification does not read them)."""
+    fused = np.asarray(g["fused"])
+    return types.SimpleNamespace(
+        fused=fused, cov=np.broadcast_to(np.eye(3), (len(fused), 3, 3)))
+
+
+def golden_loops(cfg, g, images, dev) -> set:
+    """The loop edges `close_from_graph` accepts on `dev` on a graph with
+    scan payloads built from a SLAM golden's own odometry."""
+    gb = posegraph.build_graph_from_odometry(golden_outputs(g), g["poses"],
+                                             images=images, cfg=cfg,
+                                             device=dev)
+    return set(loopclosure.LoopCloser(cfg, device=dev).close_from_graph(gb))
+
+
 def golden_graph(z, dev) -> posegraph.PoseGraph:
     """The graph arrays the reference's `to_arrays` wrote into a golden."""
     return posegraph.PoseGraph(*(torch.as_tensor(z["g_" + f]).to(dev)
                                  for f in posegraph.PoseGraph._fields))
 
 
-def phase_slam(cfg, res, gt, dev, card):
-    """The `slam` path against its golden (`GOLDEN_SLAM`): every frame
-    successful, the keyframe count identical, accepted loop edges within
-    SLAM_LOOP_SHARE of the golden's count and SLAM_PAIR_SHARE of its pairs,
-    closure lowering the keyframe ATE (both printed beside the golden's).
+def phase_slam(cfg, res, gt, dev, card, name="slam", golden=GOLDEN_SLAM,
+               sequence=SLAM_SEQUENCE, images=None):
+    """The `slam` path (or `name`'s, over `sequence`) against its golden
+    (`GOLDEN_SLAM`, or `golden`): every frame successful, the keyframe
+    count identical, accepted loop edges within SLAM_LOOP_SHARE of the
+    golden's count and SLAM_PAIR_SHARE of its pairs, closure lowering the
+    keyframe ATE (both printed beside the golden's). With the path's
+    sweeps `images` (`slam-dropout`), the loop edges so held are those the
+    card's verification accepts on a graph built from the golden's own
+    odometry (`golden_loops`), the path's own are printed, and its closed
+    keyframe ATE must lie within SLAM_DROPOUT_ATE_TOL of the golden's.
     Then the port's `optimize` on the golden's own graph arrays, twice:
     bit-identical, and within SLAM_OPT_TOL of JAX's optimized poses."""
     for s_act in (cfg.odometry.submap_scan_size, 1):
         m = cfg.feature.max_cells
         method = registration.resolve_assoc_method(cfg, m, m, s_act, dev)
         if method != "pallas":
-            raise AssertionError(f"slam: auto resolved to {method} at "
+            raise AssertionError(f"{name}: auto resolved to {method} at "
                                  f"S={s_act}, expected kernel A")
-    with np.load(GOLDEN_SLAM) as z:
+    with np.load(golden) as z:
         g = {k: z[k] for k in z.files}
     if json.loads(str(g["config"])) != cfg.to_dict() \
-            or json.loads(str(g["sequence"])) != SLAM_SEQUENCE \
+            or json.loads(str(g["sequence"])) != sequence \
             or json.loads(str(g["iters"])) != SLAM_ITERS:
-        raise AssertionError("slam: golden was made for another "
+        raise AssertionError(f"{name}: golden was made for another "
                              "configuration or sequence")
     traj, out = res["traj"], res["out"]
     n = traj.shape[0]
     if not np.isfinite(traj).all() or traj.shape != (len(gt), 3):
-        raise AssertionError("slam: trajectory not finite or of the wrong "
+        raise AssertionError(f"{name}: trajectory not finite or of the wrong "
                              "shape")
     if not out.success.all():
-        raise AssertionError(f"slam: failed frames "
+        raise AssertionError(f"{name}: failed frames "
                              f"{np.flatnonzero(~out.success).tolist()}")
     dpos, dyaw, dmot = traj_spread(traj, g["poses"])
     kf = np.flatnonzero(out.fused)
     g_kf = int(g["fused"].sum())
-    _say(f"slam: odometry vs JAX golden: max |dpos| {dpos:.6f} m, |dyaw| "
+    _say(f"{name}: odometry vs JAX golden: max |dpos| {dpos:.6f} m, |dyaw| "
          f"{dyaw:.3e} rad, |dmotion| {dmot:.6f} m; keyframes {len(kf)} "
          f"(golden {g_kf}); keyframe flags equal "
          f"{bool(np.array_equal(out.fused, g['fused']))}")
     if len(kf) != g_kf:
-        raise AssertionError(f"slam: {len(kf)} keyframes, golden {g_kf}")
+        raise AssertionError(f"{name}: {len(kf)} keyframes, golden {g_kf}")
     acc = set(res["accepted"])
     g_acc = set(map(tuple, g["accepted"].tolist()))
     both = len(acc & g_acc)
@@ -2262,7 +2646,7 @@ def phase_slam(cfg, res, gt, dev, card):
                                     posegraph.LOOP_APPEARANCE)
     lr1 = slam_scale.loop_residuals(res["gb"].edges, res["opt"],
                                     posegraph.LOOP_APPEARANCE)
-    _say(f"slam: accepted loop edges {len(acc)} (golden {len(g_acc)}, "
+    _say(f"{name}: accepted loop edges {len(acc)} (golden {len(g_acc)}, "
          f"{both} pairs in both), candidates {n_cand} (golden "
          f"{int(g['n_candidates'])}); loop residual median "
          f"{np.median(lr0):.4f} -> {np.median(lr1):.4f} m (golden "
@@ -2270,16 +2654,25 @@ def phase_slam(cfg, res, gt, dev, card):
          f"{float(g['loop_res_after']):.4f}); keyframe ATE {ate_odo:.4f} -> "
          f"{ate_slam:.4f} m (golden {float(g['ate_odo']):.4f} -> "
          f"{float(g['ate_slam']):.4f})")
-    _say(f"slam: {n} frames; wall s by stage " + json.dumps(
+    _say(f"{name}: {n} frames; wall s by stage " + json.dumps(
         {k: round(v, 2) for k, v in res["secs"].items()})
         + f"; verification launches {json.dumps(res['verify'])} ({card})")
-    if abs(len(acc) - len(g_acc)) > SLAM_LOOP_SHARE * len(g_acc) \
-            or both < SLAM_PAIR_SHARE * len(g_acc):
-        raise AssertionError("slam: accepted loop edges outside "
+    loops, on = acc, "its own odometry"
+    if images is not None:
+        loops, on = golden_loops(cfg, g, images, dev), "the golden's odometry"
+        _say(f"{name}: on the golden's odometry the card's verification "
+             f"accepts {len(loops)} loop edges (golden {len(g_acc)}, "
+             f"{len(loops & g_acc)} pairs in both) ({card})")
+        if abs(ate_slam - float(g["ate_slam"])) > SLAM_DROPOUT_ATE_TOL:
+            raise AssertionError(f"{name}: closed keyframe ATE {ate_slam:.4f}"
+                                 f" m, golden {float(g['ate_slam']):.4f}")
+    if abs(len(loops) - len(g_acc)) > SLAM_LOOP_SHARE * len(g_acc) \
+            or len(loops & g_acc) < SLAM_PAIR_SHARE * len(g_acc):
+        raise AssertionError(f"{name}: accepted loop edges on {on} outside "
                              f"{SLAM_LOOP_SHARE:.0%} of the golden's count "
                              f"or under {SLAM_PAIR_SHARE:.0%} of its pairs")
     if not ate_slam < ate_odo:
-        raise AssertionError(f"slam: closure did not lower the keyframe ATE "
+        raise AssertionError(f"{name}: closure did not lower the keyframe ATE "
                              f"({ate_odo:.4f} -> {ate_slam:.4f} m)")
     graph = golden_graph(g, dev)
     t0 = time.perf_counter()
@@ -2292,14 +2685,14 @@ def phase_slam(cfg, res, gt, dev, card):
     want = g["opt_poses"]
     dxy = float(np.abs(got[:, :2] - want[:, :2]).max())
     dth = float(np.abs(got[:, 2] - want[:, 2]).max())
-    _say(f"slam: optimize on the golden's graph ({graph.poses.shape[0]} "
+    _say(f"{name}: optimize on the golden's graph ({graph.poses.shape[0]} "
          f"nodes, {int(graph.edge_valid.sum())} edges) vs JAX: max |dxy| "
          f"{dxy:.3e} m, |dyaw| {dth:.3e} rad; a second run bit-identical: "
          f"{same}; {secs:.2f} s wall ({card})")
     if not same:
-        raise AssertionError("slam: two optimize runs on the card differ")
+        raise AssertionError(f"{name}: two optimize runs on the card differ")
     if dxy > SLAM_OPT_TOL[0] or dth > SLAM_OPT_TOL[1]:
-        raise AssertionError(f"slam: optimize outside {SLAM_OPT_TOL} of "
+        raise AssertionError(f"{name}: optimize outside {SLAM_OPT_TOL} of "
                              "JAX's on the golden's graph")
 
 
@@ -2674,6 +3067,21 @@ def main() -> int:
     timed("image vs host", lambda: phase_ingest_rates(cfg, images, runner_i,
                                                       dev, card))
     drive("cli", ("nn_min", "lm_solve_fused"), lambda: phase_cli(dev, card))
+    # the CLI beyond CFEAR-3 on synthetic input: dataset directories, the
+    # paper's other presets, CA-CFAR; each path's inputs written first
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in CLI_PATHS:
+            root = os.path.join(tmp, name)
+            written = timed("render", lambda: prepare_cli_path(name, root))
+            if written is not None:
+                timed("cli inputs", lambda: check_dataset_read(name, root,
+                                                               written))
+            if name == "cli-cacfar":
+                timed("cli inputs", lambda: phase_cacfar_filter(dev, card))
+            run = drive(name, ("nn_min", "lm_solve_fused"),
+                        lambda: drive_cli_path(name, root, dev))
+            timed("cli checks", lambda: phase_cli_path(name, *run, dev, card))
+            shutil.rmtree(root)
     jobs_sw = drive("sweep", ("nn_min", "lm_solve_fused"),
                     lambda: drive_sweep(dev))
     timed("sweep checks", lambda: phase_sweep(*jobs_sw, card))
@@ -2691,10 +3099,14 @@ def main() -> int:
         "s50", ("nn_min_sparse", "lm_solve_fused"),
         lambda: phase_single(s50, images50, gt50, dev, card, GOLDEN_S50,
                              "s50", S50_TOL, full_window=True))
-    drive("s50-k16", ("nn_min_sparse", "lm_solve_fused"),
-          lambda: phase_single(s50_config(16), images50, gt50, dev, card,
-                               GOLDEN_S50_K16, "s50-k16", S50_TOL,
-                               full_window=True, passes=1))
+    traj16, _, _ = drive(
+        "s50-k16", ("nn_min_sparse", "lm_solve_fused"),
+        lambda: phase_single(s50_config(16), images50, gt50, dev, card,
+                             GOLDEN_S50_K16, "s50-k16", S50_TOL,
+                             full_window=True, passes=1))
+    for name, t, golden in (("s50", traj50, GOLDEN_S50),
+                            ("s50-k16", traj16, GOLDEN_S50_K16)):
+        phase_s50_drift(name, t, golden, card)
     drive("s50-batched", ("nn_min_sparse", "lm_solve_fused"),
           lambda: phase_batched(s50, images50, traj50, out50, dev, card,
                                 tol=S50_TOL))
@@ -2786,6 +3198,16 @@ def main() -> int:
     del images_b
     drive("merge-mesh", ("nn_min", "lm_solve_fused"),
           lambda: phase_merge_mesh(slam, res["gb"], merged, dev, card))
+    del res, merged
+    # the SLAM pass again, its sweeps rendered with azimuth dropout
+    images_s, gt_s = timed("render", lambda: slam_scale.make_lap_sequence(
+        slam, **SLAM_DROPOUT_SEQUENCE))
+    res_d = drive("slam-dropout", ("nn_min", "lm_solve_fused"),
+                  lambda: drive_slam(slam, images_s, dev))
+    timed("slam checks", lambda: phase_slam(
+        slam, res_d, gt_s, dev, card, "slam-dropout", GOLDEN_SLAM_DROPOUT,
+        SLAM_DROPOUT_SEQUENCE, images_s))
+    del images_s, res_d
     # the sequence fleet and the segment runner on the slice
     fleet = timed("render", lambda: np.stack([images] + [
         synthetic.make_sequence(cfg=cfg, **{**SEQUENCE, "seed": s})[0]

@@ -280,6 +280,145 @@ def test_cli_golden_matches_chip_smoke():
     assert not cfg.feature.spatial_sort and cfg.radar.n_bins == 3768
 
 
+@pytest.mark.parametrize("name", ["cli-oxford", "cli-mulran", "cli-cfear1",
+                                  "cli-cfear2", "cli-cacfar"])
+def test_cli_path_golden_matches_chip_smoke(name, tmp_path, monkeypatch):
+    """The golden of each `cli-*` path of chip_smoke.py was made by the
+    reference CLI (`make_torch_port_golden.py --preset <path>`) with the
+    path's arguments and sequence, kernel A in interpret mode: its
+    configuration is the one the port's CLI builds from those arguments;
+    every frame, no failure, a graph node per keyframe and an edge between
+    consecutive ones; and its bound is set."""
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+
+    class Built(Exception):
+        pass
+
+    def build_config(args):
+        raise Built(build(args))
+
+    build = tcli.build_config
+    monkeypatch.setattr(tcli, "build_config", build_config)
+    root = str(tmp_path / "in")
+    if "dataset" not in chip_smoke.CLI_PATHS[name]:
+        chip_smoke.prepare_cli_path(name, root)    # the --config-file
+    with pytest.raises(Built) as built:
+        tcli.main(chip_smoke.cli_path_args(name, root, str(tmp_path / "run"))
+                  + ["--cpu"])
+    cfg = built.value.args[0]
+    n = chip_smoke.cli_path_sequence(name)["n_frames"]
+    with np.load(chip_smoke.cli_golden_path(name)) as z:
+        assert json.loads(str(z["argv"])) == chip_smoke.cli_path_args(
+            name, "<in>", "<run>")
+        assert json.loads(str(z["sequence"])) == \
+            chip_smoke.cli_path_sequence(name)
+        assert json.loads(str(z["config"])) == cfg.to_dict()
+        assert str(z["assoc_method"]) == "pallas"
+        assert z["poses"].shape == (n, 3) and int(z["failures"]) == 0
+        assert z["success"].all() and z["fused"][0]
+        assert int(z["fused"].sum()) == int(z["keyframes"]) \
+            == int(z["n_nodes"]) == int(z["n_edges"]) + 1
+    assert cfg.registration.assoc_method == "auto"
+    assert cfg.radar.n_bins == (3360 if name == "cli-mulran" else 3768)
+    assert cfg.radar.ccw == (name == "cli-mulran")
+    assert len(chip_smoke.CLI_PATH_TOL[name]) == 3
+
+
+def test_slam_dropout_golden_matches_chip_smoke():
+    """The `slam-dropout` path's golden (`make_torch_port_golden.py
+    --preset slam --dropout 0.35`): the `slam` configuration and
+    iterations over SLAM_DROPOUT_SEQUENCE, kernel A in interpret mode, every
+    frame successful, loops accepted and closure lowering the keyframe
+    ATE."""
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    with np.load(chip_smoke.GOLDEN_SLAM_DROPOUT) as z:
+        assert json.loads(str(z["config"])) == \
+            chip_smoke.slam_config().to_dict()
+        assert json.loads(str(z["sequence"])) == \
+            chip_smoke.SLAM_DROPOUT_SEQUENCE
+        assert json.loads(str(z["iters"])) == chip_smoke.SLAM_ITERS
+        assert str(z["assoc_method"]) == "pallas"
+        assert z["success"].all() and len(z["accepted"]) > 0
+        assert float(z["ate_slam"]) < float(z["ate_odo"])
+    assert chip_smoke.SLAM_DROPOUT_SEQUENCE["dropout_prob"] == 0.35
+
+
+# The paper's CFEAR-1 and CFEAR-2 presets (P2L, submaps of 1 and 3) and
+# CFEAR-3 under CA-CFAR through both CLIs on the CPU, at `bench.py
+# --quick`'s sensor geometry (`tools/tool_spread_torch.py`'s PRESETS,
+# seed 3, 12 frames). Keyframes and failed frames are compared exactly;
+# poses within about 3x the reference's own spread on the same problem
+# (`tools/tool_spread_torch.py --problems presets`), the largest of its
+# kernel-A, AVX and op-by-op (`jax.disable_jit()`) runs' deviations from
+# its dense run as this test runs it: CFEAR-1 1.05 cm, 4.87e-4 rad, 7.1 mm
+# (AVX); CFEAR-2 5.37 cm, 9.09e-3 rad, 4.03 cm (op by op: the compiled
+# reference fuses the image filter with the motion compensation and keeps
+# one cell more in frames 2-4 and 7, which the reference run op by op and
+# the port do not; the port is within 2e-6 m of the op-by-op run); CA-CFAR
+# 5.31 cm, 2.27e-3 rad, 7.1 cm (AVX). The port's own deviation there:
+# 0.59 mm, 5.37 cm, 4.20 cm.
+PRESET_TOL = {"CFEAR-1": (0.032, 1.5e-3, 0.021),
+              "CFEAR-2": (0.16, 0.027, 0.12),
+              "cacfar": (0.16, 6.8e-3, 0.21)}
+
+
+@pytest.mark.parametrize("name", ["CFEAR-1", "CFEAR-2", "cacfar"])
+def test_preset_cli_matches_the_reference(name, tmp_path):
+    """CFEAR-1, CFEAR-2 and `--filter_type cacfar` through the port's CLI
+    and the reference's, both on the CPU (`tool_spread_torch.
+    run_preset_cli`): every frame, identical keyframe and failure flags,
+    the same P2L cost and submap or CA-CFAR filter in both runners'
+    configurations, and poses within PRESET_TOL."""
+    import importlib.util
+    import sys
+    from cfear_radarodometry_code_public_tpu.models.odometry import (
+        OdometryRunner as JRunner)
+    from cfear_radarodometry_code_public_tpu_torch.models.odometry import (
+        OdometryRunner as TRunner)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "tool_spread_torch", os.path.join(repo, "tools",
+                                          "tool_spread_torch.py"))
+    spread = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(spread)
+    import chip_smoke
+    sys.path.remove(repo)
+    cfg = spread.preset_cfg(name)
+    want = spread.run_preset_cli(jcli, JRunner, str(tmp_path / "jax"), name,
+                                 cfg)
+    got = spread.run_preset_cli(tcli, TRunner, str(tmp_path / "port"), name,
+                                cfg)
+    n = spread.PRESET_FRAMES
+    assert got["poses"].shape == want["poses"].shape == (n, 3)
+    assert got["result"]["frames"] == n
+    np.testing.assert_array_equal(got["fused"], want["fused"])
+    np.testing.assert_array_equal(got["success"], want["success"])
+    assert got["result"]["keyframes"] == want["result"]["keyframes"]
+    assert got["cfg"] == want["cfg"]
+    if name == "cacfar":
+        assert got["cfg"]["filter"]["method"] == "cacfar"
+    else:
+        assert got["cfg"]["registration"]["cost"] == "P2L"
+        assert got["cfg"]["odometry"]["submap_scan_size"] == (
+            1 if name == "CFEAR-1" else 3)
+    dpos, dyaw, dmot = chip_smoke.traj_spread(got["poses"], want["poses"])
+    tol = PRESET_TOL[name]
+    assert dpos <= tol[0] and dyaw <= tol[1] and dmot <= tol[2], \
+        (dpos, dyaw, dmot)
+
+
 @pytest.mark.slow
 def test_oxford_loader_to_result_txt_golden(tmp_path):
     """`tests/test_e2e_golden.py:81-114` through the port: the Oxford

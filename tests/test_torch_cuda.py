@@ -440,7 +440,7 @@ def test_kernels_b1_b2_bit_equal_to_a_and_twin(dev, b, s, m):
 # smoke's shapes (`chip_smoke.b_shapes()`) and every group count at S=4
 B_SPLITS = ((4, 4, 1), (4, 4, 2), (4, 4, 4), (4, 4, 8), (4, 1, 1), (4, 2, 1),
             (4, 3, 1), (1, 1, 1), (1, 1, 2), (1, 1, 4), (1, 1, 8),
-            (2, 2, 4), (3, 3, 4), (8, 8, 4))
+            (2, 2, 4), (3, 3, 4), (8, 8, 4), (3, 3, 8))
 
 
 @pytest.mark.parametrize("s,groups,split", B_SPLITS)

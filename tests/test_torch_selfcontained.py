@@ -412,6 +412,39 @@ _NONE_LOADED = textwrap.dedent(r"""
 """)
 
 
+def test_dataset_loaders_run_without_pil(tmp_path):
+    """In the guarded process, where importing PIL fails as well:
+    `chip_smoke.write_dataset` writes an Oxford and a MulRan directory (3
+    sweeps each, with the port's PNG encoder), and the port's
+    `oxford_frames` and `mulran_frames` read the rendered sweeps back bit
+    for bit, with stamps 0.25 s apart; afterwards PIL is not loaded."""
+    script = _GUARD + textwrap.dedent(r"""
+        def no_pil(event, args):
+            if event == "import" and args[0].split(".")[0] == "PIL":
+                raise ImportError(f"blocked in this test: {args[0]}")
+
+        sys.addaudithook(no_pil)
+        import numpy as np
+        import chip_smoke
+        from cfear_radarodometry_code_public_tpu_torch.datasets import oxford
+        for ds, frames, sub in (("oxford", oxford.oxford_frames, "radar"),
+                                ("mulran", oxford.mulran_frames, "polar")):
+            root = os.path.join(sys.argv[2], ds)
+            chip_smoke.DATASET_SEQUENCES[ds]["n_frames"] = 3
+            images = chip_smoke.write_dataset(ds, root)
+            got = list(frames(os.path.join(root, sub)))
+            assert len(got) == 3
+            for (t, img), want in zip(got, images):
+                assert img.dtype == np.uint8
+                assert np.array_equal(img, want), ds
+            assert np.allclose(np.diff([t for t, _ in got]), 0.25), ds
+            stamps, poses = oxford.load_gt_csv(os.path.join(root, "gt.csv"))
+            assert poses.shape == (4, 3)
+        assert "PIL" not in sys.modules
+    """) + _NONE_LOADED
+    _run_guarded(script, str(tmp_path))
+
+
 def _run_guarded(script, *args):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", script, REPO, *args],

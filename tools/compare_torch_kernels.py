@@ -377,7 +377,7 @@ def worker(root) -> int:
            "host_paced": cs.host_paced}
     for shape in cs.LM_SHAPES:
         cfg, packed, pose0 = _lm_inputs(cs, dev, shape)
-        n = str(packed.shape[2])
+        n = cs.lm_shape_key(*shape)
         rec["F"][n] = {
             "call_ms": _call_ms(
                 lambda: cuda_lm.lm_solve_fused(packed, pose0, cfg), 100),

@@ -155,10 +155,107 @@ def cli_golden() -> None:
           f"{time.perf_counter() - t0:.1f} s on the CPU")
 
 
-def slam_golden(method: str) -> None:
+def cli_path_golden(name: str, method: str, compare: bool = False,
+                    eager: bool = False, port_cpu: bool = False) -> None:
+    """`--preset cli-oxford` (and the other `chip_smoke.CLI_PATHS`): the
+    path's inputs written by `chip_smoke.prepare_cli_path` (the dataset
+    directory from the simulator with the port's PNG encoder, which the
+    reference's loader reads with PIL; or the preset's Oxford form as the
+    --config-file), then the reference's CLI with
+    `chip_smoke.cli_path_args` and --cpu, its configuration given
+    `assoc_method="pallas"` (kernel A in interpret mode, what `auto`
+    resolves to on a card) -> `chip_smoke.cli_golden_path(name)`; with
+    `method` "dense", the CLI's own `auto` (the dense association on the
+    CPU), and with `compare` the golden's own run again (under
+    XLA_FLAGS=--xla_cpu_max_isa=AVX: no FMA contraction), its spread from
+    the golden printed and nothing written; with `eager` the run goes op
+    by op (`jax.disable_jit()`: no fusion across the filter, compensation
+    and feature stages), printed in the same way; with `port_cpu` the
+    port's CLI runs instead, on the CPU (`auto`: its dense association),
+    printed in the same way."""
+    import contextlib
+    import hashlib
+    build = offline_odometry.build_config
+    asked = []
+
+    def build_config(args):
+        cfg = build(args)
+        asked.append(cfg.to_dict())
+        if method == "dense":
+            return cfg
+        return cfg.replace(registration=dataclasses.replace(
+            cfg.registration, assoc_method="pallas"))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "in")
+        written = chip_smoke.prepare_cli_path(name, root)
+        argv = chip_smoke.cli_path_args(name, root, os.path.join(tmp, "run"))
+        offline_odometry.build_config = build_config
+        try:
+            if port_cpu:
+                from cfear_radarodometry_code_public_tpu_torch import (
+                    offline_odometry as port_cli)
+                from cfear_radarodometry_code_public_tpu_torch.models import (
+                    odometry as port_odometry)
+                run = chip_smoke.run_cli(port_cli,
+                                         port_odometry.OdometryRunner,
+                                         argv + ["--cpu"])
+            else:
+                with jax.disable_jit() if eager \
+                        else contextlib.nullcontext():
+                    run = chip_smoke.run_cli(offline_odometry,
+                                             OdometryRunner, argv + ["--cpu"])
+        finally:
+            offline_odometry.build_config = build
+    r = run["result"]
+    summary = (f"{r['frames']} frames, {r['keyframes']} keyframes, "
+               f"{r['registration_failures']} failed "
+               f"{np.flatnonzero(~run['success']).tolist()}, ATE "
+               f"{r['ate_m']:.4f} m, drift {r['t_err_percent']:.4f}%, graph "
+               f"{run['n_nodes']} nodes / {run['n_edges']} edges, "
+               f"{time.perf_counter() - t0:.1f} s on the CPU")
+    path = chip_smoke.cli_golden_path(name)
+    if method == "dense" or compare or eager or port_cpu:
+        with np.load(path) as z:
+            g = {k: z[k] for k in z.files}
+        dpos, dyaw, dmot = chip_smoke.traj_spread(run["poses"], g["poses"])
+        label = ("the port on the CPU" if port_cpu else
+                 ("dense" if method == "dense" else "again")
+                 + (" op by op" if eager else ""))
+        print(f"{label} vs "
+              f"{os.path.basename(path)}: max |dpos| {dpos:.6f} m, "
+              f"|dyaw| {dyaw:.3e} rad, |dmotion| {dmot:.6f} m; keyframe "
+              f"flags equal {bool(np.array_equal(run['fused'], g['fused']))}"
+              f" (differ at "
+              f"{np.flatnonzero(run['fused'] != g['fused']).tolist()}); "
+              f"failed frames equal "
+              f"{bool(np.array_equal(run['success'], g['success']))}; graph "
+              f"counts equal {(run['n_nodes'], run['n_edges']) == (int(g['n_nodes']), int(g['n_edges']))}; "
+              + summary)
+        return
+    images = b"" if written is None else written.tobytes()
+    np.savez_compressed(
+        path, poses=run["poses"], fused=run["fused"], success=run["success"],
+        n_nodes=run["n_nodes"], n_edges=run["n_edges"],
+        keyframes=r["keyframes"], failures=r["registration_failures"],
+        ate=np.float64(r["ate_m"]), drift=np.float64(r["t_err_percent"]),
+        assoc_method="pallas", config=json.dumps(asked[0]),
+        sequence=json.dumps(chip_smoke.cli_path_sequence(name)),
+        argv=json.dumps(chip_smoke.cli_path_args(name, "<in>", "<run>")),
+        images_sha256=hashlib.sha256(images).hexdigest())
+    print(f"{path}: " + summary)
+
+
+def slam_golden(method: str, dropout: float = 0.0,
+                compare: bool = False) -> None:
     """`--preset slam`: the reference's SLAM pass on the CPU ->
-    chip_smoke.GOLDEN_SLAM; with `method` "dense", the same pass with the
-    dense association, printed beside the golden and not written."""
+    chip_smoke.GOLDEN_SLAM (with `dropout` 0.35, over
+    `chip_smoke.SLAM_DROPOUT_SEQUENCE` -> chip_smoke.GOLDEN_SLAM_DROPOUT);
+    with `method` "dense", the same pass with the dense association, and
+    with `compare` the golden's own pass again (under
+    XLA_FLAGS=--xla_cpu_max_isa=AVX: no FMA contraction), printed beside
+    the golden and not written."""
     from cfear_radarodometry_code_public_tpu.models import (loopclosure,
                                                             posegraph)
     from cfear_radarodometry_code_public_tpu_torch.eval import slam_scale
@@ -168,7 +265,12 @@ def slam_golden(method: str) -> None:
     method = "pallas" if method == "pallas_sparse" else method
     cfg = cfg.replace(registration=dataclasses.replace(
         cfg.registration, assoc_method=method))
-    images, gt = slam_scale.make_lap_sequence(cfg, **chip_smoke.SLAM_SEQUENCE)
+    if dropout not in (0.0, chip_smoke.SLAM_DROPOUT_SEQUENCE["dropout_prob"]):
+        raise SystemExit("--dropout is 0 or chip_smoke.SLAM_DROPOUT_SEQUENCE's")
+    sequence, golden = ((chip_smoke.SLAM_DROPOUT_SEQUENCE,
+                         chip_smoke.GOLDEN_SLAM_DROPOUT) if dropout else
+                        (chip_smoke.SLAM_SEQUENCE, chip_smoke.GOLDEN_SLAM))
+    images, gt = slam_scale.make_lap_sequence(cfg, **sequence)
     times = {}
     t0 = time.perf_counter()
     runner = OdometryRunner(cfg, chunk=32, ingest="host")
@@ -193,12 +295,13 @@ def slam_golden(method: str) -> None:
     lr1 = slam_scale.loop_residuals(gb.edges, opt, posegraph.LOOP_APPEARANCE)
     ate_odo = slam_scale.keyframe_ate(traj[kf], gt[kf])
     ate_slam = slam_scale.keyframe_ate(opt, gt[kf])
-    if method == "dense":
-        with np.load(chip_smoke.GOLDEN_SLAM) as z:
+    if method == "dense" or compare:
+        with np.load(golden) as z:
             g = dict(z)
         dpos, dyaw, dmot = chip_smoke.traj_spread(traj, g["poses"])
         both = set(map(tuple, g["accepted"])) & set(accepted)
-        print(f"dense vs {os.path.basename(chip_smoke.GOLDEN_SLAM)}: odometry "
+        print(f"{'dense' if method == 'dense' else 'again'} vs "
+              f"{os.path.basename(golden)}: odometry "
               f"max |dpos| {dpos:.6f} m, |dyaw| {dyaw:.3e} rad, |dmotion| "
               f"{dmot:.6f} m; keyframe flags equal "
               f"{bool(np.array_equal(out.fused, g['fused']))}, keyframes "
@@ -212,7 +315,7 @@ def slam_golden(method: str) -> None:
               + json.dumps({k: round(v, 1) for k, v in times.items()}))
         return
     np.savez_compressed(
-        chip_smoke.GOLDEN_SLAM, poses=traj, gt=gt, fused=out.fused,
+        golden, poses=traj, gt=gt, fused=out.fused,
         success=out.success, opt_poses=opt,
         **{"g_" + k: np.asarray(v) for k, v in graph._asdict().items()},
         accepted=np.asarray(accepted, np.int64).reshape(-1, 2),
@@ -220,9 +323,9 @@ def slam_golden(method: str) -> None:
         loop_res_before=np.median(lr0), loop_res_after=np.median(lr1),
         ate_odo=np.float64(ate_odo), ate_slam=np.float64(ate_slam),
         assoc_method=method, config=json.dumps(cfg_dict),
-        sequence=json.dumps(chip_smoke.SLAM_SEQUENCE),
+        sequence=json.dumps(sequence),
         iters=json.dumps(chip_smoke.SLAM_ITERS))
-    print(f"{chip_smoke.GOLDEN_SLAM}: {len(traj)} frames, {len(kf)} "
+    print(f"{golden}: {len(traj)} frames, {len(kf)} "
           f"keyframes, {len(accepted)} accepted loop edges, "
           f"{gb.n_constraints(posegraph.CANDIDATE)} candidates; loop "
           f"residual median {np.median(lr0):.3f} -> {np.median(lr1):.3f} m; "
@@ -342,7 +445,7 @@ def sweep_golden(method: str, compare: bool) -> None:
         jobs = chip_smoke.run_sweep_jobs(sweep, OdometryRunner, tmp, argv)
     names = list(jobs)
     secs = time.perf_counter() - t0
-    if method == "dense" or compare:
+    if method == "dense" or compare or eager:
         with np.load(chip_smoke.GOLDEN_SWEEP) as z:
             g = {k: z[k] for k in z.files}
         worst = np.zeros(3)
@@ -415,8 +518,12 @@ def target(preset: str, feature_backend: str, k_active: int, args):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=("CFEAR-3", "CFEAR-3-s50", "longrun",
-                                         "cli", "slam", "merge", "sweep"),
+                                         "cli", "slam", "merge", "sweep",
+                                         *chip_smoke.CLI_PATHS),
                     default="CFEAR-3")
+    ap.add_argument("--dropout", type=float, default=0.0,
+                    help="slam: azimuth-wedge dropout of the render (0 or "
+                         "0.35, `chip_smoke.SLAM_DROPOUT_SEQUENCE`)")
     ap.add_argument("--feature-backend", choices=("auto", "pallas"),
                     default="auto")
     ap.add_argument("--k-active", type=int, default=0)
@@ -432,16 +539,26 @@ def main() -> None:
     ap.add_argument("--speed", type=float, default=long["speed"])
     ap.add_argument("--extent", type=float, default=long["extent"])
     ap.add_argument("--adversarial", action="store_true")
+    ap.add_argument("--port-cpu", action="store_true",
+                    help="cli-*: the port's CLI on the CPU, its spread from "
+                         "the golden printed, nothing written")
+    ap.add_argument("--eager", action="store_true",
+                    help="cli-*: run op by op (jax.disable_jit()), print the "
+                         "spread from the golden and write nothing")
     ap.add_argument("--compare-only", action="store_true",
-                    help="sweep: print the run's spread from the golden and "
-                         "write nothing")
+                    help="sweep, cli-*, slam: print the run's spread from "
+                         "the golden and write nothing")
     args = ap.parse_args()
     jax.config.update("jax_platforms", "cpu")
     if args.preset == "cli":
         cli_golden()
         return
     if args.preset == "slam":
-        slam_golden(args.assoc_method)
+        slam_golden(args.assoc_method, args.dropout, args.compare_only)
+        return
+    if args.preset in chip_smoke.CLI_PATHS:
+        cli_path_golden(args.preset, args.assoc_method, args.compare_only,
+                        args.eager, args.port_cpu)
         return
     if args.preset == "merge":
         merge_golden(args.assoc_method)

@@ -19,6 +19,14 @@ That test holds the port's evaluation tools (`run_ablation_sweep_torch.py`,
   artifact, which `tests/test_torch_trends.py` sets the port's card run
   beside: there the port runs kernel A (`auto` on a card), so the spread
   that bounds it is `kernelA`'s (the port does not run AB256 here);
+- PRESETS: the paper's CFEAR-1 and CFEAR-2 presets and CFEAR-3 with
+  `--filter_type cacfar` through the offline CLI (`run_preset_cli`), at
+  `bench.py --quick`'s sensor geometry (128 azimuths x 256 bins of 0.6 m,
+  max_cells 256), seed 3, 12 frames: each variant's poses, keyframe and
+  success flags, and the spread of each from `dense`
+  (`tests/test_torch_cli.py::test_preset_cli_matches_the_reference`),
+  with a fifth variant, `eager`: the reference run op by op
+  (`jax.disable_jit()`, about a minute a preset);
 - RES15: the job of the ablation sweep that fails frames on the card,
   `resolution/seed_12/job_0` (res 1.5, 120 frames), as
   `run_ablation_sweep.py` runs it (`--n-workers 5 --worker-index 0`):
@@ -77,7 +85,15 @@ SIM = {"knobs": "saturation", "seeds": "11", "frames": 40,
 AB_FRAMES = {"ab": 40, "ab256": 256}
 RES15 = ["--grids", "resolution", "--seeds", "12", "--n-frames", "120",
          "--n-workers", "5", "--worker-index", "0"]
+PRESETS = {"CFEAR-1": ("CFEAR-1", ()), "CFEAR-2": ("CFEAR-2", ()),
+           "cacfar": ("CFEAR-3", ("--filter_type", "cacfar"))}
+PRESET_FRAMES = 12
 VARIANTS = ("dense", "kernelA", "avx", "port")
+# ...and for PRESETS only, the reference op by op (`jax.disable_jit()`):
+# its compiled form fuses the image filter with the motion compensation,
+# which rounds a point to the other side of a cell's gate where the port
+# and the reference run op by op do not (CFEAR-2, frames 2-4 and 7)
+EAGER = "eager"
 # the rows' columns each test compares: exactly, and within a bound
 EXACT = ("keyframes", "registration_failures")
 BOUNDED = ("t_err_percent", "ate_m")
@@ -137,6 +153,44 @@ def res15_argv(d: str) -> list:
                     "--csv", os.path.join(d, "res15.csv")]
 
 
+def preset_cfg(name: str) -> dict:
+    """PRESETS[name]'s configuration as a dict: the reference's preset at
+    `bench.py --quick`'s sensor geometry (`bench.py:113-119`), max_cells
+    256; built through `config.preset` at call time, so `run_reference`'s
+    kernel-A variant gives it `assoc_method="pallas"`."""
+    from cfear_radarodometry_code_public_tpu import config
+    cfg = config.preset(PRESETS[name][0], dataset="synthetic")
+    return cfg.replace(
+        radar=dataclasses.replace(cfg.radar, n_azimuths=128, n_bins=256,
+                                  range_res=0.6, max_distance=100.0),
+        feature=dataclasses.replace(cfg.feature, max_cells=256)).to_dict()
+
+
+def run_preset_cli(cli_mod, runner_cls, d: str, name: str, cfg: dict) -> dict:
+    """The offline CLI `cli_mod` (the reference's or the port's) on
+    PRESETS[name] with the configuration `cfg` as --config-file, on the
+    CPU, under `d`: {"poses" (T, 3) of est/00.txt, "fused", "success",
+    "result", "cfg" (the runner's)}; all but "cfg" also saved as
+    `d/presets_<name>.npz`."""
+    import json
+
+    import numpy as np
+
+    import chip_smoke
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, f"{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    run = chip_smoke.run_cli(cli_mod, runner_cls, [
+        "--config-file", path, "--dataset", "synthetic", "--seed", "3",
+        "--n-frames", str(PRESET_FRAMES), "--chunk", "4", "--output-dir",
+        os.path.join(d, name), "--cpu", *PRESETS[name][1]])
+    out = {k: run[k] for k in ("poses", "fused", "success")}
+    np.savez(os.path.join(d, f"presets_{name}.npz"), **out,
+             result=json.dumps(run["result"]))
+    return {**out, "result": run["result"], "cfg": run["cfg"]}
+
+
 def ab_argv(d: str, problem: str) -> list:
     return ["--n-frames", str(AB_FRAMES[problem]),
             "--out", os.path.join(d, f"{problem}.txt")]
@@ -173,6 +227,13 @@ def run_reference(d: str, problems, kernel_a: bool = False) -> None:
                 load_tool("run_time_continuous_ab").main(ab_argv(d, problem))
         if "res15" in problems:
             load_tool("run_ablation_sweep").main(res15_argv(d))
+        if "presets" in problems:
+            from cfear_radarodometry_code_public_tpu import offline_odometry
+            from cfear_radarodometry_code_public_tpu.models.odometry import (
+                OdometryRunner)
+            for name in PRESETS:
+                run_preset_cli(offline_odometry, OdometryRunner, d, name,
+                               preset_cfg(name))
     finally:
         config.preset = preset
 
@@ -192,6 +253,13 @@ def run_port(d: str, problems) -> None:
                                                        + ["--cpu"])
     if "res15" in problems:
         load_tool("run_ablation_sweep_torch").main(res15_argv(d) + ["--cpu"])
+    if "presets" in problems:
+        from cfear_radarodometry_code_public_tpu_torch import offline_odometry
+        from cfear_radarodometry_code_public_tpu_torch.models.odometry import (
+            OdometryRunner)
+        for name in PRESETS:
+            run_preset_cli(offline_odometry, OdometryRunner, d, name,
+                           preset_cfg(name))
 
 
 def read_ab(path: str) -> dict:
@@ -246,6 +314,26 @@ def compare(d: str, problems) -> None:
                       f"{r['registration_failures']}, drift "
                       f"{float(r['t_err_percent']):.4f} %, ATE "
                       f"{float(r['ate_m']):.4f} m")
+    if "presets" in problems:
+        import numpy as np
+
+        import chip_smoke
+        for name in PRESETS:
+            with np.load(os.path.join(d, "dense",
+                                      f"presets_{name}.npz")) as z:
+                want = dict(z)
+            for v in VARIANTS[1:] + (EAGER,):
+                with np.load(os.path.join(d, v, f"presets_{name}.npz")) as z:
+                    got = dict(z)
+                dpos, dyaw, dmot = chip_smoke.traj_spread(got["poses"],
+                                                          want["poses"])
+                print(f"presets {name}: {v} vs dense: max |dpos| {dpos:.6f} "
+                      f"m, |dyaw| {dyaw:.3e} rad, |dmotion| {dmot:.6f} m; "
+                      f"keyframes equal "
+                      f"{bool(np.array_equal(got['fused'], want['fused']))}"
+                      f" ({int(got['fused'].sum())}); failed frames "
+                      f"{np.flatnonzero(~got['success']).tolist()} (dense "
+                      f"{np.flatnonzero(~want['success']).tolist()})")
     for problem in AB_FRAMES:
         if problem not in problems:
             continue
@@ -305,10 +393,11 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default=os.path.join(tempfile.gettempdir(),
                                                   "tool_spread"))
-    ap.add_argument("--variant", choices=VARIANTS, default=None,
+    ap.add_argument("--variant", choices=VARIANTS + (EAGER,), default=None,
                     help="run one variant in this process")
     ap.add_argument("--problems", default="ablation,sim,ab",
-                    help="of ablation, sim, ab, ab256, res15; or lm alone")
+                    help="of ablation, sim, ab, ab256, res15, presets; or "
+                         "lm alone")
     args = ap.parse_args()
     problems = args.problems.split(",")
     if problems == ["lm"]:
@@ -319,11 +408,16 @@ def main() -> None:
         os.makedirs(d, exist_ok=True)
         if args.variant == "port":
             run_port(d, problems)
+        elif args.variant == EAGER:
+            import jax
+            with jax.disable_jit():
+                run_reference(d, problems)
         else:
             run_reference(d, problems, kernel_a=args.variant == "kernelA")
         return
-    for v in VARIANTS:
-        if v == "port" and problems == ["ab256"]:
+    for v in VARIANTS + (EAGER,):
+        if v == "port" and problems == ["ab256"] \
+                or v == EAGER and problems != ["presets"]:
             continue
         env = dict(os.environ, JAX_PLATFORMS="cpu")
         if v == "avx":
