@@ -38,10 +38,17 @@ the port's own PNG encoder and read back bit for bit without PIL, the
 MulRan sweeps range-major and counter-clockwise; `cli-cfear1` and
 `cli-cfear2`: the paper's P2L presets, kernel A at S=1 and S=3 and kernel
 F's P2L instances in the odometry step; `cli-cacfar`: CFEAR-3 under
-CA-CFAR, the card's CA-CFAR rows first held to the host filter's; each
-against the reference CLI's golden: keyframe decisions and failed frames
-identical, poses within `CLI_PATH_TOL`, the graph's counts), the
-reference's evaluation sweep as users run it (`sweep`: eight
+CA-CFAR, the card's CA-CFAR rows first held to the host filter's;
+`cli-grid`: CFEAR-3 with the reference's bucket-grid association, torch
+ops on the card, kernel F and no association kernel, the card's bucket
+tables held to the reference's built in numpy and a second run bit for
+bit; `cli-raw`: raw cells, kernel A at B=1 S=4 Msrc=M=4096 and F at B=1
+N=16,384; `cli-kvarntorp` and `cli-volvo`: the 832-bin counter-clockwise
+geometries read from directories in MulRan's layout; each against the
+reference CLI's golden: keyframe decisions and failed frames identical,
+poses within `CLI_PATH_TOL`, the graph's counts, and kernels A and F
+called only at shapes the kernel phases hold), the reference's
+evaluation sweep as users run it (`sweep`: eight
 jobs of `tools/run_ablation_sweep.py`'s grids and world, cut to 48
 frames, through the port's `parallel.sweep.run_sweep` and offline CLI,
 kernels A at S = 1-8 and F with the Tukey, no-loss and P2D costs, each job
@@ -90,6 +97,11 @@ B=256 N=1024, both also held against their twins at that shape), held to
 its golden (inlier matches, `t_ab`, the new session's keyframe error, and
 that error under 0.2x the identity alignment's); `merge-mesh`, the same
 merge with its joint solve on a NCCL group of one process, bit for bit;
+`merge-cli3`, the merge CLI (`merge_sessions.main`) on the card over three
+session graph files (the `slam` map, the `merge` path's session B and a
+third drive C from frame 160), the merged graph and TUM file read back
+and held to its golden (node counts, each merge's inliers, `t_ab` and
+new session's keyframe error; kernels A at B=256 and B=128 S=1, F);
 `fleet`, `parallel.mesh.MultiSequenceRunner` over 8 distinct 64-frame
 sequences with image ingest (lane 0 against the CFEAR-3 golden, every
 lane against its own single run, two runs bit for bit); and `segmented`,
@@ -182,6 +194,15 @@ DATASET_SEQUENCES = {
     "mulran": {"world_seed": 17, "traj_seed": 18, "render_seed": 2000,
                "n_frames": 32, "speed": 8.0,
                "t0": 1_561_000_000_000_000_000},
+    # the 832-bin sensors of Kvarntorp and Volvo (`config.py`: bins of
+    # 0.175238 m, counter-clockwise, min_distance 4.0 and 2.5), in MulRan's
+    # layout, which both CLIs read for them (`mulran_frames`)
+    "kvarntorp": {"world_seed": 27, "traj_seed": 28, "render_seed": 3000,
+                  "n_frames": 32, "speed": 8.0,
+                  "t0": 1_600_000_000_000_000_000},
+    "volvo": {"world_seed": 37, "traj_seed": 38, "render_seed": 4000,
+              "n_frames": 32, "speed": 8.0,
+              "t0": 1_640_000_000_000_000_000},
 }
 # `cli-cfear1`, `cli-cfear2` and `cli-cacfar` run CLI_SEQUENCE's world at
 # Oxford width (400 x 3768) with the paper's CFEAR-1 and CFEAR-2 presets
@@ -199,7 +220,23 @@ CLI_PATHS = {
     "cli-cfear2": {"preset": "CFEAR-2"},
     "cli-cacfar": {"preset": "CFEAR-3",
                    "extra": ["--filter_type", "cacfar"]},
+    # CFEAR-3 with the reference's bucket-grid association (`assoc_method=
+    # "grid"` in the --config-file: torch ops on the card, no association
+    # kernel; kernel F alone), and with raw cells (`--use_raw_pointcloud`:
+    # max_cells_raw 4096, so kernel A at B=1 S=4 Msrc=M=4096 and kernel F
+    # at B=1 N=16,384)
+    "cli-grid": {"preset": "CFEAR-3", "assoc": "grid"},
+    "cli-raw": {"preset": "CFEAR-3", "extra": ["--use_raw_pointcloud"]},
+    # the 832-bin geometries as users run them: `--dataset kvarntorp|volvo`
+    # over a directory in MulRan's layout (A at S=4 M=3072, F at N=12,288)
+    "cli-kvarntorp": {"preset": "CFEAR-3", "dataset": "kvarntorp"},
+    "cli-volvo": {"preset": "CFEAR-3", "dataset": "volvo"},
 }
+# The association kernels; `cli-grid` must launch none of them (its lookup
+# is torch ops), so that the path cannot turn into kernel A unseen
+ASSOC_KERNELS = ("nn_min", "nn_min_multi", "nn_min_multi_unrolled",
+                 "nn_min_sparse", "nn_min_sparse_multi",
+                 "nn_min_sparse_unrolled", "nn_min_sparse_attrs")
 # Their tolerances (position m, yaw rad, motion m), about 3x the larger of
 # two spreads of the reference's own from its golden on the path
 # (`make_torch_port_golden.py --preset <path> --assoc-method dense`, and
@@ -210,15 +247,29 @@ CLI_PATHS = {
 # cm; cli-mulran 0.72 / 0.95 cm, 3.20e-4 / 3.47e-4, 0.54 / 1.08 cm;
 # cli-cfear1 0.42 / 1.61 cm, 1.83e-4 / 4.15e-4, 0.28 / 0.27 cm; cli-cfear2
 # 0.18 / 0.32 cm, 1.02e-4 / 1.26e-4, 0.07 / 0.08 cm; cli-cacfar 0.83 /
-# 1.04 cm, 2.43e-4 / 3.18e-4, 0.99 / 0.96 cm. Keyframe decisions, failed
-# frames (none) and graph counts are identical in every one of these runs.
-# The golden run again under XLA_FLAGS=--xla_cpu_max_isa=AVX stays within
-# 1.6 mm of it on every path.
+# 1.04 cm, 2.43e-4 / 3.18e-4, 0.99 / 0.96 cm; cli-grid 0.83 / 0.56 cm,
+# 3.87e-4 / 1.38e-4, 0.88 / 0.56 cm (dense: the exact association the
+# bucket grid stands in for); cli-kvarntorp 0.43 / 0.24 cm, 7.2e-5 /
+# 6.5e-5, 0.24 / 0.25 cm; cli-volvo 2.75 / 0.001 cm, 4.94e-4 / 9.0e-7,
+# 1.12 / 0.001 cm. Keyframe decisions, failed frames (none) and graph
+# counts are identical in every one of these runs. The golden run again
+# under XLA_FLAGS=--xla_cpu_max_isa=AVX stays within 1.8 mm of it on every
+# path but cli-raw. cli-raw is the ill-conditioned raw-cell ablation: its
+# dense run parts from kernel A's form at the points' near-ties (11
+# keyframes against the golden's 1, poses 19.8 m apart), so its bound is
+# 3x the spread of kernel A's form alone, op by op and under AVX: 65.0 /
+# 44.0 cm, 4.63e-3 / 2.62e-3 rad, 19.1 / 20.7 cm, each with the golden's
+# single keyframe (the reference does not track with raw cells here: ATE
+# 15.7 m over 32 frames).
 CLI_PATH_TOL = {"cli-oxford": (0.19, 5.2e-3, 0.13),
                 "cli-mulran": (0.03, 1.05e-3, 0.033),
                 "cli-cfear1": (0.049, 1.25e-3, 0.0085),
                 "cli-cfear2": (0.0098, 3.8e-4, 0.0024),
-                "cli-cacfar": (0.031, 9.5e-4, 0.030)}
+                "cli-cacfar": (0.031, 9.5e-4, 0.030),
+                "cli-grid": (0.025, 1.2e-3, 0.027),
+                "cli-raw": (1.95, 1.4e-2, 0.62),
+                "cli-kvarntorp": (0.013, 2.2e-4, 0.0076),
+                "cli-volvo": (0.083, 1.5e-3, 0.034)}
 # The SLAM pass (`slam` path) of `tools/run_slam_scale.py`: its configuration
 # (`slam_config`) and multi-lap world of seed 9, cut in depth from 4,096
 # frames (4 laps of 1,024) to 2 laps of 256 at 2.5 m/s, where loops close
@@ -287,6 +338,32 @@ GOLDEN_MERGE = os.path.join(_GOLDEN_DIR, "cfear3_merge_seed9_512_128.npz")
 MERGE_COUNT_SHARE, MERGE_PAIR_SHARE = 0.30, 0.60
 MERGE_T_TOL = (0.42, 6e-3)
 MERGE_ERR_TOL = 0.18
+# The merge CLI over three sessions (`merge-cli3` path): the `slam` path's
+# closed graph (A), the `merge` path's session B and a session C that
+# drives the same route from MERGE3_SEQUENCE's start with its own speckle,
+# each saved as a graph file with its scan payloads, merged by the port's
+# `merge_sessions.main` on the card as users call it (`merge3_args`: the
+# CFEAR-3 Oxford preset at the graphs' cell budget): B against A, then C
+# against the joint A + B. Its golden: `make_torch_port_golden.py --preset
+# merge3` (the reference's merge CLI on the reference's own three graphs,
+# JAX on the CPU, kernel A in interpret mode).
+MERGE3_SEQUENCE = {"start": 160, "n_frames": 96, "render_seed": 929}
+GOLDEN_MERGE3 = os.path.join(_GOLDEN_DIR,
+                             "cfear3_merge3_seed9_512_128_96.npz")
+# Its limits, set as MERGE_*'s are, from the reference's own spread between
+# its dense association and kernel A on this merge (`make_torch_port_golden
+# .py --preset merge3 --assoc-method dense`, JAX on the CPU): the same 171
+# + 43 + 33 nodes and 129 and 99 candidate pairs; inliers 31 against 33
+# (6.1%) and 53 against 53, with 28 and 51 of the golden's pairs found
+# (15.2% and 3.8% missed); t_ab 0.060 m / 3.80e-3 rad and 0.165 m /
+# 5.40e-3 rad apart; the new sessions' merged keyframe errors 0.036 and
+# 0.068 m apart. The limits are about 3x the larger of the two merges':
+# each merge's inlier count within 18% of the golden's with at least 54%
+# of its pairs, t_ab within 0.50 m and 1.6e-2 rad, the new session's
+# keyframe error within 0.20 m of the golden's.
+MERGE3_COUNT_SHARE, MERGE3_PAIR_SHARE = 0.18, 0.54
+MERGE3_T_TOL = (0.50, 1.6e-2)
+MERGE3_ERR_TOL = 0.20
 # The fleet (`fleet` path): BATCH distinct sequences of SEQUENCE's length
 # and speed, seeds 1-8, through `parallel.mesh.MultiSequenceRunner`; and
 # the segment runner (`segmented` path) over SEQUENCE
@@ -428,17 +505,20 @@ LM_CASES = (("P2P", "Huber"), ("P2L", "Huber"), ("P2D", "Cauchy"),
 # keyframes of 1024 cells (N=1,024 and 3,072; its 2 and 8 give N=2,048
 # and 8,192, above); and the paper's CFEAR-1 and CFEAR-2 (`cli-cfear1`,
 # `cli-cfear2`): P2L with Huber's loss over 1 and 3 keyframes of 2048
-# cells (N=2,048, one CTA a lane, and 6,144, a cluster of 8)
+# cells (N=2,048, one CTA a lane, and 6,144, a cluster of 8); the raw
+# cells of `cli-raw`, 4 keyframes of 4096 (N=16,384 at B=1; 12,288 is also
+# `cli-kvarntorp`'s and `cli-volvo`'s)
 LM_SHAPES = ((1, 2048, "P2P", "Huber"), (4, 1024, "P2P", "Huber"),
              (4, 2048, "P2P", "Huber"), (4, 3072, "P2P", "Huber"),
              (16, 1024, "P2P", "Cauchy"), (50, 1024, "P2P", "Cauchy"),
              (50, 3072, "P2P", "Cauchy"), (1, 1024, "P2P", "Huber"),
              (3, 1024, "P2P", "Huber"), (1, 2048, "P2L", "Huber"),
-             (3, 2048, "P2L", "Huber"))
+             (3, 2048, "P2L", "Huber"), (4, 4096, "P2P", "Huber"))
 # ...and loop verification: one keyframe of 1024 cells a lane (N=1,024),
 # the path's own cost (CFEAR-3: P2P/Huber) and P2L, over the SLAM pass's
-# 512 lanes and the merge's 256 (its 129 candidate pairs, `_next_pow2`)
-LM_VERIFY = ((512, 256), ((1, 1024, "P2P", "Huber"),
+# 512 lanes, the merge's 256 (its 129 candidate pairs, `_next_pow2`) and
+# the third session's 128 in `merge-cli3` (99 pairs)
+LM_VERIFY = ((512, 256, 128), ((1, 1024, "P2P", "Huber"),
                           (1, 1024, "P2L", "Huber")))
 # Kernel G against its twin on the card: rows 0-8 bit-equal (both sum each
 # cell in (point, offset) order with unfused f32 operations), rows 9-15
@@ -507,10 +587,14 @@ B_FUNCTIONS = {"nn_min_multi": "nn_min_dense_walk_kernelILi0EE",
 # cells), its window at B=8, the health check's reverse solve (S=1) and
 # `sample_covariance`'s 27 offsets folded into lanes (`longrun-cov`), the
 # SLAM pass's loop verification (512 lanes of one keyframe each, `slam`),
-# the merge's (256 lanes, `merge`), the online daemon's preset (B=1, S=4
+# the merge's (256 lanes, `merge`), the second merge of `merge-cli3` (its
+# 99 candidate pairs against the joint graph: 128 lanes), the online
+# daemon's preset (B=1, S=4
 # of 3072 cells, `online`), the `sweep` path's submaps (B=1, S = 1, 2, 3,
 # 4, 8 of 1024 cells), CFEAR-2's submap (B=1, S=3 of 2048 cells,
-# `cli-cfear2`; CFEAR-1's S=1 is the reverse solve's shape), a target
+# `cli-cfear2`; CFEAR-1's S=1 is the reverse solve's shape), the raw
+# cells' budget (B=1, S=4 of max_cells_raw 4096, `cli-raw`; the online
+# preset's shape is also `cli-kvarntorp`'s and `cli-volvo`'s), a target
 # budget that is not a multiple of 128 (B_RAGGED, which B1 and B2 take);
 # last a ragged shape, checked and not timed. `phase_a_shapes` (run by
 # `phase_kernels`) holds A against its twin at each, on `a_inputs`, and
@@ -519,13 +603,16 @@ B_FUNCTIONS = {"nn_min_multi": "nn_min_dense_walk_kernelILi0EE",
 A_RAGGED = (3, 2, 1000, 1500)
 A_VERIFY = (512, 1, 1024, 1024)
 A_MERGE = (256, 1, 1024, 1024)
+A_MERGE3 = (128, 1, 1024, 1024)
 A_ONLINE = (1, 4, 3072, 3072)
 A_SWEEP = tuple((1, s, 1024, 1024) for s in (1, 2, 3, 4, 8))
 A_CFEAR2 = (1, 3, 2048, 2048)
+A_RAW = (1, 4, 4096, 4096)
 B_RAGGED = (3, 2, 1024, 1500)
 A_SHAPES = ((8, 4, 1024, 1024), (1, 4, 2048, 2048), (8, 4, 2048, 2048),
             (1, 1, 2048, 2048), (27, 4, 2048, 2048), A_VERIFY, A_MERGE,
-            A_ONLINE, *A_SWEEP, A_CFEAR2, B_RAGGED, A_RAGGED)
+            A_MERGE3, A_ONLINE, *A_SWEEP, A_CFEAR2, A_RAW, B_RAGGED,
+            A_RAGGED)
 # operations counted per squared distance (2 subtractions, 2 products, a
 # sum; the compare is not counted), per LM row and pass (a cost-only pass,
 # and a cost/gradient/Hessian pass, from the twin's arithmetic for P2P), and
@@ -638,17 +725,18 @@ def _relative(a, b) -> np.ndarray:
                      np.arctan2(np.sin(dth), np.cos(dth))])
 
 
-def write_dataset(dataset: str, root: str) -> np.ndarray:
+def write_dataset(dataset: str, root: str, n_frames: int = 0) -> np.ndarray:
     """DATASET_SEQUENCES[dataset] rendered (sweep i at trajectory pose i +
     1 with the motion since pose i, its yaw unwrapped, as the reference
     tests' fixture writers render theirs) and written under `root` in the
     released layout (`radar/` and `gt.csv` for Oxford, `polar/` and
-    `gt.csv` for MulRan; see `cli_path_args`). Returns the sweeps as the
+    `gt.csv` for MulRan, Kvarntorp and Volvo; see `cli_path_args`); its
+    first `n_frames` sweeps only, when given. Returns the sweeps as the
     loader must read them back."""
     seq = DATASET_SEQUENCES[dataset]
     cfg = port.preset("CFEAR-3", dataset=dataset)
     world = synthetic.make_world(np.random.default_rng(seq["world_seed"]))
-    dt, n = cfg.radar.sensor_period, seq["n_frames"]
+    dt, n = cfg.radar.sensor_period, n_frames or seq["n_frames"]
     traj = synthetic.make_trajectory(np.random.default_rng(seq["traj_seed"]),
                                      n + 1, dt=dt, speed=seq["speed"])
     unit = 1e6 if dataset == "oxford" else 1e9
@@ -663,13 +751,13 @@ def write_dataset(dataset: str, root: str) -> np.ndarray:
             t=(i + 1) * dt))
     images = np.stack(images)
     oxford = dataset == "oxford"
-    radar_dir = os.path.join(root, "radar" if oxford else "polar")
-    os.makedirs(radar_dir, exist_ok=True)
+    sweeps = radar_dir(dataset, root)
+    os.makedirs(sweeps, exist_ok=True)
     for i, img in enumerate(images):
         stored = (np.concatenate([np.zeros((img.shape[0], 11), np.uint8),
                                   img], 1) if oxford
                   else np.ascontiguousarray(np.rot90(img, -1)))
-        png.write_png(os.path.join(radar_dir, f"{stamps[i + 1]}.png"), stored)
+        png.write_png(os.path.join(sweeps, f"{stamps[i + 1]}.png"), stored)
     with open(os.path.join(root, "gt.csv"), "w") as f:
         if oxford:      # relative poses, source -> destination
             f.write("source_radar_timestamp,destination_radar_timestamp,"
@@ -698,8 +786,7 @@ def cli_path_args(name: str, root: str, out_dir: str) -> list:
     spec = CLI_PATHS[name]
     if "dataset" in spec:
         ds = spec["dataset"]
-        return ["--dataset", ds, "--radar-dir",
-                os.path.join(root, "radar" if ds == "oxford" else "polar"),
+        return ["--dataset", ds, "--radar-dir", radar_dir(ds, root),
                 "--gt-csv", os.path.join(root, "gt.csv"), "--preset",
                 spec["preset"], "--output-dir", out_dir]
     seq = CLI_SEQUENCE
@@ -709,16 +796,31 @@ def cli_path_args(name: str, root: str, out_dir: str) -> list:
             *spec.get("extra", ()), "--output-dir", out_dir]
 
 
+def radar_dir(dataset: str, root: str) -> str:
+    """The sweeps' directory of a dataset written under `root`."""
+    return os.path.join(root, "radar" if dataset == "oxford" else "polar")
+
+
+def cli_path_config(name: str):
+    """The --config-file of a `cli-*` path without a dataset directory:
+    the preset's Oxford form, with the path's association method."""
+    spec = CLI_PATHS[name]
+    cfg = port.preset(spec["preset"], dataset="oxford")
+    if "assoc" in spec:
+        cfg = cfg.replace(registration=dataclasses.replace(
+            cfg.registration, assoc_method=spec["assoc"]))
+    return cfg
+
+
 def prepare_cli_path(name: str, root: str):
     """Write a `cli-*` path's inputs under `root`: the dataset directory,
-    or the preset's Oxford form as the --config-file. Returns the sweeps of
-    a dataset path (None for the others)."""
+    or the path's --config-file. Returns the sweeps of a dataset path
+    (None for the others)."""
     spec = CLI_PATHS[name]
     os.makedirs(root, exist_ok=True)
     if "dataset" in spec:
         return write_dataset(spec["dataset"], root)
-    port.preset(spec["preset"], dataset="oxford").save(
-        os.path.join(root, "config.json"))
+    cli_path_config(name).save(os.path.join(root, "config.json"))
     return None
 
 
@@ -747,7 +849,8 @@ def run_cli(cli_mod, runner_cls, argv: list) -> dict:
             "fused": np.asarray(out.fused), "success": np.asarray(out.success),
             "cfg": runner.cfg.to_dict(), "result": result,
             "n_nodes": len(graph.poses), "n_edges": len(graph.edges),
-            "n_scans": sum(s is not None for s in graph.scans)}
+            "n_scans": sum(s is not None for s in graph.scans),
+            "runner": runner}
 
 
 @contextlib.contextmanager
@@ -779,6 +882,23 @@ def merge_errors(opt_b, poses_b, gt_b) -> tuple:
         return float(np.sqrt(np.mean(np.sum((p[:, :2] - gt_b[:, :2]) ** 2,
                                             1))))
     return rmse(opt_b), rmse(poses_b)
+
+
+def merge3_args(graphs: list, out: str, tum: str) -> list:
+    """The merge CLI's arguments of the `merge-cli3` path (without --cpu):
+    the session graphs, the merged graph and TUM outputs, the CFEAR-3
+    Oxford preset at `slam_config`'s cell budget and MERGE_ITERS."""
+    return [*graphs, "--out", out, "--tum", tum, "--dataset", "oxford",
+            "--max-cells", str(slam_config().feature.max_cells), "--iters",
+            str(MERGE_ITERS)]
+
+
+def read_tum(path: str) -> np.ndarray:
+    """A TUM pose file as (N, 4) rows of stamp, x, y, and the yaw from its
+    quaternion (z, w)."""
+    rows = np.loadtxt(path).reshape(-1, 8)
+    return np.stack([rows[:, 0], rows[:, 1], rows[:, 2],
+                     2.0 * np.arctan2(rows[:, 6], rows[:, 7])], -1)
 
 
 def _say(msg: str) -> None:
@@ -1418,8 +1538,9 @@ def lm_inputs(rng, dev, s, m, cost, loss, b=BATCH):
 
 def lm_shape_key(s, m, cost, loss) -> str:
     """The key of an LM_SHAPES entry in the `*_by_n` records: N, and the
-    cost and loss after it for a cost other than P2P."""
-    return str(s * m) if cost == "P2P" else f"{s * m} {cost}/{loss}"
+    cost and loss after it for a pair other than P2P/Huber."""
+    return str(s * m) if (cost, loss) == ("P2P", "Huber") \
+        else f"{s * m} {cost}/{loss}"
 
 
 def _lm_case(rng, dev, card, s, m, cost, loss, b=BATCH):
@@ -1467,6 +1588,8 @@ def _lm_case(rng, dev, card, s, m, cost, loss, b=BATCH):
         packed[:1], pose0[:1], cfg), n)
     t_p = _cuda_ms(lambda: cuda_lm.lm_solve_fused_plain(packed, pose0, cfg),
                    5, "lm_solve_fused_plain")
+    t_p1 = _cuda_ms(lambda: cuda_lm.lm_solve_fused_plain(
+        packed[:1], pose0[:1], cfg), 5, "lm_solve_fused_plain")
     steps = ee[2].tolist() if b <= BATCH else (
         f"{float(ee[2].float().mean()):.2f} a lane on average")
     _say(f"kernel F {cost}/{loss}: early exit == masked and B=1 == lane of "
@@ -1475,9 +1598,11 @@ def _lm_case(rng, dev, card, s, m, cost, loss, b=BATCH):
          f"twin's: {apart}); max "
          f"|pose - true| {off:.4f}; early exit {t_ee:.4f} ms, masked "
          f"{t_m:.4f} ms, B=1 {t_1:.4f} ms, plain {t_p:.4f} ms at B={b} "
-         f"N={packed.shape[2]} ({card})")
+         f"N={packed.shape[2]}, {t_p1:.4f} ms at B=1 ({card})")
     return {"dpose": dpose, "ms": t_ee, "masked_ms": t_m, "b1_ms": t_1,
-            "plain_ms": t_p, "bound": lm_bound(packed, ee[2]),
+            "plain_ms": t_p, "b1_plain_ms": t_p1,
+            "bound": lm_bound(packed, ee[2]),
+            "b1_bound_ms": lm_bound(packed[:1], ee[2][:1])["bound_ms"],
             "n": packed.shape[2], "key": lm_shape_key(s, m, cost, loss)}
 
 
@@ -1511,7 +1636,8 @@ def phase_lm(dev, card):
         "ms": first["ms"], "plain_ms": first["plain_ms"], **first["bound"],
         "library_ms": None,
         **{f"{k}_by_n": {r["key"]: r[k] for r in by_n}
-           for k in ("ms", "masked_ms", "b1_ms", "plain_ms")},
+           for k in ("ms", "masked_ms", "b1_ms", "plain_ms", "b1_plain_ms",
+                     "b1_bound_ms")},
         "bound_ms_by_n": {r["key"]: r["bound"]["bound_ms"] for r in by_n},
         "by_case": by_case,
         "verify": {k: {"dpose": r["dpose"], "ms": r["ms"],
@@ -1877,9 +2003,8 @@ def check_dataset_read(name: str, root: str, images) -> None:
     from cfear_radarodometry_code_public_tpu_torch.datasets import oxford
     ds = CLI_PATHS[name]["dataset"]
     t0 = time.perf_counter()
-    frames = list(oxford.oxford_frames(os.path.join(root, "radar"))
-                  if ds == "oxford"
-                  else oxford.mulran_frames(os.path.join(root, "polar")))
+    frames = list(oxford.oxford_frames(radar_dir(ds, root)) if ds == "oxford"
+                  else oxford.mulran_frames(radar_dir(ds, root)))
     ms = (time.perf_counter() - t0) * 1e3 / len(frames)
     got = np.stack([img for _, img in frames])
     seq = DATASET_SEQUENCES[ds]
@@ -1924,16 +2049,65 @@ def phase_cacfar_filter(dev, card) -> None:
          f"azimuths at the cap of {cfg.filter.cfar_max_per_azimuth} ({card})")
 
 
+@contextlib.contextmanager
+def kernel_shapes():
+    """While the block runs, the shapes of kernel A's calls, (B, S, Msrc,
+    M), and of kernel F's, (B, N), are collected into the two sets the
+    block is given."""
+    a_shapes, f_shapes = set(), set()
+    nn_min, lm_solve = cuda_assoc.nn_min, cuda_lm.lm_solve_fused
+
+    def spy_a(src, tar, valid):
+        a_shapes.add((*valid.shape[:2], src.shape[1], valid.shape[2]))
+        return nn_min(src, tar, valid)
+
+    def spy_f(packed, pose0, cfg, early_exit=True):
+        f_shapes.add((packed.shape[0], packed.shape[2]))
+        return lm_solve(packed, pose0, cfg, early_exit)
+
+    cuda_assoc.nn_min, cuda_lm.lm_solve_fused = spy_a, spy_f
+    try:
+        yield a_shapes, f_shapes
+    finally:
+        cuda_assoc.nn_min, cuda_lm.lm_solve_fused = nn_min, lm_solve
+
+
 def drive_cli_path(name: str, root: str, dev) -> tuple:
     """A `cli-*` path: the port's offline CLI on the card with
-    `cli_path_args` over the inputs under `root`. Returns (the run,
-    seconds)."""
+    `cli_path_args` over the inputs under `root`. Returns (the run, with
+    the shapes kernels A and F were called at, and seconds)."""
     if dev.type != "cuda":
         raise AssertionError(f"{name}: the path runs on the card")
     t0 = time.perf_counter()
-    run = run_cli(offline_odometry, odometry.OdometryRunner,
-                  cli_path_args(name, root, os.path.join(root, "run")))
+    with kernel_shapes() as (a_shapes, f_shapes):
+        run = run_cli(offline_odometry, odometry.OdometryRunner,
+                      cli_path_args(name, root, os.path.join(root, "run")))
+    run.update(a_shapes=a_shapes, f_shapes=f_shapes)
     return run, time.perf_counter() - t0
+
+
+def cli_path_kernels(name: str) -> tuple:
+    """(the kernels a `cli-*` path must launch, those it must not)."""
+    if CLI_PATHS[name].get("assoc") == "grid":
+        return ("lm_solve_fused",), ASSOC_KERNELS
+    return ("nn_min", "lm_solve_fused"), ()
+
+
+def check_path_shapes(name: str, a_shapes, f_shapes) -> None:
+    """Every shape a path called kernels A and F at is one the kernel
+    phases hold against the twins: A's in A_SHAPES, F's width N in
+    LM_SHAPES (lanes of B=8 calls, and B=1 calls of lane 0) or, at its
+    lane count, in LM_VERIFY."""
+    widths = {s * m for s, m, _, _ in LM_SHAPES}
+    verify = {(b, s * m) for b in LM_VERIFY[0] for s, m, _, _ in LM_VERIFY[1]}
+    a_out = sorted(a_shapes - set(A_SHAPES))
+    f_out = sorted(x for x in f_shapes
+                   if not (x[0] in (1, BATCH) and x[1] in widths)
+                   and x not in verify)
+    if a_out or f_out:
+        raise AssertionError(f"{name}: kernel A at {a_out} or kernel F at "
+                             f"(B, N) {f_out}, shapes the kernel phases do "
+                             "not hold")
 
 
 def phase_cli_path(name: str, run: dict, secs: float, dev, card) -> None:
@@ -1951,12 +2125,20 @@ def phase_cli_path(name: str, run: dict, secs: float, dev, card) -> None:
         raise AssertionError(f"{name}: golden was made for another "
                              "configuration, sequence or arguments")
     cfg = port.CFEARConfig.from_dict(run["cfg"])
-    m = cfg.feature.max_cells
+    m = (cfg.feature.max_cells_raw if cfg.feature.use_raw_pointcloud
+         else cfg.feature.max_cells)
     method = registration.resolve_assoc_method(
         cfg, m, m, cfg.odometry.submap_scan_size, dev)
-    if method != "pallas":
-        raise AssertionError(f"{name}: auto resolved to {method}, expected "
-                             "kernel A")
+    expected = CLI_PATHS[name].get("assoc", "pallas")
+    if method != expected:
+        raise AssertionError(f"{name}: the association resolved to {method}, "
+                             f"expected {expected}")
+    check_path_shapes(name, run["a_shapes"], run["f_shapes"])
+    s_kf = cfg.odometry.submap_scan_size
+    if (expected == "pallas" and (1, s_kf, m, m) not in run["a_shapes"]) \
+            or (1, s_kf * m) not in run["f_shapes"]:
+        raise AssertionError(f"{name}: kernel A never at (1, {s_kf}, {m}, "
+                             f"{m}) or F never at B=1 N={s_kf * m}")
     n = cli_path_sequence(name)["n_frames"]
     if run["poses"].shape != (n, 3) or run["result"]["frames"] != n:
         raise AssertionError(f"{name}: {run['poses'].shape[0]} rows in "
@@ -1978,10 +2160,90 @@ def phase_cli_path(name: str, run: dict, secs: float, dev, card) -> None:
          f"drift {r['t_err_percent']:.4f}% (golden "
          f"{float(g['drift']):.4f}%), graph {counts[0]} nodes / {counts[1]} "
          f"edges as the golden; {cfg.name} {cfg.registration.cost}/"
-         f"{cfg.registration.loss}, filter {cfg.filter.method}, S="
-         f"{cfg.odometry.submap_scan_size}, max_cells {m}, "
-         f"{cfg.radar.n_bins} bins; {secs:.1f} s for the whole CLI run "
-         f"({r['fps']:.2f} frames/s in its result) ({card})")
+         f"{cfg.registration.loss}, filter {cfg.filter.method}, "
+         f"association {method}, S={cfg.odometry.submap_scan_size}, "
+         f"{'raw cells' if cfg.feature.use_raw_pointcloud else 'max_cells'} "
+         f"{m}, {cfg.radar.n_bins} bins; kernel A at (B, S, Msrc, M) "
+         f"{sorted(run['a_shapes'])}, F at (B, N) {sorted(run['f_shapes'])}; "
+         f"{secs:.1f} s for the whole CLI run ({r['fps']:.2f} frames/s in "
+         f"its result) ({card})")
+
+
+def grid_reference_table(mean, valid, cfg) -> np.ndarray:
+    """The reference's bucket table (`registration.py:_associate_grid`'s
+    build) in numpy, from one keyframe's cell means (M, 2) float32 and
+    validity: slot b * C + r holds the r-th valid in-grid cell of bucket b
+    in index order, r < C (`bucket_capacity`), -1 where empty; the cells
+    past a full bucket are dropped. The bucket index uses the same float32
+    division and floor as the port. Returns (G * G * C,) int32."""
+    bin_size, g = registration._bucket_geometry(cfg)
+    cap = cfg.registration.bucket_capacity
+    bi = np.floor(mean / np.float32(bin_size)).astype(np.int32) + g // 2
+    ok = valid & ((bi >= 0) & (bi < g)).all(-1)
+    table = np.full(g * g * cap, -1, np.int32)
+    fill = np.zeros(g * g, np.int64)
+    for i in np.flatnonzero(ok):
+        b = bi[i, 0] * g + bi[i, 1]
+        if fill[b] < cap:
+            table[b * cap + fill[b]] = i
+        fill[b] += 1
+    return table
+
+
+def phase_grid_tables(name: str, run: dict, dev, card) -> None:
+    """`cli-grid`'s bucket tables on the window its run ends with
+    (`registration.build_buckets` over the runner's keyframe cells, S of
+    M=3072): two builds on the card bit-identical, equal to the CPU's
+    build of the same cells and to the reference's table built in numpy
+    (`grid_reference_table`), and the overflow sink at -1: the dump slot
+    past the sink, which every cell without a slot is scattered to, never
+    leaks into the kept table."""
+    cfg = port.CFEARConfig.from_dict(run["cfg"])
+    state = run["runner"].state
+    kf = CellMap(*(a[None] for a in state.kf_cells))
+    first = registration.build_buckets(kf, cfg)
+    again = registration.build_buckets(kf, cfg)
+    on_cpu = registration.build_buckets(
+        CellMap(*(a.cpu() for a in kf)), cfg)
+    torch.cuda.synchronize()
+    got = first.cpu().numpy()[0]
+    cap = cfg.registration.bucket_capacity
+    _, g = registration._bucket_geometry(cfg)
+    mean, valid = kf.mean.cpu().numpy()[0], kf.valid.cpu().numpy()[0]
+    want = np.stack([grid_reference_table(m, v, cfg)
+                     for m, v in zip(mean, valid)])
+    live = int((valid & state.kf_valid.cpu().numpy()[:, None]).sum())
+    if not torch.equal(first, again) or not torch.equal(first.cpu(), on_cpu):
+        raise AssertionError(f"{name}: bucket tables differ between two card "
+                             "builds or from the CPU's")
+    if not (np.array_equal(got[:, :-1], want) and (got[:, -1] == -1).all()):
+        raise AssertionError(f"{name}: the card's bucket table is not the "
+                             "reference's (a dump-slot write leaked?)")
+    occupancy = np.bincount(
+        (want.reshape(mean.shape[0], g * g, cap) >= 0).sum(-1).ravel(),
+        minlength=cap + 1)
+    kept = int((want >= 0).sum())
+    _say(f"{name}: bucket tables on {mean.shape[0]} keyframes x "
+         f"{mean.shape[1]} cells ({live} valid in live keyframes), {g} x {g} "
+         f"buckets of {cap}: two card builds bit-identical, equal to the "
+         f"CPU's and to the reference's table built in numpy, sink -1; "
+         f"{kept} cells kept, {int(valid.sum()) - kept} dropped (a full "
+         f"bucket or outside the grid), {int(occupancy[cap])} buckets full "
+         f"({card})")
+
+
+def phase_grid_repeat(name: str, root: str, run: dict, card) -> None:
+    """`cli-grid` run again on the card: its poses, keyframe flags and
+    result bit for bit the first run's."""
+    again = run_cli(offline_odometry, odometry.OdometryRunner,
+                    cli_path_args(name, root, os.path.join(root, "again")))
+    same = (np.array_equal(again["poses"], run["poses"])
+            and np.array_equal(again["fused"], run["fused"])
+            and np.array_equal(again["success"], run["success"]))
+    _say(f"{name}: a second run on the card bit-identical to the first: "
+         f"{same} ({card})")
+    if not same:
+        raise AssertionError(f"{name}: two runs on the card differ")
 
 
 def sweep_args() -> list:
@@ -2827,6 +3089,141 @@ def phase_merge_mesh(cfg, gb_a, merged, dev, card):
                              "the merge path's")
 
 
+def drive_merge3(cfg, gb_a, gb_b, images_c, dev, tmp):
+    """Session C's host-ingest odometry and graph with payloads on the card,
+    the three session graphs saved under `tmp` (A, B, C), then the port's
+    merge CLI over them on the card as users call it (`merge3_args`, no
+    --cpu). Returns the CLI's result, the merged graph and TUM file read
+    back, each merge's candidate pairs, verified matches, inliers and
+    `t_ab`, the shapes kernels A and F were called at, and the wall
+    seconds of the CLI alone."""
+    from cfear_radarodometry_code_public_tpu_torch import merge_sessions
+    runner = odometry.OdometryRunner(cfg, chunk=32, ingest="host", device=dev)
+    runner.process(images_c)
+    res = {"traj": runner.trajectory(), "out": runner.frame_outputs()}
+    gb_c = posegraph.build_graph_from_odometry(
+        res["out"], res["traj"], images=images_c, cfg=cfg, device=dev)
+    paths = [os.path.join(tmp, f"{k}.npz") for k in "abc"]
+    for gb, path in zip((gb_a, gb_b, gb_c), paths):
+        gb.save(path)
+    out, tum = os.path.join(tmp, "merged.npz"), os.path.join(tmp, "merged.tum")
+    _sync(dev)
+    t0 = time.perf_counter()
+    with recorded(multisession, "cross_session_matches") as found, \
+            recorded(multisession, "align_from_matches") as aligned, \
+            recorded(loopclosure.LoopCloser, "_verify") as verify, \
+            kernel_shapes() as (a_shapes, f_shapes):
+        result = merge_sessions.main(merge3_args(paths, out, tum))
+    _sync(dev)
+    res.update(
+        secs=time.perf_counter() - t0, result=result,
+        nodes=[len(gb.poses) for gb in (gb_a, gb_b, gb_c)],
+        own_poses=[np.stack(gb.poses) for gb in (gb_b, gb_c)],
+        merged=posegraph.GraphBuilder.load(out), tum=read_tum(tum),
+        pairs=[len(v[0]["src_idx"]) for v in verify],
+        verified=[[(m["i_a"], m["j_b"]) for m in f[1]] for f in found],
+        inliers=[[(m["i_a"], m["j_b"]) for m in a[1][1]] for a in aligned],
+        t_ab=[np.asarray(a[1][0]) for a in aligned],
+        a_shapes=a_shapes, f_shapes=f_shapes)
+    return res
+
+
+def phase_merge3(cfg, res, fused_b, gt_b, gt_c, card):
+    """The `merge-cli3` path against its golden (`GOLDEN_MERGE3`): the same
+    configuration, sequences and CLI arguments; session C's keyframe flags
+    identical; node counts identical, per session and merged; for each of
+    the two merges the inlier matches within MERGE3_COUNT_SHARE of the
+    golden's count with at least MERGE3_PAIR_SHARE of its pairs, `t_ab`
+    within MERGE3_T_TOL, the new session's keyframe error within
+    MERGE3_ERR_TOL of the golden's and under 0.2x the identity
+    alignment's; the TUM file one line a merged node, at the merged
+    graph's stamps and poses; kernels A and F at shapes the kernel phases
+    hold."""
+    with np.load(GOLDEN_MERGE3) as z:
+        g = {k: z[k] for k in z.files}
+    if json.loads(str(g["config"])) != cfg.to_dict() \
+            or json.loads(str(g["sequence"])) != SLAM_SEQUENCE \
+            or json.loads(str(g["merge_sequences"])) != [MERGE_SEQUENCE,
+                                                         MERGE3_SEQUENCE] \
+            or json.loads(str(g["argv"])) != merge3_args(
+                ["<a>", "<b>", "<c>"], "<out>", "<tum>") \
+            or json.loads(str(g["iters"])) != MERGE_ITERS:
+        raise AssertionError("merge-cli3: golden was made for another "
+                             "configuration, sequence or arguments")
+    out = res["out"]
+    if not out.success.all():
+        raise AssertionError("merge-cli3: session C has failed frames")
+    dpos, dyaw, dmot = traj_spread(res["traj"], g["poses_2"])
+    _say(f"merge-cli3: session C odometry vs JAX golden: max |dpos| "
+         f"{dpos:.6f} m, |dyaw| {dyaw:.3e} rad, |dmotion| {dmot:.6f} m; "
+         f"keyframes {int(out.fused.sum())} (golden "
+         f"{int(g['fused_2'].sum())})")
+    if not np.array_equal(out.fused, g["fused_2"]) \
+            or not np.array_equal(fused_b, g["fused_1"]):
+        raise AssertionError("merge-cli3: session B's or C's keyframe flags "
+                             "differ from the golden's")
+    merged = res["merged"]
+    nodes = res["nodes"]
+    if nodes != g["nodes"].tolist() or len(merged.poses) != int(g["n_nodes"]) \
+            or res["result"]["n_nodes"] != len(merged.poses) \
+            or res["result"]["n_sessions"] != 3:
+        raise AssertionError(f"merge-cli3: sessions of {nodes} nodes merged "
+                             f"into {len(merged.poses)}, golden "
+                             f"{g['nodes'].tolist()} -> {int(g['n_nodes'])}")
+    check_path_shapes("merge-cli3", res["a_shapes"], res["f_shapes"])
+    opt = np.stack(merged.poses)
+    offsets = np.asarray(res["result"]["offsets"])
+    tum = res["tum"]
+    dyaw = np.angle(np.exp(1j * (tum[:, 3] - opt[:, 2])))
+    if tum.shape != (len(merged.poses), 4) \
+            or not np.allclose(tum[:, 0], merged.stamps, atol=1e-6) \
+            or not np.allclose(tum[:, 1:3], opt[:, :2], atol=1e-6) \
+            or not np.allclose(dyaw, 0.0, atol=1e-5):
+        raise AssertionError("merge-cli3: the TUM file is not the merged "
+                             "graph's stamps and poses")
+    fails = []
+    for k, (fused, gt) in enumerate(((fused_b, gt_b), (out.fused, gt_c)),
+                                    start=1):
+        lo, hi = offsets[k], offsets[k] + nodes[k]
+        kf = np.flatnonzero(fused)
+        err, err_id = merge_errors(opt[lo:hi], res["own_poses"][k - 1],
+                                   gt[kf])
+        got = set(res["inliers"][k - 1])
+        want = set(map(tuple, g[f"inliers_{k}"].tolist()))
+        both = len(got & want)
+        t_ab = res["t_ab"][k - 1]
+        dt = (float(np.abs(t_ab[:2] - g[f"t_ab_{k}"][:2]).max()),
+              float(abs(t_ab[2] - g[f"t_ab_{k}"][2])))
+        _say(f"merge-cli3 merge {k}: {res['pairs'][k - 1]} candidate pairs "
+             f"(golden {int(g[f'pairs_{k}'])}); verified "
+             f"{len(res['verified'][k - 1])} (golden "
+             f"{len(g[f'verified_{k}'])}), inliers {len(got)} (golden "
+             f"{len(want)}, {both} in both); t_ab {np.round(t_ab, 4).tolist()}"
+             f" (golden {np.round(g[f't_ab_{k}'], 4).tolist()}: |d| "
+             f"{dt[0]:.4f} m, {dt[1]:.2e} rad); session {k} keyframe error "
+             f"{err:.4f} m merged (golden {float(g[f'err_{k}']):.4f}), "
+             f"{err_id:.4f} m with the identity alignment")
+        if abs(len(got) - len(want)) > MERGE3_COUNT_SHARE * len(want) \
+                or both < MERGE3_PAIR_SHARE * len(want):
+            fails.append(f"merge {k}: inlier matches outside "
+                         f"{MERGE3_COUNT_SHARE:.0%} of the golden's count or "
+                         f"under {MERGE3_PAIR_SHARE:.0%} of its pairs")
+        if dt[0] > MERGE3_T_TOL[0] or dt[1] > MERGE3_T_TOL[1]:
+            fails.append(f"merge {k}: t_ab outside {MERGE3_T_TOL}")
+        if abs(err - float(g[f"err_{k}"])) > MERGE3_ERR_TOL \
+                or not err < 0.2 * err_id:
+            fails.append(f"merge {k}: keyframe error {err:.4f} m outside "
+                         f"{MERGE3_ERR_TOL} m of the golden's or not under "
+                         "0.2x the identity alignment's")
+    _say(f"merge-cli3: {nodes} nodes merged into {len(merged.poses)} "
+         f"(golden {int(g['n_nodes'])}), {len(merged.edges)} edges (golden "
+         f"{int(g['n_edges'])}); TUM {tum.shape[0]} lines; kernel A at "
+         f"{sorted(res['a_shapes'])}, F at (B, N) {sorted(res['f_shapes'])}; "
+         f"merge CLI {res['secs']:.2f} s wall ({card})")
+    if fails:
+        raise AssertionError("merge-cli3: " + "; ".join(fails))
+
+
 def drive_fleet(cfg, images, dev):
     """`MultiSequenceRunner(cfg, batch=BATCH, chunk=16)`, image ingest, over
     BATCH distinct sequences (`images` (BATCH, T, A, R)), twice. Returns
@@ -3046,7 +3443,7 @@ def main() -> int:
     # the paths: each one's launches are counted from zero just before it
     paths: dict = {}
 
-    def drive(name, needs, fn):
+    def drive(name, needs, fn, never=()):
         _reset_launches()
         result = timed(name, fn)
         paths[name] = _launches()
@@ -3054,6 +3451,9 @@ def main() -> int:
         for k in needs:
             if paths[name][k] == 0:
                 raise AssertionError(f"the {name} path never launched {k}")
+        for k in never:
+            if paths[name][k]:
+                raise AssertionError(f"the {name} path launched {k}")
         return result
 
     traj, out, _ = drive(
@@ -3078,9 +3478,16 @@ def main() -> int:
                                                                written))
             if name == "cli-cacfar":
                 timed("cli inputs", lambda: phase_cacfar_filter(dev, card))
-            run = drive(name, ("nn_min", "lm_solve_fused"),
-                        lambda: drive_cli_path(name, root, dev))
+            needs, never = cli_path_kernels(name)
+            run = drive(name, needs, lambda: drive_cli_path(name, root, dev),
+                        never)
             timed("cli checks", lambda: phase_cli_path(name, *run, dev, card))
+            if CLI_PATHS[name].get("assoc") == "grid":
+                timed("cli checks", lambda: phase_grid_tables(name, run[0],
+                                                              dev, card))
+                timed("cli checks", lambda: phase_grid_repeat(name, root,
+                                                              run[0], card))
+            del run
             shutil.rmtree(root)
     jobs_sw = drive("sweep", ("nn_min", "lm_solve_fused"),
                     lambda: drive_sweep(dev))
@@ -3198,7 +3605,18 @@ def main() -> int:
     del images_b
     drive("merge-mesh", ("nn_min", "lm_solve_fused"),
           lambda: phase_merge_mesh(slam, res["gb"], merged, dev, card))
-    del res, merged
+    # the merge CLI over three sessions: the slam path's map, the merge
+    # path's session B and a third drive, C
+    images_c, gt_c = timed("render", lambda: slam_scale.make_route_slice(
+        slam, lap_frames=seq["lap_frames"], speed=seq["speed"],
+        extent=seq["extent"], **MERGE3_SEQUENCE))
+    with tempfile.TemporaryDirectory() as tmp:
+        merged3 = drive("merge-cli3", ("nn_min", "lm_solve_fused"),
+                        lambda: drive_merge3(slam, res["gb"], merged["gb_b"],
+                                             images_c, dev, tmp))
+    timed("merge checks", lambda: phase_merge3(
+        slam, merged3, merged["out"].fused, gt_b, gt_c, card))
+    del res, merged, merged3, images_c
     # the SLAM pass again, its sweeps rendered with azimuth dropout
     images_s, gt_s = timed("render", lambda: slam_scale.make_lap_sequence(
         slam, **SLAM_DROPOUT_SEQUENCE))

@@ -790,11 +790,11 @@ def test_dense_split_follows_the_shape():
             (8, 4, 2048, 2048): 1, (1, 1, 2048, 2048): 8,
             (27, 4, 2048, 2048): 1, (512, 1, 1024, 1024): 1,
             (256, 1, 1024, 1024): 1, (1, 4, 3072, 3072): 8,
-            (3, 2, 1000, 1500): 4,
+            (128, 1, 1024, 1024): 1, (3, 2, 1000, 1500): 4,
             (1, 1, 1024, 1024): 4, (1, 2, 1024, 1024): 4,
             (1, 3, 1024, 1024): 4, (1, 4, 1024, 1024): 4,
             (1, 8, 1024, 1024): 4, (3, 2, 1024, 1500): 4,
-            (1, 3, 2048, 2048): 8,
+            (1, 3, 2048, 2048): 8, (1, 4, 4096, 4096): 4,
             (1, 1, 256, 256): 1, (1, 1, 256, 257): 2, (1, 1, 256, 100): 1,
             (1, 1, 1, 10 ** 6): 8, (64, 1, 2048, 10 ** 6): 1}
     assert set(chip_smoke.A_SHAPES) <= set(want)
@@ -1076,11 +1076,11 @@ def test_multi_split_follows_the_shape():
             (8, 4, 2048, 2048): (4, 1), (1, 1, 2048, 2048): (1, 8),
             (27, 4, 2048, 2048): (4, 1), (512, 1, 1024, 1024): (1, 1),
             (256, 1, 1024, 1024): (1, 1), (1, 4, 3072, 3072): (4, 4),
-            (3, 2, 1000, 1500): (2, 4),
+            (128, 1, 1024, 1024): (1, 1), (3, 2, 1000, 1500): (2, 4),
             (1, 1, 1024, 1024): (1, 4), (1, 2, 1024, 1024): (2, 4),
             (1, 3, 1024, 1024): (3, 4), (1, 4, 1024, 1024): (4, 4),
             (1, 8, 1024, 1024): (8, 4), (3, 2, 1024, 1500): (2, 4),
-            (1, 3, 2048, 2048): (3, 8),
+            (1, 3, 2048, 2048): (3, 8), (1, 4, 4096, 4096): (4, 2),
             (8, 1, 2048, 2048): (1, 2),       # the long-run window's S=1 B=8
             (2, 3, 512, 1152): (3, 4), (1, 1, 256, 128): (1, 1),
             (64, 16, 1024, 1024): (4, 1), (4, 16, 1024, 1024): (16, 1)}

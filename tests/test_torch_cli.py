@@ -281,14 +281,16 @@ def test_cli_golden_matches_chip_smoke():
 
 
 @pytest.mark.parametrize("name", ["cli-oxford", "cli-mulran", "cli-cfear1",
-                                  "cli-cfear2", "cli-cacfar"])
+                                  "cli-cfear2", "cli-cacfar", "cli-grid",
+                                  "cli-raw", "cli-kvarntorp", "cli-volvo"])
 def test_cli_path_golden_matches_chip_smoke(name, tmp_path, monkeypatch):
     """The golden of each `cli-*` path of chip_smoke.py was made by the
     reference CLI (`make_torch_port_golden.py --preset <path>`) with the
-    path's arguments and sequence, kernel A in interpret mode: its
-    configuration is the one the port's CLI builds from those arguments;
-    every frame, no failure, a graph node per keyframe and an edge between
-    consecutive ones; and its bound is set."""
+    path's arguments and sequence, kernel A in interpret mode (`cli-grid`:
+    the reference's bucket grid): its configuration is the one the port's
+    CLI builds from those arguments; every frame, no failure, a graph node
+    per keyframe and an edge between consecutive ones; the sensor's
+    geometry; and its bound is set."""
     import sys
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, repo)
@@ -319,14 +321,19 @@ def test_cli_path_golden_matches_chip_smoke(name, tmp_path, monkeypatch):
         assert json.loads(str(z["sequence"])) == \
             chip_smoke.cli_path_sequence(name)
         assert json.loads(str(z["config"])) == cfg.to_dict()
-        assert str(z["assoc_method"]) == "pallas"
+        grid = name == "cli-grid"
+        assert str(z["assoc_method"]) == ("grid" if grid else "pallas")
         assert z["poses"].shape == (n, 3) and int(z["failures"]) == 0
         assert z["success"].all() and z["fused"][0]
         assert int(z["fused"].sum()) == int(z["keyframes"]) \
             == int(z["n_nodes"]) == int(z["n_edges"]) + 1
-    assert cfg.registration.assoc_method == "auto"
-    assert cfg.radar.n_bins == (3360 if name == "cli-mulran" else 3768)
-    assert cfg.radar.ccw == (name == "cli-mulran")
+    assert cfg.registration.assoc_method == ("grid" if grid else "auto")
+    assert cfg.feature.use_raw_pointcloud == (name == "cli-raw")
+    dataset = chip_smoke.CLI_PATHS[name].get("dataset", "oxford")
+    assert cfg.radar.n_bins == {"mulran": 3360, "kvarntorp": 832,
+                                "volvo": 832}.get(dataset, 3768)
+    assert cfg.radar.ccw == (dataset != "oxford")
+    assert cfg.radar.min_distance == (4.0 if dataset == "kvarntorp" else 2.5)
     assert len(chip_smoke.CLI_PATH_TOL[name]) == 3
 
 
@@ -355,10 +362,49 @@ def test_slam_dropout_golden_matches_chip_smoke():
     assert chip_smoke.SLAM_DROPOUT_SEQUENCE["dropout_prob"] == 0.35
 
 
-# The paper's CFEAR-1 and CFEAR-2 presets (P2L, submaps of 1 and 3) and
-# CFEAR-3 under CA-CFAR through both CLIs on the CPU, at `bench.py
-# --quick`'s sensor geometry (`tools/tool_spread_torch.py`'s PRESETS,
-# seed 3, 12 frames). Keyframes and failed frames are compared exactly;
+def test_merge3_golden_matches_chip_smoke():
+    """The `merge-cli3` path's golden (`make_torch_port_golden.py --preset
+    merge3`): the reference's merge CLI with the path's arguments over the
+    `slam` configuration's three sessions (the closed `slam` graph,
+    MERGE_SEQUENCE and MERGE3_SEQUENCE), kernel A in interpret mode: both
+    merges verified with inliers, the merged graph one node a session
+    node, the TUM file one line a node, and each new session's keyframe
+    error under 0.2x the identity alignment's."""
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    with np.load(chip_smoke.GOLDEN_MERGE3) as z:
+        assert json.loads(str(z["config"])) == \
+            chip_smoke.slam_config().to_dict()
+        assert json.loads(str(z["sequence"])) == chip_smoke.SLAM_SEQUENCE
+        assert json.loads(str(z["merge_sequences"])) == [
+            chip_smoke.MERGE_SEQUENCE, chip_smoke.MERGE3_SEQUENCE]
+        assert json.loads(str(z["argv"])) == chip_smoke.merge3_args(
+            ["<a>", "<b>", "<c>"], "<out>", "<tum>")
+        assert str(z["assoc_method"]) == "pallas"
+        nodes = z["nodes"].tolist()
+        assert len(nodes) == 3 and int(z["n_nodes"]) == sum(nodes)
+        assert z["offsets"].tolist() == [0, nodes[0], nodes[0] + nodes[1]]
+        assert z["tum"].shape == (sum(nodes), 4)
+        np.testing.assert_allclose(z["tum"][:, 1:3], z["opt_poses"][:, :2],
+                                   atol=1e-6)
+        for k in (1, 2):
+            assert len(z[f"inliers_{k}"]) >= 3 and int(z[f"pairs_{k}"]) > 0
+            assert int(z[f"fused_{k}"].sum()) == nodes[k]
+            assert float(z[f"err_{k}"]) < 0.2 * float(z[f"err_identity_{k}"])
+    assert len(chip_smoke.MERGE3_T_TOL) == 2
+
+
+# The paper's CFEAR-1 and CFEAR-2 presets (P2L, submaps of 1 and 3),
+# CFEAR-3 under CA-CFAR, with the bucket grid and with raw cells through
+# both CLIs on the CPU, at `bench.py --quick`'s sensor geometry
+# (`tools/tool_spread_torch.py`'s PRESETS, seed 3, 12 frames), and CFEAR-3
+# at 1024 cells on 6 sweeps of a Kvarntorp and a Volvo directory (400 x
+# 832). Keyframes and failed frames are compared exactly;
 # poses within about 3x the reference's own spread on the same problem
 # (`tools/tool_spread_torch.py --problems presets`), the largest of its
 # kernel-A, AVX and op-by-op (`jax.disable_jit()`) runs' deviations from
@@ -368,19 +414,34 @@ def test_slam_dropout_golden_matches_chip_smoke():
 # one cell more in frames 2-4 and 7, which the reference run op by op and
 # the port do not; the port is within 2e-6 m of the op-by-op run); CA-CFAR
 # 5.31 cm, 2.27e-3 rad, 7.1 cm (AVX). The port's own deviation there:
-# 0.59 mm, 5.37 cm, 4.20 cm.
+# 0.59 mm, 5.37 cm, 4.20 cm. The bucket grid: 1.88 cm (AVX), 7.13e-4 rad,
+# 1.61 cm (op by op; the port 1.45 cm, 7.13e-4, 1.60 cm). Raw cells (1024
+# of them, `tool_spread_torch.PRESET_CELLS`), an ill-conditioned ablation:
+# kernel A's form parts from the dense one at the points' near-ties (5
+# keyframes against 4, 86 cm), so the bound is the AVX and op-by-op runs'
+# spread: 0.81 mm, 8.0e-6 rad, 0.71 mm (the port 1.12 mm, 1.8e-5, 1.10 mm).
+# Kvarntorp's and Volvo's 6 sweeps at 1024 cells: 9.91 mm, 1.12e-4 rad,
+# 7.84 mm (kernel A; the port 9.83 mm, 1.05e-4, 7.71 mm) and 1.78 cm,
+# 5.34e-4 rad, 1.55 cm (op by op; the port 1.87 cm, 6.19e-4, 1.68 cm).
 PRESET_TOL = {"CFEAR-1": (0.032, 1.5e-3, 0.021),
               "CFEAR-2": (0.16, 0.027, 0.12),
-              "cacfar": (0.16, 6.8e-3, 0.21)}
+              "cacfar": (0.16, 6.8e-3, 0.21),
+              "grid": (0.057, 2.2e-3, 0.049),
+              "raw": (0.0025, 2.4e-5, 0.0022),
+              "kvarntorp": (0.030, 3.4e-4, 0.024),
+              "volvo": (0.054, 1.6e-3, 0.047)}
 
 
-@pytest.mark.parametrize("name", ["CFEAR-1", "CFEAR-2", "cacfar"])
+@pytest.mark.parametrize("name", ["CFEAR-1", "CFEAR-2", "cacfar", "grid",
+                                  "raw", "kvarntorp", "volvo"])
 def test_preset_cli_matches_the_reference(name, tmp_path):
-    """CFEAR-1, CFEAR-2 and `--filter_type cacfar` through the port's CLI
-    and the reference's, both on the CPU (`tool_spread_torch.
-    run_preset_cli`): every frame, identical keyframe and failure flags,
-    the same P2L cost and submap or CA-CFAR filter in both runners'
-    configurations, and poses within PRESET_TOL."""
+    """CFEAR-1, CFEAR-2, `--filter_type cacfar`, the bucket-grid
+    association, `--use_raw_pointcloud` and the Kvarntorp and Volvo
+    directories through the port's CLI and the reference's, both on the
+    CPU (`tool_spread_torch.run_preset_cli`): every frame, identical
+    keyframe and failure flags, the same configuration in both runners
+    (the P2L cost and submap, the CA-CFAR filter, the grid, raw cells, the
+    832-bin sensor), and poses within PRESET_TOL."""
     import importlib.util
     import sys
     from cfear_radarodometry_code_public_tpu.models.odometry import (
@@ -400,18 +461,27 @@ def test_preset_cli_matches_the_reference(name, tmp_path):
                                  cfg)
     got = spread.run_preset_cli(tcli, TRunner, str(tmp_path / "port"), name,
                                 cfg)
-    n = spread.PRESET_FRAMES
+    n = spread.PRESET_DATASETS.get(name, spread.PRESET_FRAMES)
     assert got["poses"].shape == want["poses"].shape == (n, 3)
     assert got["result"]["frames"] == n
     np.testing.assert_array_equal(got["fused"], want["fused"])
     np.testing.assert_array_equal(got["success"], want["success"])
     assert got["result"]["keyframes"] == want["result"]["keyframes"]
     assert got["cfg"] == want["cfg"]
+    c = got["cfg"]
     if name == "cacfar":
-        assert got["cfg"]["filter"]["method"] == "cacfar"
+        assert c["filter"]["method"] == "cacfar"
+    elif name == "grid":
+        assert c["registration"]["assoc_method"] == "grid"
+    elif name == "raw":
+        assert c["feature"]["use_raw_pointcloud"]
+    elif name in spread.PRESET_DATASETS:
+        assert c["radar"]["n_bins"] == 832 and c["radar"]["ccw"]
+        assert c["radar"]["min_distance"] == (4.0 if name == "kvarntorp"
+                                              else 2.5)
     else:
-        assert got["cfg"]["registration"]["cost"] == "P2L"
-        assert got["cfg"]["odometry"]["submap_scan_size"] == (
+        assert c["registration"]["cost"] == "P2L"
+        assert c["odometry"]["submap_scan_size"] == (
             1 if name == "CFEAR-1" else 3)
     dpos, dyaw, dmot = chip_smoke.traj_spread(got["poses"], want["poses"])
     tol = PRESET_TOL[name]

@@ -409,7 +409,8 @@ def test_kernels_d1_d2_e_bit_equal_to_c_and_twins(dev, s, m):
 
 
 @pytest.mark.parametrize("b,s,m", [(1, 1, 2048), (3, 4, 2048), (2, 4, 3072),
-                                   (2, 1, 1024), (2, 4, 1152), (1, 1, 1152)])
+                                   (2, 1, 1024), (2, 4, 1152), (1, 1, 1152),
+                                   (1, 4, 4096)])
 def test_kernels_b1_b2_bit_equal_to_a_and_twin(dev, b, s, m):
     """B1 and B2 give kernel A's (nn, d2) bit for bit, and the twin's, at
     the health check's reverse problem (S=1) and CFEAR-3's window (S=4),
@@ -737,6 +738,26 @@ def test_kernel_f_widths_and_lane_independence(dev, n):
                                        pose0[i:i + 1].contiguous(), cfg)
         for a, b in zip(got, alone):
             assert torch.equal(a[i], b[0]), f"lane {i}"
+
+
+# the single-lane solves of the 832-bin CLI paths (4 x 3072 cells) and of
+# the raw cells (4 x 4096, `chip_smoke.A_RAW`'s path)
+@pytest.mark.parametrize("n", [12288, 16384])
+def test_kernel_f_single_lane_widths(dev, n):
+    """One lane (B=1) at the widths the `cli-kvarntorp`, `cli-volvo` and
+    `cli-raw` paths solve: within tolerance of the twin with equal steps,
+    early exit == masked, two calls bit-identical."""
+    cfg, packed, pose0 = _lm_rows(dev, 1, n, loss="Huber")
+    got = cuda_lm.lm_solve_fused(packed, pose0, cfg)
+    again = cuda_lm.lm_solve_fused(packed, pose0, cfg)
+    masked = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=False)
+    plain = cuda_lm.lm_solve_fused_plain(packed, pose0, cfg)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, masked):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert (got[0] - plain[0]).abs().max() <= chip_smoke.LM_POSE_TOL
+    assert ((got[1] - plain[1]).abs() / plain[1]).max() <= chip_smoke.LM_COST_RTOL
+    assert torch.equal(got[2], plain[2]) and (got[2] > 0).all()
 
 
 @pytest.mark.parametrize("cost,loss", [("P2P", "Huber"), ("P2L", "Cauchy")])
@@ -1152,6 +1173,41 @@ def test_grid_association_on_the_card_equals_the_cpu(dev):
     assert (a_c[2] & ~near).sum() > 300       # held exactly: 433 of 596
     differ = (a_g[0] != a_c[0]) | (a_g[1] != a_c[1]) | (a_g[2] != a_c[2])
     assert near[differ].all(), differ.nonzero().tolist()
+
+
+def test_grid_buckets_on_the_card_under_overflow(dev):
+    """At Oxford width (3072 cells a keyframe, S=4) with buckets crowded
+    past `bucket_capacity`: the card's tables equal the CPU's and, below
+    the sink, `chip_smoke.grid_reference_table` (the reference's table in
+    numpy), the sink -1, and two builds bit-identical: the rows scattered
+    to the dump slot past the sink never leak into the kept table."""
+    from cfear_radarodometry_code_public_tpu_torch.ops import registration
+    cfg = chip_smoke.cli_path_config("cli-grid")
+    bin_size, g = registration._bucket_geometry(cfg)
+    rng = np.random.default_rng(5)
+    s, m = 4, cfg.feature.max_cells
+    mean = (rng.uniform(-0.45, 0.45, (s, m, 2)) * g * bin_size).astype(
+        np.float32)
+    mean[:, :500] = ((rng.uniform(0.1, 0.9, (s, 500, 2))
+                      + rng.integers(0, 4, (s, 500, 1)) * 3)
+                     * bin_size).astype(np.float32)
+    valid = rng.random((s, m)) < 0.9
+    z = torch.zeros((1, s, m))
+    cells = features.CellMap(
+        mean=torch.as_tensor(mean)[None], normal=torch.as_tensor(mean)[None],
+        cov=torch.zeros((1, s, m, 2, 2)), nsamples=z, planarity=z,
+        valid=torch.as_tensor(valid)[None])
+    on_card = features.CellMap(*(a.to(dev) for a in cells))
+    first = registration.build_buckets(on_card, cfg)
+    again = registration.build_buckets(on_card, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert torch.equal(first.cpu(), registration.build_buckets(cells, cfg))
+    got = first.cpu().numpy()[0]
+    for k in range(s):
+        want = chip_smoke.grid_reference_table(mean[k], valid[k], cfg)
+        np.testing.assert_array_equal(got[k, :-1], want)
+        assert got[k, -1] == -1 and (want >= 0).sum() < valid[k].sum()
 
 
 def test_online_daemon_on_the_card_equals_the_offline_runner(dev, tmp_path):

@@ -250,6 +250,54 @@ def test_grid_buckets_equal_the_reference():
         assert (want[:-1] >= 0).sum() == int(np.asarray(one.valid).sum())
 
 
+def test_grid_buckets_under_overflow_equal_the_reference():
+    """At Oxford width (the CFEAR-3 Oxford preset, 3072 cells) with buckets
+    crowded past `bucket_capacity`, cells outside the grid and invalid
+    cells: the port's table equals the reference's slot for slot below the
+    sink, and both equal `chip_smoke.grid_reference_table`, the numpy
+    table the smoke's `cli-grid` path holds the card's against (the port's
+    overflow rows go to a dump slot past the sink, which must not leak)."""
+    import os
+    import sys
+    from cfear_radarodometry_code_public_tpu.config import preset
+    from cfear_radarodometry_code_public_tpu.ops.features import (
+        CellMap as JCellMap)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    cfg_j = preset("CFEAR-3", dataset="oxford")
+    cfg_j = cfg_j.replace(registration=dataclasses.replace(
+        cfg_j.registration, assoc_method="grid"))
+    cfg_t = both_cfgs(cfg_j)[1]
+    bin_size, g = treg._bucket_geometry(cfg_t)
+    cap = cfg_t.registration.bucket_capacity
+    rng = np.random.default_rng(11)
+    m = cfg_t.feature.max_cells
+    mean = (rng.uniform(-1, 1, (m, 2)) * 0.45 * g * bin_size).astype(
+        np.float32)
+    crowd = rng.integers(0, 5, 600)          # 600 cells in 5 buckets
+    mean[:600] = (rng.uniform(0.1, 0.9, (600, 2)) + crowd[:, None] * 3) \
+        .astype(np.float32) * np.float32(bin_size)
+    mean[600:640] = np.float32(0.6 * g * bin_size)       # outside the grid
+    valid = rng.random(m) < 0.9
+    z = np.zeros((m,), np.float32)
+    cells = JCellMap(mean=jnp.asarray(mean), normal=jnp.asarray(mean),
+                     cov=jnp.zeros((m, 2, 2)), nsamples=jnp.asarray(z),
+                     planarity=jnp.asarray(z), valid=jnp.asarray(valid))
+    want = np.asarray(jreg.build_buckets(cells, cfg_j))
+    port = CellMap(*(torch.as_tensor(np.array(a))[None] for a in cells))
+    got = treg.build_buckets(port, cfg_t)[0].numpy()
+    table = chip_smoke.grid_reference_table(mean, valid, cfg_t)
+    np.testing.assert_array_equal(got[:-1], want[:-1])
+    np.testing.assert_array_equal(table, want[:-1])
+    assert got[-1] == -1
+    full = (table.reshape(g * g, cap) >= 0).all(-1).sum()
+    assert full >= 5 and (table >= 0).sum() < valid.sum() - 40
+
+
 def jax_tree_index(tree, i):
     return type(tree)(*(a[i] for a in tree))
 

@@ -181,10 +181,16 @@ def cli_path_golden(name: str, method: str, compare: bool = False,
     def build_config(args):
         cfg = build(args)
         asked.append(cfg.to_dict())
-        if method == "dense":
+        if cfg.registration.assoc_method == "grid":
+            # the bucket grid is its own golden; "dense" is the exact
+            # association it stands in for
+            assoc = "dense" if method == "dense" else "grid"
+        elif method == "dense":
             return cfg
+        else:
+            assoc = "pallas"
         return cfg.replace(registration=dataclasses.replace(
-            cfg.registration, assoc_method="pallas"))
+            cfg.registration, assoc_method=assoc))
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -240,22 +246,32 @@ def cli_path_golden(name: str, method: str, compare: bool = False,
         n_nodes=run["n_nodes"], n_edges=run["n_edges"],
         keyframes=r["keyframes"], failures=r["registration_failures"],
         ate=np.float64(r["ate_m"]), drift=np.float64(r["t_err_percent"]),
-        assoc_method="pallas", config=json.dumps(asked[0]),
+        assoc_method=("grid" if asked[0]["registration"]["assoc_method"]
+                      == "grid" else "pallas"), config=json.dumps(asked[0]),
         sequence=json.dumps(chip_smoke.cli_path_sequence(name)),
         argv=json.dumps(chip_smoke.cli_path_args(name, "<in>", "<run>")),
         images_sha256=hashlib.sha256(images).hexdigest())
     print(f"{path}: " + summary)
 
 
-def slam_golden(method: str, dropout: float = 0.0,
-                compare: bool = False) -> None:
+def slam_golden(method: str, dropout: float = 0.0, compare: bool = False,
+                eager: bool = False, port_cpu: bool = False,
+                render_seed: int | None = None, frames: int = 0) -> None:
     """`--preset slam`: the reference's SLAM pass on the CPU ->
     chip_smoke.GOLDEN_SLAM (with `dropout` 0.35, over
     `chip_smoke.SLAM_DROPOUT_SEQUENCE` -> chip_smoke.GOLDEN_SLAM_DROPOUT);
-    with `method` "dense", the same pass with the dense association, and
-    with `compare` the golden's own pass again (under
-    XLA_FLAGS=--xla_cpu_max_isa=AVX: no FMA contraction), printed beside
-    the golden and not written."""
+    with `method` "dense", the same pass with the dense association, with
+    `compare` the golden's own pass again (under
+    XLA_FLAGS=--xla_cpu_max_isa=AVX: no FMA contraction), with `eager` op
+    by op (`jax.disable_jit()`), with `port_cpu` the port's pass on the CPU
+    (`chip_smoke.drive_slam`), each printed beside the golden and not
+    written. With `render_seed` the sweeps are another draw of the same
+    world and route (`slam_scale.make_route_slice` from frame 0 with that
+    seed), and with `frames` the sequence's first `frames` frames: nothing
+    is written and no golden compared. Every run prints one
+    JSON line (`slam pass: {...}`) with its keyframe count, accepted loop
+    edges and keyframe ATE, from which the loop-edge spread is read."""
+    import contextlib
     from cfear_radarodometry_code_public_tpu.models import (loopclosure,
                                                             posegraph)
     from cfear_radarodometry_code_public_tpu_torch.eval import slam_scale
@@ -270,37 +286,71 @@ def slam_golden(method: str, dropout: float = 0.0,
     sequence, golden = ((chip_smoke.SLAM_DROPOUT_SEQUENCE,
                          chip_smoke.GOLDEN_SLAM_DROPOUT) if dropout else
                         (chip_smoke.SLAM_SEQUENCE, chip_smoke.GOLDEN_SLAM))
-    images, gt = slam_scale.make_lap_sequence(cfg, **sequence)
+    if frames:
+        sequence = {**sequence, "n_frames": frames}
+    if render_seed is None:
+        images, gt = slam_scale.make_lap_sequence(cfg, **sequence)
+    else:
+        images, gt = slam_scale.make_route_slice(
+            cfg, start=0, render_seed=render_seed,
+            **{k: v for k, v in sequence.items() if k != "seed"})
     times = {}
     t0 = time.perf_counter()
-    runner = OdometryRunner(cfg, chunk=32, ingest="host")
-    runner.process(images)
-    traj, out = np.asarray(runner.trajectory()), runner.frame_outputs()
-    kf = np.flatnonzero(np.asarray(out.fused))
-    times["odometry"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    gb = posegraph.build_graph_from_odometry(out, traj, images=images,
-                                             cfg=cfg)
-    times["graph"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    accepted = loopclosure.LoopCloser(cfg).close_from_graph(gb)
-    times["close"] = time.perf_counter() - t0
-    graph = gb.to_arrays()
-    t0 = time.perf_counter()
-    opt, _ = posegraph.optimize(graph, **chip_smoke.SLAM_ITERS)
-    opt = np.asarray(opt.poses)
-    times["optimize"] = time.perf_counter() - t0
+    if port_cpu:
+        import torch
+        from cfear_radarodometry_code_public_tpu_torch import config as pconfig
+        res = chip_smoke.drive_slam(
+            pconfig.CFEARConfig.from_dict(cfg_dict), images,
+            torch.device("cpu"))
+        traj, out, gb = res["traj"], res["out"], res["gb"]
+        accepted, opt, times = res["accepted"], res["opt"], res["secs"]
+        kf = np.flatnonzero(np.asarray(out.fused))
+    else:
+        with jax.disable_jit() if eager else contextlib.nullcontext():
+            runner = OdometryRunner(cfg, chunk=32, ingest="host")
+            runner.process(images)
+            traj, out = np.asarray(runner.trajectory()), runner.frame_outputs()
+            kf = np.flatnonzero(np.asarray(out.fused))
+            times["odometry"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            gb = posegraph.build_graph_from_odometry(out, traj, images=images,
+                                                     cfg=cfg)
+            times["graph"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            accepted = loopclosure.LoopCloser(cfg).close_from_graph(gb)
+            times["close"] = time.perf_counter() - t0
+            graph = gb.to_arrays()
+            t0 = time.perf_counter()
+            opt, _ = posegraph.optimize(graph, **chip_smoke.SLAM_ITERS)
+            opt = np.asarray(opt.poses)
+            times["optimize"] = time.perf_counter() - t0
     lr0 = slam_scale.loop_residuals(gb.edges, traj[kf],
                                     posegraph.LOOP_APPEARANCE)
     lr1 = slam_scale.loop_residuals(gb.edges, opt, posegraph.LOOP_APPEARANCE)
     ate_odo = slam_scale.keyframe_ate(traj[kf], gt[kf])
     ate_slam = slam_scale.keyframe_ate(opt, gt[kf])
-    if method == "dense" or compare:
+    label = ("port-cpu" if port_cpu else
+             ("dense" if method == "dense" else "kernel-A")
+             + ("-eager" if eager else "")
+             + ("-avx" if "max_isa=AVX" in os.environ.get("XLA_FLAGS", "")
+                else ""))
+    print("slam pass: " + json.dumps({
+        "variant": label, "render_seed": render_seed, "dropout": dropout,
+        "frames": len(traj),
+        "keyframes": len(kf), "accepted": sorted(map(list, accepted)),
+        "n_accepted": len(accepted),
+        "n_candidates": gb.n_constraints(posegraph.CANDIDATE),
+        "ate_odo": float(ate_odo), "ate_slam": float(ate_slam),
+        "fused": np.flatnonzero(np.asarray(out.fused)).tolist(),
+        "seconds": {k: round(v, 1) for k, v in times.items()}}), flush=True)
+    if render_seed is not None or frames:
+        return
+    if method == "dense" or compare or eager or port_cpu:
         with np.load(golden) as z:
             g = dict(z)
         dpos, dyaw, dmot = chip_smoke.traj_spread(traj, g["poses"])
         both = set(map(tuple, g["accepted"])) & set(accepted)
-        print(f"{'dense' if method == 'dense' else 'again'} vs "
+        print(f"{label} vs "
               f"{os.path.basename(golden)}: odometry "
               f"max |dpos| {dpos:.6f} m, |dyaw| {dyaw:.3e} rad, |dmotion| "
               f"{dmot:.6f} m; keyframe flags equal "
@@ -420,6 +470,162 @@ def merge_golden(method: str) -> None:
     print(f"{chip_smoke.GOLDEN_MERGE}: " + summary)
 
 
+def merge3_golden(method: str) -> None:
+    """`--preset merge3`: the reference's merge CLI over three session
+    graphs on the CPU -> chip_smoke.GOLDEN_MERGE3. Session A as the `slam`
+    golden makes it (odometry, the graph with payloads,
+    `close_from_graph`), B over `chip_smoke.MERGE_SEQUENCE` and C over
+    `chip_smoke.MERGE3_SEQUENCE` (host-ingest odometry, the graph with
+    payloads), each saved by the reference's `GraphBuilder.save`; then
+    `merge_sessions.main(chip_smoke.merge3_args(...) + ["--cpu"])` with its
+    preset given `assoc_method="pallas"` (kernel A in interpret mode, what
+    `auto` resolves to on a card), the merged graph and TUM file read back.
+    With `method` "dense", the same with the dense association throughout,
+    printed beside the golden and not written."""
+    from cfear_radarodometry_code_public_tpu import config as jconfig
+    from cfear_radarodometry_code_public_tpu import merge_sessions
+    from cfear_radarodometry_code_public_tpu.models import (
+        loopclosure, multisession, posegraph)
+    from cfear_radarodometry_code_public_tpu_torch.eval import slam_scale
+
+    cfg_dict = chip_smoke.slam_config().to_dict()
+    method = "pallas" if method == "pallas_sparse" else method
+    cfg = CFEARConfig.from_dict(cfg_dict)
+    cfg = cfg.replace(registration=dataclasses.replace(
+        cfg.registration, assoc_method=method))
+    seq = chip_smoke.SLAM_SEQUENCE
+    times, t0 = {}, time.perf_counter()
+    sessions = []
+    for make in (lambda: slam_scale.make_lap_sequence(cfg, **seq),
+                 *(lambda s=s: slam_scale.make_route_slice(
+                     cfg, lap_frames=seq["lap_frames"], speed=seq["speed"],
+                     extent=seq["extent"], **s)
+                   for s in (chip_smoke.MERGE_SEQUENCE,
+                             chip_smoke.MERGE3_SEQUENCE))):
+        images, gt = make()
+        runner = OdometryRunner(cfg, chunk=32, ingest="host")
+        runner.process(images)
+        traj, out = np.asarray(runner.trajectory()), runner.frame_outputs()
+        gb = posegraph.build_graph_from_odometry(out, traj, images=images,
+                                                 cfg=cfg)
+        sessions.append({"gb": gb, "traj": traj, "gt": gt,
+                         "fused": np.asarray(out.fused)})
+        del images
+    times["odometry + graphs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loopclosure.LoopCloser(cfg).close_from_graph(sessions[0]["gb"])
+    times["close A"] = time.perf_counter() - t0
+    preset = jconfig.preset
+    built = []
+
+    def preset_a(*args, **kw):
+        c = preset(*args, **kw)
+        built.append(c)
+        return c.replace(registration=dataclasses.replace(
+            c.registration, assoc_method=method))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for name, sess in zip("abc", sessions):
+            paths.append(os.path.join(tmp, f"{name}.npz"))
+            sess["gb"].save(paths[-1])
+        out_path, tum = os.path.join(tmp, "merged.npz"), os.path.join(
+            tmp, "merged.tum")
+        argv = chip_smoke.merge3_args(paths, out_path, tum) + ["--cpu"]
+        jconfig.preset = preset_a
+        t0 = time.perf_counter()
+        try:
+            with chip_smoke.recorded(multisession, "cross_session_matches") \
+                    as found, chip_smoke.recorded(
+                        multisession, "align_from_matches") as aligned, \
+                    chip_smoke.recorded(loopclosure.LoopCloser,
+                                        "_verify") as lanes:
+                result = merge_sessions.main(argv)
+        finally:
+            jconfig.preset = preset
+        times["merge CLI"] = time.perf_counter() - t0
+        merged = posegraph.GraphBuilder.load(out_path)
+        tum_rows = chip_smoke.read_tum(tum)
+    # the CLI's preset (before its --max-cells, the sessions' budget)
+    cli_reg = dataclasses.asdict(built[0].registration)
+    if {k: v for k, v in cli_reg.items() if k != "assoc_method"} != {
+            k: v for k, v in cfg_dict["registration"].items()
+            if k != "assoc_method"}:
+        raise SystemExit("merge3: the merge CLI's preset is not the "
+                         "sessions' registration")
+    opt = np.stack(merged.poses)
+    offsets = np.asarray(result["offsets"])
+    arrays, lines = {}, []
+    for k in (1, 2):
+        verified = np.asarray([(m["i_a"], m["j_b"]) for m in found[k - 1][1]],
+                              np.int64).reshape(-1, 2)
+        t_ab, inl = aligned[k - 1][1]
+        inliers = np.asarray([(m["i_a"], m["j_b"]) for m in inl],
+                             np.int64).reshape(-1, 2)
+        lo, hi = offsets[k], offsets[k] + len(sessions[k]["gb"].poses)
+        sess = sessions[k]
+        kf = np.flatnonzero(sess["fused"])
+        err, err_id = chip_smoke.merge_errors(opt[lo:hi],
+                                              np.stack(sess["gb"].poses),
+                                              sess["gt"][kf])
+        arrays.update({f"verified_{k}": verified, f"inliers_{k}": inliers,
+                       f"t_ab_{k}": np.asarray(t_ab),
+                       f"pairs_{k}": len(lanes[k - 1][0]["src_idx"]),
+                       f"err_{k}": np.float64(err),
+                       f"err_identity_{k}": np.float64(err_id),
+                       f"fused_{k}": sess["fused"], f"poses_{k}": sess["traj"],
+                       f"gt_{k}": sess["gt"]})
+        lines.append(f"merge {k}: {len(lanes[k - 1][0]['src_idx'])} candidate "
+                     f"pairs, {len(verified)} verified, {len(inliers)} "
+                     f"inliers; session {k} keyframe error {err:.4f} m "
+                     f"merged, {err_id:.4f} m with the identity alignment")
+    t_ab = np.asarray(result["t_ab"])
+    if not np.allclose(t_ab, arrays["t_ab_2"]):
+        raise SystemExit("merge3: the CLI's last t_ab is not the second "
+                         "merge's")
+    summary = (f"nodes {[len(x['gb'].poses) for x in sessions]} -> "
+               f"{len(merged.poses)}, {len(merged.edges)} edges; "
+               + "; ".join(lines) + f"; last t_ab {t_ab.tolist()}; seconds "
+               "on the CPU " + json.dumps({k: round(v, 1)
+                                           for k, v in times.items()}))
+    if method == "dense":
+        with np.load(chip_smoke.GOLDEN_MERGE3) as z:
+            g = dict(z)
+        for k in (1, 2):
+            got = set(map(tuple, arrays[f"inliers_{k}"].tolist()))
+            want = set(map(tuple, g[f"inliers_{k}"].tolist()))
+            print(f"dense vs golden, merge {k}: inliers {len(got)} (golden "
+                  f"{len(want)}, {len(got & want)} in both); verified "
+                  f"{len(arrays[f'verified_{k}'])} (golden "
+                  f"{len(g[f'verified_{k}'])}); pairs {arrays[f'pairs_{k}']} "
+                  f"(golden {int(g[f'pairs_{k}'])}); keyframe flags equal "
+                  f"{bool(np.array_equal(arrays[f'fused_{k}'], g[f'fused_{k}']))}"
+                  f"; session error {float(arrays[f'err_{k}']):.4f} m "
+                  f"(golden {float(g[f'err_{k}']):.4f})")
+        d = tum_rows[:, 1:3] - g["tum"][:, 1:3]
+        print(f"dense vs golden: merged nodes {len(merged.poses)} (golden "
+              f"{int(g['n_nodes'])}); |d t_ab| per merge " + ", ".join(
+                  f"{np.abs(a[:2] - b[:2]).max():.6f} m / "
+                  f"{abs(a[2] - b[2]):.3e} rad" for a, b in (
+                      (arrays[f"t_ab_{k}"], g[f"t_ab_{k}"]) for k in (1, 2)))
+              + f"; merged poses max |dxy| {np.abs(d).max():.6f} m; "
+              + summary)
+        return
+    np.savez_compressed(
+        chip_smoke.GOLDEN_MERGE3, opt_poses=opt, tum=tum_rows,
+        n_nodes=len(merged.poses), n_edges=len(merged.edges),
+        offsets=offsets, nodes=np.asarray([len(x["gb"].poses)
+                                           for x in sessions]),
+        assoc_method=method, config=json.dumps(cfg_dict),
+        sequence=json.dumps(seq),
+        merge_sequences=json.dumps([chip_smoke.MERGE_SEQUENCE,
+                                    chip_smoke.MERGE3_SEQUENCE]),
+        argv=json.dumps(chip_smoke.merge3_args(["<a>", "<b>", "<c>"],
+                                               "<out>", "<tum>")),
+        iters=json.dumps(chip_smoke.MERGE_ITERS), **arrays)
+    print(f"{chip_smoke.GOLDEN_MERGE3}: " + summary)
+
+
 def sweep_golden(method: str, compare: bool) -> None:
     """`--preset sweep`: the reference's `parallel.sweep.run_sweep` and
     offline CLI over `chip_smoke.SWEEP_JOBS` on the CPU
@@ -518,12 +724,19 @@ def target(preset: str, feature_backend: str, k_active: int, args):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=("CFEAR-3", "CFEAR-3-s50", "longrun",
-                                         "cli", "slam", "merge", "sweep",
+                                         "cli", "slam", "merge", "merge3",
+                                         "sweep",
                                          *chip_smoke.CLI_PATHS),
                     default="CFEAR-3")
     ap.add_argument("--dropout", type=float, default=0.0,
                     help="slam: azimuth-wedge dropout of the render (0 or "
                          "0.35, `chip_smoke.SLAM_DROPOUT_SEQUENCE`)")
+    ap.add_argument("--render-seed", type=int, default=None,
+                    help="slam: render the sweeps from this seed (the same "
+                         "world and route); print the pass, write nothing")
+    ap.add_argument("--slam-frames", type=int, default=0,
+                    help="slam: the sequence's first frames only; print the "
+                         "pass, write nothing")
     ap.add_argument("--feature-backend", choices=("auto", "pallas"),
                     default="auto")
     ap.add_argument("--k-active", type=int, default=0)
@@ -554,7 +767,9 @@ def main() -> None:
         cli_golden()
         return
     if args.preset == "slam":
-        slam_golden(args.assoc_method, args.dropout, args.compare_only)
+        slam_golden(args.assoc_method, args.dropout, args.compare_only,
+                    args.eager, args.port_cpu, args.render_seed,
+                    args.slam_frames)
         return
     if args.preset in chip_smoke.CLI_PATHS:
         cli_path_golden(args.preset, args.assoc_method, args.compare_only,
@@ -562,6 +777,9 @@ def main() -> None:
         return
     if args.preset == "merge":
         merge_golden(args.assoc_method)
+        return
+    if args.preset == "merge3":
+        merge3_golden(args.assoc_method)
         return
     if args.preset == "sweep":
         sweep_golden(args.assoc_method, args.compare_only)

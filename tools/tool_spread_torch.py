@@ -20,13 +20,18 @@ That test holds the port's evaluation tools (`run_ablation_sweep_torch.py`,
   beside: there the port runs kernel A (`auto` on a card), so the spread
   that bounds it is `kernelA`'s (the port does not run AB256 here);
 - PRESETS: the paper's CFEAR-1 and CFEAR-2 presets and CFEAR-3 with
-  `--filter_type cacfar` through the offline CLI (`run_preset_cli`), at
-  `bench.py --quick`'s sensor geometry (128 azimuths x 256 bins of 0.6 m,
-  max_cells 256), seed 3, 12 frames: each variant's poses, keyframe and
+  `--filter_type cacfar`, with the bucket-grid association (`grid`) and
+  with `--use_raw_pointcloud` (`raw`) through the offline CLI
+  (`run_preset_cli`), at `bench.py --quick`'s sensor geometry (128
+  azimuths x 256 bins of 0.6 m, max_cells 256, 1024 raw cells), seed 3,
+  12 frames; and CFEAR-3 at 1024 cells on 6 sweeps of the Kvarntorp and
+  Volvo geometries (400 x 832,
+  `--dataset kvarntorp|volvo` over a directory that
+  `chip_smoke.write_dataset` writes): each variant's poses, keyframe and
   success flags, and the spread of each from `dense`
   (`tests/test_torch_cli.py::test_preset_cli_matches_the_reference`),
   with a fifth variant, `eager`: the reference run op by op
-  (`jax.disable_jit()`, about a minute a preset);
+  (`jax.disable_jit()`, about a minute a preset); `--presets` picks some;
 - RES15: the job of the ablation sweep that fails frames on the card,
   `resolution/seed_12/job_0` (res 1.5, 120 frames), as
   `run_ablation_sweep.py` runs it (`--n-workers 5 --worker-index 0`):
@@ -56,6 +61,7 @@ bound where the reference's spread is wider.
     JAX_PLATFORMS=cpu python tools/tool_spread_torch.py [--dir DIR]
     JAX_PLATFORMS=cpu python tools/tool_spread_torch.py --problems ab256
     JAX_PLATFORMS=cpu python tools/tool_spread_torch.py --problems lm
+    JAX_PLATFORMS=cpu python tools/tool_spread_torch.py --problems presets --presets grid,raw
 
 About three minutes on the CPU for ABLATION, SIM and AB, and five more for
 AB256 (each variant in a process of its own).
@@ -86,8 +92,21 @@ AB_FRAMES = {"ab": 40, "ab256": 256}
 RES15 = ["--grids", "resolution", "--seeds", "12", "--n-frames", "120",
          "--n-workers", "5", "--worker-index", "0"]
 PRESETS = {"CFEAR-1": ("CFEAR-1", ()), "CFEAR-2": ("CFEAR-2", ()),
-           "cacfar": ("CFEAR-3", ("--filter_type", "cacfar"))}
+           "cacfar": ("CFEAR-3", ("--filter_type", "cacfar")),
+           "grid": ("CFEAR-3", ()),
+           "raw": ("CFEAR-3", ("--use_raw_pointcloud",)),
+           "kvarntorp": ("CFEAR-3", ()), "volvo": ("CFEAR-3", ())}
 PRESET_FRAMES = 12
+# PRESETS read from a dataset directory instead of rendered in the CLI: a
+# few sweeps at the sensor's own geometry (400 x 832), written by
+# `chip_smoke.write_dataset` in MulRan's layout
+PRESET_DATASETS = {"kvarntorp": 6, "volvo": 6}
+# the cell budgets of the CPU problems that would otherwise take the
+# presets' 3072 cells (the 832-bin datasets) or 4096 raw cells, which the
+# CPU's dense association spends most of a test's time on
+PRESET_CELLS = 1024
+# the PRESETS a run takes (`--presets`; all by default)
+SELECTED = list(PRESETS)
 VARIANTS = ("dense", "kernelA", "avx", "port")
 # ...and for PRESETS only, the reference op by op (`jax.disable_jit()`):
 # its compiled form fuses the image filter with the motion compensation,
@@ -156,14 +175,26 @@ def res15_argv(d: str) -> list:
 def preset_cfg(name: str) -> dict:
     """PRESETS[name]'s configuration as a dict: the reference's preset at
     `bench.py --quick`'s sensor geometry (`bench.py:113-119`), max_cells
-    256; built through `config.preset` at call time, so `run_reference`'s
-    kernel-A variant gives it `assoc_method="pallas"`."""
+    256 and max_cells_raw PRESET_CELLS (`grid`: with the bucket-grid
+    association); for PRESET_DATASETS the dataset's own preset at
+    PRESET_CELLS cells. Built through `config.preset` at call
+    time, so `run_reference`'s kernel-A variant gives it
+    `assoc_method="pallas"` (but `grid`)."""
     from cfear_radarodometry_code_public_tpu import config
+    if name in PRESET_DATASETS:
+        cfg = config.preset(PRESETS[name][0], dataset=name)
+        return cfg.replace(feature=dataclasses.replace(
+            cfg.feature, max_cells=PRESET_CELLS)).to_dict()
     cfg = config.preset(PRESETS[name][0], dataset="synthetic")
-    return cfg.replace(
+    cfg = cfg.replace(
         radar=dataclasses.replace(cfg.radar, n_azimuths=128, n_bins=256,
                                   range_res=0.6, max_distance=100.0),
-        feature=dataclasses.replace(cfg.feature, max_cells=256)).to_dict()
+        feature=dataclasses.replace(cfg.feature, max_cells=256,
+                                    max_cells_raw=PRESET_CELLS))
+    if name == "grid":
+        cfg = cfg.replace(registration=dataclasses.replace(
+            cfg.registration, assoc_method="grid"))
+    return cfg.to_dict()
 
 
 def run_preset_cli(cli_mod, runner_cls, d: str, name: str, cfg: dict) -> dict:
@@ -181,9 +212,17 @@ def run_preset_cli(cli_mod, runner_cls, d: str, name: str, cfg: dict) -> dict:
     path = os.path.join(d, f"{name}.json")
     with open(path, "w") as f:
         json.dump(cfg, f)
+    if name in PRESET_DATASETS:
+        root = os.path.join(d, f"{name}_in")
+        chip_smoke.write_dataset(name, root, PRESET_DATASETS[name])
+        source = ["--dataset", name, "--radar-dir",
+                  chip_smoke.radar_dir(name, root), "--gt-csv",
+                  os.path.join(root, "gt.csv")]
+    else:
+        source = ["--dataset", "synthetic", "--seed", "3", "--n-frames",
+                  str(PRESET_FRAMES)]
     run = chip_smoke.run_cli(cli_mod, runner_cls, [
-        "--config-file", path, "--dataset", "synthetic", "--seed", "3",
-        "--n-frames", str(PRESET_FRAMES), "--chunk", "4", "--output-dir",
+        "--config-file", path, *source, "--chunk", "4", "--output-dir",
         os.path.join(d, name), "--cpu", *PRESETS[name][1]])
     out = {k: run[k] for k in ("poses", "fused", "success")}
     np.savez(os.path.join(d, f"presets_{name}.npz"), **out,
@@ -231,7 +270,7 @@ def run_reference(d: str, problems, kernel_a: bool = False) -> None:
             from cfear_radarodometry_code_public_tpu import offline_odometry
             from cfear_radarodometry_code_public_tpu.models.odometry import (
                 OdometryRunner)
-            for name in PRESETS:
+            for name in SELECTED:
                 run_preset_cli(offline_odometry, OdometryRunner, d, name,
                                preset_cfg(name))
     finally:
@@ -257,7 +296,7 @@ def run_port(d: str, problems) -> None:
         from cfear_radarodometry_code_public_tpu_torch import offline_odometry
         from cfear_radarodometry_code_public_tpu_torch.models.odometry import (
             OdometryRunner)
-        for name in PRESETS:
+        for name in SELECTED:
             run_preset_cli(offline_odometry, OdometryRunner, d, name,
                            preset_cfg(name))
 
@@ -318,7 +357,7 @@ def compare(d: str, problems) -> None:
         import numpy as np
 
         import chip_smoke
-        for name in PRESETS:
+        for name in SELECTED:
             with np.load(os.path.join(d, "dense",
                                       f"presets_{name}.npz")) as z:
                 want = dict(z)
@@ -398,8 +437,11 @@ def main() -> None:
     ap.add_argument("--problems", default="ablation,sim,ab",
                     help="of ablation, sim, ab, ab256, res15, presets; or "
                          "lm alone")
+    ap.add_argument("--presets", default=",".join(PRESETS),
+                    help="presets: which of PRESETS to run")
     args = ap.parse_args()
     problems = args.problems.split(",")
+    SELECTED[:] = args.presets.split(",")
     if problems == ["lm"]:
         lm_spread()
         return
@@ -423,7 +465,8 @@ def main() -> None:
         if v == "avx":
             env["XLA_FLAGS"] = "--xla_cpu_max_isa=AVX"
         subprocess.run([sys.executable, __file__, "--dir", args.dir,
-                        "--variant", v, "--problems", args.problems],
+                        "--variant", v, "--problems", args.problems,
+                        "--presets", args.presets],
                        env=env, check=True, stdout=subprocess.DEVNULL)
     compare(args.dir, problems)
 
