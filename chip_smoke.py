@@ -55,7 +55,14 @@ kernels A at S = 1-8 and F with the Tukey, no-loss and P2D costs, each job
 held to the reference's golden: keyframe decisions and failed frames
 identical, the Tukey-0.1 job failing frames, poses within `SWEEP_TOL`),
 batched x8 (`make_batched_step`, two runs that must agree bit for
-bit), and single-sequence with `feature.backend="pallas"` (kernel G).
+bit), single-sequence with `feature.backend="pallas"` (kernel G), the
+same at a point budget whose occupied voxels pass kernel G's compact-cell
+budget on every frame (`pallas-features-overflow`: the frames and voxels
+dropped printed, G held bit for bit against its twin on those frames'
+inputs first), and a parked sensor (`stationary`: one sweep repeated, only
+the bootstrap keyframe, every pose within 0.2 m of the origin; kernel C
+on a source equal to its target, every d2 exactly 0, and F at zero
+residual against their twins).
 Then CFEAR-3-s50, the 50-keyframe submap, over 128 frames:
 exact and with the K=16 gate (`s50`, `s50-k16`; both print their drift
 under `bench.py --check-drift`'s protocol beside the golden's), batched x8
@@ -73,7 +80,11 @@ extent-1000 world at 12 m/s (`longrun`), split through a checkpoint
 (`longrun-cov`), in the adversarial world at 8 m/s (`longrun-adv8`) and
 at 12 m/s, the breaking regime, over 384 frames (`longrun-adv12`: the
 reference's golden marks one health check unhealthy there, and the port
-must mark it too);
+must mark it too), and a sensor that goes blind (`longrun-blind`: the
+health check on every frame, image ingest, all-zero sweeps from frame 32:
+flags as the golden's, every checked blind frame unhealthy, no NaN; kernel
+A without a valid target and on a source of no cell, F with no weight and
+with one row, against their twins);
 kernels B1 and B2 run on the window `longrun` ends with (the forward S=4
 and the reverse S=1 problem, B=1 and B=8) and are held bit for bit against
 kernel A and their twin (`longrun-window`). Then the SLAM pass of `tools/run_slam_scale.py`
@@ -88,7 +99,15 @@ repeat bit for bit and equal JAX's; `slam-dropout` is the same pass with
 the sweeps rendered under azimuth dropout 0.35 (after `merge-mesh`), held
 to its own golden: the keyframe count, `slam`'s loop-edge shares on the
 edges the card's verification accepts on a graph built from the golden's
-own odometry, the closed keyframe ATE within `SLAM_DROPOUT_ATE_TOL`. Then the multi-session merge
+own odometry, the pass's own loop-edge count within
+`SLAM_DROPOUT_OWN_LOOP_SHARE` of the golden's, the closed keyframe ATE
+within `SLAM_DROPOUT_ATE_TOL`, and the pass's own accepted pairs and those
+the card's verification accepts on the committed card odometry
+(`CARD_SLAM_DROPOUT`) both equal to that file's, which the reference
+accepts on it; then `refine`: `refine_many_to_many` on the
+reference's cells of 16 keyframes from perturbed poses (no kernel), two
+runs bit-identical and within `REFINE_TOL` of the reference's refinement.
+Then the multi-session merge
 (`merge`): a second drive of 128 frames over the same world, from frame
 320 of its route with its own speckle, odometry and graph on the card,
 folded into the `slam` path's map by `merge_many` (cross-session
@@ -166,6 +185,35 @@ GOLDEN = os.path.join(_GOLDEN_DIR, "cfear3_oxford_seed1_64.npz")
 GOLDEN_PALLAS = os.path.join(_GOLDEN_DIR,
                              "cfear3_oxford_seed1_64_pallasfeat.npz")
 SEQUENCE = {"seed": 1, "n_frames": 64, "speed": 6.0}   # as bench.py renders it
+# A parked sensor (`stationary` path): the reference's test
+# `tests/test_odometry.py:98` (`test_stationary_sensor_no_keyframes`) at
+# Oxford width: one sweep of SEQUENCE's world (`make_world` from the
+# generator of its seed, as `make_sequence` draws it) rendered at the
+# origin, repeated for STATIONARY's frames, through `slice_config()`
+# (kernel C) with host ingest. Identical sweeps give identical cells, so
+# the first association of frame 1 matches every source cell to itself
+# (kernel C's exact d2 = 0) and kernel F starts at zero residual. Only the
+# bootstrap frame may be a keyframe, and every pose must stay within
+# STATIONARY_MAX_XY of the origin (that test's bound). Its golden:
+# `make_torch_port_golden.py --preset stationary`.
+STATIONARY = {"seed": 1, "n_frames": 24}
+STATIONARY_MAX_XY = 0.2
+GOLDEN_STATIONARY = os.path.join(_GOLDEN_DIR,
+                                 "cfear3_stationary_oxford_seed1_24.npz")
+# Voxel overflow on kernel G's path (`pallas-features-overflow` path): the
+# slice with `feature.backend="pallas"` at a point budget users set for
+# denser sweeps, OVERFLOW_POINT_BUDGET (24 x 512) at the default pre_cells
+# (c_pre 4,608), over OVERFLOW_SEQUENCE (SEQUENCE cut to 32 frames). There
+# the budget holds every point the host filter keeps (11,286-11,847 a
+# frame on SEQUENCE's 64), which occupy 5,473-5,716 voxels (at the slice's
+# 8192 points 4,428-4,649, and 5 of SEQUENCE's 64 frames already pass
+# c_pre): every frame drops the voxels ranked at or beyond c_pre
+# (`features._moment_inputs`), as the reference does. Its golden:
+# `make_torch_port_golden.py --preset overflow`.
+OVERFLOW_POINT_BUDGET = 12288
+OVERFLOW_SEQUENCE = {**SEQUENCE, "n_frames": 32}
+GOLDEN_OVERFLOW = os.path.join(_GOLDEN_DIR,
+                               "cfear3_oxford_seed1_32_pallasfeat_pb12288.npz")
 # CFEAR-3-s50: bench.py's default 128 frames; at 6 m/s nearly every frame
 # is a keyframe, so the 50-keyframe window is full for the last ~75 frames
 S50_SEQUENCE = {"seed": 1, "n_frames": 128, "speed": 6.0}
@@ -315,6 +363,58 @@ GOLDEN_SLAM_DROPOUT = os.path.join(_GOLDEN_DIR,
 # SLAM_DROPOUT_ATE_TOL of the golden's, about 3x the 0.0285 m of the
 # reference's reruns (ROADMAP queue 3, "slam-dropout's loop edges").
 SLAM_DROPOUT_ATE_TOL = 0.086
+# ...and the pass's own accepted loop-edge count, on the odometry the card
+# gives it. Given the card's odometry (`golden/card_h100_slam_dropout35_
+# seed9_512.npz`, `tools/slam_verify_torch.py --save-odometry`), the
+# reference's closure on the CPU accepts the card's 55 pairs exactly with
+# kernel A (with and without AVX) and with its dense form under AVX, and
+# those 55 and one more with the dense form (`--reference-closure`); from
+# the card runner's state before the first keyframe flag it sets apart
+# from the golden's (frame 414) the reference sets the card's flags, and
+# from the reference's state there the port sets the golden's (`--flags`):
+# the count follows the odometry, and the odometry parts by float32
+# rounding (ROADMAP queue 3, closed as a finding). The bound is about 3x
+# the reference's own spread of that count over its rounding variants
+# (kernel A, kernel A under AVX, dense, dense under AVX) on three render
+# draws of this world and route at 512 frames: 47-49 on the golden's draw,
+# 56-59 on draw 9101 and 43-48 on draw 9102 (5 edges, 11.6% of 43;
+# `make_torch_port_golden.py --preset slam --dropout 0.35 [--render-seed
+# N] [--assoc-method dense]`, JAX on the CPU). It admits 31-63 edges
+# against the golden's 47, so it cannot tell an offset of the size seen
+# (the card's 55, 8 above the golden's) from rounding: it holds only a
+# gross fault.
+SLAM_DROPOUT_OWN_LOOP_SHARE = 0.35
+# The exact check: the card's odometry of the pass, as `tools/slam_verify_
+# torch.py --save-odometry` wrote it on an H100. On it the reference's
+# closure (kernel A in interpret mode) and the port's on the CPU accept the
+# file's own 55 pairs (`tests/test_torch_degenerate.py::test_closure_on_
+# the_card_odometry_equals_the_reference`, slow), and so must the card's
+# closure. The pass's own accepted set must be the file's too: the card's
+# odometry repeats bit for bit from call to call. A change that moves the
+# card's odometry remakes the file with `--save-odometry` and reruns that
+# test.
+CARD_SLAM_DROPOUT = os.path.join(_GOLDEN_DIR,
+                                 "card_h100_slam_dropout35_seed9_512.npz")
+# The joint refinement of all scan poses (`refine` phase,
+# `ops/registration.refine_many_to_many`, which no runner calls): the
+# reference's cells of REFINE's `keyframes` consecutive keyframes of the
+# `slam` golden's drive from keyframe `first` (its odometry, max_cells
+# 1024; `posegraph.compute_scan_payloads`), their odometry poses perturbed
+# by normal noise of `noise` (m, rad) from the generator of `seed`, the
+# first pose fixed; refined by the port on the card as the reference
+# refines them (4 outer x 8 GN x 24 CG, 8 pairs a scan). Its golden, which
+# holds the inputs and the reference's refined poses:
+# `make_torch_port_golden.py --preset refine`. No kernel: the dense 1-NN
+# is the matmul form, outside any kernel, as in the reference.
+REFINE = {"first": 0, "keyframes": 16, "noise": [0.25, 0.015], "seed": 5}
+GOLDEN_REFINE = os.path.join(_GOLDEN_DIR, "cfear3_refine_slam_seed9_16.npz")
+# Its bound (position m, yaw rad), about 3x the larger of the reference's
+# own spreads on these inputs (`make_torch_port_golden.py --preset refine
+# --eager`, and `--compare-only` under XLA_FLAGS=--xla_cpu_max_isa=AVX,
+# JAX on the CPU): op by op 1.94e-3 m / 3.22e-5 rad, under AVX 2.48e-3 m /
+# 4.63e-5 rad from the compiled golden (the port on the CPU: 3.05e-3 m /
+# 2.12e-5 rad, `--port-cpu`).
+REFINE_TOL = (7.5e-3, 1.4e-4)
 # The multi-session merge (`merge` path): session A is the `slam` path's
 # graph after loop closure (the map a user has); session B drives the same
 # seed-9 world along the lap route from its frame 320 for 128 frames with
@@ -431,6 +531,21 @@ HEALTH_TOL = (0.045, 1e-3)
 # and 5.13e-3 rad (healthy flags identical); the limits are about 3x that.
 LONGRUN_ADV12_TOL = (1.3, 1.15e-2, 0.42)
 HEALTH_ADV12_TOL = (0.15, 1.55e-2)
+# A blind sensor (`longrun-blind` path): the reference's test of the
+# collapsed reverse solve (`tests/test_odometry.py:253`,
+# `test_collapsed_reverse_solve_is_unhealthy`) at Oxford width: the long
+# run's configuration with the health check on every frame
+# (`blind_config`), image ingest (the runner's default, as in that test),
+# over LONGRUN_SEQUENCE's world cut to 48 frames, all zero from
+# BLIND_FROM on (the sensor goes blind). A blind frame has no cells: its
+# forward solve gives kernel A source rows of no cell, its reverse solve
+# targets none valid (A's (0, +inf) rows), and kernel F a problem whose
+# weights are all zero (cost 0, and 0/0 for a relative decrease). Its
+# golden: `make_torch_port_golden.py --preset blind` (the reference on the
+# CPU, kernel A in interpret mode).
+BLIND_SEQUENCE = {**LONGRUN_SEQUENCE, "n_frames": 48}
+BLIND_FROM = 32
+GOLDEN_BLIND = os.path.join(_GOLDEN_DIR, "cfear3_longrun_blind_seed11_48.npz")
 # The online daemon as users run it: the CFEAR-3 Oxford preset unmodified
 # (max_cells 3072, no point budget: host ingest hands (A, K) candidate sets
 # over; `auto` -> kernel A at S=4, F in the LM), following a pack that a
@@ -478,6 +593,18 @@ SWEEP_TOL = (0.21, 2.7e-3, 0.06)
 # kernel-vs-XLA test (tests/test_registration.py:565-567); the two sum in
 # another order, which can move an accept or convergence test by an ulp.
 LM_POSE_TOL, LM_COST_RTOL = 1e-4, 1e-3
+# ...and the cost under which a one-row problem (two residuals for three
+# unknowns: a line of exact fits) counts as fitted: the reference's own
+# solves end at 0 or 2e-9-5e-9 on such and on zero-residual problems
+# (tests/test_torch_degenerate.py), about 3x that rounded up.
+LM_FIT_COST = 2e-8
+# ...and the pose bound on such a problem, about 3x the reference's own
+# spread: where on the line a solve stops is rounding's choice, and the
+# reference's solves op by op, compiled and in its kernel (interpret mode)
+# land up to 1.866e-3 m apart on `tests/test_torch_cuda.py`'s one-row
+# problem, a step apart on three lanes of four (`tools/tool_spread_torch.py
+# --problems lm`).
+LM_ROW_POSE_TOL = 5.6e-3
 # Losses on whose problems here the reference's own two LM solvers (its
 # fused kernel in interpret mode and its packed-XLA loop) accept a
 # different number of steps on some lane: a step whose cost decrease lies
@@ -682,6 +809,39 @@ def longrun_golden(sequence) -> str:
     return os.path.join(
         _GOLDEN_DIR, f"cfear3_longrun{adv}_seed{sequence['seed']}_"
         f"{sequence['n_frames']}_{sequence['speed']:g}ms.npz")
+
+
+def blind_config():
+    """The long run's configuration with the reverse-registration health
+    check on every frame (`health_check_every=1`, as the reference's test
+    of the collapsed reverse solve sets it)."""
+    return longrun_config(health_every=1)
+
+
+def blind_images(cfg):
+    """BLIND_SEQUENCE's sweeps, all zero from BLIND_FROM on, and its ground
+    truth."""
+    images, gt = synthetic.make_sequence(cfg=cfg, **BLIND_SEQUENCE)
+    images = np.array(images)
+    images[BLIND_FROM:] = 0
+    return images, gt
+
+
+def stationary_images(cfg) -> np.ndarray:
+    """STATIONARY's frames: one sweep of SEQUENCE's world rendered at the
+    origin, repeated (the reference test's case)."""
+    rng = np.random.default_rng(STATIONARY["seed"])
+    world = synthetic.make_world(rng)
+    img = synthetic.render_polar(world, np.zeros(3), cfg, rng)
+    return np.stack([img] * STATIONARY["n_frames"])
+
+
+def overflow_config():
+    """The slice with kernel G's feature backend at OVERFLOW_POINT_BUDGET
+    points and the default pre_cells."""
+    cfg = slice_config(feature_backend="pallas")
+    return cfg.replace(feature=dataclasses.replace(
+        cfg.feature, point_budget=OVERFLOW_POINT_BUDGET))
 
 
 def cli_config():
@@ -1684,11 +1844,12 @@ def _check_moments(name, got, plain):
     return float((got - plain).abs().max())
 
 
-def moment_inputs(images, dev):
+def moment_inputs(images, dev, cfg=None):
     """Kernel G's arguments on the first BATCH frames of `images` as BATCH
-    lanes (`features._moment_inputs` of the host-filtered points), and each
-    lane's alone (B=1): (inputs, [lane inputs])."""
-    cfg = slice_config(feature_backend="pallas")
+    lanes (`features._moment_inputs` of the host-filtered points, under
+    `cfg`, by default the slice's with the pallas backend), and each lane's
+    alone (B=1): (inputs, [lane inputs])."""
+    cfg = cfg or slice_config(feature_backend="pallas")
     rows = odometry.host_filter(images[:BATCH], cfg, "compact")
     pts = filtering.points_from_compact(odometry.to_device(rows, dev), cfg)
     inputs = features._moment_inputs(pts, cfg)
@@ -2798,6 +2959,394 @@ def phase_longrun_window(win, outs, card):
     return res
 
 
+def drive_recorded(cfg, images, dev, ingest, kernels):
+    """OdometryRunner (`ingest`) over `images` on `dev`, with every call of
+    the wrappers named in `kernels` (functions of `cuda_assoc` or
+    `cuda_lm`) recorded in order. Returns (runner, {name: calls})."""
+    owners = {"nn_min": cuda_assoc, "nn_min_sparse": cuda_assoc,
+              "lm_solve_fused": cuda_lm}
+    with contextlib.ExitStack() as stack:
+        calls = {k: stack.enter_context(recorded(owners[k], k))
+                 for k in kernels}
+        runner = odometry.OdometryRunner(cfg, ingest=ingest, device=dev,
+                                         chunk=16)
+        runner.process(images)
+        _sync(dev)
+    return runner, calls
+
+
+def _nan_fields(out, traj) -> list:
+    """The FrameOutput fields (and the trajectory) that hold a NaN."""
+    bad = [k for k, v in out._asdict().items()
+           if np.issubdtype(np.asarray(v).dtype, np.floating)
+           and np.isnan(v).any()]
+    return bad + (["trajectory"] if np.isnan(traj).any() else [])
+
+
+def phase_blind(cfg, run, gt, card, name="longrun-blind"):
+    """The `longrun-blind` path against GOLDEN_BLIND: keyframe, success,
+    health-checked and healthy flags identical to the golden's, every
+    checked blind frame unhealthy, frames before BLIND_FROM within
+    LONGRUN_TOL, no NaN in any FrameOutput field or in the trajectory, and
+    `auto` resolved to kernel A for the forward and the reverse solve."""
+    runner, _ = run
+    m = cfg.feature.max_cells
+    for s_act in (cfg.odometry.submap_scan_size, 1):
+        method = registration.resolve_assoc_method(cfg, m, m, s_act,
+                                                   runner.device)
+        if method != "pallas":
+            raise AssertionError(f"{name}: auto resolved to {method} at "
+                                 f"S={s_act}, expected kernel A")
+    traj, out = runner.trajectory(), runner.frame_outputs()
+    with np.load(GOLDEN_BLIND) as z:
+        g = {k: z[k] for k in z.files}
+    if json.loads(str(g["config"])) != cfg.to_dict() \
+            or json.loads(str(g["sequence"])) != BLIND_SEQUENCE \
+            or int(g["blind_from"]) != BLIND_FROM:
+        raise AssertionError(f"{name}: golden was made for another "
+                             "configuration or sequence")
+    nan = _nan_fields(out, traj)
+    if nan or traj.shape != (len(gt), 3):
+        raise AssertionError(f"{name}: NaN in {nan}, or a trajectory of "
+                             f"shape {traj.shape}")
+    for k in ("fused", "success", "health_checked", "healthy"):
+        got = np.asarray(getattr(out, k))
+        if not np.array_equal(got, g[k]):
+            raise AssertionError(f"{name}: {k} differs from the golden's at "
+                                 f"frames {np.flatnonzero(got != g[k]).tolist()}")
+    blind = np.arange(len(traj)) >= BLIND_FROM
+    chk = out.health_checked
+    if not chk[blind].any() or out.healthy[blind & chk].any():
+        raise AssertionError(f"{name}: a checked blind frame is healthy, or "
+                             "none is checked")
+    n = BLIND_FROM
+    _check_traj(f"{name} frames 0-{n - 1} vs JAX golden (kernel A, "
+                "interpret mode)", traj[:n], g["poses"][:n], out.fused[:n],
+                g["fused"][:n], LONGRUN_TOL)
+    _say(f"{name}: {len(traj)} frames, blind from {BLIND_FROM}: failed "
+         f"frames {np.flatnonzero(~out.success).tolist()} (golden the same), "
+         f"{int(chk[blind].sum())} blind frames checked, all unhealthy; "
+         f"health_dist on them {sorted(set(out.health_dist[blind].tolist()))}"
+         f"; cells / associations on the blind frames "
+         f"{int(out.num_cells[blind].max())} / "
+         f"{int(out.num_assoc[blind].max())} at most; no NaN in "
+         f"{len(out._fields)} fields ({card})")
+
+
+def _hold_degenerate_a(name, key, args, card):
+    """Kernel A on a recorded call's arguments `args`: bit-equal to its
+    twin, two launches bit-identical; timed beside its twin, `cdist + min`
+    and its bound (no distance counted where no target is valid).
+    Returns (nn, d2, record)."""
+    (nn, d2), (nn_q, d2_q) = _hold("A", key, cuda_assoc.nn_min,
+                                   cuda_assoc.nn_min_plain, args)
+    share = 1.0 if args[2].any() else 0.0
+    fin = torch.isfinite(d2_q)
+    rec = {"max_abs_err": float((d2[fin] - d2_q[fin]).abs().max())
+           if fin.any() else 0.0,
+           "ms": _cuda_ms(lambda: cuda_assoc.nn_min(*args), 100),
+           **nn_bound(*args, share),
+           "library_ms": _cuda_ms(lambda: library_nn(*args), 5,
+                                  "cdist + min"),
+           "plain_ms": _cuda_ms(lambda: cuda_assoc.nn_min_plain(*args), 5,
+                                "nn_min_plain")}
+    _say(f"kernel A {name} {key}: bit-equal to its twin, repeat and lanes "
+         f"bit-identical; nn in {sorted(set(nn.flatten().tolist()))[:4]}"
+         f"..., d2 finite {int(torch.isfinite(d2).sum())} of {d2.numel()}; "
+         f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+         f"{rec['bound_ms']:.5f} ms ({rec['bound_by']}) ({card})")
+    return nn, d2, rec
+
+
+def _hold_degenerate_f(name, packed, pose0, cfg, card, at_guess):
+    """Kernel F, both variants, on a degenerate problem against its twin:
+    the variants bit-equal and no NaN in cost or relative decrease. With
+    `at_guess` (no weight, or zero residual at the guess) no step is taken
+    and pose, cost, steps and relative decrease equal the twin's, the pose
+    the guess bit for bit. Otherwise (one non-zero row a lane: two
+    residuals for three unknowns, fitted exactly by a line of poses) both
+    must fit it (cost under LM_FIT_COST) and the pose must lie within
+    LM_ROW_POSE_TOL of the twin's. How many steps each takes to get there
+    is decided within float32 rounding of a zero cost, so the steps are
+    printed beside the twin's, not held: on the card the kernel stops
+    after 2 and its twin after 4 (the reference's own solves differ by a
+    step either way on such problems on the CPU). Returns a record."""
+    ee = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=True)
+    masked = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=False)
+    plain = cuda_lm.lm_solve_fused_plain(packed, pose0, cfg)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(ee, masked)):
+        raise AssertionError(f"kernel F {name}: early exit and masked "
+                             "variants differ")
+    for k, i in (("cost", 1), ("relative decrease", 3)):
+        if torch.isnan(ee[i]).any() or torch.isnan(plain[i]).any():
+            raise AssertionError(f"kernel F {name}: NaN in its {k} "
+                                 f"({ee[i].tolist()}, twin "
+                                 f"{plain[i].tolist()})")
+    dpose = float((ee[0] - plain[0]).abs().max())
+    if at_guess:
+        same = all(torch.equal(x, y) for x, y in zip(ee, plain))
+        if not (same and torch.equal(ee[0], pose0)
+                and not ee[2].any()):
+            raise AssertionError(
+                f"kernel F {name}: steps {ee[2].tolist()} (twin "
+                f"{plain[2].tolist()}), cost {ee[1].tolist()} (twin "
+                f"{plain[1].tolist()}), the pose {dpose:.3e} from the "
+                "twin's: it must keep the guess as the twin does")
+    elif ee[1].max() > LM_FIT_COST or plain[1].max() > LM_FIT_COST \
+            or dpose > LM_ROW_POSE_TOL:
+        raise AssertionError(f"kernel F {name}: cost {ee[1].tolist()} (twin "
+                             f"{plain[1].tolist()}), the pose {dpose:.3e} "
+                             "from the twin's: it must fit the row within "
+                             f"{LM_ROW_POSE_TOL} of the twin's pose")
+    rec = {"dpose": dpose, "steps": ee[2].tolist(),
+           "twin_steps": plain[2].tolist(),
+           "ms": _cuda_ms(lambda: cuda_lm.lm_solve_fused(packed, pose0, cfg),
+                          100),
+           "plain_ms": _cuda_ms(lambda: cuda_lm.lm_solve_fused_plain(
+               packed, pose0, cfg), 5, "lm_solve_fused_plain"),
+           **lm_bound(packed, ee[2])}
+    _say(f"kernel F {name} (B={packed.shape[0]} N={packed.shape[2]}): early "
+         f"exit == masked bit for bit, steps {rec['steps']} (twin "
+         f"{rec['twin_steps']}), cost {ee[1].tolist()}, relative decrease "
+         f"{ee[3].tolist()} (twin {plain[1].tolist()}, {plain[3].tolist()}), "
+         f"|dpose| from the twin {dpose:.3e}"
+         f"{'; the guess kept bit for bit, as the twin' if at_guess else ''}"
+         f"; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms "
+         f"({card})")
+    return rec
+
+
+def _single_row(packed):
+    """A copy of `packed` whose weights are zero but on each lane's first
+    row of non-zero weight."""
+    one = packed.clone()
+    w = one[:, 4]
+    keep = torch.argmax((w != 0).to(torch.int32), dim=1)
+    mask = torch.zeros_like(w, dtype=torch.bool)
+    mask[torch.arange(w.shape[0], device=w.device), keep] = True
+    one[:, 4] = torch.where(mask, w, torch.zeros_like(w))
+    return one
+
+
+def phase_blind_kernels(run, card):
+    """Kernels A and F on the degenerate calls of the `longrun-blind` path,
+    each against its twin: A on a blind frame's reverse solve (no valid
+    target: (0, +inf) on every row, as the twin gives) and on its forward
+    solve (a source of no cell); F, both variants, on a blind frame's
+    problem (every weight zero: no step, the guess kept bit for bit, as the
+    twin) and on a seeing frame's problem cut to a single non-zero row
+    (fitted exactly by kernel and twin). Returns records for the kernels
+    line."""
+    _, calls = run
+    a_calls = [c[0] for c in calls["nn_min"]]
+    rev = [i for i, a in enumerate(a_calls) if not a["valid"].any()]
+    if not rev or rev[0] == 0 or a_calls[rev[0] - 1]["valid"].shape[1] == 1:
+        raise AssertionError("longrun-blind: no reverse solve without a "
+                             "valid target after a forward solve")
+    recs = {}
+    for label, i in (("no valid target", rev[0]),
+                     ("no source cell", rev[0] - 1)):
+        args = tuple(a_calls[i][k] for k in ("src", "tar", "valid"))
+        key = f"{label} {shape_key(*args[2].shape[:2], args[0].shape[1], args[2].shape[2])}"
+        nn, d2, recs[f"A {key}"] = _hold_degenerate_a("blind", key, args,
+                                                      card)
+        if label == "no valid target" and not (
+                (nn == 0).all() and torch.isinf(d2).all()):
+            raise AssertionError("kernel A: rows without a valid target "
+                                 "must give (0, +inf)")
+    f_calls = [c[0] for c in calls["lm_solve_fused"]]
+    zero = [c for c in f_calls if not c["packed"][:, 4].any()]
+    seeing = [c for c in f_calls if c["packed"][:, 4].any()]
+    if not zero or not seeing:
+        raise AssertionError("longrun-blind: no kernel F call with all "
+                             "weights zero, or none with weights")
+    for label, c, at_guess in (("all weights zero", zero[-1], True),
+                               ("one non-zero row", seeing[-1], False)):
+        packed = c["packed"] if at_guess else _single_row(c["packed"])
+        recs[f"F {label}"] = _hold_degenerate_f(
+            label, packed, c["pose0"], c["cfg"], card, at_guess)
+    return recs
+
+
+def phase_stationary(cfg, run, card, name="stationary"):
+    """The `stationary` path against GOLDEN_STATIONARY: only the bootstrap
+    keyframe (flags equal to the golden's), every frame successful, every
+    pose within STATIONARY_MAX_XY of the origin and within TOL of the
+    golden's; then kernel C on frame 1's first association (source equal to
+    target: d2 exactly 0 on every valid source row, each matched to a cell
+    at its own place, bit-equal to the twin) and kernel F on its first
+    problem (zero residual at the guess) against their twins. Returns
+    records for the kernels line."""
+    runner, calls = run
+    traj, out = runner.trajectory(), runner.frame_outputs()
+    with np.load(GOLDEN_STATIONARY) as z:
+        g = {k: z[k] for k in z.files}
+    if json.loads(str(g["config"])) != cfg.to_dict() \
+            or json.loads(str(g["sequence"])) != STATIONARY:
+        raise AssertionError(f"{name}: golden was made for another "
+                             "configuration or sequence")
+    nan = _nan_fields(out, traj)
+    if nan or not out.success.all():
+        raise AssertionError(f"{name}: NaN in {nan}, or failed frames "
+                             f"{np.flatnonzero(~out.success).tolist()}")
+    if np.flatnonzero(out.fused).tolist() != [0]:
+        raise AssertionError(f"{name}: keyframes at "
+                             f"{np.flatnonzero(out.fused).tolist()}")
+    xy = float(np.abs(traj[:, :2]).max())
+    if xy >= STATIONARY_MAX_XY:
+        raise AssertionError(f"{name}: a pose {xy:.4f} m from the origin")
+    _check_traj(f"{name} vs JAX golden (kernel C, interpret mode)", traj,
+                g["poses"], out.fused, g["fused"], TOL)
+    _say(f"{name}: {len(traj)} frames of one sweep, keyframes "
+         f"{np.flatnonzero(out.fused).tolist()}, max |xy| {xy:.6f} m (golden "
+         f"{float(np.abs(g['poses'][:, :2]).max()):.6f}), associations "
+         f"{out.num_assoc[1:].min()}-{out.num_assoc[1:].max()} ({card})")
+    c = calls["nn_min_sparse"][0][0]
+    args = tuple(c[k] for k in ("src", "src_bounds", "tar", "tar_bounds",
+                                "valid", "radius"))
+    got, again = cuda_assoc.nn_min_sparse(*args), cuda_assoc.nn_min_sparse(*args)
+    want = cuda_assoc.nn_min_sparse_plain(*args)
+    torch.cuda.synchronize()
+    if not (all(map(torch.equal, got, want))
+            and all(map(torch.equal, again, got))):
+        raise AssertionError(f"{name}: kernel C on source = target differs "
+                             "from its twin or between launches")
+    nn, d2 = got
+    src, tar, valid = args[0], args[2], args[4]
+    slot = valid[0].any(-1).nonzero().flatten()
+    if len(slot) != 1:
+        raise AssertionError(f"{name}: frame 1 sees {len(slot)} keyframes")
+    k = int(slot[0])
+    rows = valid[0, k]          # the keyframe's cells are the frame's own
+    matched = tar[0, k][nn[0, k].long()]
+    if not (bool((d2[0, k][rows] == 0).all())
+            and torch.equal(matched[rows], src[0][rows])):
+        raise AssertionError(f"{name}: kernel C does not match every cell to "
+                             "itself at d2 = 0")
+    recs = {"C source = target": {
+        "max_abs_err": 0.0, "rows": int(rows.sum()),
+        "ms": _cuda_ms(lambda: cuda_assoc.nn_min_sparse(*args), 100),
+        "plain_ms": _cuda_ms(lambda: cuda_assoc.nn_min_sparse_plain(*args),
+                             5, "nn_min_sparse_plain"),
+        **nn_bound(src, tar, valid, float(cuda_assoc.pair_live(
+            args[1], args[3], args[5]).float().mean()))}}
+    _say(f"{name}: kernel C on frame 1's first association: {int(rows.sum())}"
+         f" source cells each at d2 = 0 on its own place, bit-equal to the "
+         f"twin; kernel {recs['C source = target']['ms']:.4f} ms ({card})")
+    f = calls["lm_solve_fused"][0][0]
+    if not torch.equal(f["pose0"], torch.zeros_like(f["pose0"])):
+        raise AssertionError(f"{name}: frame 1's first solve does not start "
+                             "at the identity")
+    recs["F zero residual"] = _hold_degenerate_f(
+        "zero residual", f["packed"], f["pose0"], f["cfg"], card, True)
+    return recs
+
+
+def overflow_counts(images, cfg, dev) -> tuple:
+    """Per frame of `images`, the occupied voxels of its host-filtered
+    points and the number kernel G's inputs drop (ranked at or beyond
+    c_pre): (occupied, dropped, c_pre), numpy arrays and an int."""
+    rows = odometry.host_filter(images, cfg, "compact")
+    pts = filtering.points_from_compact(odometry.to_device(rows, dev), cfg)
+    leaf, dim, _ = features._grid_geometry(cfg)
+    occupied = features._voxel_centroids(pts.xy, pts.valid, leaf, dim)[5]
+    occ = occupied.sum(-1).cpu().numpy()
+    c_pre = features._pre_cells(cfg)
+    return occ, np.maximum(occ - c_pre, 0), c_pre
+
+
+def phase_overflow_moments(images, dev, card, name="pallas-features-overflow"):
+    """Kernel G on the overflow path's frames: how many frames and voxels
+    pass c_pre (at least half the frames must), then, BATCH frames a call,
+    bit-equal to its twin and each lane equal to its own B=1 call. Returns
+    a record for the kernels line."""
+    cfg = overflow_config()
+    occ, dropped, c_pre = overflow_counts(images, cfg, dev)
+    over = np.flatnonzero(dropped)
+    _say(f"{name}: c_pre {c_pre}, occupied voxels a frame {int(occ.min())}"
+         f"-{int(occ.max())}; {len(over)} of {len(occ)} frames drop voxels, "
+         f"{int(dropped.sum())} in all ({int(dropped.max())} at most in a "
+         f"frame)")
+    if 2 * len(over) < len(occ):
+        raise AssertionError(f"{name}: only {len(over)} of {len(occ)} frames "
+                             "drop voxels")
+    lanes = 0
+    for lo in range(0, len(over) - len(over) % BATCH, BATCH):
+        inputs, one = moment_inputs(images[over[lo:lo + BATCH]], dev, cfg)
+        got = cuda_features.moment_accumulate(*inputs)
+        plain = cuda_features.moment_accumulate_plain(*inputs)
+        torch.cuda.synchronize()
+        _check_moments(name, got, plain)
+        for i, lane in enumerate(one):
+            if not torch.equal(cuda_features.moment_accumulate(*lane)[0],
+                               got[i]):
+                raise AssertionError(f"kernel G {name}: lane {i} differs "
+                                     "from its B=1 call")
+        lanes += BATCH
+    ms = _cuda_ms(lambda: cuda_features.moment_accumulate(*inputs), 50)
+    plain_ms = _cuda_ms(lambda: cuda_features.moment_accumulate_plain(
+        *inputs), 5, "moment_accumulate_plain")
+    library, n_hits = index_add_yardstick(inputs)
+    rec = {"frames": len(occ), "overflowing": len(over),
+           "voxels dropped": int(dropped.sum()), "ms": ms,
+           "plain_ms": plain_ms,
+           "library_ms": _cuda_ms(library, 50, "index_add_"),
+           **bound(sum(t.numel() * 4 for t in inputs[:5]) + got.numel() * 4,
+                   MOMENT_FLOPS * float(n_hits))}
+    _say(f"{name}: kernel G bit-equal to its twin on {lanes} overflowing "
+         f"frames, {BATCH} a call, each lane equal to its B=1 call; kernel "
+         f"{ms:.4f} ms at B={BATCH} (pack {tuple(inputs[0].shape)}), plain "
+         f"{plain_ms:.4f} ms, index_add_ {rec['library_ms']:.4f} ms, bound "
+         f"{rec['bound_ms']:.4f} ms ({card})")
+    return rec
+
+
+def drive_refine(dev):
+    """The `refine` phase's runs: the port's `refine_many_to_many` on
+    GOLDEN_REFINE's inputs on `dev`, twice. Returns (golden, both results,
+    wall seconds of the first)."""
+    with np.load(GOLDEN_REFINE) as z:
+        g = {k: z[k] for k in z.files}
+    cfg = slam_config()
+    if json.loads(str(g["config"])) != cfg.to_dict() \
+            or json.loads(str(g["refine"])) != REFINE:
+        raise AssertionError("refine: golden was made for another "
+                             "configuration")
+    cells = CellMap(*(torch.as_tensor(g["cells_" + f]).to(dev)
+                      for f in CellMap._fields))
+    poses0 = torch.as_tensor(g["poses0"]).to(dev)
+    valid = torch.as_tensor(g["valid"]).to(dev)
+    t0 = time.perf_counter()
+    first = registration.refine_many_to_many(cells, poses0, valid, cfg)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    again = registration.refine_many_to_many(cells, poses0, valid, cfg)
+    return g, first, again, secs
+
+
+def phase_refine(run, card):
+    """`refine_many_to_many` on the card against the reference's refined
+    poses: two runs bit-identical, within REFINE_TOL, the first pose
+    fixed."""
+    g, first, again, secs = run
+    if not torch.equal(first, again):
+        raise AssertionError("refine: two runs on the card differ")
+    got, want = first.cpu().numpy(), g["refined"]
+    dxy = float(np.abs(got[:, :2] - want[:, :2]).max())
+    dth = float(np.abs(got[:, 2] - want[:, 2]).max())
+    moved = float(np.abs(got[:, :2] - g["poses0"][:, :2]).max())
+    _say(f"refine: {got.shape[0]} scans, max |dxy| {dxy:.3e} m, |dyaw| "
+         f"{dth:.3e} rad from the reference's refined poses (poses moved up "
+         f"to {moved:.4f} m); a second run bit-identical; {secs:.2f} s wall "
+         f"({card})")
+    if not np.array_equal(got[0], g["poses0"][0]):
+        raise AssertionError("refine: the first pose moved")
+    if dxy > REFINE_TOL[0] or dth > REFINE_TOL[1]:
+        raise AssertionError(f"refine: outside {REFINE_TOL} of the "
+                             "reference's refined poses")
+
+
 def drive_slam(cfg, images, dev):
     """The SLAM pass on the card as `tools/run_slam_scale_torch.py` runs
     it: host-ingest odometry, the graph with scan payloads on the card,
@@ -2864,8 +3413,12 @@ def phase_slam(cfg, res, gt, dev, card, name="slam", golden=GOLDEN_SLAM,
     keyframe ATE (both printed beside the golden's). With the path's
     sweeps `images` (`slam-dropout`), the loop edges so held are those the
     card's verification accepts on a graph built from the golden's own
-    odometry (`golden_loops`), the path's own are printed, and its closed
-    keyframe ATE must lie within SLAM_DROPOUT_ATE_TOL of the golden's.
+    odometry (`golden_loops`), the path's own count must lie within
+    SLAM_DROPOUT_OWN_LOOP_SHARE of the golden's, its closed keyframe ATE
+    within SLAM_DROPOUT_ATE_TOL of the golden's, and both the card's
+    closure on the committed card odometry (CARD_SLAM_DROPOUT) and the
+    pass's own accepted set must be that file's pairs, which the
+    reference's closure accepts on it.
     Then the port's `optimize` on the golden's own graph arrays, twice:
     bit-identical, and within SLAM_OPT_TOL of JAX's optimized poses."""
     for s_act in (cfg.odometry.submap_scan_size, 1):
@@ -2928,6 +3481,37 @@ def phase_slam(cfg, res, gt, dev, card, name="slam", golden=GOLDEN_SLAM,
         if abs(ate_slam - float(g["ate_slam"])) > SLAM_DROPOUT_ATE_TOL:
             raise AssertionError(f"{name}: closed keyframe ATE {ate_slam:.4f}"
                                  f" m, golden {float(g['ate_slam']):.4f}")
+        if abs(len(acc) - len(g_acc)) > SLAM_DROPOUT_OWN_LOOP_SHARE \
+                * len(g_acc):
+            raise AssertionError(
+                f"{name}: the pass accepted {len(acc)} loop edges on its own "
+                f"odometry, outside {SLAM_DROPOUT_OWN_LOOP_SHARE:.0%} of the "
+                f"golden's {len(g_acc)}")
+        with np.load(CARD_SLAM_DROPOUT) as z:
+            c = {k: z[k] for k in ("poses", "fused", "accepted", "card")}
+        c_acc = set(map(tuple, c["accepted"].tolist()))
+        on_file = golden_loops(cfg, c, images, dev)
+        same = bool(np.array_equal(traj, c["poses"])
+                    and np.array_equal(out.fused, c["fused"]))
+        _say(f"{name}: on the committed card odometry ({c['card']}) the "
+             f"card's verification accepts {len(on_file)} loop edges, "
+             f"{len(on_file & c_acc)} of the file's {len(c_acc)} (the "
+             f"reference's on it); the pass's own {len(acc)}, "
+             f"{len(acc & c_acc)} of them; its odometry the file's bit for "
+             f"bit: {same} (max |dpos| "
+             f"{float(np.abs(traj[:, :2] - c['poses'][:, :2]).max()):.3e} m)"
+             f" ({card})")
+        if on_file != c_acc:
+            raise AssertionError(f"{name}: on the committed card odometry the"
+                                 " card's closure accepts other pairs than "
+                                 "the reference's")
+        if acc != c_acc:
+            raise AssertionError(
+                f"{name}: the pass's own accepted pairs are not the committed "
+                f"card odometry's (odometry the same: {same}); remake "
+                f"{os.path.basename(CARD_SLAM_DROPOUT)} with `tools/"
+                "slam_verify_torch.py --save-odometry` if the card's "
+                "odometry moved")
     if abs(len(loops) - len(g_acc)) > SLAM_LOOP_SHARE * len(g_acc) \
             or len(loops & g_acc) < SLAM_PAIR_SHARE * len(g_acc):
         raise AssertionError(f"{name}: accepted loop edges on {on} outside "
@@ -3499,6 +4083,27 @@ def main() -> int:
           lambda: phase_single(slice_config(feature_backend="pallas"), images,
                                gt, dev, card, GOLDEN_PALLAS,
                                "pallas-features", passes=1))
+    # voxel overflow on kernel G's path: a larger point budget, the default
+    # pre_cells; G held on the overflowing frames first
+    over = overflow_config()
+    images_o, gt_o = render(over, OVERFLOW_SEQUENCE)
+    kernels["moment_accumulate"]["overflow"] = timed(
+        "G", lambda: phase_overflow_moments(images_o, dev, card))
+    drive("pallas-features-overflow",
+          ("moment_accumulate", "nn_min_sparse", "lm_solve_fused"),
+          lambda: phase_single(over, images_o, gt_o, dev, card,
+                               GOLDEN_OVERFLOW, "pallas-features-overflow",
+                               passes=1))
+    del images_o
+    # a parked sensor: one sweep repeated (kernel C at d2 = 0, F at zero
+    # residual, held against their twins after the counts are read)
+    images_st = timed("render", lambda: stationary_images(cfg))
+    run_st = drive("stationary", ("nn_min_sparse", "lm_solve_fused"),
+                   lambda: drive_recorded(cfg, images_st, dev, "host",
+                                          ("nn_min_sparse", "lm_solve_fused")))
+    degenerate = timed("degenerate checks",
+                       lambda: phase_stationary(cfg, run_st, card))
+    del images_st, run_st
 
     s50 = s50_config()
     images50, gt50 = render(s50, S50_SEQUENCE)
@@ -3582,6 +4187,23 @@ def main() -> int:
                                 tol=LONGRUN_ADV12_TOL,
                                 health_tol=HEALTH_ADV12_TOL))
     del images_a
+    # a blind sensor: the long run's world, all-zero sweeps from BLIND_FROM
+    # (kernel A without a valid target or source cell, F with no weight,
+    # held against their twins after the counts are read)
+    blind = blind_config()
+    images_bl, gt_bl = timed("render", lambda: blind_images(blind))
+    run_bl = drive("longrun-blind", ("nn_min", "lm_solve_fused"),
+                   lambda: drive_recorded(blind, images_bl, dev, "image",
+                                          ("nn_min", "lm_solve_fused")))
+    timed("degenerate checks", lambda: phase_blind(blind, run_bl, gt_bl,
+                                                   card))
+    degenerate.update(timed("degenerate checks",
+                            lambda: phase_blind_kernels(run_bl, card)))
+    del images_bl, run_bl
+    for k, prefix in (("nn_min", "A "), ("nn_min_sparse", "C "),
+                      ("lm_solve_fused", "F ")):
+        kernels[k]["degenerate"] = {n[2:]: r for n, r in degenerate.items()
+                                    if n.startswith(prefix)}
 
     # the SLAM pass (`tools/run_slam_scale_torch.py`, cut to 2 laps of 256)
     slam = slam_config()
@@ -3626,6 +4248,11 @@ def main() -> int:
         slam, res_d, gt_s, dev, card, "slam-dropout", GOLDEN_SLAM_DROPOUT,
         SLAM_DROPOUT_SEQUENCE, images_s))
     del images_s, res_d
+    # the joint refinement of all scan poses (no kernel, as in the
+    # reference): the reference's cells and perturbed poses from its golden
+    run_r = drive("refine", (), lambda: drive_refine(dev), never=tuple(KERNELS))
+    timed("refine checks", lambda: phase_refine(run_r, card))
+    del run_r
     # the sequence fleet and the segment runner on the slice
     fleet = timed("render", lambda: np.stack([images] + [
         synthetic.make_sequence(cfg=cfg, **{**SEQUENCE, "seed": s})[0]

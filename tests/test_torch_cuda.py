@@ -7,6 +7,7 @@ installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
 import os
 import sys
 
@@ -776,6 +777,62 @@ def test_kernel_f_keeps_a_zero_weight_inf_row(dev, cost, loss):
     assert not torch.isfinite(plain[1][1])
 
 
+def test_kernel_a_without_valid_targets_or_source_cells(dev):
+    """The blind frame's calls of kernel A (the long run's S=4 forward and
+    S=1 reverse widths): no valid target gives (0, +inf) on every row, as
+    the twin does; a source of no cell (every row at one point, a blind
+    frame's zero cell means moved by the guess) is bit-equal to the twin."""
+    rng = np.random.default_rng(2048)
+    tar = torch.as_tensor(rng.normal(size=(1, 4, 2048, 2)).astype(np.float32)
+                          * 60).to(dev)
+    src = torch.as_tensor(rng.normal(size=(1, 2048, 2)).astype(np.float32)
+                          * 60).to(dev)
+    none = torch.zeros((1, 1, 2048), dtype=torch.bool, device=dev)
+    for args in ((src, tar[:, :1].contiguous(), none),
+                 (torch.full_like(src, 3.5), tar,
+                  torch.as_tensor(rng.random((1, 4, 2048)) < 0.9).to(dev))):
+        got = ca.nn_min(*args)
+        plain = ca.nn_min_plain(*args)
+        torch.cuda.synchronize()
+        assert all(map(torch.equal, got, plain))
+    nn, d2 = ca.nn_min(src, tar[:, :1].contiguous(), none)
+    assert (nn == 0).all() and torch.isinf(d2).all()
+
+
+@pytest.mark.parametrize("kind", ["all weights zero", "zero residual",
+                                  "one non-zero row"])
+def test_kernel_f_on_degenerate_problems(dev, kind):
+    """Kernel F, both variants, where the blind and the parked sensor take
+    it: every weight zero, or targets on the sources at the identity guess
+    (zero residual): no step, the guess kept bit for bit, cost and relative
+    decrease as the twin's; one non-zero row a lane (two residuals for
+    three unknowns): no NaN, kernel and twin both fit it (cost under
+    LM_FIT_COST) and the pose lies within LM_ROW_POSE_TOL of the twin's;
+    the steps are rounding's choice on such a problem and are not
+    compared."""
+    cfg, packed, pose0 = _lm_rows(dev, 4, 2048, "P2P", "Huber")
+    if kind == "all weights zero":
+        packed[:, 4] = 0.0
+    if kind == "one non-zero row":
+        packed = chip_smoke._single_row(packed)
+    if kind == "zero residual":         # the parked sensor's first solve
+        pose0 = torch.zeros_like(pose0)
+        packed[:, 2:4] = packed[:, 0:2]
+    ee = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=True)
+    masked = cuda_lm.lm_solve_fused(packed, pose0, cfg, early_exit=False)
+    plain = cuda_lm.lm_solve_fused_plain(packed, pose0, cfg)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(ee, masked))
+    assert not (torch.isnan(ee[1]).any() or torch.isnan(ee[3]).any())
+    if kind == "one non-zero row":
+        assert ee[1].max() <= chip_smoke.LM_FIT_COST
+        assert plain[1].max() <= chip_smoke.LM_FIT_COST
+        assert (ee[0] - plain[0]).abs().max() <= chip_smoke.LM_ROW_POSE_TOL
+    else:
+        assert (ee[2] == 0).all() and torch.equal(ee[0], pose0)
+        assert all(torch.equal(x, y) for x, y in zip(ee, plain))
+
+
 def test_kernel_f_refused_launch_raises(dev):
     """More shared memory than a block may have: the launch is refused,
     the wrapper raises and counts nothing; the next launch works."""
@@ -865,6 +922,25 @@ def test_kernel_g_long_list(dev, crowd):
     assert torch.equal(k1, k2)
     _g_check(k1, plain)
     assert (k1[:, 0].amax(-1) >= crowd).all()
+
+
+def test_kernel_g_under_voxel_overflow(dev):
+    """More occupied voxels than c_pre (pre_cells 256 under the cloud's
+    432-462): the voxels ranked beyond it are dropped from the inputs, the
+    budget is full, and G is bit-equal to its twin, lane by lane."""
+    cfg = chip_smoke.slice_config(feature_backend="pallas")
+    cfg = cfg.replace(feature=dataclasses.replace(cfg.feature,
+                                                  pre_cells=256))
+    inputs = features._moment_inputs(_cloud(dev, 4, seed=7), cfg)
+    got = cuda_features.moment_accumulate(*inputs)
+    plain = cuda_features.moment_accumulate_plain(*inputs)
+    torch.cuda.synchronize()
+    _g_check(got, plain)
+    assert ((got[:, 0] > 0).sum(-1) == 256).all()
+    for i in range(4):
+        alone = cuda_features.moment_accumulate(
+            *(t[i:i + 1].contiguous() for t in inputs[:5]), *inputs[5:])
+        assert torch.equal(alone[0], got[i]), f"lane {i}"
 
 
 def test_kernel_g_takes_repeated_targets(dev):

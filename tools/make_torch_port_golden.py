@@ -71,6 +71,12 @@ the ATE against ground truth, and the configuration and sequence as JSON to
   interpret mode, what `auto` resolves to on a card) ->
   `cfear3_sweep_adv_seed11_48.npz`: each job's poses, keyframe and success
   flags, drift and ATE.
+- `--preset blind`, `--preset stationary`, `--preset overflow` and
+  `--preset refine`: the goldens of chip_smoke's `longrun-blind`,
+  `stationary` and `pallas-features-overflow` paths and its `refine`
+  phase, each built on chip_smoke's own configuration and input
+  (`blind_config`, `slice_config`, `overflow_config` over
+  `OVERFLOW_SEQUENCE`, `slam_config` with `REFINE`).
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --feature-backend pallas
@@ -83,6 +89,10 @@ the ATE against ground truth, and the configuration and sequence as JSON to
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset slam
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset merge
     JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset sweep
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset blind
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset stationary
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset overflow
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py --preset refine
 
 On one CPU process the first takes about 10 s and the second about a
 minute; the s50 exact golden took 39 s and the K16 golden 18 s (rendering
@@ -697,6 +707,194 @@ def sweep_golden(method: str, compare: bool) -> None:
           f"the CPU (assoc {method})")
 
 
+def _flag_spread(out, g, keys) -> str:
+    return ", ".join(f"{k} equal {bool(np.array_equal(np.asarray(getattr(out, k)), g[k]))}"
+                     for k in keys)
+
+
+def degenerate_golden(preset: str, method: str, compare: bool = False,
+                      eager: bool = False, port_cpu: bool = False) -> None:
+    """`--preset blind` and `--preset stationary`: the reference on the CPU
+    over chip_smoke's blind sensor (`chip_smoke.blind_config()`, image
+    ingest, `chip_smoke.blind_images`, kernel A in interpret mode as `auto`
+    resolves on a card) or parked sensor (`chip_smoke.slice_config()`, host
+    ingest, `chip_smoke.stationary_images`, kernel C in interpret mode) ->
+    chip_smoke.GOLDEN_BLIND / GOLDEN_STATIONARY: poses, keyframe, success
+    and health flags, health discrepancies, cell and association counts.
+    With `method` "dense", `compare` (run under
+    XLA_FLAGS=--xla_cpu_max_isa=AVX for the AVX spread), `eager` (op by
+    op) or `port_cpu` (the port on the CPU) the run's spread from the
+    golden is printed and nothing written."""
+    import contextlib
+    from cfear_radarodometry_code_public_tpu_torch.models import (
+        odometry as podo)
+    blind = preset == "blind"
+    port_cfg = chip_smoke.blind_config() if blind else chip_smoke.slice_config()
+    cfg_dict = port_cfg.to_dict()
+    if blind:
+        images, gt = chip_smoke.blind_images(port_cfg)
+        sequence, golden = chip_smoke.BLIND_SEQUENCE, chip_smoke.GOLDEN_BLIND
+        ingest, ref_method = "image", "pallas"
+    else:
+        images = chip_smoke.stationary_images(port_cfg)
+        gt = np.zeros((len(images), 3))
+        sequence = chip_smoke.STATIONARY
+        golden = chip_smoke.GOLDEN_STATIONARY
+        ingest, ref_method = "host", "pallas_sparse"
+    method = ref_method if method == "pallas_sparse" else method
+    cfg = CFEARConfig.from_dict(cfg_dict)
+    cfg = cfg.replace(registration=dataclasses.replace(
+        cfg.registration, assoc_method=method))
+    t0 = time.perf_counter()
+    if port_cpu:
+        runner = podo.OdometryRunner(port_cfg, ingest=ingest, device="cpu",
+                                     chunk=16)
+        runner.process(images)
+    else:
+        with jax.disable_jit() if eager else contextlib.nullcontext():
+            runner = OdometryRunner(cfg, chunk=16, ingest=ingest)
+            runner.process(images)
+    traj, out = np.asarray(runner.trajectory()), runner.frame_outputs()
+    secs = time.perf_counter() - t0
+    out = type(out)(*(np.asarray(a) for a in out))
+    n_nan = {k: int(np.isnan(v).sum()) for k, v in out._asdict().items()
+             if np.issubdtype(v.dtype, np.floating) and np.isnan(v).any()}
+    keys = ("fused", "success", "health_checked", "healthy")
+    label = ("port-cpu" if port_cpu else method
+             + ("-eager" if eager else "")
+             + ("-avx" if "max_isa=AVX" in os.environ.get("XLA_FLAGS", "")
+                else ""))
+    if method != ref_method or compare or eager or port_cpu:
+        with np.load(golden) as z:
+            g = dict(z)
+        cut = chip_smoke.BLIND_FROM if blind else len(traj)
+        dpos, dyaw, dmot = chip_smoke.traj_spread(traj[:cut], g["poses"][:cut])
+        chk = out.health_checked
+        print(f"{label} vs {os.path.basename(golden)}: frames 0-{cut - 1} "
+              f"max |dpos| {dpos:.6f} m, |dyaw| {dyaw:.3e} rad, |dmotion| "
+              f"{dmot:.6f} m; {_flag_spread(out, g, keys)}; max |d "
+              f"health_dist| {float(np.abs(out.health_dist - g['health_dist']).max()):.6f} m, "
+              f"|d health_rot| {float(np.abs(out.health_rot - g['health_rot']).max()):.3e} rad; "
+              f"checked frames unhealthy {np.flatnonzero(chk & ~out.healthy).tolist()}; "
+              f"NaN {n_nan}; max |xy| {float(np.abs(traj[:, :2]).max()):.6f} m; "
+              f"{secs:.1f} s on the CPU")
+        return
+    np.savez_compressed(
+        golden, poses=traj, gt=gt, fused=out.fused, success=out.success,
+        num_assoc=out.num_assoc, num_cells=out.num_cells,
+        health_checked=out.health_checked, healthy=out.healthy,
+        health_dist=out.health_dist, health_rot=out.health_rot,
+        assoc_method=method, ingest=ingest, config=json.dumps(cfg_dict),
+        sequence=json.dumps(sequence),
+        blind_from=chip_smoke.BLIND_FROM if blind else len(traj))
+    chk = out.health_checked
+    print(f"{golden}: {len(traj)} frames, keyframes "
+          f"{np.flatnonzero(out.fused).tolist()}, failed frames "
+          f"{np.flatnonzero(~out.success).tolist()}, checked "
+          f"{int(chk.sum())}, unhealthy at "
+          f"{np.flatnonzero(chk & ~out.healthy).tolist()}, max |xy| "
+          f"{float(np.abs(traj[:, :2]).max()):.6f} m, NaN {n_nan}; "
+          f"{secs:.1f} s on the CPU (assoc {method})")
+
+
+def refine_golden(compare: bool = False, eager: bool = False,
+                  port_cpu: bool = False) -> None:
+    """`--preset refine`: the reference's cells of chip_smoke.REFINE's
+    keyframes of the `slam` golden's drive (its odometry; the scan payloads
+    of `posegraph.compute_scan_payloads`, rebuilt at max_cells with
+    `payload_to_cellmap`), their odometry poses perturbed by REFINE's
+    noise (the first kept), and the reference's `refine_many_to_many` of
+    them -> chip_smoke.GOLDEN_REFINE (inputs and refined poses). With
+    `eager` (op by op), `compare` (the compiled run again: under
+    XLA_FLAGS=--xla_cpu_max_isa=AVX the AVX spread) or `port_cpu` (the
+    port on the CPU) the refinement of the golden's inputs is printed
+    against its refined poses and nothing written."""
+    import contextlib
+    import jax.numpy as jnp
+    import torch
+    from cfear_radarodometry_code_public_tpu.models import posegraph
+    from cfear_radarodometry_code_public_tpu.ops import registration as jreg
+    from cfear_radarodometry_code_public_tpu.ops.features import CellMap
+    from cfear_radarodometry_code_public_tpu.utils import se2
+    from cfear_radarodometry_code_public_tpu_torch.eval import slam_scale
+    from cfear_radarodometry_code_public_tpu_torch.ops import (
+        features as pfeat, registration as preg)
+
+    port_cfg = chip_smoke.slam_config()
+    cfg_dict = port_cfg.to_dict()
+    cfg = CFEARConfig.from_dict(cfg_dict)
+    rf = chip_smoke.REFINE
+    golden = chip_smoke.GOLDEN_REFINE
+    if compare or eager or port_cpu:
+        with np.load(golden) as z:
+            g = dict(z)
+        cells = CellMap(*(jnp.asarray(g["cells_" + f])
+                          for f in CellMap._fields))
+        t0 = time.perf_counter()
+        if port_cpu:
+            got = preg.refine_many_to_many(
+                pfeat.CellMap(*(torch.as_tensor(g["cells_" + f])
+                                for f in CellMap._fields)),
+                torch.as_tensor(g["poses0"]), torch.as_tensor(g["valid"]),
+                port_cfg).numpy()
+            label = "port-cpu"
+        else:
+            with jax.disable_jit() if eager else contextlib.nullcontext():
+                got = np.asarray(jreg.refine_many_to_many(
+                    cells, jnp.asarray(g["poses0"]), jnp.asarray(g["valid"]),
+                    cfg))
+            label = ("eager" if eager else "compiled") + (
+                "-avx" if "max_isa=AVX" in os.environ.get("XLA_FLAGS", "")
+                else "")
+        want = g["refined"]
+        print(f"refine {label} vs {os.path.basename(golden)}: max |dxy| "
+              f"{float(np.abs(got[:, :2] - want[:, :2]).max()):.3e} m, "
+              f"|dyaw| {float(np.abs(got[:, 2] - want[:, 2]).max()):.3e} "
+              f"rad; {time.perf_counter() - t0:.1f} s on the CPU")
+        return
+    with np.load(chip_smoke.GOLDEN_SLAM) as z:
+        poses, fused = z["poses"], z["fused"]
+    kf = np.flatnonzero(fused)[rf["first"]:rf["first"] + rf["keyframes"]]
+    seq = chip_smoke.SLAM_SEQUENCE
+    images, _ = slam_scale.make_lap_sequence(
+        port_cfg, **{**seq, "n_frames": int(kf[-1]) + 1})
+    motions = np.zeros((len(kf), 3), np.float32)
+    for n, f in enumerate(kf):
+        if f > 0:
+            motions[n] = np.asarray(se2.relative(
+                jnp.asarray(poses[f - 1], jnp.float32),
+                jnp.asarray(poses[f], jnp.float32)))
+    payloads = posegraph.compute_scan_payloads(images, kf, cfg,
+                                               motions=motions)
+    maps = [posegraph.payload_to_cellmap(p, cfg.feature.max_cells)
+            for p in payloads]
+    cells = CellMap(*(jnp.stack(x) for x in zip(*maps)))
+    odo = poses[kf].astype(np.float32)
+    rng = np.random.default_rng(rf["seed"])
+    noisy = (odo + rng.normal(0, 1, odo.shape)
+             * np.array([rf["noise"][0], rf["noise"][0], rf["noise"][1]])
+             ).astype(np.float32)
+    noisy[0] = odo[0]
+    valid = np.ones(len(kf), bool)
+    t0 = time.perf_counter()
+    refined = np.asarray(jreg.refine_many_to_many(
+        cells, jnp.asarray(noisy), jnp.asarray(valid), cfg))
+    secs = time.perf_counter() - t0
+    np.savez_compressed(
+        golden, **{"cells_" + f: np.asarray(getattr(cells, f))
+                   for f in CellMap._fields},
+        poses0=noisy, odometry=odo, valid=valid, refined=refined,
+        frames=kf, config=json.dumps(cfg_dict), refine=json.dumps(rf))
+
+    def err(p):
+        return float(np.abs(p[:, :2] - odo[:, :2]).max())
+
+    print(f"{golden}: {len(kf)} keyframes (frames {kf.tolist()}), cells "
+          f"{np.asarray(cells.valid).sum(-1).tolist()}; max |xy| from the "
+          f"odometry poses {err(noisy):.4f} m perturbed, {err(refined):.4f} "
+          f"m refined; {secs:.1f} s on the CPU")
+
+
 def target(preset: str, feature_backend: str, k_active: int, args):
     """(configuration, sequence, output path) of one golden."""
     if preset == "longrun":
@@ -715,6 +913,10 @@ def target(preset: str, feature_backend: str, k_active: int, args):
         return chip_smoke.s50_config(k_active), chip_smoke.S50_SEQUENCE, path
     if k_active:
         raise SystemExit("--k-active applies to CFEAR-3-s50 only")
+    if preset == "overflow":
+        # kernel G's backend at chip_smoke.OVERFLOW_POINT_BUDGET, past c_pre
+        return (chip_smoke.overflow_config(), chip_smoke.OVERFLOW_SEQUENCE,
+                chip_smoke.GOLDEN_OVERFLOW)
     if feature_backend == "pallas":
         return (chip_smoke.slice_config(feature_backend="pallas"),
                 chip_smoke.SEQUENCE, chip_smoke.GOLDEN_PALLAS)
@@ -725,7 +927,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", choices=("CFEAR-3", "CFEAR-3-s50", "longrun",
                                          "cli", "slam", "merge", "merge3",
-                                         "sweep",
+                                         "sweep", "blind", "stationary",
+                                         "overflow", "refine",
                                          *chip_smoke.CLI_PATHS),
                     default="CFEAR-3")
     ap.add_argument("--dropout", type=float, default=0.0,
@@ -783,6 +986,13 @@ def main() -> None:
         return
     if args.preset == "sweep":
         sweep_golden(args.assoc_method, args.compare_only)
+        return
+    if args.preset in ("blind", "stationary"):
+        degenerate_golden(args.preset, args.assoc_method, args.compare_only,
+                          args.eager, args.port_cpu)
+        return
+    if args.preset == "refine":
+        refine_golden(args.compare_only, args.eager, args.port_cpu)
         return
     port_cfg, sequence, path = target(args.preset, args.feature_backend,
                                       args.k_active, args)

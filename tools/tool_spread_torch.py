@@ -56,7 +56,13 @@ largest |dpose| between the reference's fused LM kernel (interpret mode)
 and its packed-XLA loop over the lanes, the lanes where their accepted
 steps differ, and the port's twin's |dpose| from the XLA loop. Kernel F
 is held to its twin at `chip_smoke.LM_POSE_TOL`, or at the loss's own
-bound where the reference's spread is wider.
+bound where the reference's spread is wider. Then the one-row problem of
+`tests/test_torch_cuda.py::test_kernel_f_on_degenerate_problems` (seed 4,
+B=4, N=2,048, P2P/Huber, every weight zero but each lane's first row:
+two residuals for three unknowns, fitted exactly by a line of poses): the
+largest |dpose| among the reference's solves op by op, compiled and in
+its kernel (interpret mode), with each lane's steps, and the twin's
+|dpose| from them, behind `chip_smoke.LM_ROW_POSE_TOL`.
 
     JAX_PLATFORMS=cpu python tools/tool_spread_torch.py [--dir DIR]
     JAX_PLATFORMS=cpu python tools/tool_spread_torch.py --problems ab256
@@ -426,6 +432,29 @@ def lm_spread() -> None:
               f"|dpose| {spread:.3e}, lanes whose steps differ (lane, "
               f"kernel, XLA) {lanes}; port twin vs XLA {port:.3e}; twin "
               f"steps {twin[2].tolist()}")
+    cfg, packed, pose0, _ = chip_smoke.lm_problem(
+        np.random.default_rng(4), 4, 2, 1024, "P2P", "Huber")
+    packed = chip_smoke._single_row(torch.as_tensor(packed[:, :, :2048]))
+    jcfg = CFEARConfig.from_dict(cfg.to_dict())
+    twin = cuda_lm.lm_solve_fused_plain(packed, torch.as_tensor(pose0), cfg)
+    spread, port, steps = 0.0, 0.0, []
+    for i in range(packed.shape[0]):
+        args = (jnp.asarray(packed[i].numpy()), jnp.asarray(pose0[i]), jcfg)
+        with jax.disable_jit():
+            e = pallas_lm.lm_solve_packed_xla(*args)
+        x = jax.jit(pallas_lm.lm_solve_packed_xla, static_argnames="cfg")(
+            args[0], args[1], cfg=jcfg)
+        k = pallas_lm.lm_solve_fused(jnp.pad(args[0], ((0, 0), (0, 24))),
+                                     args[1], jcfg, interpret=True)
+        ref = [np.asarray(r[0]) for r in (e, x, k)]
+        spread = max([spread] + [float(np.abs(a - b).max())
+                                 for a in ref for b in ref])
+        port = max([port] + [float(np.abs(twin[0][i].numpy() - a).max())
+                             for a in ref])
+        steps.append((int(e[2]), int(x[2]), int(k[2]), int(twin[2][i])))
+    print(f"lm one row P2P/Huber (B=4 N=2048): reference op by op, XLA and "
+          f"kernel max |dpose| {spread:.3e}; steps a lane (op by op, XLA, "
+          f"kernel, twin) {steps}; port twin from them {port:.3e}")
 
 
 def main() -> None:
