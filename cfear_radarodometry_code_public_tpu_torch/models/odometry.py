@@ -45,13 +45,12 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from cfear_radarodometry_code_public_tpu_torch.utils import native_io
 from cfear_radarodometry_code_public_tpu_torch.ops import (
     features, filtering, registration)
 from cfear_radarodometry_code_public_tpu_torch.ops.features import CellMap
-from cfear_radarodometry_code_public_tpu_torch.utils import se2
+from cfear_radarodometry_code_public_tpu_torch.utils import se2, trace
 
 
 class OdometryState(NamedTuple):
@@ -185,7 +184,7 @@ def _extract_cells(states: OdometryState, inputs, cfg, ingest: str):
     """Front half of the batched step: raw sweeps (B, A, R) or host-filtered
     rows -> points -> motion compensation -> oriented surface points
     (B, M, ...). The profiler ranges carry the reference's stage names."""
-    with record_function("Filtering"):
+    with trace.span("Filtering"):
         if ingest == "compact":
             pts = filtering.points_from_compact(inputs, cfg)
         elif ingest == "candidates":
@@ -195,10 +194,10 @@ def _extract_cells(states: OdometryState, inputs, cfg, ingest: str):
     # with time-continuous registration the velocity warp moves to the
     # cells (`_fuse_frame`); both would compensate the distortion twice
     if cfg.odometry.compensate and not cfg.registration.time_continuous:
-        with record_function("compensate"):
+        with trace.span("compensate"):
             pts = pts._replace(xy=se2.compensate_points(pts.xy, states.tmot,
                                                         cfg.radar.ccw))
-    with record_function("build_normals"):
+    with trace.span("build_normals"):
         if cfg.feature.use_raw_pointcloud:
             return features.compute_raw_cells(pts, cfg)
         return features.compute_cells_batched(pts, cfg)
@@ -216,10 +215,10 @@ def _fuse_frame(state: OdometryState, cells: CellMap, cfg):
         # `RegisterTimeContinuous` (`n_scan_normal.cpp:67-80`): the cells
         # are warped by the previous frame motion before the solve, and the
         # warped cells enter the keyframe window
-        with record_function("compensate"):
+        with trace.span("compensate"):
             cells = features.compensate_cells(cells, state.tmot,
                                               cfg.radar.ccw)
-    with record_function("register"):
+    with trace.span("register"):
         res = registration.register(state.kf_cells, state.kf_poses,
                                     state.kf_valid, cells, guess, cfg=cfg)
     t_cur = torch.where(res.success[:, None], res.pose, guess)
@@ -235,7 +234,7 @@ def _fuse_frame(state: OdometryState, cells: CellMap, cfg):
     if odo.estimate_cov_by_sampling:
         # (`odometrykeyframefuser.cpp:203-208`): the sampled covariance
         # where the fitted quadratic is convex
-        with record_function("sample_covariance"):
+        with trace.span("sample_covariance"):
             cov_s, convex = registration.sample_covariance(
                 state.kf_cells, state.kf_poses, state.kf_valid, cells, t_cur,
                 cfg)
@@ -288,13 +287,13 @@ def _health_check(state: OdometryState, cells: CellMap, t_cur, cfg):
         return no, ~no, zero, zero
     checked = (torch.remainder(state.frame_nr, odo.health_check_every) == 0) \
         & state.kf_valid[:, -1]
-    if not bool(checked.any()):
+    if not trace.item("sync.health_check", checked.any()):
         return checked, ~no, zero, zero
     # the reverse solve always registers (a disable_registration ablation
     # would otherwise echo its guess and report healthy)
     cfg_rev = cfg.replace(registration=dataclasses.replace(
         cfg.registration, disable_registration=False))
-    with record_function("health_check"):
+    with trace.span("health_check"):
         res = registration.register(
             CellMap(*(a[:, None] for a in cells)), t_cur[:, None],
             torch.ones((b, 1), dtype=torch.bool, device=t_cur.device),
@@ -515,7 +514,8 @@ class OdometryRunner:
                     else part.bins.shape[0]
                 for i in range(n):
                     frame = _map(lambda a: a[i], part)
-                    if not bool(self.state.initialized):
+                    if not trace.item("sync.bootstrap",
+                                      self.state.initialized):
                         self.state, out = self.bootstrap(self.state, frame)
                     else:
                         self.state, out = self.step(self.state, frame)
@@ -532,8 +532,10 @@ class OdometryRunner:
     def frame_outputs(self) -> FrameOutput:
         """All frame outputs so far, stacked on the host (numpy, (T, ...))."""
         if self.outputs:   # per-frame device outputs -> one host transfer
-            self._host.append(FrameOutput(*(torch.stack(xs).cpu().numpy()
-                                            for xs in zip(*self.outputs))))
+            with trace.span("sync.readback"):
+                self._host.append(FrameOutput(*(
+                    torch.stack(xs).cpu().numpy()
+                    for xs in zip(*self.outputs))))
             self.outputs = []
         return FrameOutput(*(np.concatenate(xs) for xs in zip(*self._host)))
 

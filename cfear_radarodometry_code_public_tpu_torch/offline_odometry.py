@@ -366,8 +366,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     if args.trace:
         # host and device events of the run, the device's grouped under the
-        # reference's stage names (record_function ranges in
-        # models/odometry.py)
+        # program's spans (`utils/trace.py`: the reference's stage names,
+        # the feature stages and every host sync)
         import torch
         acts = [torch.profiler.ProfilerActivity.CPU]
         if runner.device.type == "cuda":

@@ -31,7 +31,7 @@ import torch
 
 from cfear_radarodometry_code_public_tpu_torch.ops import cuda_features
 from cfear_radarodometry_code_public_tpu_torch.ops.filtering import PointCloud
-from cfear_radarodometry_code_public_tpu_torch.utils import se2
+from cfear_radarodometry_code_public_tpu_torch.utils import se2, trace
 
 
 class CellMap(NamedTuple):
@@ -160,82 +160,96 @@ def compute_cells_batched(points: PointCloud, cfg) -> CellMap:
         xy, points.valid, leaf, dim)
 
     # --- stage 2: weighted moments per candidate cell ---
-    w_pt = _point_weights(points, feat)
-    offsets = _neighbour_offsets(noff)
-    n_off = len(offsets)
-    nb_pt = _neighbourhood(
-        torch.cat([centroid.reshape(b, dim, dim, 2),
-                   occupied.reshape(b, dim, dim, 1).to(f32)], -1),
-        vid, in_grid, offsets)                                # (B, N, 3 n_off)
+    with trace.span("features.moments"):
+        w_pt = _point_weights(points, feat)
+        offsets = _neighbour_offsets(noff)
+        n_off = len(offsets)
+        nb_pt = _neighbourhood(
+            torch.cat([centroid.reshape(b, dim, dim, 2),
+                       occupied.reshape(b, dim, dim, 1).to(f32)], -1),
+            vid, in_grid, offsets)                            # (B, N, 3 n_off)
 
-    # moments about the OWN voxel centre, shifted to the target centre later
-    own_cx, own_cy = _own_centres(vidx, leaf, dim)
-    rx = xy[..., 0] - own_cx
-    ry = xy[..., 1] - own_cy
-    base = torch.stack(
-        [torch.ones_like(w_pt), w_pt, w_pt * rx, w_pt * ry,
-         w_pt * rx * rx, w_pt * rx * ry, w_pt * ry * ry], -1)  # (B, N, 7)
+        # moments about the OWN voxel centre, shifted to the target centre
+        # later
+        own_cx, own_cy = _own_centres(vidx, leaf, dim)
+        rx = xy[..., 0] - own_cx
+        ry = xy[..., 1] - own_cy
+        base = torch.stack(
+            [torch.ones_like(w_pt), w_pt, w_pt * rx, w_pt * ry,
+             w_pt * rx * rx, w_pt * rx * ry, w_pt * ry * ry], -1)
 
-    mem_cols = []
-    for oi, (dx, dy) in enumerate(offsets):
-        mem_cols.append(_member(xy, vidx, in_grid, nb_pt[..., 3 * oi:3 * oi + 3],
-                                dx, dy, dim, feat.res))
-    mem = torch.stack(mem_cols, -1).to(f32)                   # (B, N, n_off)
+        mem_cols = []
+        for oi, (dx, dy) in enumerate(offsets):
+            mem_cols.append(_member(xy, vidx, in_grid,
+                                    nb_pt[..., 3 * oi:3 * oi + 3],
+                                    dx, dy, dim, feat.res))
+        mem = torch.stack(mem_cols, -1).to(f32)               # (B, N, n_off)
 
-    data = (mem[..., :, None] * base[..., None, :]).reshape(b * n_pts, n_off * 7)
-    acc_own = segment_sum(data, vid_flat, b * ncells + 1)[:b * ncells].reshape(
-        b, dim, dim, n_off, 7)
+        data = (mem[..., :, None] * base[..., None, :]).reshape(
+            b * n_pts, n_off * 7)
+        acc_own = segment_sum(data, vid_flat, b * ncells + 1)[
+            :b * ncells].reshape(b, dim, dim, n_off, 7)
 
-    acc = torch.zeros((b, dim, dim, 7), dtype=f32, device=dev)
-    for oi, (dx, dy) in enumerate(offsets):
-        g = torch.roll(acc_own[..., oi, :], (dx, dy), (1, 2))
-        dxl, dyl = dx * leaf, dy * leaf
-        cnt, s0_, s1x, s1y, sxx, sxy, syy = g.unbind(-1)
-        acc = acc + torch.stack(
-            [cnt, s0_,
-             s1x - dxl * s0_,
-             s1y - dyl * s0_,
-             sxx - 2.0 * dxl * s1x + dxl * dxl * s0_,
-             sxy - dxl * s1y - dyl * s1x + dxl * dyl * s0_,
-             syy - 2.0 * dyl * s1y + dyl * dyl * s0_], -1)
-    acc = acc.reshape(b, ncells, 7).unbind(-1)
-
-    ii = torch.arange(dim, dtype=f32, device=dev) - dim // 2 + 0.5
-    vc_x = ii.repeat_interleave(dim) * leaf                   # (ncells,)
-    vc_y = ii.repeat(dim) * leaf
+        acc = torch.zeros((b, dim, dim, 7), dtype=f32, device=dev)
+        for oi, (dx, dy) in enumerate(offsets):
+            g = torch.roll(acc_own[..., oi, :], (dx, dy), (1, 2))
+            dxl, dyl = dx * leaf, dy * leaf
+            cnt, s0_, s1x, s1y, sxx, sxy, syy = g.unbind(-1)
+            acc = acc + torch.stack(
+                [cnt, s0_,
+                 s1x - dxl * s0_,
+                 s1y - dyl * s0_,
+                 sxx - 2.0 * dxl * s1x + dxl * dxl * s0_,
+                 sxy - dxl * s1y - dyl * s1x + dxl * dyl * s0_,
+                 syy - 2.0 * dyl * s1y + dyl * dyl * s0_], -1)
+        acc = acc.reshape(b, ncells, 7).unbind(-1)
 
     # --- stage 3: normals + validity gates ---
-    mean, nvec, cxx, cxy, cyy, planarity, gate = _normals_and_gates(
-        *acc, vc_x, vc_y, feat)
-    ib = torch.arange(ncells, dtype=torch.int64, device=dev)[None].expand(b, -1)
-    return _finalize_cells(mean, nvec, cxx, cxy, cyy, acc[0], planarity,
-                           occupied & gate, ib // dim, ib % dim, cfg)
+    with trace.span("features.cells"):
+        ii = torch.arange(dim, dtype=f32, device=dev) - dim // 2 + 0.5
+        vc_x = ii.repeat_interleave(dim) * leaf               # (ncells,)
+        vc_y = ii.repeat(dim) * leaf
+        mean, nvec, cxx, cxy, cyy, planarity, gate = _normals_and_gates(
+            *acc, vc_x, vc_y, feat)
+        ib = torch.arange(ncells, dtype=torch.int64, device=dev)[None].expand(
+            b, -1)
+        return _finalize_cells(mean, nvec, cxx, cxy, cyy, acc[0], planarity,
+                               occupied & gate, ib // dim, ib % dim, cfg)
 
 
 def _voxel_centroids(xy, valid, leaf, dim):
     """Stage 1 of both backends: per point its voxel index (B, N, 2), the
     in-grid mask and flat voxel id (B, N), its lane-offset segment id
     (B*N,) with one overflow slot at B*ncells; per voxel the unweighted
-    centroid (B, ncells, 2) and occupancy (B, ncells)."""
+    centroid (B, ncells, 2) and occupancy (B, ncells). While a profiler
+    records, counts the rows scattered (`features.points`, on the host) and
+    those that land in a voxel (`features.points_in_grid`: one reduction
+    launch; f32 counts are exact below 2**24 rows a call); every other row
+    goes to the overflow slot."""
     b, n_pts = xy.shape[0], xy.shape[1]
     ncells = dim * dim
     dev, f32 = xy.device, xy.dtype
-    lane = torch.arange(b, dtype=torch.int64, device=dev)[:, None]
-    # divide by a device tensor: a Python divisor makes CUDA multiply by its
-    # f32 reciprocal, which moves boundary points to the neighbour voxel
-    vidx = torch.floor(xy / torch.full((), leaf, dtype=f32, device=dev)
-                       ).to(torch.int64) + dim // 2
-    in_grid = valid & ((vidx >= 0) & (vidx < dim)).all(-1)
-    vid = vidx[..., 0] * dim + vidx[..., 1]                   # (B, N)
-    vid_flat = torch.where(in_grid, lane * ncells + vid,
-                           torch.full_like(vid, b * ncells)).reshape(-1)
-    ones = in_grid.to(f32)
-    s1 = segment_sum(torch.cat([ones[..., None], xy * ones[..., None]], -1
-                               ).reshape(b * n_pts, 3), vid_flat,
-                     b * ncells + 1)[:b * ncells].reshape(b, ncells, 3)
-    cnt_vox, sum_vox = s1[..., 0], s1[..., 1:3]
-    centroid = sum_vox / torch.clamp(cnt_vox, min=1.0)[..., None]
-    return vidx, in_grid, vid, vid_flat, centroid, cnt_vox >= 1.0
+    with trace.span("features.voxels"):
+        lane = torch.arange(b, dtype=torch.int64, device=dev)[:, None]
+        # divide by a device tensor: a Python divisor makes CUDA multiply by
+        # its f32 reciprocal, which moves boundary points to the neighbour
+        # voxel
+        vidx = torch.floor(xy / torch.full((), leaf, dtype=f32, device=dev)
+                           ).to(torch.int64) + dim // 2
+        in_grid = valid & ((vidx >= 0) & (vidx < dim)).all(-1)
+        vid = vidx[..., 0] * dim + vidx[..., 1]               # (B, N)
+        vid_flat = torch.where(in_grid, lane * ncells + vid,
+                               torch.full_like(vid, b * ncells)).reshape(-1)
+        ones = in_grid.to(f32)
+        if trace.recording():
+            trace.count("features.points", b * n_pts)
+            trace.count("features.points_in_grid", ones.sum())
+        s1 = segment_sum(torch.cat([ones[..., None], xy * ones[..., None]], -1
+                                   ).reshape(b * n_pts, 3), vid_flat,
+                         b * ncells + 1)[:b * ncells].reshape(b, ncells, 3)
+        cnt_vox, sum_vox = s1[..., 0], s1[..., 1:3]
+        centroid = sum_vox / torch.clamp(cnt_vox, min=1.0)[..., None]
+        return vidx, in_grid, vid, vid_flat, centroid, cnt_vox >= 1.0
 
 
 def _point_weights(points: PointCloud, feat):
@@ -313,10 +327,11 @@ def _pre_cells(cfg) -> int:
     return max(4608, -(-2 * cfg.feature.max_cells // 128) * 128)
 
 
-def _moment_inputs(points: PointCloud, cfg):
+def _moment_inputs(points: PointCloud, cfg, voxels=None):
     """Stage 1 of the pallas backend and the inputs of kernel G
     (`cuda_features.moment_accumulate`): (pack, ct_lo, ct_hi, pt_lo, pt_hi,
-    offsets_m, n_off, c_pre).
+    offsets_m, n_off, c_pre). `voxels`: `_voxel_centroids`'s result, if
+    the caller has it.
 
     Occupied voxels get compact ranks by a cumsum in vid order (no sort);
     voxels beyond c_pre are dropped, as the reference does. Every point
@@ -336,8 +351,9 @@ def _moment_inputs(points: PointCloud, cfg):
             f"feature.backend='pallas' needs the point count ({n_pts}) to be "
             f"a multiple of {cuda_features.PT} and pre_cells ({c_pre}) of "
             f"{cuda_features.CT}")
-    vidx, in_grid, vid, _, centroid, occupied = _voxel_centroids(
-        xy, points.valid, leaf, dim)
+    if voxels is None:
+        voxels = _voxel_centroids(xy, points.valid, leaf, dim)
+    vidx, in_grid, vid, _, centroid, occupied = voxels
 
     # --- compact ranks: cumsum over the occupancy grid (vid order) ---
     ranks = torch.cumsum(occupied.to(torch.int32), -1) - 1
@@ -403,21 +419,25 @@ def _compute_cells_batched_pallas(points: PointCloud, cfg) -> CellMap:
     occupied."""
     feat = cfg.feature
     leaf, dim, _ = _grid_geometry(cfg)
-    acc = cuda_features.moment_accumulate(*_moment_inputs(points, cfg))
-    nsamp = acc[:, 0]
-    safe_cnt = torch.clamp(nsamp, min=1.0)
-    vc_x = acc[:, 7] / safe_cnt
-    vc_y = acc[:, 8] / safe_cnt
-    mean, nvec, cxx, cxy, cyy, planarity, cell_ok = _normals_and_gates(
-        *acc[:, :7].unbind(1), vc_x, vc_y, feat)
-    # integer voxel indices from the exact-multiple voxel centres
-    leaf_t = acc.new_full((), leaf)
-    ix = torch.clamp(torch.round(vc_x / leaf_t + dim // 2 - 0.5).to(torch.int64),
-                     0, dim - 1)
-    iy = torch.clamp(torch.round(vc_y / leaf_t + dim // 2 - 0.5).to(torch.int64),
-                     0, dim - 1)
-    return _finalize_cells(mean, nvec, cxx, cxy, cyy, nsamp, planarity,
-                           cell_ok, ix, iy, cfg)
+    voxels = _voxel_centroids(points.xy, points.valid, leaf, dim)
+    with trace.span("features.moments"):
+        acc = cuda_features.moment_accumulate(*_moment_inputs(points, cfg,
+                                                              voxels))
+    with trace.span("features.cells"):
+        nsamp = acc[:, 0]
+        safe_cnt = torch.clamp(nsamp, min=1.0)
+        vc_x = acc[:, 7] / safe_cnt
+        vc_y = acc[:, 8] / safe_cnt
+        mean, nvec, cxx, cxy, cyy, planarity, cell_ok = _normals_and_gates(
+            *acc[:, :7].unbind(1), vc_x, vc_y, feat)
+        # integer voxel indices from the exact-multiple voxel centres
+        leaf_t = acc.new_full((), leaf)
+        ix = torch.clamp(torch.round(vc_x / leaf_t + dim // 2 - 0.5).to(
+            torch.int64), 0, dim - 1)
+        iy = torch.clamp(torch.round(vc_y / leaf_t + dim // 2 - 0.5).to(
+            torch.int64), 0, dim - 1)
+        return _finalize_cells(mean, nvec, cxx, cxy, cyy, nsamp, planarity,
+                               cell_ok, ix, iy, cfg)
 
 
 def _finalize_cells(mean, nvec, cxx, cxy, cyy, nsamp, planarity, cell_ok,

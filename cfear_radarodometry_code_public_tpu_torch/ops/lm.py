@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from cfear_radarodometry_code_public_tpu_torch.ops import cuda_lm, losses
+from cfear_radarodometry_code_public_tpu_torch.utils import trace
 
 
 def pack_associations(src_mean, tgt, assoc_weight, cfg):
@@ -186,7 +187,7 @@ def _lm_core(rows, px0, py0, pt0, cfg):
              full(False, torch.bool))
     for _ in range(reg.max_itr_solver):
         done = carry[11]
-        if bool(done.all()):
+        if trace.item("sync.lm", done.all()):
             break
         carry = _freeze(done, carry, body(carry))
     px, py, pt, cost, _, _, _, _, _, steps, lastrel, _ = carry

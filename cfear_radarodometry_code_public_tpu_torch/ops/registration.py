@@ -35,12 +35,11 @@ import math
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from cfear_radarodometry_code_public_tpu_torch.ops import cuda_assoc, lm, losses
 from cfear_radarodometry_code_public_tpu_torch.ops.features import (
     CellMap, compensate_cells)
-from cfear_radarodometry_code_public_tpu_torch.utils import se2
+from cfear_radarodometry_code_public_tpu_torch.utils import se2, trace
 
 
 class Associations(NamedTuple):
@@ -440,7 +439,7 @@ def _lm_solve(pose0, src, tgt, assoc: Associations, cfg, guess, soft_scale,
     last_rel = torch.full((b,), float("inf"), dtype=dt, device=dev)
     done = torch.zeros(b, dtype=torch.bool, device=dev)
     for _ in range(reg.max_itr_solver):
-        if bool(done.all()):
+        if trace.item("sync.lm", done.all()):
             break
         diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), 1e-6, 1e32)
         delta = -_solve3(H + torch.diag_embed(diag / radius[:, None]), g)
@@ -571,13 +570,13 @@ def register(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, guess,
         torch.zeros((b, s_kf, m_src), dtype=torch.bool, device=dev))
 
     for it in range(reg.max_itr_association):
-        if it and bool(done.all()):
+        if it and trace.item("sync.register", done.all()):
             break
         # coarse-to-fine association radius (`n_scan_normal.cpp:222`); every
         # lane that is still running is on iteration it + 1
         radius = guess.new_full(
             (b,), 2.0 * reg.assoc_radius if it == 0 else reg.assoc_radius)
-        with record_function("associate"):
+        with trace.span("associate"):
             if buckets is not None:
                 a_new = associate(kf_cells, kf_poses, kf_valid, src, pose,
                                   radius, cfg, buckets)
@@ -589,7 +588,7 @@ def register(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap, guess,
         n_assoc = a_new.valid.sum((-2, -1), dtype=torch.int32)
         n_res = n_assoc * res_dim + (3 if reg.soft_constraint else 0)
         failed_new = n_res <= 1                    # (`n_scan_normal.cpp:370`)
-        with record_function("lm_solve"):
+        with trace.span("lm_solve"):
             if reg.soft_constraint:
                 lm_pose, lm_cost, lm_steps, lm_rel = _lm_solve(
                     pose, src, tgt, a_new, cfg, guess, soft_scale,
@@ -787,7 +786,8 @@ def sample_covariance(kf_cells: CellMap, kf_poses, kf_valid, src: CellMap,
                      torch.stack([c[5], c[4], 2 * c[2]], -1)], -2)
     convex = (torch.linalg.eigvalsh(H) > 0.0).all(-1)
     # the score scale comes from the centre sample
-    centre = int(torch.argmin((offs * offs).sum(-1)))
+    centre = trace.item("sync.sample_covariance",
+                        torch.argmin((offs * offs).sum(-1)))
     dof = torch.clamp(n_res[:, centre].to(torch.float64) - 3.0, min=1.0)
     eye = torch.eye(3, dtype=torch.float64, device=pose.device)
     cov = 2.0 * torch.linalg.inv(H + (~convex).to(H.dtype)[:, None, None]

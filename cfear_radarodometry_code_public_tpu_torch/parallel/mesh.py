@@ -21,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from cfear_radarodometry_code_public_tpu_torch.models import odometry
+from cfear_radarodometry_code_public_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass
@@ -160,20 +161,26 @@ class MultiSequenceRunner:
         if images.shape[0] != self.batch:
             raise ValueError(f"{images.shape[0]} sequences for a runner of "
                              f"{self.batch}")
-        inp = self._prepare(images)
         t = images.shape[1]
+        if not t:
+            return
+        inp = self._prepare(images)
 
         def part(lo, hi):
-            return self.shard_batch(odometry._map(lambda x: x[:, lo:hi],
-                                                  inp))
+            with trace.span("fleet.upload"):
+                return self.shard_batch(odometry._map(
+                    lambda x: x[:, lo:hi], inp))
 
         def keep(out):
-            self.outputs.append(odometry.FrameOutput(
-                *(a.cpu().numpy() for a in out)))
+            with trace.span("fleet.readback"):
+                self.outputs.append(odometry.FrameOutput(
+                    *(a.cpu().numpy() for a in out)))
 
         start = 0
-        if t and not bool(self.states.initialized.any()):
-            first = self.shard_batch(odometry._map(lambda x: x[:, 0], inp))
+        if not trace.item("sync.bootstrap", self.states.initialized.any()):
+            with trace.span("fleet.upload"):
+                first = self.shard_batch(odometry._map(lambda x: x[:, 0],
+                                                       inp))
             self.states, out0 = self.bootstrap_batch(self.states, first)
             keep(odometry._map(lambda a: a[:, None], out0))
             start = 1
