@@ -160,5 +160,8 @@ def library() -> ctypes.CDLL:
         lib.cfear_moment_accumulate.argtypes = [p, p, i, i, i, i, i, p, p,
                                                 p, p]
         lib.cfear_moment_accumulate.restype = i
+        q = ctypes.c_longlong
+        lib.cfear_segment_sum.argtypes = [p, p, q, q, q, p, p, p, p]
+        lib.cfear_segment_sum.restype = i
         _lib = lib
         return lib

@@ -50,9 +50,10 @@ def supported(n_points: int, c_pre: int) -> bool:
 def moment_accumulate_plain(pack, ct_lo, ct_hi, pt_lo, pt_hi, offsets_m,
                             n_off: int, c_pre: int):
     """Plain twin of kernel G: every (point, offset) row's 9 moment columns,
-    shifted to the target voxel centre, summed per target rank by
-    `features.segment_sum` in point order (the slab bounds are not used)."""
-    from cfear_radarodometry_code_public_tpu_torch.ops import features
+    shifted to the target voxel centre, summed per target rank in point
+    order by deterministic `index_add_` on every device
+    (`cuda_segment_sum.segment_sum_plain`; the slab bounds are not used)."""
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_segment_sum
     b, _, n = pack.shape
     dev = pack.device
     rx, ry, w, ocx, ocy = (pack[:, i, :, None] for i in range(5))   # (B, N, 1)
@@ -71,8 +72,8 @@ def moment_accumulate_plain(pack, ct_lo, ct_hi, pt_lo, pt_hi, offsets_m,
     # rows with no target are dropped (order kept), not summed into an
     # overflow segment: a segment of ~N * n_off rows is summed serially
     keep = (trank < c_pre).reshape(-1)
-    acc = features.segment_sum(data.reshape(-1, 9)[keep], ids[keep],
-                               b * c_pre)
+    acc = cuda_segment_sum.segment_sum_plain(data.reshape(-1, 9)[keep],
+                                             ids[keep], b * c_pre)
     out = pack.new_zeros((b, N_MOMENTS, c_pre))
     out[:, :9] = acc.reshape(b, c_pre, 9).transpose(1, 2)
     return out

@@ -15,21 +15,27 @@ With `feature.backend="pallas"`, stage 2 instead ranks the occupied voxels
 (`cuda_features.moment_accumulate`), which sums the moments per compact
 cell; "auto" stays the scatter form, as in the reference.
 
-`jax.ops.segment_sum` becomes `segment_sum`: `index_add_` with torch's
-deterministic mode switched on around it, so that on CUDA it sums each
-segment in a fixed order instead of with float atomics, and a run repeats
-bit for bit. Both ranking sorts are stable, as `jnp.argsort` is.
+`jax.ops.segment_sum` becomes `segment_sum`, with its semantics: a row
+whose segment id lies outside [0, n) is dropped, so the rows off the grid
+carry the id B*ncells and are summed nowhere. Float32 rows on the card go
+to `cuda_segment_sum`'s kernel, which lists each segment's rows in row
+order with integer counts and adds them in that order, never reading a
+dropped row; the CPU, and any other dtype, take `index_add_` under torch's
+deterministic mode into one extra row that collects the dropped rows and
+is cut away. Every segment is summed from zero in ascending row order on
+both routes, without float atomics, so a run repeats bit for bit. Both
+ranking sorts are stable, as `jnp.argsort` is.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import NamedTuple
 
 import torch
 
-from cfear_radarodometry_code_public_tpu_torch.ops import cuda_features
+from cfear_radarodometry_code_public_tpu_torch.ops import (
+    cuda_features, cuda_segment_sum)
 from cfear_radarodometry_code_public_tpu_torch.ops.filtering import PointCloud
 from cfear_radarodometry_code_public_tpu_torch.utils import se2, trace
 
@@ -49,26 +55,15 @@ class CellMap(NamedTuple):
         return self.valid.sum(-1, dtype=torch.int32)
 
 
-@contextlib.contextmanager
-def _deterministic():
-    """torch's deterministic mode for the enclosed ops only; the caller's
-    setting (and its warn-only flag) is restored afterwards."""
-    was = torch.are_deterministic_algorithms_enabled()
-    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(was, warn_only=warn_only)
-
-
 def segment_sum(data, ids, n: int):
     """Rows of `data` (K, ...) summed by segment id `ids` (K,) int64 into
-    (n, ...), in a fixed order on every device (`jax.ops.segment_sum`)."""
-    out = data.new_zeros((n,) + tuple(data.shape[1:]))
-    with _deterministic():
-        out.index_add_(0, ids, data)
-    return out
+    (n, ...), each segment in ascending row order on every device; rows
+    whose id lies outside [0, n) are dropped (`jax.ops.segment_sum`).
+    Float32 goes to `cuda_segment_sum.segment_sum` (the kernel on the card,
+    its twin on the CPU), any other dtype to the twin."""
+    if data.dtype == torch.float32:
+        return cuda_segment_sum.segment_sum(data, ids, n)
+    return cuda_segment_sum.segment_sum_plain(data, ids, n)
 
 
 def _grid_geometry(cfg):
@@ -187,8 +182,8 @@ def compute_cells_batched(points: PointCloud, cfg) -> CellMap:
 
         data = (mem[..., :, None] * base[..., None, :]).reshape(
             b * n_pts, n_off * 7)
-        acc_own = segment_sum(data, vid_flat, b * ncells + 1)[
-            :b * ncells].reshape(b, dim, dim, n_off, 7)
+        acc_own = segment_sum(data, vid_flat, b * ncells).reshape(
+            b, dim, dim, n_off, 7)
 
         acc = torch.zeros((b, dim, dim, 7), dtype=f32, device=dev)
         for oi, (dx, dy) in enumerate(offsets):
@@ -220,12 +215,12 @@ def compute_cells_batched(points: PointCloud, cfg) -> CellMap:
 def _voxel_centroids(xy, valid, leaf, dim):
     """Stage 1 of both backends: per point its voxel index (B, N, 2), the
     in-grid mask and flat voxel id (B, N), its lane-offset segment id
-    (B*N,) with one overflow slot at B*ncells; per voxel the unweighted
+    (B*N,), B*ncells (dropped) off the grid; per voxel the unweighted
     centroid (B, ncells, 2) and occupancy (B, ncells). While a profiler
     records, counts the rows scattered (`features.points`, on the host) and
     those that land in a voxel (`features.points_in_grid`: one reduction
     launch; f32 counts are exact below 2**24 rows a call); every other row
-    goes to the overflow slot."""
+    is dropped from the sums."""
     b, n_pts = xy.shape[0], xy.shape[1]
     ncells = dim * dim
     dev, f32 = xy.device, xy.dtype
@@ -244,9 +239,8 @@ def _voxel_centroids(xy, valid, leaf, dim):
         if trace.recording():
             trace.count("features.points", b * n_pts)
             trace.count("features.points_in_grid", ones.sum())
-        s1 = segment_sum(torch.cat([ones[..., None], xy * ones[..., None]], -1
-                                   ).reshape(b * n_pts, 3), vid_flat,
-                         b * ncells + 1)[:b * ncells].reshape(b, ncells, 3)
+        s1 = segment_sum(torch.cat([ones[..., None], xy], -1).reshape(
+            b * n_pts, 3), vid_flat, b * ncells).reshape(b, ncells, 3)
         cnt_vox, sum_vox = s1[..., 0], s1[..., 1:3]
         centroid = sum_vox / torch.clamp(cnt_vox, min=1.0)[..., None]
         return vidx, in_grid, vid, vid_flat, centroid, cnt_vox >= 1.0

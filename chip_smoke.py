@@ -667,7 +667,24 @@ KERNELS = {   # name -> (TPU kernel it replaces, CUDA source)
     "nn_min_sparse_attrs": (f"{_PKG}/ops/pallas_assoc.py:591", "nn_assoc.cu"),
     "lm_solve_fused": (f"{_PKG}/ops/pallas_lm.py:339", "lm_fused.cu"),
     "moment_accumulate": (f"{_PKG}/ops/pallas_features.py:135", "moments.cu"),
+    "segment_sum": ("none (jax.ops.segment_sum, XLA's scatter)",
+                    "segment_sum.cu"),
 }
+# The feature stage's two segment sums at the benchmark cells' size, name ->
+# (B, N, ncells, C): 32 lanes of 16,000 points on a 116 x 116 grid (430,592
+# segments), 3 columns for the voxel centroids and 63 for the moments, with
+# SEGMENT_OFF_GRID of the rows off the grid (dropped); then one segment of
+# SEGMENT_LONG rows, the loop closer's ring histogram over 512 keyframes of
+# 1,024 cells (1-D rows, a fifth of them invalid, all in ring 0) and the
+# pose graph's (3, 3) Hessian blocks (`segment_sum_inputs`).
+# `phase_segment_sum` holds the kernel against deterministic `index_add_`
+# (its twin) on the card and on the CPU at each, and times it there;
+# tools/compare_torch_kernels.py times two trees' feature shapes.
+SEGMENT_SUM_SHAPES = {"voxels": (32, 16000, 116 * 116, 3),
+                      "moments": (32, 16000, 116 * 116, 63)}
+SEGMENT_OFF_GRID = 0.28
+SEGMENT_LONG = 20000
+SEGMENT_OTHER_SHAPES = ("long", "rings", "blocks")
 # The least time the card could take for a kernel's work (`bound_ms`): the
 # larger of its bytes (each input read once, each output written once) over
 # the memory rate and its operations over the float32 rate outside the
@@ -1870,6 +1887,102 @@ def index_add_yardstick(inputs):
            * c_pre + trank.to(torch.int64))[hits]
     return (lambda: torch.zeros((pack.shape[0] * c_pre, 9), device=pack.device)
             .index_add_(0, ids, rows9)), int(hits.sum())
+
+
+def segment_sum_inputs(dev, name, seed=0):
+    """(data, ids, n) of `features.segment_sum` for a shape of
+    SEGMENT_SUM_SHAPES or SEGMENT_OTHER_SHAPES. The feature shapes: each
+    lane's in-grid points fall on 2,500 voxels, drawn with weights 1 /
+    (rank + 1), so that the busiest voxels hold over 32 points; off-grid
+    points carry B * ncells. Rows are normal floats."""
+    rng = np.random.default_rng(seed)
+    if name in SEGMENT_SUM_SHAPES:
+        b, n_pts, ncells, c = SEGMENT_SUM_SHAPES[name]
+        w = 1.0 / np.arange(1, 2501)
+        vox = np.stack([rng.choice(ncells, 2500, replace=False)[
+            rng.choice(2500, n_pts, p=w / w.sum())] for _ in range(b)])
+        ids = np.arange(b)[:, None] * ncells + vox
+        ids[rng.random((b, n_pts)) < SEGMENT_OFF_GRID] = b * ncells
+        n, shape = b * ncells, (b * n_pts, c)
+    elif name == "long":
+        n, shape = 5, (SEGMENT_LONG, 3)
+        ids = np.full(SEGMENT_LONG, 2)
+    elif name == "rings":
+        k, m, rings = 512, 1024, 24
+        ring = np.where(rng.random((k, m)) < 0.2, 0,
+                        rng.integers(0, rings, (k, m)))
+        n, shape = k * rings, (k * m,)
+        ids = np.arange(k)[:, None] * rings + ring
+    elif name == "blocks":
+        n, shape = 4096, (4200, 9)
+        ids = rng.integers(0, n, shape[0])
+    else:
+        raise KeyError(name)
+    data = rng.standard_normal(shape).astype(np.float32)
+    return (torch.as_tensor(data).to(dev),
+            torch.as_tensor(ids.reshape(-1), dtype=torch.int64).to(dev), n)
+
+
+def _ulps(a, b) -> int:
+    """The largest distance in float32 ulps between two tensors of finite
+    values of one sign pattern (0 when bit-equal)."""
+    ia = a.contiguous().view(torch.int32).to(torch.int64)
+    ib = b.contiguous().view(torch.int32).to(torch.int64)
+    return int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def phase_segment_sum(dev, card):
+    """The segment-sum kernel at every shape of SEGMENT_SUM_SHAPES and
+    SEGMENT_OTHER_SHAPES against its twin, deterministic `index_add_` into
+    n + 1 rows (the dropped rows' segment) cut to n, on the card and on the
+    CPU: bit-equal to both (the loop closer's 1-D rows against the CPU's
+    alone: the card's `index_add_` of single columns adds a run of 32 or
+    more rows as a tree, so only such segments may differ; the ulps are
+    printed), two launches bit-identical, two launches a call. Times the kernel at the feature shapes beside its
+    bound (ids read once, kept rows read once, the output written once)
+    and the twin's call on the card."""
+    from cfear_radarodometry_code_public_tpu_torch.ops import (
+        cuda_segment_sum as css)
+    recs = {}
+    for name in (*SEGMENT_SUM_SHAPES, *SEGMENT_OTHER_SHAPES):
+        data, ids, n = segment_sum_inputs(dev, name)
+        css.reset_launches()
+        k1 = css.segment_sum(data, ids, n)
+        k2 = css.segment_sum(data, ids, n)
+        twin = css.segment_sum_plain(data, ids, n)
+        torch.cuda.synchronize()
+        if css.launches["segment_sum"] != 2 * css.LAUNCHES_PER_CALL:
+            raise AssertionError(f"segment sum {name}: "
+                                 f"{css.launches['segment_sum']} launches "
+                                 "for two calls")
+        if not torch.equal(k1, k2):
+            raise AssertionError(f"segment sum {name}: two launches differ")
+        cpu = css.segment_sum_plain(data.cpu(), ids.cpu(), n)
+        if not torch.equal(k1.cpu(), cpu):
+            raise AssertionError(
+                f"segment sum {name}: not bit-equal to the CPU's index_add_ "
+                f"({_ulps(k1.cpu(), cpu)} ulps)")
+        counts = torch.bincount(ids[ids < n], minlength=n)
+        differ = (k1 != twin).reshape(n, -1).any(1)
+        if differ.any() and (data.dim() > 1 or (differ & (counts < 32)).any()):
+            raise AssertionError(
+                f"segment sum {name}: not bit-equal to the card's "
+                f"index_add_ ({_ulps(k1, twin)} ulps)")
+        rec = {"rows": ids.numel(), "kept": int(counts.sum()), "segments": n,
+               "columns": data[0].numel(), "longest": int(counts.max()),
+               "runs32": int((counts >= 32).sum()),
+               "card_differ": int(differ.sum()), "card_ulps": _ulps(k1, twin)}
+        if name in SEGMENT_SUM_SHAPES:
+            c = rec["columns"]
+            rec.update(
+                ms=_cuda_ms(lambda: css.segment_sum(data, ids, n), 50),
+                library_ms=_cuda_ms(lambda: css.segment_sum_plain(data, ids, n),
+                                    5, "index_add_"),
+                **bound(ids.numel() * 8 + (rec["kept"] + n) * c * 4, 0.0))
+        recs[name] = rec
+        _say(f"segment sum {name}: {rec}; bit-equal to the CPU's index_add_, "
+             f"two launches bit-identical ({card})")
+    return {"segment_sum": {**recs["moments"], "shapes": recs}}
 
 
 def phase_moments(images, dev, card):
@@ -3981,13 +4094,18 @@ def phase_online(cfg, images, run, launches, dev, card):
                              "the offline runner's")
 
 
+# the segment-sum wrapper is imported where it is used: the kernel tools
+# drive older trees, which lack it, with this file
 def _reset_launches() -> None:
-    for mod in (cuda_assoc, cuda_lm, cuda_features):
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_segment_sum
+    for mod in (cuda_assoc, cuda_lm, cuda_features, cuda_segment_sum):
         mod.reset_launches()
 
 
 def _launches() -> dict:
-    return {**cuda_assoc.launches, **cuda_lm.launches, **cuda_features.launches}
+    from cfear_radarodometry_code_public_tpu_torch.ops import cuda_segment_sum
+    return {**cuda_assoc.launches, **cuda_lm.launches, **cuda_features.launches,
+            **cuda_segment_sum.launches}
 
 
 def main() -> int:
@@ -4023,11 +4141,17 @@ def main() -> int:
     cfg = slice_config()
     images, gt = render(cfg, SEQUENCE)
     kernels.update(timed("G", lambda: phase_moments(images, dev, card)))
+    kernels.update(timed("segment sum", lambda: phase_segment_sum(dev, card)))
 
     # the paths: each one's launches are counted from zero just before it
     paths: dict = {}
 
-    def drive(name, needs, fn, never=()):
+    # every path that computes cells on the card (feature.backend "auto" or
+    # "pallas": stage 1 at least) launches the segment-sum kernel; the
+    # window drives, the sharded merge over finished graphs and the
+    # refinement compute none (`features=False`)
+    def drive(name, needs, fn, never=(), features=True):
+        needs = (*needs, "segment_sum") if features else needs
         _reset_launches()
         result = timed(name, fn)
         paths[name] = _launches()
@@ -4143,7 +4267,7 @@ def main() -> int:
     outs = drive("s50-window", ("nn_min_sparse", "nn_min_sparse_multi",
                                 "nn_min_sparse_unrolled",
                                 "nn_min_sparse_attrs"),
-                 lambda: drive_window(win))
+                 lambda: drive_window(win), features=False)
     # the kernels line keeps the s50 window's B=8 times of D1, D2 and E
     recs = timed("window checks", lambda: phase_window(
         win, outs, s50.registration.assoc_radius, card))
@@ -4170,7 +4294,7 @@ def main() -> int:
     # one call of each per problem; checks and timings come after the read
     win_lr = longrun_window(runner_lr.state, lr, dev)
     outs_lr = drive("longrun-window", ("nn_min_multi", "nn_min_multi_unrolled"),
-                    lambda: drive_longrun_window(win_lr))
+                    lambda: drive_longrun_window(win_lr), features=False)
     for k, rec in timed("window checks", lambda: phase_longrun_window(
             win_lr, outs_lr, card)).items():
         kernels[k].update(rec)
@@ -4226,7 +4350,8 @@ def main() -> int:
     timed("merge checks", lambda: phase_merge(slam, merged, gt_b, card))
     del images_b
     drive("merge-mesh", ("nn_min", "lm_solve_fused"),
-          lambda: phase_merge_mesh(slam, res["gb"], merged, dev, card))
+          lambda: phase_merge_mesh(slam, res["gb"], merged, dev, card),
+          features=False)
     # the merge CLI over three sessions: the slam path's map, the merge
     # path's session B and a third drive, C
     images_c, gt_c = timed("render", lambda: slam_scale.make_route_slice(
@@ -4250,7 +4375,8 @@ def main() -> int:
     del images_s, res_d
     # the joint refinement of all scan poses (no kernel, as in the
     # reference): the reference's cells and perturbed poses from its golden
-    run_r = drive("refine", (), lambda: drive_refine(dev), never=tuple(KERNELS))
+    run_r = drive("refine", (), lambda: drive_refine(dev),
+                  never=tuple(KERNELS), features=False)
     timed("refine checks", lambda: phase_refine(run_r, card))
     del run_r
     # the sequence fleet and the segment runner on the slice

@@ -1,8 +1,8 @@
 """Time the port's kernels F (fused LM solve), G (feature moments), C
 (block-sparse 1-NN), A (dense 1-NN), B1 and B2 (A's function, the keyframe
 loop in the kernel), D1 and D2 (C's function, the keyframe loop in the
-kernel) and E (C plus the winner's attributes) of several source trees on
-one CUDA card, in turns inside one call.
+kernel), E (C plus the winner's attributes) and the segment sum of several
+source trees on one CUDA card, in turns inside one call.
 
     python tools/compare_torch_kernels.py [--out DIR] PARENT . . PARENT
     python tools/compare_torch_kernels.py --mode sweep [--out DIR]
@@ -37,7 +37,10 @@ has (`chip_smoke.sass_loop`); `_e_block` for E at every shape of
 `chip_smoke.C_SHAPES` with 8 random attribute rows, held bit for bit
 against its twin and its (nn, d2) against C's, with the SASS of
 whichever form the tree has (the split kernel's E instance, or the first
-form).
+form); `_s_block` times the feature stage's segment sums at the cells'
+shapes (`chip_smoke.SEGMENT_SUM_SHAPES`): the tree's kernel, where it has
+one, held bit for bit against torch's deterministic `index_add_` into
+n + 1 rows cut to n, and that `index_add_`, the route the kernel replaced.
 The one timer here, `_call_ms`, times the same calls back to
 back: the slower of host and card, which is what a caller waits for. The
 table goes to stdout; with `--out DIR` the records also go to
@@ -73,6 +76,7 @@ function behind them (kernel G is two: fill and sum).
 from __future__ import annotations
 
 import argparse
+import importlib
 import importlib.util
 import json
 import os
@@ -350,6 +354,38 @@ def _d_block(cs, dev, lib_path) -> dict:
     return {"shapes": recs, "sass": sass}
 
 
+def _s_block(cs, dev):
+    """The segment sums of `chip_smoke.SEGMENT_SUM_SHAPES`: deterministic
+    `index_add_` into n + 1 rows cut to n (the tree's
+    `cuda_segment_sum.segment_sum_plain`, or its `features.segment_sum`
+    into n + 1 rows where it has no kernel), and the tree's kernel where it
+    has one, bit for bit against it."""
+    import torch
+    from cfear_radarodometry_code_public_tpu_torch.ops import features
+    wrapper = "cfear_radarodometry_code_public_tpu_torch.ops.cuda_segment_sum"
+    css = (importlib.import_module(wrapper)
+           if importlib.util.find_spec(wrapper) else None)
+    recs = {}
+    for name in cs.SEGMENT_SUM_SHAPES:
+        data, ids, n = cs.segment_sum_inputs(dev, name)
+        if css is not None:
+            def index_add():
+                return css.segment_sum_plain(data, ids, n)
+        else:
+            def index_add():
+                return features.segment_sum(data, ids, n + 1)[:n]
+        rec = recs[name] = {"index_add_ms": cs._cuda_ms(index_add, 5,
+                                                        "index_add_")}
+        if css is not None:
+            def kernel():
+                return css.segment_sum(data, ids, n)
+            if not torch.equal(kernel(), index_add()):
+                raise AssertionError(f"segment sum {name}: the kernel "
+                                     "differs from index_add_")
+            rec.update(ms=cs._cuda_ms(kernel, 50), call_ms=_call_ms(kernel, 50))
+    return recs
+
+
 def worker(root) -> int:
     """Time one tree; the last line of stdout is its JSON record."""
     import torch
@@ -394,6 +430,7 @@ def worker(root) -> int:
     rec["B"] = _b_block(cs, dev, _build.library()._name)
     rec["D"] = _d_block(cs, dev, _build.library()._name)
     rec["E"] = _e_block(cs, dev, _build.library()._name)
+    rec["S"] = _s_block(cs, dev)
     print(json.dumps(rec))
     return 0
 
@@ -751,6 +788,14 @@ def main() -> int:
             + (f"{e['floor_ms']:.4f}" if "floor_ms" in e else "-")
             + f"; {e.get('split')}"
             for r in recs for e in (r["E"]["shapes"][key],)))
+    print("segment sum at the cells' shapes, ms (back-to-back calls | on "
+          "the device | deterministic index_add_ on the device):")
+    for key in recs[0]["S"]:
+        print(f"  {key}: " + "; ".join(
+            f"{r['root']} " + (f"{s['call_ms']:.4f} | {s['ms']:.4f}"
+                               if "ms" in s else "- | -")
+            + f" | {s['index_add_ms']:.4f}"
+            for r in recs for s in (r["S"][key],)))
     if args.out:
         with open(os.path.join(args.out, "compare_torch_kernels.json"),
                   "w") as f:
