@@ -13,14 +13,29 @@ A run renders the mix's sweeps from the seed, builds the program's
 until every lane's keyframe window is full (two chunks at least,
 `warmup_chunks` at most), then hands it
 chunk after chunk for `--seconds` (the loop is closed: the next chunk goes
-in once the last one's outputs are on the host). With `--trace 1` it
-instead traces `trace_chunks` chunks with `torch.profiler` and prints the
-per-layer metrics. Afterwards the plain reference (`reference.py`) follows
-the drive of every lane step by step, from the state that the program's
-own outputs imply, and registers the frames of window steps drawn from the
-seed itself; `correct` says whether the program's poses and shifts lie
+in once the last one's outputs are on the host) and prints the end-to-end
+metrics that `BENCHMARK.json` lists for the cell: `frames_per_s` over that
+window, `setup_s`, and `memory_peak_gib`, the device's peak allocation over
+the run. With `--trace 1` it traces `trace_chunks` chunks with
+`torch.profiler` instead and prints the per-layer metrics; where a reader of
+the cell sets `WINDOW` (it reads the untraced window's rate), the same
+untraced window runs first. Afterwards the plain reference follows the drive of
+every lane step by step, from the state that the program's own outputs
+imply, and registers the frames of window steps drawn from the seed
+itself; `correct` says whether the program's poses and shifts lie
 within the limits of the reference's, and whether its keyframe decisions
 are the reference's.
+
+The plain reference is `reference.py`, or the file under `benchmark/` that
+the configuration file's key `"reference"` names (`Bench.reference`). It
+gives the check, the TF32 control (`readings.py`) and the work behind the
+rooflines (`work.py`), and it is refused before anything is rendered where
+it lacks a part of `REFERENCE_API`: `Odometry(params, lanes, device,
+precision)`, with `Odometry.check(params)`, which refuses by key what the
+reference does not implement and runs before rendering too, and
+`.step(images, given=None, register=True)` returning the keys that
+`run_reference` reads; and `points`, `compensate`, `cells`, `transform`, `rotate` and `nearest`
+for `work.py` (see `reference.py`'s docstring).
 """
 
 from __future__ import annotations
@@ -41,6 +56,8 @@ from benchmark import reference, traffic_gen
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "cfear_radarodometry_code_public_tpu")
+REFERENCE_API = ("Odometry", "points", "compensate", "cells",
+                 "transform", "rotate", "nearest")
 
 
 # ------------------------------------------------------------ the files
@@ -70,6 +87,36 @@ class Bench:
                 cfg["params"] = _numbers(cfg["params"])
                 return cfg
         raise KeyError(f"no config '{name}' in BENCHMARK.json")
+
+    def reference(self, cfg_file: dict):
+        """The plain reference module of a configuration (`config`'s
+        result): the file under benchmark/ that its key "reference" names,
+        loaded by path, or `reference.py` without the key. Refused, by file
+        and part, where the file is missing or lacks a part of
+        `REFERENCE_API`, `Odometry.check` or `Odometry.step`."""
+        name = cfg_file.get("reference")
+        if name is None:
+            mod, name = reference, "reference.py"
+        else:
+            path = os.path.join(self.dir, name)
+            if os.path.isabs(name) or ".." in name.split("/") \
+                    or not os.path.isfile(path):
+                raise ValueError(f"configuration '{cfg_file['name']}' names "
+                                 f"the reference {name!r}, which is no file "
+                                 "under benchmark/")
+            spec = importlib.util.spec_from_file_location(
+                f"bench_reference_{cfg_file['name']}", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+        missing = [p for p in REFERENCE_API
+                   if not callable(getattr(mod, p, None))]
+        if "Odometry" not in missing:
+            missing += [f"Odometry.{p}" for p in ("check", "step")
+                        if not callable(getattr(mod.Odometry, p, None))]
+        if missing:
+            raise ValueError(f"the reference {name} lacks "
+                             f"{', '.join(missing)} of the interface")
+        return mod
 
     def traffic(self, name: str) -> dict:
         return load_json(os.path.join(self.dir, "traffic", f"{name}.json"))
@@ -150,16 +197,16 @@ def checked_steps(first: int, steps: int, count: int, seed: int):
     return np.sort(rng.choice(window, count, replace=False))
 
 
-def run_reference(params, drive, lanes, steps, device,
+def run_reference(ref, params, drive, lanes, steps, device,
                   precision="float64", follow=None, rows=None, checked=()):
-    """The reference over the first `steps` frames of `lanes`: dict of
-    numpy (lanes, steps, ...) frame outputs. With `follow` (another
+    """The reference module `ref` over the first `steps` frames of `lanes`:
+    dict of numpy (lanes, steps, ...) frame outputs. With `follow` (another
     odometry's frame outputs, numpy (rows, steps, ...), lane i at row
     rows[i]), the reference follows it step by step (`Odometry.step`'s
     `given`) and registers only the frames of the steps `checked`; the
     other steps' outputs are NaN (poses) and 0."""
     import torch
-    ref = reference.Odometry(params, len(lanes), device, precision)
+    odo = ref.Odometry(params, len(lanes), device, precision)
     keys = ("pose", "shift", "fused", "success", "n_assoc", "n_cells",
             "n_points", "iterations")
     outs = {k: [] for k in keys}
@@ -168,7 +215,7 @@ def run_reference(params, drive, lanes, steps, device,
         img = torch.as_tensor(drive.frames(lanes, t)).to(device)
         given = None if follow is None else {
             k: follow[k][rows, t] for k in ("pose", "fused")}
-        o = ref.step(img, given=given, register=t in checked)
+        o = odo.step(img, given=given, register=t in checked)
         if o is None:
             o = {k: torch.full((len(lanes), 3), math.nan) if k in (
                 "pose", "shift") else torch.zeros(len(lanes), dtype=torch.int64)
@@ -240,11 +287,13 @@ def card_info() -> str:
 
 
 class Context:
-    """What a per-layer metric reader is given."""
+    """What a per-layer metric reader is given: the trace of `steps` traced
+    steps, the work behind the rooflines, and `window`, the untraced
+    window's frames and seconds where a reader asked for one (`WINDOW`)."""
 
-    def __init__(self, trace, steps, work, params, traffic):
+    def __init__(self, trace, steps, work, params, traffic, window=None):
         self.trace, self.steps, self.work = trace, steps, work
-        self.params, self.traffic = params, traffic
+        self.params, self.traffic, self.window = params, traffic, window
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool,
@@ -252,8 +301,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
              fault=None, log=print, keep=None):
     """One run of a cell: the result dict (without the JAX check). `fault`
     (tests only) wraps the runner's `step_chunk`; a `keep` dict receives
-    the sweeps, the program's and the reference's frame outputs and the
-    lanes compared."""
+    the sweeps, the program's and the reference's frame outputs, the
+    lanes compared, the reference module and the untraced window."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from cfear_radarodometry_code_public_tpu_torch.parallel.mesh import (
@@ -264,6 +313,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     cell = bench.cell(workload)
     cfg_file = bench.config(cell["config"])
     params = cfg_file["params"]
+    ref_mod = bench.reference(cfg_file)
+    ref_mod.Odometry.check(params)
     traffic = bench.traffic(cell["traffic"])
     limits = bench.limits(workload)
     metrics = bench.metrics(workload, trace)
@@ -315,7 +366,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         str(int(n)) for n in runner.states.kf_count.cpu()))
     first_step = k * chunk
     result = {}
-    if not trace:
+    window = None
+    # the untraced window: every untraced run, and a traced one (before its
+    # traced chunks) where a reader of the cell asks for it
+    if not trace or any(getattr(mod, "WINDOW", False)
+                        for _, _, mod in metrics):
         t0 = time.perf_counter()
         setup_s = time.time() - t_start
         frames, marks = 0, []
@@ -328,10 +383,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
             if window_s >= seconds:
                 break
         log("chunk ends (s): " + " ".join(f"{m:.3f}" for m in marks))
-        values = {"frames_per_s": frames / window_s, "setup_s": setup_s}
+        window = {"frames": frames, "seconds": window_s}
         log(f"window {window_s:.3f} s, {frames} frames, "
             f"{k - first_step // chunk} chunks; setup {setup_s:.3f} s")
-    else:
+    first_traced = k * chunk
+    if trace:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             with record_function("bench.window"):
@@ -341,6 +397,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                 sync()
     steps_total = k * chunk
     window_steps = steps_total - first_step
+    traced_steps = steps_total - first_traced
     out = runner.frame_outputs()
     prog = {"pose": out.pose, "shift": out.shift, "fused": out.fused,
             "success": out.success, "n_assoc": out.num_assoc,
@@ -351,14 +408,21 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if on_card:
         torch.cuda.empty_cache()
 
-    if trace:
+    if not trace:
+        # the end-to-end metrics the harness takes itself; the cell reports
+        # those that BENCHMARK.json lists for it
+        values = {"frames_per_s": window["frames"] / window["seconds"],
+                  "setup_s": setup_s, "memory_peak_gib": peak / 2**30}
+        values = {n: values[n] for n, _, _ in metrics}
+    else:
         from benchmark import devtrace, work
         t_red = time.perf_counter()
         tr = devtrace.Trace(prof.profiler.kineto_results.events(),
-                            window_steps)
+                            traced_steps)
         del prof
-        counts = work.counts(drive, first_step, window_steps, params, dev)
-        ctx = Context(tr, window_steps, counts, params, traffic)
+        counts = work.counts(ref_mod, drive, first_traced, traced_steps,
+                             params, dev)
+        ctx = Context(tr, traced_steps, counts, params, traffic, window)
         values = {}
         for name, _, mod in metrics:
             v = mod.read(ctx)
@@ -373,7 +437,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     lanes = list(range(n_lanes))
     checked = checked_steps(first_step, steps_total,
                             traffic["check_frames"], seed)
-    ref = run_reference(params, drive, lanes, steps_total, dev,
+    ref = run_reference(ref_mod, params, drive, lanes, steps_total, dev,
                         follow=prog, rows=lanes, checked=checked)
     check = {"kf_slots_empty": {"value": empty, "limit": 0},
              **compare(ref, prog, lanes, checked, limits)}
@@ -381,8 +445,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     correct = all(v["value"] <= v["limit"] for v in check.values())
     if keep is not None:
         keep.update(drive=drive, prog=prog, ref=ref, lanes=lanes,
-                    checked=checked,
-                    first_step=first_step, params=params, traffic=traffic,
+                    checked=checked, reference=ref_mod,
+                    first_step=first_step, first_traced=first_traced,
+                    window=window, params=params, traffic=traffic,
                     limits=limits, ref_s=ref_s)
     log(f"reference: {len(lanes)} lanes, {steps_total} steps, "
         f"{len(checked)} registered, in {ref_s:.3f} s")

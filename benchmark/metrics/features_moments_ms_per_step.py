@@ -1,7 +1,8 @@
 """Device time under the `features.moments` range per step: stage 2 of the
 cell features, the neighbourhood, membership and the 63-column moment
-scatter (`segment_sum`, torch's deterministic `index_add_`), or kernel G
-with its inputs (`ops/features.py`)."""
+scatter (`segment_sum`: on the card the segment-sum kernel,
+`csrc/segment_sum.cu`, which never reads a row whose id lies past the last
+segment), or kernel G with its inputs (`ops/features.py`)."""
 
 UNIT = "ms/step"
 LAYER = "cell features (ops/features.py)"

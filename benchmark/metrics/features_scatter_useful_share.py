@@ -2,8 +2,9 @@
 of the grid: 100 x `features.points_in_grid` / `features.points`, the
 program's counters over the traced window (`ops/features.py`
 `_voxel_centroids`). Every other row (an invalid point, or one off the
-grid) goes to the one overflow segment. A trace with no device activity
-(a CPU run) or a program without the counters gives none."""
+grid) gets an id past the last segment, and the segment sum never reads
+it. A trace with no device activity (a CPU run) or a program without the
+counters gives none."""
 
 UNIT = "%"
 LAYER = "cell features (ops/features.py)"

@@ -7,7 +7,8 @@ For each seed: one run of the cell as `run.py` makes it (untraced, with
 `--seconds` of window), the numbers compared between the program and the
 reference (the sound reading), and with `--control` the same numbers
 between the reference computed in that precision, put in the program's
-place, and the reference (the control's reading). All seeds run in one
+place, and the reference (the control's reading); the reference is the
+configuration's own (`harness.Bench.reference`). All seeds run in one
 process. With `--save`, each seed's frame outputs of the lanes compared go
 to `DIR/<cell>-<seed>.npz`. Prints one JSON line per seed.
 """
@@ -54,13 +55,12 @@ def main(argv=None) -> int:
         if args.control:
             t1 = time.perf_counter()
             dev = torch.device(args.device)
-            ctl = harness.run_reference(
-                keep["params"], keep["drive"], keep["lanes"], line["steps"],
-                dev, precision=args.control)
+            args_ref = (keep["reference"], keep["params"], keep["drive"],
+                        keep["lanes"], line["steps"], dev)
+            ctl = harness.run_reference(*args_ref, precision=args.control)
             rows = list(range(len(keep["lanes"])))
-            ctl_ref = harness.run_reference(
-                keep["params"], keep["drive"], keep["lanes"], line["steps"],
-                dev, follow=ctl, rows=rows, checked=keep["checked"])
+            ctl_ref = harness.run_reference(*args_ref, follow=ctl, rows=rows,
+                                            checked=keep["checked"])
             line["control"] = harness.compare(ctl_ref, ctl, rows,
                                               keep["checked"],
                                               keep["limits"])

@@ -28,6 +28,27 @@ nearest-neighbour distances and the solve in float64. `precision="tf32"`
 is the control: the distances are computed as one matrix product
 (|s|^2 + |t|^2 - 2 s.t) whose operands are rounded to TF32's 10-bit
 mantissa and whose products are summed in float32, as a tensor core does.
+
+`Odometry.check(params)` refuses, by key, every value of `PARAMS` that
+this file does not implement, and every key it does not know.
+
+The interface of a plain reference. A configuration file may name another
+file under `benchmark/` as its reference (its key `"reference"`); the
+harness then runs that file for the check, the control and the work counts
+in place of this one. Such a file has:
+
+- `Odometry(params, lanes, device, precision)`, whose `check(params)`
+  raises ValueError, naming the key, for a parameter value it does not
+  implement (the harness calls it before rendering, and `__init__` calls
+  it), and whose `.step(images, given=None, register=True)` returns the
+  keys that `harness.run_reference` reads (see `Odometry.step`);
+- `points`, `compensate`, `cells`, `transform`, `rotate` and `nearest` as
+  here, for `work.py`.
+
+It may import this module and replace only what differs: a subclass of
+`Registration`, and a subclass of `Odometry` whose class attributes
+`registration` and `PARAMS` name that class and the table of what it
+implements.
 """
 
 from __future__ import annotations
@@ -37,6 +58,113 @@ import math
 import torch
 
 TWO_PI = 2.0 * math.pi
+
+# Every key of a configuration's `params`: the values that the reference
+# takes (None: any), and why the value changes nothing that the check
+# compares ("": the reference computes what it says). Any other value, and
+# any key not listed here, is refused.
+_CFAR = "CA-CFAR only, and filter.method is held to kstrong"
+_NO_COV = "the covariance only, which the check does not compare"
+PARAMS = {
+    "name": (None, "a label"),
+    "radar.n_azimuths": (None, ""),
+    "radar.n_bins": (None, ""),
+    "radar.range_res": (None, ""),
+    "radar.ccw": (None, ""),
+    "radar.sensor_period": (None, ""),
+    "radar.min_distance": (None, ""),
+    "radar.max_distance": (None, ""),
+    "radar.dataset": (None, "a label: the geometry is the other radar keys"),
+    "filter.method": (("kstrong",), ""),
+    "filter.k_strongest": (None, ""),
+    "filter.z_min": (None, ""),
+    "filter.z_min_quantile": ((0.0,), ""),
+    "filter.nms_window": (None, "the NMS peaks feed the pose graph only"),
+    "filter.cfar_window": (None, _CFAR),
+    "filter.cfar_guard": (None, _CFAR),
+    "filter.false_alarm_rate": (None, _CFAR),
+    "filter.cfar_static_threshold": (None, _CFAR),
+    "filter.cfar_max_distance": (None, _CFAR),
+    "filter.cfar_max_per_azimuth": (None, _CFAR),
+    "feature.res": (None, ""),
+    "feature.downsample_factor": (None, ""),
+    "feature.weight_intensity": (None, ""),
+    "feature.intensity_floor": (None, ""),
+    "feature.min_samples": (None, ""),
+    "feature.cond_max": (None, ""),
+    "feature.det_min": (None, ""),
+    "feature.max_cells": (None, ""),
+    "feature.use_raw_pointcloud": ((False,), ""),
+    "feature.max_cells_raw": (None, "raw cells only, which are held off"),
+    "feature.point_budget": ((0,), ""),
+    "feature.backend": (("auto", "xla"), "the program's kernel for the same "
+                        "sums ('pallas' drops voxels past pre_cells)"),
+    "feature.pre_cells": (None, "feature.backend 'pallas' only"),
+    "feature.spatial_sort": (None, ""),
+    "registration.cost": (("P2P",), ""),
+    "registration.loss": (("Huber", "Cauchy", "None"), ""),
+    "registration.loss_limit": (None, ""),
+    "registration.weight_opt": (("Combined",), ""),
+    "registration.assoc_radius": (None, ""),
+    "registration.assoc_method": (
+        ("auto", "dense", "pallas", "pallas_sparse"),
+        "the exact nearest neighbour, whichever kernel finds it"),
+    "registration.bucket_capacity": (None, "assoc_method 'grid' only"),
+    "registration.angle_outlier_deg": (None, ""),
+    "registration.max_itr_association": (None, ""),
+    "registration.max_active_keyframes": ((0,), ""),
+    "registration.min_itr": (None, ""),
+    "registration.max_itr_solver": (None, ""),
+    "registration.score_tolerance": (None, ""),
+    "registration.function_tolerance": (None, ""),
+    "registration.cov_scale": (None, "the point-to-distribution cost only"),
+    "registration.regularization": (None,
+                                    "the point-to-distribution cost only"),
+    "registration.soft_constraint": ((False,), ""),
+    "registration.covariance_scaler": (None, _NO_COV),
+    "registration.disable_registration": ((False,), ""),
+    "registration.min_assoc_fraction": (None, ""),
+    "registration.max_score": ((math.inf,), ""),
+    "registration.time_continuous": ((False,), ""),
+    "registration.unroll_solver": (None, "unrolled loops, the same poses"),
+    "odometry.submap_scan_size": (None, ""),
+    "odometry.keyframe_min_dist": (None, ""),
+    "odometry.keyframe_min_rot_deg": (None, ""),
+    "odometry.use_keyframe": ((True,), ""),
+    "odometry.use_guess": ((True,), ""),
+    "odometry.compensate": (None, ""),
+    "odometry.vel_limit": (None, ""),
+    "odometry.acc_limit": (None, ""),
+    "odometry.estimate_cov_by_sampling": ((False,), ""),
+    "odometry.cov_sampling_xy_range": (None, _NO_COV),
+    "odometry.cov_sampling_yaw_range": (None, _NO_COV),
+    "odometry.cov_sampling_samples_per_axis": (None, _NO_COV),
+    "odometry.cov_sampling_covariance_scaler": (None, _NO_COV),
+    "odometry.store_graph": (None, "keeps the pose graph's payloads"),
+    "odometry.health_check_every": ((0,), ""),
+    "odometry.health_max_dist": (None, "the health check only, held off"),
+    "odometry.health_max_rot_deg": (None, "the health check only, held off"),
+}
+
+
+def refuse(params, table):
+    """Raise ValueError, naming each key, where `params` holds a key that
+    `table` does not list, lacks one that it lists, or holds a value that
+    it does not take."""
+    flat = {}
+    for group, value in params.items():
+        if isinstance(value, dict):
+            flat.update({f"{group}.{k}": v for k, v in value.items()})
+        else:
+            flat[group] = value
+    bad = [f"{k} (not a parameter it knows)" for k in flat if k not in table]
+    bad += [f"{k} (missing)" for k in table if k not in flat]
+    for key, (values, _) in table.items():
+        if key in flat and values is not None and flat[key] not in values:
+            bad.append(f"{key} = {flat[key]!r} (it implements "
+                       f"{' or '.join(repr(v) for v in values)})")
+    if bad:
+        raise ValueError("the reference refuses " + "; ".join(bad))
 
 
 # --------------------------------------------------------------- geometry
@@ -315,10 +443,6 @@ class Registration:
     def __init__(self, p, precision: str = "float64"):
         self.reg = p["registration"]
         self.precision = precision
-        if self.reg["cost"] != "P2P" or math.isfinite(
-                float(self.reg["max_score"])):
-            raise ValueError("the reference solves the point-to-point cost "
-                             "without a score ceiling")
 
     def _lm(self, sx, sy, tx, ty, w, pose):
         """Trust-region LM over rows (L, N) from pose (L, 3), float64.
@@ -473,19 +597,21 @@ class Odometry:
     """L independent drives, stepped side by side. Poses are kept relative
     to each lane's newest keyframe (the anchor), as frame outputs are."""
 
+    registration = Registration
+    PARAMS = PARAMS
+
+    @classmethod
+    def check(cls, params):
+        """Refuse, by key, what this reference does not implement."""
+        refuse(params, cls.PARAMS)
+
     def __init__(self, params, lanes: int, device, precision="float64"):
+        self.check(params)
         self.p = params
         self.lanes = lanes
         self.dev = torch.device(device)
-        self.reg = Registration(params, precision)
+        self.reg = self.registration(params, precision)
         odo = params["odometry"]
-        if not odo["use_keyframe"] or not odo["use_guess"] \
-                or odo["health_check_every"] \
-                or odo["estimate_cov_by_sampling"] \
-                or params["registration"]["time_continuous"] \
-                or params["registration"]["max_active_keyframes"]:
-            raise ValueError("the reference runs keyframes, the constant "
-                             "velocity guess and the full window only")
         s = odo["submap_scan_size"]
         m = params["feature"]["max_cells"]
         z = lambda *shape, dt=torch.float32: torch.zeros(  # noqa: E731

@@ -34,9 +34,12 @@ def _plain(tree):
     return tree
 
 
-def make_root(path, extra_cells=()):
+def make_root(path, extra_cells=(), reference=None):
     """A benchmark root at `path`: the real metric readers and the tiny
-    configurations, traffic and limits."""
+    configurations, traffic and limits; every tiny cell reports every
+    end-to-end and every per-layer metric. With `reference` (file name, text),
+    every tiny configuration names that file as its reference, and the text
+    is written there (no file where the text is None)."""
     from cfear_radarodometry_code_public_tpu_torch import config
     bench = os.path.join(path, "benchmark")
     for sub in ("configs", "traffic", "limits"):
@@ -57,6 +60,8 @@ def make_root(path, extra_cells=()):
                                           "dataset": "synthetic",
                                           "overrides": over},
                "params": _plain(d)}
+        if reference is not None:
+            doc["reference"] = reference[0]
         with open(os.path.join(bench, "configs", f"{cname}.json"), "w") as f:
             json.dump(doc, f)
         manifest["configs"].append({"name": cname, "source": "test",
@@ -78,6 +83,11 @@ def make_root(path, extra_cells=()):
         json.dump(traffic, f)
     for m in manifest["per_layer"]:
         m["workloads"] = cells + list(extra_cells)
+    for m in manifest["end_to_end"]:
+        m.pop("workloads", None)
+    if reference is not None and reference[1] is not None:
+        with open(os.path.join(bench, reference[0]), "w") as f:
+            f.write(reference[1])
     with open(os.path.join(path, "BENCHMARK.json"), "w") as f:
         json.dump(manifest, f, indent=1)
     return path
@@ -98,3 +108,13 @@ def tiny_run(tiny_root):
     res = harness.run_cell("tiny4", 2**31 + 9, 2.0, False, "cpu",
                            root=tiny_root, keep=keep, log=lambda m: None)
     return res, keep
+
+
+@pytest.fixture
+def reference_root(tmp_path):
+    """make_root(reference=(name, text)) in a fresh folder: a tiny root
+    whose configurations name `name` as their reference."""
+    import torch
+    torch.set_num_threads(4)
+    return lambda name, text: make_root(str(tmp_path / "root"),
+                                        reference=(name, text))

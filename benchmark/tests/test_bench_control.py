@@ -17,7 +17,8 @@ def test_the_tf32_control_is_not_correct(tiny_root, seed):
     sound = harness.run_cell("tiny4", seed, 1.0, False, "cpu",
                              root=tiny_root, keep=keep, log=lambda m: None)
     steps = keep["prog"]["pose"].shape[1]
-    args = (keep["params"], keep["drive"], keep["lanes"], steps, "cpu")
+    args = (keep["reference"], keep["params"], keep["drive"], keep["lanes"],
+            steps, "cpu")
     ctl = harness.run_reference(*args, precision="tf32")
     rows = list(range(len(keep["lanes"])))
     ref = harness.run_reference(*args, follow=ctl, rows=rows,

@@ -78,7 +78,8 @@ def test_new_files_make_a_new_cell_and_metric(tiny_root, tmp_path):
     keep = {}
     res = harness.run_cell("tiny-new", 18, 1.0, False, "cpu", root=root,
                            keep=keep, log=lambda msg: None)
-    assert set(res["metrics"]) == {"frames_per_s", "setup_s"}
+    assert set(res["metrics"]) == {"frames_per_s", "setup_s",
+                                   "memory_peak_gib"}
     assert keep["params"]["feature"]["max_cells"] == 384
     assert keep["traffic"]["speed_m_s"] == 4.0
 

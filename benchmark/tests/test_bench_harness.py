@@ -18,7 +18,8 @@ from benchmark import harness, traffic_gen
 def test_a_sound_run_is_correct(tiny_run):
     res, keep = tiny_run
     assert res["correct"], res["check"]
-    assert set(res["metrics"]) == {"frames_per_s", "setup_s"}
+    assert set(res["metrics"]) == {"frames_per_s", "setup_s",
+                                   "memory_peak_gib"}
     assert res["metrics"]["frames_per_s"]["value"] > 0
     assert res["attempted"] == 4 * (keep["prog"]["pose"].shape[1]
                                     - keep["first_step"])
@@ -50,10 +51,56 @@ def test_a_traced_run_reads_its_metrics(tiny_root):
     res = harness.run_cell("tiny50x4", 2**31 + 3, 1.0, True, "cpu",
                            root=tiny_root, log=lambda m: None)
     assert res["correct"]
-    # the CPU has no device trace: every device metric is left out
-    assert res["metrics"] == {}
+    # the CPU has no device trace: every device metric is left out, and
+    # the untraced window's rate (a host-clock metric) is read
+    assert set(res["metrics"]) == {"frames_per_s.host_paced"}
+    assert res["metrics"]["frames_per_s.host_paced"]["value"] > 0
     assert res["trace"]["window_s"] > 0 and res["trace"]["busy_s"] == 0
     assert res["breakdown"]["device_ops"] == []
+
+
+def test_a_traced_run_measures_the_window_a_reader_asks_for(tiny_root):
+    keep = {}
+    res = harness.run_cell("tiny4", 2**31 + 22, 1.0, True, "cpu",
+                           root=tiny_root, keep=keep, log=lambda m: None)
+    assert res["correct"]
+    tr, w = keep["traffic"], keep["window"]
+    traced = tr["trace_chunks"] * tr["chunk"]
+    steps = keep["prog"]["pose"].shape[1]
+    # the untraced window runs first, then the traced chunks
+    assert keep["first_traced"] == steps - traced > keep["first_step"]
+    assert w["frames"] == (keep["first_traced"] - keep["first_step"]) \
+        * tr["lanes"] and w["seconds"] >= 1.0
+    assert res["metrics"]["frames_per_s.host_paced"]["value"] \
+        == w["frames"] / w["seconds"]
+    assert res["attempted"] == tr["lanes"] * (steps - keep["first_step"])
+
+
+def test_a_cell_reports_what_the_manifest_lists_for_it(tiny_root, tmp_path):
+    root = str(tmp_path / "root")
+    shutil.copytree(tiny_root, root)
+    path = os.path.join(root, "BENCHMARK.json")
+    m = json.load(open(path))
+    for e in m["end_to_end"]:
+        if e["name"] == "frames_per_s":
+            e["workloads"] = ["tiny50x4"]
+    for x in m["per_layer"]:
+        x["workloads"] = ["tiny4" if x["moves"] != "frames_per_s"
+                          else "tiny50x4"]
+    json.dump(m, open(path, "w"))
+    res = harness.run_cell("tiny4", 2**31 + 23, 1.0, False, "cpu",
+                           root=root, log=lambda msg: None)
+    assert res["correct"]
+    assert set(res["metrics"]) == {"setup_s", "memory_peak_gib"}
+    # no reader of this cell asks for the window: only the traced chunks run
+    keep = {}
+    res = harness.run_cell("tiny50x4", 2**31 + 24, 1.0, True, "cpu",
+                           root=root, keep=keep, log=lambda msg: None)
+    assert res["correct"] and res["metrics"] == {}
+    assert keep["window"] is None
+    assert keep["first_traced"] == keep["first_step"] == keep["prog"][
+        "pose"].shape[1] - keep["traffic"]["trace_chunks"] \
+        * keep["traffic"]["chunk"]
 
 
 def test_seeds_decide_the_traffic(tiny_root):

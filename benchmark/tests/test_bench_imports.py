@@ -1,6 +1,8 @@
 """What the benchmark imports: nothing of JAX or the JAX package anywhere,
-and nothing of the program in the reference. Module names are compared by
-their top-level name, whole: the port's name begins with the JAX package's."""
+and nothing of the program in the reference, in what it is built from, or
+in a reference file that a configuration names. Module names are compared
+by their top-level name, whole: the port's name begins with the JAX
+package's."""
 
 from __future__ import annotations
 
@@ -19,6 +21,18 @@ PORT = "cfear_radarodometry_code_public_tpu_torch"
 # the reference and what it is built from: plain numpy and torch only
 PLAIN = ("reference.py", "work.py", "roofline.py", "synthetic.py",
          "traffic_gen.py")
+
+
+def _named_references(bench=BENCH):
+    """The reference files that configurations under `bench`/configs/ name
+    (their key "reference")."""
+    names = set()
+    for path in glob.glob(os.path.join(bench, "configs", "*.json")):
+        with open(path) as f:
+            name = json.load(f).get("reference")
+        if name is not None:
+            names.add(name)
+    return sorted(names)
 
 
 def _top_level_imports(path):
@@ -42,11 +56,17 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for name in PLAIN:
+    for name in PLAIN + tuple(_named_references()):
         got = _top_level_imports(os.path.join(BENCH, name))
         assert PORT not in got, name
         assert got <= {"__future__", "concurrent", "math", "os", "types",
                        "typing", "numpy", "torch", "benchmark"}, (name, got)
+
+
+def test_the_named_references_are_found(reference_root):
+    root = reference_root("reference_copy.py", "import torch\n")
+    assert _named_references(os.path.join(root, "benchmark")) \
+        == ["reference_copy.py"]
 
 
 def test_whole_names_are_compared():
@@ -65,8 +85,14 @@ def _modules_after(code):
 
 
 def test_the_reference_loads_no_program_module():
-    mods = _modules_after("import benchmark.reference, benchmark.work, "
-                          "benchmark.traffic_gen, benchmark.roofline")
+    named = "".join(
+        f"\nspec = importlib.util.spec_from_file_location('r{i}', {path!r})"
+        "\nspec.loader.exec_module(importlib.util.module_from_spec(spec))"
+        for i, path in enumerate(os.path.join(BENCH, n)
+                                 for n in _named_references()))
+    mods = _modules_after("import importlib.util, benchmark.reference, "
+                          "benchmark.work, benchmark.traffic_gen, "
+                          "benchmark.roofline" + named)
     assert PORT not in mods and not mods & JAX
 
 

@@ -86,7 +86,6 @@ def test_entry_keys(manifest):
 
 
 def test_every_cell_reports_enough(manifest):
-    e2e = {m["name"] for m in manifest["end_to_end"]}
     for w in manifest["workloads"]:
         mine = [m for m in manifest["end_to_end"]
                 if w["name"] in m.get("workloads", [w["name"]])]
@@ -94,8 +93,9 @@ def test_every_cell_reports_enough(manifest):
         layer = [m for m in manifest["per_layer"]
                  if w["name"] in m.get("workloads", [w["name"]])]
         assert layer
+        # a per-layer metric moves an end-to-end metric of each of its cells
         for m in layer:
-            assert m["moves"] in e2e
+            assert m["moves"] in [x["name"] for x in mine], (w, m["name"])
 
 
 def test_files_of_every_cell_and_metric(manifest):
@@ -110,10 +110,17 @@ def test_files_of_every_cell_and_metric(manifest):
         assert c["file"].startswith(tuple(p + "/" for p in manifest["paths"]))
     layers = {}
     for m in manifest["per_layer"]:
-        mod = [x for x in bench.metrics(
-            manifest["workloads"][0]["name"], True) if x[0] == m["name"]]
+        cell = m.get("workloads", [manifest["workloads"][0]["name"]])[0]
+        mod = [x for x in bench.metrics(cell, True) if x[0] == m["name"]]
         assert mod, m["name"]
         layers.setdefault(m["layer"], set()).add(m["name"])
+
+
+def test_every_configuration_has_a_reference_that_takes_it(manifest):
+    bench = harness.Bench(ROOT)
+    for c in manifest["configs"]:
+        cfg = bench.config(c["name"])
+        bench.reference(cfg).Odometry.check(cfg["params"])
 
 
 def test_program_configuration_equals_the_files(manifest):

@@ -64,8 +64,8 @@ def test_counts_by_hand(monkeypatch):
               ("lap", 0, 2): cells([[-4, 5.5], [-3, 5], [6, 5], [0, 9]],
                                    [True, True, True, False])}
     monkeypatch.setattr(work, "frame_cells",
-                        lambda drive, keys, p, dev: frames)
-    got = work.counts(_Line(frames), 2, 1, params, "cpu")
+                        lambda ref, drive, keys, p, dev: frames)
+    got = work.counts(reference, _Line(frames), 2, 1, params, "cpu")
     # step 2 (frame 2) against the window of frames 0 and 1, each gated
     # as a keyframe (2 m apart)
     assert got["n_src"][0, 0] == 3 and got["n_kf"][0, 0] == 2

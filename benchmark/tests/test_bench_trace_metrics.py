@@ -65,8 +65,8 @@ def make_trace(ranges, kernels, window=(0, 100), steps=1):
 @pytest.fixture(scope="module")
 def readers():
     bench = harness.Bench(harness.ROOT)
-    return {name: mod for name, _, mod in
-            bench.metrics("cfear3-oxford32", trace=True)}
+    return {name: mod for w in bench.manifest["workloads"]
+            for name, _, mod in bench.metrics(w["name"], trace=True)}
 
 
 def read(readers, name, tr):
@@ -196,3 +196,13 @@ def test_nothing_is_read_without_the_device_or_the_spans(readers):
     for tr in (cpu, bare):
         for name in names:
             assert read(readers, name, tr) is None, name
+
+
+def test_the_host_paced_rate_reads_the_untraced_window(readers):
+    mod = readers["frames_per_s.host_paced"]
+    tr = make_trace([], [kernel(10, 40)])
+    ctx = harness.Context(tr, tr.steps, None, None, None,
+                          {"frames": 5120, "seconds": 6.4})
+    assert mod.WINDOW and mod.read(ctx) == 800.0
+    # a traced run without the window reads nothing
+    assert read(readers, "frames_per_s.host_paced", tr) is None

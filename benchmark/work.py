@@ -1,14 +1,15 @@
 """The work that a traced window's inputs need, for the roofline metrics.
 
 Counted from the benchmark's own data and plain code, never from the
-program: the cells of the rendered sweeps come from `reference.cells` (the
-points compensated by the true previous-frame motion), each lane's
-keyframes from the keyframe gate replayed on its drive's true poses, and
-the associations that survive the gates from `reference.nearest` at the
-true poses. Per lockstep step and lane that gives the valid source cells,
-the valid target cells of the valid keyframes, and the surviving
-associations at the first iteration's radius (twice the configured one) and
-at the configured one.
+program: the cells of the rendered sweeps come from the configuration's
+plain reference `ref` (`reference.py` unless the configuration names
+another; `ref.cells` over the points compensated by the true
+previous-frame motion), each lane's keyframes from the keyframe gate
+replayed on its drive's true poses, and the associations that survive the
+gates from `ref.nearest` at the true poses. Per lockstep step and lane
+that gives the valid source cells, the valid target cells of the valid
+keyframes, and the surviving associations at the first iteration's radius
+(twice the configured one) and at the configured one.
 """
 
 from __future__ import annotations
@@ -18,10 +19,10 @@ import math
 import numpy as np
 import torch
 
-from benchmark import reference, traffic_gen
+from benchmark import traffic_gen
 
 
-def frame_cells(drive, keys, params, device, batch: int = 16):
+def frame_cells(ref, drive, keys, params, device, batch: int = 16):
     """Cells of the sweeps `keys` (`Traffic.key`s), each compensated by the
     true motion into its frame -> {key: cell dict (leaves (M, ...))}."""
     out = {}
@@ -30,12 +31,12 @@ def frame_cells(drive, keys, params, device, batch: int = 16):
         part = keys[lo:lo + batch]
         img = torch.as_tensor(np.stack([drive.sweep(k) for k in part])
                               ).to(device)
-        xy, inten, valid = reference.points(img, params)
+        xy, inten, valid = ref.points(img, params)
         if params["odometry"]["compensate"]:
             tm = torch.as_tensor(np.stack([_motion(drive, k) for k in part]),
                                  dtype=torch.float32, device=device)
-            xy = reference.compensate(xy, tm, params["radar"]["ccw"])
-        c = reference.cells(xy, inten, valid, params)
+            xy = ref.compensate(xy, tm, params["radar"]["ccw"])
+        c = ref.cells(xy, inten, valid, params)
         out.update({k: {n: v[i] for n, v in c.items()}
                     for i, k in enumerate(part)})
     return out
@@ -73,11 +74,11 @@ def keyframe_windows(drive, lane, steps: int, params):
     return out
 
 
-def counts(drive, first_step: int, steps: int, params, device):
+def counts(ref, drive, first_step: int, steps: int, params, device):
     """Per traced step (first_step .. first_step + steps - 1) and lane of a
-    `Traffic` drive: a dict of int arrays (steps, lanes): n_src, n_tar,
-    n_kf, assoc_first (associations surviving at twice the radius) and
-    assoc (at the radius)."""
+    `Traffic` drive, from the reference module `ref`: a dict of int arrays
+    (steps, lanes): n_src, n_tar, n_kf, assoc_first (associations
+    surviving at twice the radius) and assoc (at the radius)."""
     reg = params["registration"]
     cos_gate = math.cos(math.radians(reg["angle_outlier_deg"]))
     r0 = reg["assoc_radius"]
@@ -89,7 +90,7 @@ def counts(drive, first_step: int, steps: int, params, device):
               for t in range(first_step, total)}
     needed |= {drive.key(j, s) for j in range(n_lanes)
                for t in range(first_step, total) for s in windows[j][t]}
-    cells = frame_cells(drive, sorted(needed), params, device)
+    cells = frame_cells(ref, drive, sorted(needed), params, device)
     res = {k: np.zeros((steps, n_lanes), np.int64)
            for k in ("n_src", "n_tar", "n_kf", "assoc_first", "assoc")}
     for j in range(n_lanes):
@@ -108,14 +109,14 @@ def counts(drive, first_step: int, steps: int, params, device):
             kf_pose = torch.as_tensor(
                 np.stack([drive.pose(j, s) for s in kf_steps]),
                 dtype=torch.float64, device=device)
-            tar = reference.transform(kf_pose, torch.stack(
+            tar = ref.transform(kf_pose, torch.stack(
                 [c["mean"] for c in kfs]).double())          # (S, M, 2)
-            tar_n = reference.rotate(kf_pose, torch.stack(
+            tar_n = ref.rotate(kf_pose, torch.stack(
                 [c["normal"] for c in kfs]).double())
             tar_ok = torch.stack([c["valid"] for c in kfs])
-            sw = reference.transform(pose_src, src["mean"].double())
-            snw = reference.rotate(pose_src, src["normal"].double())
-            nn, d2 = reference.nearest(sw[None], tar[None], tar_ok[None])
+            sw = ref.transform(pose_src, src["mean"].double())
+            snw = ref.rotate(pose_src, src["normal"].double())
+            nn, d2 = ref.nearest(sw[None], tar[None], tar_ok[None])
             nn, d2 = nn[0], d2[0]                            # (S, Ms)
             kfi = torch.arange(len(kfs), device=device)[:, None]
             sim = torch.clamp((snw[None] * tar_n[kfi, nn]).sum(-1), min=0.0)
