@@ -16,7 +16,8 @@ fused LM solve F (both variants, the six cost /
 loss pairs of `LM_CASES` at S=4, and every width the main paths give it,
 `LM_SHAPES`: the long run's reverse and forward solves, 1 and 4 x 2048
 cells, the `sweep` path's 1 and 3 x 1024, CFEAR-1's and CFEAR-2's P2L
-solves over 1 and 3 x 2048, and the s50 widths, S=16 and
+solves over 1 and 3 x 2048 (CFEAR-2's also over the benchmark's fleet of
+32 lanes, `LM_FLEET`), and the s50 widths, S=16 and
 S=50 of 1024 cells and S=50 of 3072, so that every cluster
 size the kernel picks is held against the twin; a lane of a B=8 call must
 equal its own B=1 call bit for bit) and the feature-moment kernel G (on
@@ -647,6 +648,9 @@ LM_SHAPES = ((1, 2048, "P2P", "Huber"), (4, 1024, "P2P", "Huber"),
 # the third session's 128 in `merge-cli3` (99 pairs)
 LM_VERIFY = ((512, 256, 128), ((1, 1024, "P2P", "Huber"),
                           (1, 1024, "P2L", "Huber")))
+# ...and CFEAR-2's solve over the benchmark's fleet (`cfear2-mulran32`):
+# 32 lanes of 3 keyframes of 2048 cells, P2L with Huber's loss (N=6,144)
+LM_FLEET = ((32,), ((3, 2048, "P2L", "Huber"),))
 # Kernel G against its twin on the card: rows 0-8 bit-equal (both sum each
 # cell in (point, offset) order with unfused f32 operations), rows 9-15
 # zero. MOMENT_RTOL, 1e-4 of each row's largest value, is the limit where
@@ -739,7 +743,9 @@ B_FUNCTIONS = {"nn_min_multi": "nn_min_dense_walk_kernelILi0EE",
 # `cli-cfear2`; CFEAR-1's S=1 is the reverse solve's shape), the raw
 # cells' budget (B=1, S=4 of max_cells_raw 4096, `cli-raw`; the online
 # preset's shape is also `cli-kvarntorp`'s and `cli-volvo`'s), a target
-# budget that is not a multiple of 128 (B_RAGGED, which B1 and B2 take);
+# budget that is not a multiple of 128 (B_RAGGED, which B1 and B2 take),
+# CFEAR-2's submap over the benchmark's fleet (B=32, S=3 of 2048 cells,
+# `cfear2-mulran32`);
 # last a ragged shape, checked and not timed. `phase_a_shapes` (run by
 # `phase_kernels`) holds A against its twin at each, on `a_inputs`, and
 # times it; tools/compare_torch_kernels.py times two trees' A at the same
@@ -753,10 +759,11 @@ A_SWEEP = tuple((1, s, 1024, 1024) for s in (1, 2, 3, 4, 8))
 A_CFEAR2 = (1, 3, 2048, 2048)
 A_RAW = (1, 4, 4096, 4096)
 B_RAGGED = (3, 2, 1024, 1500)
+A_CFEAR2_FLEET = (32, 3, 2048, 2048)
 A_SHAPES = ((8, 4, 1024, 1024), (1, 4, 2048, 2048), (8, 4, 2048, 2048),
             (1, 1, 2048, 2048), (27, 4, 2048, 2048), A_VERIFY, A_MERGE,
             A_MERGE3, A_ONLINE, *A_SWEEP, A_CFEAR2, A_RAW, B_RAGGED,
-            A_RAGGED)
+            A_CFEAR2_FLEET, A_RAGGED)
 # operations counted per squared distance (2 subtractions, 2 products, a
 # sum; the compare is not counted), per LM row and pass (a cost-only pass,
 # and a cost/gradient/Hessian pass, from the twin's arithmetic for P2P), and
@@ -1789,10 +1796,11 @@ def phase_lm(dev, card):
     every other width of `LM_SHAPES`, so that every cluster size the main
     paths reach (1, 8 and 16 CTAs a lane) is held against the twin, early
     exit against masked, and B=1 against B=8; then at the loop
-    verification shapes (`LM_VERIFY`: B=512 and 256, N=1,024). `ms` is the
-    slice's (P2P/Huber); `ms_by_n` lists the early-exit time at every
-    width, B=8; `by_case` each cost/loss pair's at the slice's width;
-    `verify` the verification shapes' records."""
+    verification shapes (`LM_VERIFY`: B=512 and 256, N=1,024) and the
+    CFEAR-2 fleet's (`LM_FLEET`: B=32, N=6,144). `ms` is the slice's
+    (P2P/Huber); `ms_by_n` lists the early-exit time at every width, B=8;
+    `by_case` each cost/loss pair's at the slice's width; `verify` and
+    `fleet` those shapes' records."""
     rng = np.random.default_rng(1)
     rows = [_lm_case(rng, dev, card, 4, 1024, cost, loss)
             for cost, loss in LM_CASES]
@@ -1803,13 +1811,14 @@ def phase_lm(dev, card):
     rows += [_lm_case(rng, dev, card, *shape) for shape in LM_SHAPES
              if shape != (4, 1024) + LM_CASES[0]]
     by_n = sorted(rows[:1] + rows[len(LM_CASES):], key=lambda r: r["n"])
-    lanes, shapes = LM_VERIFY
-    verify = {f"B={b} N={sh[0] * sh[1]} {sh[2]}/{sh[3]}":
-              _lm_case(rng, dev, card, *sh, b=b)
-              for b in lanes for sh in shapes}
+    verify, fleet = ({f"B={b} N={sh[0] * sh[1]} {sh[2]}/{sh[3]}":
+                      _lm_case(rng, dev, card, *sh, b=b)
+                      for b in lanes for sh in shapes}
+                     for lanes, shapes in (LM_VERIFY, LM_FLEET))
     # no single PyTorch call solves a trust-region LM: no library route
     return {"lm_solve_fused": {
-        "max_abs_err": max(r["dpose"] for r in rows + list(verify.values())),
+        "max_abs_err": max(r["dpose"] for r in rows + list(verify.values())
+                           + list(fleet.values())),
         "ms": first["ms"], "plain_ms": first["plain_ms"], **first["bound"],
         "library_ms": None,
         **{f"{k}_by_n": {r["key"]: r[k] for r in by_n}
@@ -1817,9 +1826,11 @@ def phase_lm(dev, card):
                      "b1_bound_ms")},
         "bound_ms_by_n": {r["key"]: r["bound"]["bound_ms"] for r in by_n},
         "by_case": by_case,
-        "verify": {k: {"dpose": r["dpose"], "ms": r["ms"],
-                       "plain_ms": r["plain_ms"], **r["bound"]}
-                   for k, r in verify.items()}}}
+        **{name: {k: {"dpose": r["dpose"], "ms": r["ms"],
+                      "masked_ms": r["masked_ms"], "b1_ms": r["b1_ms"],
+                      "plain_ms": r["plain_ms"], **r["bound"]}
+                  for k, r in recs.items()}
+           for name, recs in (("verify", verify), ("fleet", fleet))}}}
 
 
 def crowded_cloud(rng, b, n, cfg, crowd=CROWD):

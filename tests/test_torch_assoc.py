@@ -795,6 +795,7 @@ def test_dense_split_follows_the_shape():
             (1, 3, 1024, 1024): 4, (1, 4, 1024, 1024): 4,
             (1, 8, 1024, 1024): 4, (3, 2, 1024, 1500): 4,
             (1, 3, 2048, 2048): 8, (1, 4, 4096, 4096): 4,
+            (32, 3, 2048, 2048): 1,                 # the CFEAR-2 fleet
             (1, 1, 256, 256): 1, (1, 1, 256, 257): 2, (1, 1, 256, 100): 1,
             (1, 1, 1, 10 ** 6): 8, (64, 1, 2048, 10 ** 6): 1}
     assert set(chip_smoke.A_SHAPES) <= set(want)
@@ -1081,6 +1082,7 @@ def test_multi_split_follows_the_shape():
             (1, 3, 1024, 1024): (3, 4), (1, 4, 1024, 1024): (4, 4),
             (1, 8, 1024, 1024): (8, 4), (3, 2, 1024, 1500): (2, 4),
             (1, 3, 2048, 2048): (3, 8), (1, 4, 4096, 4096): (4, 2),
+            (32, 3, 2048, 2048): (3, 1),      # the CFEAR-2 fleet
             (8, 1, 2048, 2048): (1, 2),       # the long-run window's S=1 B=8
             (2, 3, 512, 1152): (3, 4), (1, 1, 256, 128): (1, 1),
             (64, 16, 1024, 1024): (4, 1), (4, 16, 1024, 1024): (16, 1)}

@@ -21,7 +21,8 @@ tree gets the same inputs, checks and timer: `phase_lm` and `phase_moments`
 hold each kernel against its plain twin (and fail if they disagree) and
 time it on the device alone (`chip_smoke._cuda_ms`: kernel F's early-exit
 and masked variants at B=8 and early exit at B=1 at every width of
-`chip_smoke.LM_SHAPES`, kernel G at B=8 and B=1 beside the `index_add_`
+`chip_smoke.LM_SHAPES`, and early exit at the fleet shapes of
+`chip_smoke.LM_FLEET`, kernel G at B=8 and B=1 beside the `index_add_`
 yardstick); `phase_c_shapes` does the same for kernel C at every shape of
 `chip_smoke.C_SHAPES` beside its bound and `cdist + min`, and the inner
 loop of kernel C's split form, where the tree has one, is read from the
@@ -113,9 +114,10 @@ def _call_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def _lm_inputs(cs, dev, shape):
+def _lm_inputs(cs, dev, shape, b=None):
     import numpy as np
-    return cs.lm_inputs(np.random.default_rng(1), dev, *shape)[:3]
+    return cs.lm_inputs(np.random.default_rng(1), dev, *shape,
+                        b=b or cs.BATCH)[:3]
 
 
 def _g_inputs(cs, dev):
@@ -419,6 +421,17 @@ def worker(root) -> int:
                 lambda: cuda_lm.lm_solve_fused(packed, pose0, cfg), 100),
             "ee_ms": f["ms_by_n"][n], "masked_ms": f["masked_ms_by_n"][n],
             "b1_ms": f["b1_ms_by_n"][n]}
+    lanes, shapes = cs.LM_FLEET
+    for b in lanes:
+        for shape in shapes:
+            cfg, packed, pose0 = _lm_inputs(cs, dev, shape, b)
+            n = f"B={b} N={shape[0] * shape[1]} {shape[2]}/{shape[3]}"
+            rec["F"][n] = {
+                "call_ms": _call_ms(
+                    lambda: cuda_lm.lm_solve_fused(packed, pose0, cfg), 100),
+                **{k: f["fleet"][n][m] for k, m in (
+                    ("ee_ms", "ms"), ("masked_ms", "masked_ms"),
+                    ("b1_ms", "b1_ms"))}}
     rec["G"] = {
         "call_ms": _call_ms(
             lambda: cuda_features.moment_accumulate(*inputs), 100),
@@ -727,9 +740,10 @@ def main() -> int:
         recs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     print(recs[0]["card"])
     print("kernel F, ms (back-to-back calls B=8 | on the device: early exit "
-          "B=8 / masked B=8 / early exit B=1):")
+          "B=8 / masked B=8 / early exit B=1; the fleet's shapes at their "
+          "own B):")
     for n in recs[0]["F"]:
-        print(f"  N={n}: " + "; ".join(
+        print(f"  {n if n.startswith('B=') else f'N={n}'}: " + "; ".join(
             f"{r['root']} {r['F'][n]['call_ms']:.4f} | "
             f"{r['F'][n]['ee_ms']:.4f} / {r['F'][n]['masked_ms']:.4f} / "
             f"{r['F'][n]['b1_ms']:.4f}" for r in recs))
